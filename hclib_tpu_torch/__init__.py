@@ -1,0 +1,13 @@
+"""hclib-tpu ported to PyTorch and CUDA on an NVIDIA H100.
+
+The JAX package ``hclib_tpu`` is the reference; this package mirrors its
+layout (``device/``, ``ops/``, ``models/``, ``runtime/``) and imports
+nothing of it, and no JAX. Every entry point takes ``device=`` and runs on
+the card (``"cuda"``) unless the caller asks for ``"cpu"``, where each
+kernel's plain PyTorch version runs instead. Kernels are CUDA C++ under
+``csrc/``, built by ``_build.py`` on first use.
+
+Entry points of this slice: ``device.workloads.device_fib``,
+``device.workloads.device_uts_mk`` and ``device.cholesky.device_cholesky``,
+all through ``device.megakernel.Megakernel.run``.
+"""

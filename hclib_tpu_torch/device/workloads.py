@@ -1,0 +1,154 @@
+"""Scalar task bodies of the benchmark workloads: fib and the seeded UTS
+tree (port of the scalar-tier half of ``hclib_tpu/device/workloads.py``).
+
+The bodies below are the plain versions; the kernel runs the same code as
+``fib_body`` / ``sum_body`` / ``uts_node_body`` in ``csrc/megakernel.cu``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from .descriptor import TaskGraphBuilder
+from .megakernel import VBLOCK, KernelContext, Megakernel, fault_mix
+
+__all__ = [
+    "FIB", "SUM", "UTS_NODE", "device_fib", "make_fib_megakernel",
+    "make_uts_megakernel", "device_uts_mk", "fib_body", "sum_body",
+    "uts_node_body",
+]
+
+_BATCH = "batch tier (batch_of / BatchSpec, row 1h) in ROADMAP.md"
+
+# ------------------------------------------------------------------- fib
+
+FIB = 0
+SUM = 1
+
+
+def fib_body(ctx: KernelContext) -> None:
+    n = ctx.arg(0)
+    if n < 2:
+        ctx.set_out(n)
+        return
+    # SUM is this task's continuation: it inherits our successors and
+    # produces our output slot; the children write into the value block
+    # owned by SUM's row. Spawn order (SUM, FIB(n-1), FIB(n-2)) is the
+    # JAX body's, which the pop order and the task table follow.
+    sum_idx = ctx.spawn(ctx.fn_id("sum"), dep_count=2, out=ctx.out_slot,
+                        nargs=0)
+    ctx.take_continuation(sum_idx)
+    base = ctx.row_values(sum_idx)
+    ctx.set_arg(sum_idx, 0, base)
+    ctx.set_arg(sum_idx, 1, base + 1)
+    ctx.spawn(ctx.fn_id("fib"), [n - 1], succ0=sum_idx, out=base, nargs=1)
+    ctx.spawn(ctx.fn_id("fib"), [n - 2], succ0=sum_idx, out=base + 1,
+              nargs=1)
+
+
+def sum_body(ctx: KernelContext) -> None:
+    ctx.set_out(ctx.value(ctx.arg(0)) + ctx.value(ctx.arg(1)))
+
+
+def make_fib_megakernel(
+    capacity: int = 768,
+    num_values: Optional[int] = None,
+    batch_width: Optional[int] = None,
+    device="cuda",
+) -> Megakernel:
+    if batch_width:
+        raise NotImplementedError(f"batch_width: {_BATCH}")
+    need = VBLOCK * capacity + 16  # 16 host slots for presets/outputs
+    if num_values is None:
+        num_values = need
+    elif num_values < need:
+        raise ValueError(
+            f"fib uses row-owned value blocks: num_values must be >= "
+            f"VBLOCK*capacity+16 = {need}, got {num_values}"
+        )
+    return Megakernel(
+        kernels=["fib", "sum"],
+        capacity=capacity,
+        num_values=num_values,
+        succ_capacity=64,
+        uses_row_values=True,
+        device=device,
+    )
+
+
+def device_fib(
+    n: int,
+    capacity: int = 768,
+    num_values: Optional[int] = None,
+    device="cuda",
+) -> Tuple[int, dict]:
+    """Compute fib(n) inside the megakernel by dynamic task spawning."""
+    mk = make_fib_megakernel(capacity, num_values=num_values, device=device)
+    b = TaskGraphBuilder()
+    b.add(FIB, args=[n], out=0)
+    ivalues, _, info = mk.run(b)
+    return int(ivalues[0]), info
+
+
+# ------------------------------------------------------ UTS, scalar tier
+
+UTS_NODE = 0
+
+
+def uts_node_body(ctx: KernelContext) -> None:
+    """Count this node into slot 0; spawn child c iff
+    fault_mix(seed, c, node_id, 0, depth) < q_millis (every child at the
+    root), up to max_depth."""
+    p = ctx.params
+    ctx.set_value(0, ctx.value(0) + 1)
+    node_id = ctx.arg(0)
+    depth = ctx.arg(1)
+    if depth >= p["max_depth"]:
+        return
+    for c in range(p["m_children"]):
+        h = fault_mix(p["seed"], c, node_id, 0, depth)
+        if depth == 0 or h < p["q_millis"]:
+            ctx.spawn(ctx.fn_id("uts_node"),
+                      [node_id * 31 + (7 * c + 1) + depth, depth + 1],
+                      nargs=2)
+
+
+def make_uts_megakernel(
+    seed: int = 19,
+    q_millis: int = 440,
+    m_children: int = 4,
+    max_depth: int = 12,
+    capacity: int = 1024,
+    batch_width: Optional[int] = None,
+    device="cuda",
+    **later,
+) -> Megakernel:
+    """Seeded unbalanced-tree search on the scalar tier (see the JAX
+    docstring); the tree is a pure function of the seed."""
+    if batch_width:
+        raise NotImplementedError(f"batch_width: {_BATCH}")
+    return Megakernel(
+        kernels=["uts_node"],
+        capacity=capacity,
+        num_values=16,
+        succ_capacity=8,
+        params={"seed": seed, "q_millis": q_millis,
+                "m_children": m_children, "max_depth": max_depth},
+        device=device,
+        **later,
+    )
+
+
+def device_uts_mk(
+    seed: int = 19,
+    mk: Optional[Megakernel] = None,
+    device="cuda",
+    **mk_kw,
+) -> Tuple[int, dict]:
+    """Run the seeded UTS tree to completion; returns (nodes, info)."""
+    if mk is None:
+        mk = make_uts_megakernel(seed=seed, device=device, **mk_kw)
+    b = TaskGraphBuilder()
+    b.add(UTS_NODE, args=[1, 0])
+    ivalues, _, info = mk.run(b)
+    return int(ivalues[0]), info

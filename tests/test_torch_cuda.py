@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips (inside the test, never at import) where
+``torch.cuda.is_available()`` is False. On a machine with an H100 run
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(``--noconftest``: the suite's conftest imports the JAX package, which
+the machine with the card does not have). ``chip_smoke.py`` holds the
+same kernels to their plain versions at full size.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hclib_tpu_torch.device import cholesky as tc
+from hclib_tpu_torch.device import workloads as tw
+from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
+from hclib_tpu_torch.models.cholesky import make_spd
+from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _raw(mk, b, reps=1, stage_all=False):
+    st = mk.state(b)
+    mk.launch(st, reps=reps, stage_all_values=stage_all)
+    return {k: st[k].cpu() for k in ("tasks", "ready", "counts", "ivalues")}
+
+
+@pytest.mark.parametrize("n", [11, 15])
+def test_megakernel_fib_equals_plain(card, n):
+    b = TaskGraphBuilder()
+    b.add(tw.FIB, args=[n], out=0)
+    got = _raw(tw.make_fib_megakernel(768, device="cuda"), b)
+    want = _raw(tw.make_fib_megakernel(768, device="cpu"), b)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("reps,stage_all", [(3, False), (2, True)])
+def test_megakernel_reps_equal_plain(card, reps, stage_all):
+    b = TaskGraphBuilder()
+    b.add(tw.FIB, args=[9], out=0)
+    got = _raw(tw.make_fib_megakernel(64, device="cuda"), b, reps, stage_all)
+    want = _raw(tw.make_fib_megakernel(64, device="cpu"), b, reps, stage_all)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_megakernel_uts_equals_plain(card):
+    b = TaskGraphBuilder()
+    b.add(tw.UTS_NODE, args=[1, 0])
+    got = _raw(tw.make_uts_megakernel(device="cuda"), b)
+    want = _raw(tw.make_uts_megakernel(device="cpu"), b)
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n,tile", [(256, 128), (512, 256)])
+def test_megakernel_cholesky_equals_plain(card, n, tile):
+    a = make_spd(n).astype(np.float32)
+    lg, ig = tc.device_cholesky(a, tile=tile, device="cuda")
+    lc, ic = tc.device_cholesky(a, tile=tile, device="cpu")
+    ref = lc.double()
+    assert (lg.cpu().double() - ref).abs().max() / ref.abs().max() < 1e-5
+    assert ig["executed"] == ic["executed"]
+
+
+def test_standalone_tile_bodies_equal_plain(card):
+    """One fused step by each standalone entry against its plain version
+    on the same inputs, at tile 256 with factor_base 128."""
+    nt, ts = 3, 256
+    a = make_spd(nt * ts, seed=5).astype(np.float32)
+    bufs = tc.cholesky_buffers(a, nt, ts, device="cuda")
+    steps = [
+        lambda d, plain: (tc.potrf_plain if plain else tc.potrf)(
+            d["tiles"], d["linvsp"], 0, 128),
+        lambda d, plain: (tc.trsmcol_plain if plain else tc.trsmcol)(
+            d["tiles"], d["linvsp"], d["lsp"], 0),
+        lambda d, plain: (tc.updrow_plain if plain else tc.updrow)(
+            d["tiles"], d["lsp"], 2, 0),
+    ]
+    for n_done, step in enumerate(steps, 1):
+        got = {k: v.clone() for k, v in bufs.items()}
+        want = {k: v.clone() for k, v in bufs.items()}
+        step(got, False)
+        step(want, True)
+        torch.cuda.synchronize()
+        ref = want["tiles"].double()
+        assert ((got["tiles"].double() - ref).abs().max()
+                / ref.abs().max()) < 1e-5
+        g = unsplit(*got["linvsp"].unbind(1)).double()
+        w = unsplit(*want["linvsp"].unbind(1)).double()
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g - w).abs().max()) / scale < 1e-5
+        # Once TRSMCOL ran, the stored L operands are split_bf16 of the
+        # stored f32 tiles, bit for bit.
+        for i in range(1, nt if n_done >= 2 else 1):
+            hi, lo = split_bf16(got["tiles"][i, 0])
+            assert torch.equal(hi, got["lsp"][i, 0, 0])
+            assert torch.equal(lo, got["lsp"][i, 0, 1])
+        bufs = got

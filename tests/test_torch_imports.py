@@ -1,0 +1,77 @@
+"""The port stands alone: importing it pulls in no JAX and nothing of the
+JAX package, and its entry points run on the card unless asked for the
+CPU - on a machine without one they raise instead of falling back."""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import hclib_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _submodules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            hclib_tpu_torch.__path__, prefix="hclib_tpu_torch.")
+    )
+
+
+def test_imports_pull_in_no_jax():
+    mods = _submodules()
+    assert "hclib_tpu_torch.device.megakernel" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith(('jax.', 'jaxlib', 'hclib_tpu.')) or k == 'hclib_tpu')))"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "import jax" not in src and "from jax" not in src
+    assert "hclib_tpu." not in src.replace("hclib_tpu_torch", "")
+
+
+ENTRY_POINTS = {
+    "device_fib": lambda: __import__(
+        "hclib_tpu_torch.device.workloads", fromlist=["x"]).device_fib(5),
+    "device_uts_mk": lambda: __import__(
+        "hclib_tpu_torch.device.workloads", fromlist=["x"]).device_uts_mk(),
+    "device_cholesky": lambda: __import__(
+        "hclib_tpu_torch.device.cholesky", fromlist=["x"]).device_cholesky(
+            __import__("numpy").eye(128, dtype="float32")),
+    "Megakernel": lambda: __import__(
+        "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
+            ["fib", "sum"]),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_default_device_is_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[entry]()
+
+
+def test_build_needs_nvcc_and_says_so(monkeypatch, tmp_path):
+    """Without nvcc the build raises (there is no fallback path)."""
+    from hclib_tpu_torch import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build._nvcc()
