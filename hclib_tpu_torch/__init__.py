@@ -7,7 +7,9 @@ the card (``"cuda"``) unless the caller asks for ``"cpu"``, where each
 kernel's plain PyTorch version runs instead. Kernels are CUDA C++ under
 ``csrc/``, built by ``_build.py`` on first use.
 
-Entry points of this slice: ``device.workloads.device_fib``,
+Entry points: ``device.workloads.device_fib``,
 ``device.workloads.device_uts_mk`` and ``device.cholesky.device_cholesky``,
-all through ``device.megakernel.Megakernel.run``.
+all through ``device.megakernel.Megakernel.run``; and the canonical UTS
+engines ``device.uts_fused.uts_fused`` (CUDA) and ``device.uts_vec.uts_vec``
+(its plain lockstep version).
 """

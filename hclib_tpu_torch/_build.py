@@ -25,7 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "check"]
+__all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "lib_path",
+           "check"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("_build")
@@ -36,7 +37,8 @@ FLAGS = [
 
 # Kernel name -> launches (see module docstring).
 LAUNCHES: Dict[str, int] = {
-    "megakernel": 0, "potrf": 0, "trsmcol": 0, "updrow": 0,
+    "megakernel": 0, "potrf": 0, "trsmcol": 0, "updrow": 0, "trsm": 0,
+    "uts": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -58,7 +60,8 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh"):
@@ -76,7 +79,7 @@ def build_all() -> Dict[str, float]:
     times: Dict[str, float] = {}
     t0 = time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
-        out = _lib_path(src.stem)
+        out = lib_path(src.stem)
         if out.exists():
             times[src.stem] = 0.0
             continue
@@ -102,7 +105,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _lib_path(name)
+        path = lib_path(name)
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))

@@ -8,7 +8,7 @@
 //   fib, sum   <- hclib_tpu/device/workloads.py _fib_kernel (:56),
 //                 _sum_kernel (:82)
 //   uts_node   <- workloads.py make_uts_megakernel.node (:241)
-//   potrf, trsmcol, updrow <- device/cholesky.py, see tiles.cuh
+//   potrf, trsmcol, updrow, trsm <- device/cholesky.py, see tiles.cuh
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -59,7 +59,7 @@ constexpr int OVF_ROWS = 1;
 constexpr int VBLOCK = 4;
 
 // Body ids: hclib_tpu_torch/device/megakernel.py BODIES.
-enum { B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, NBODY };
+enum { B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, NBODY };
 // Meta words: static body parameters, then the table maps.
 enum { P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT };
 constexpr int META_FN_OF_BODY = 8, META_BODY_OF_FN = 16;
@@ -304,7 +304,7 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
       __syncthreads();
       if (!s_go) break;
       const int idx = s_idx;
-      const int a0 = S.w(idx, F_A0);  // k (potrf, trsmcol) or i (updrow)
+      const int a0 = S.w(idx, F_A0);  // k (potrf, trsmcol), i (updrow, trsm)
       switch (s_body) {
         case B_FIB:
           if (tid == 0) fib_body(S, meta, idx);
@@ -327,6 +327,10 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
           break;
         case B_UPDROW:
           updrow_tile(gs, a.tiles, a.lsp, a0, S.w(idx, F_A0 + 1), nt, ts);
+          break;
+        case B_TRSM:
+          trsm_tile(gs, a.tiles, a.linvsp, a.lsp, a.work, a0,
+                    S.w(idx, F_A0 + 1), nt, ts);
           break;
         default:
           break;
@@ -360,6 +364,13 @@ __global__ void __launch_bounds__(BT)
                   float* work, int k, int nt, int ts) {
   __shared__ GemmSmem gs;
   trsmcol_tile(gs, tiles, linvsp, lsp, work, k, nt, ts);
+}
+
+__global__ void __launch_bounds__(BT)
+    trsm_entry(float* tiles, const uint16_t* linvsp, uint16_t* lsp,
+               float* work, int i, int k, int nt, int ts) {
+  __shared__ GemmSmem gs;
+  trsm_tile(gs, tiles, linvsp, lsp, work, i, k, nt, ts);
 }
 
 __global__ void __launch_bounds__(BT)
@@ -413,6 +424,14 @@ int hclib_trsmcol_launch(float* tiles, const uint16_t* linvsp, uint16_t* lsp,
                          float* work, int k, int nt, int ts, void* stream) {
   trsmcol_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, linvsp, lsp, work, k, nt, ts);
+  return cudaGetLastError();
+}
+
+int hclib_trsm_launch(float* tiles, const uint16_t* linvsp, uint16_t* lsp,
+                      float* work, int i, int k, int nt, int ts,
+                      void* stream) {
+  trsm_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, linvsp, lsp, work, i, k, nt, ts);
   return cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of hclib_tpu/device/cholesky.py:
 //   potrf_tile   <- _potrf_kernel (:77) + ops/tiles.py factor_and_inv (:151)
 //                   with factor_tile, tri_inverse, _chol8_and_inv, _mm_tn
-//   trsmcol_tile <- _trsmcol_kernel (:121) + ops/tiles.py mm_nt_rsplit (:225)
+//   trsm_tile    <- _trsm_kernel (:95) + ops/tiles.py mm_nt_rsplit (:225)
+//   trsmcol_tile <- _trsmcol_kernel (:121): trsm_tile down the column
 //   updrow_tile  <- _updrow_kernel / _updrow_stream (:271, :205)
 //                   + ops/tiles.py mm_nt_split (:217)
 //
@@ -240,35 +241,42 @@ __device__ void potrf_tile(GemmSmem& gs, float* dsm, float* T, float* W,
   __syncthreads();
 }
 
-// TRSMCOL of step k: for i in k+1..nt-1, S = split(A_ik) inv(L_kk)^T;
-// tiles[i,k] <- S (f32) and lsp[i,k] <- split(S). W: ts*ts f32 scratch.
-__device__ void trsmcol_tile(GemmSmem& gs, float* tiles,
-                             const uint16_t* linvsp, uint16_t* lsp, float* W,
-                             int k, int nt, int ts) {
+// TRSM of tile (i, k): S = split(A_ik) inv(L_kk)^T; tiles[i,k] <- S (f32)
+// and lsp[i,k] <- split(S). W: ts*ts f32 scratch (the product reads A_ik
+// until its last output tile, so it cannot go in place).
+__device__ void trsm_tile(GemmSmem& gs, float* tiles, const uint16_t* linvsp,
+                          uint16_t* lsp, float* W, int i, int k, int nt,
+                          int ts) {
   const size_t tt = static_cast<size_t>(ts) * ts;
   const uint16_t* ih = linvsp + (static_cast<size_t>(k) * 2) * tt;
   const uint16_t* il = ih + tt;
-  for (int i = k + 1; i < nt; ++i) {
-    float* A = tiles + (static_cast<size_t>(i) * nt + k) * tt;
-    block_gemm<false, false>(
-        gs, ts, ts, ts,
-        [=](int m, int q) {
-          uint16_t h, l;
-          split(A[m * ts + q], h, l);
-          return unsplit(h, l);
-        },
-        [=](int n, int q) { return unsplit(ih[n * ts + q], il[n * ts + q]); },
-        [=](int m, int n, float v) { W[m * ts + n] = v; });
-    __syncthreads();
-    uint16_t* oh = lsp + ((static_cast<size_t>(i) * nt + k) * 2) * tt;
-    uint16_t* ol = oh + tt;
-    for (int e = threadIdx.x; e < ts * ts; e += BT) {
-      const float v = W[e];
-      A[e] = v;
-      split(v, oh[e], ol[e]);
-    }
-    __syncthreads();
+  float* A = tiles + (static_cast<size_t>(i) * nt + k) * tt;
+  block_gemm<false, false>(
+      gs, ts, ts, ts,
+      [=](int m, int q) {
+        uint16_t h, l;
+        split(A[m * ts + q], h, l);
+        return unsplit(h, l);
+      },
+      [=](int n, int q) { return unsplit(ih[n * ts + q], il[n * ts + q]); },
+      [=](int m, int n, float v) { W[m * ts + n] = v; });
+  __syncthreads();
+  uint16_t* oh = lsp + ((static_cast<size_t>(i) * nt + k) * 2) * tt;
+  uint16_t* ol = oh + tt;
+  for (int e = threadIdx.x; e < ts * ts; e += BT) {
+    const float v = W[e];
+    A[e] = v;
+    split(v, oh[e], ol[e]);
   }
+  __syncthreads();
+}
+
+// TRSMCOL of step k: the column stream of TRSM tiles (i, k), i > k.
+__device__ void trsmcol_tile(GemmSmem& gs, float* tiles,
+                             const uint16_t* linvsp, uint16_t* lsp, float* W,
+                             int k, int nt, int ts) {
+  for (int i = k + 1; i < nt; ++i)
+    trsm_tile(gs, tiles, linvsp, lsp, W, i, k, nt, ts);
 }
 
 // UPDROW of row i at step k: A_ij -= L_ik L_jk^T for j in k+1..i, both

@@ -3,20 +3,20 @@
 
 - POTRF(k): L_kk and inv(L_kk); L back to tiles[k,k] (upper zeroed), the
   inverse stored split bf16 hi/lo in linvsp[k].
-- TRSMCOL(k): the column stream A_ik <- A_ik inv(L_kk)^T for i > k,
-  stored f32 and split into lsp[i,k].
+- TRSM(i,k): one tile A_ik <- A_ik inv(L_kk)^T, stored f32 and split
+  into lsp[i,k] (the unfused graph, ``fused_trsm=False``).
+- TRSMCOL(k): the column stream of TRSM(i,k) for i > k (the fused graph).
 - UPDROW(i,k): A_ij -= L_ik L_jk^T for j in (k, i], operands from lsp.
 
-This slice runs the fused graph (``fused_trsm=True``) with scalar dispatch
-of UPDROW (``batch_updrow=False``). JAX's default routes UPDROW through the
-batch tier, which is not ported yet, so here ``batch_updrow`` defaults to
-False and True raises; so does the unfused graph's tile TRSM.
+Both graphs run, with scalar dispatch of UPDROW (``batch_updrow=False``).
+JAX's default routes UPDROW through the batch tier, which is not ported
+yet, so here ``batch_updrow`` defaults to False and True raises.
 
-``potrf`` / ``trsmcol`` / ``updrow`` launch the standalone CUDA entry of a
-body on CUDA tensors (counted in ``_build.LAUNCHES``) and run the plain
-version on CPU tensors; the ``*_plain`` functions are those plain versions
-(device-agnostic torch). Inside the megakernel the same device functions
-run fused (``csrc/megakernel.cu``).
+``potrf`` / ``trsm`` / ``trsmcol`` / ``updrow`` launch the standalone CUDA
+entry of a body on CUDA tensors (counted in ``_build.LAUNCHES``) and run
+the plain version on CPU tensors; the ``*_plain`` functions are those
+plain versions (device-agnostic torch). Inside the megakernel the same
+device functions run fused (``csrc/megakernel.cu``).
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ from .state import resolve_device
 
 __all__ = [
     "device_cholesky", "build_cholesky_graph", "make_cholesky_megakernel",
-    "cholesky_buffers", "potrf", "trsmcol", "updrow", "potrf_plain",
-    "trsmcol_plain", "updrow_plain",
+    "cholesky_buffers", "potrf", "trsm", "trsmcol", "updrow", "potrf_plain",
+    "trsm_plain", "trsmcol_plain", "updrow_plain",
 ]
 
 T = 128  # default tile edge
@@ -51,8 +51,6 @@ MAX_FACTOR_BASE = 128  # diagonal block + inverse in shared memory
 
 _LATER_BATCH = ("batch_updrow=True routes UPDROW through the batch tier, "
                 "not ported yet (ROADMAP: batch tier, row 1g)")
-_LATER_TRSM = ("fused_trsm=False needs the tile TRSM body, not ported yet "
-               "(ROADMAP: unfused TRSM, row 1f)")
 
 
 # ------------------------------------------------------------ plain bodies
@@ -64,6 +62,13 @@ def potrf_plain(tiles: torch.Tensor, linvsp: torch.Tensor, k: int,
     l, inv = factor_and_inv(tiles[k, k], ts, base=factor_base)
     tiles[k, k] = l
     linvsp[k, 0], linvsp[k, 1] = split_bf16(inv)
+
+
+def trsm_plain(tiles: torch.Tensor, linvsp: torch.Tensor, lsp: torch.Tensor,
+               i: int, k: int) -> None:
+    s = mm_nt_rsplit(tiles[i, k], linvsp[k, 0], linvsp[k, 1])
+    tiles[i, k] = s
+    lsp[i, k, 0], lsp[i, k, 1] = split_bf16(s)
 
 
 def trsmcol_plain(tiles: torch.Tensor, linvsp: torch.Tensor,
@@ -86,6 +91,11 @@ def potrf_body(ctx: KernelContext) -> None:
     d = ctx.data
     potrf_plain(d["tiles"], d["linvsp"], ctx.arg(0),
                 ctx.params["factor_base"])
+
+
+def trsm_body(ctx: KernelContext) -> None:
+    d = ctx.data
+    trsm_plain(d["tiles"], d["linvsp"], d["lsp"], ctx.arg(0), ctx.arg(1))
 
 
 def trsmcol_body(ctx: KernelContext) -> None:
@@ -153,6 +163,25 @@ def potrf(tiles: torch.Tensor, linvsp: torch.Tensor, k: int,
              factor_base, potrf_smem_bytes(factor_base), _stream(tiles))
     _build.check(lib, err, "potrf")
     _build.LAUNCHES["potrf"] += 1
+
+
+def trsm(tiles: torch.Tensor, linvsp: torch.Tensor, lsp: torch.Tensor,
+         i: int, k: int) -> None:
+    """TRSM of tile (i, k), in place."""
+    nt, ts = _check_buffers(tiles, linvsp, lsp)
+    if tiles.device.type == "cpu":
+        trsm_plain(tiles, linvsp, lsp, i, k)
+        return
+    work = torch.empty(ts * ts, dtype=torch.float32, device=tiles.device)
+    lib = _lib()
+    fn = lib.hclib_trsm_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    err = fn(tiles.data_ptr(), linvsp.data_ptr(), lsp.data_ptr(),
+             work.data_ptr(), i, k, nt, ts, _stream(tiles))
+    _build.check(lib, err, "trsm")
+    _build.LAUNCHES["trsm"] += 1
 
 
 def trsmcol(tiles: torch.Tensor, linvsp: torch.Tensor, lsp: torch.Tensor,
@@ -253,8 +282,7 @@ def make_cholesky_megakernel(
         ntasks = nt + 2 * (nt * (nt - 1) // 2)
     capacity = max(64, ntasks)
     return Megakernel(
-        # Slot TRSM keeps the JAX table's F_FN numbering; no body yet.
-        kernels=["potrf", None, "updrow", "trsmcol"],
+        kernels=["potrf", "trsm", "updrow", "trsmcol"],
         data_specs={
             "tiles": ((nt, nt, tile, tile), torch.float32),
             "linvsp": ((nt, 2, tile, tile), torch.bfloat16),
@@ -307,8 +335,6 @@ def device_cholesky(
 ) -> Tuple[torch.Tensor, dict]:
     """Factor SPD ``a`` ((nt*tile)^2) in the megakernel; returns (L as a
     tensor on the run's device, info)."""
-    if not fused_trsm:
-        raise NotImplementedError(_LATER_TRSM)
     if batch_updrow:
         raise NotImplementedError(_LATER_BATCH)
     n = a.shape[0]

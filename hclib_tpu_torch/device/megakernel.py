@@ -16,16 +16,14 @@ What differs from the JAX class:
 - The kernel table is fixed. CUDA cannot take Python closures, so
   ``Megakernel(kernels=[...])`` takes NAMES from the table compiled into
   the ``.cu`` (``BODIES``); a task's ``F_FN`` still indexes the instance's
-  own list, so graphs and task tables are the JAX package's. ``None`` keeps
-  a slot of the JAX table whose body this port does not run (Cholesky's
-  unfused TRSM); a graph naming it is refused before launch. Each body's
+  own list, so graphs and task tables are the JAX package's. Each body's
   static parameters (UTS seed/q_millis/m_children/max_depth, Cholesky
   tile/factor_base/nt) go in as kernel arguments (``params=``).
 - Scheduler state lives in device memory and is updated IN PLACE (the
   task table, ready ring, counts and value tensors passed in are the
   outputs), the counterpart of JAX's ``input_output_aliases``.
 - On a CPU tensor the same scheduler runs as plain Python
-  (``_PlainCore``) over the same six bodies; that is what the CPU tests
+  (``_PlainCore``) over the same seven bodies; that is what the CPU tests
   and the card-side comparisons hold the kernel against.
 
 Left out of this slice (each raises ``NotImplementedError`` naming its
@@ -126,8 +124,8 @@ C_VBASE = 7
 
 # The kernel table compiled into csrc/megakernel.cu; the index is the
 # body id of its ``switch``.
-BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow")
-TILE_BODIES = ("potrf", "trsmcol", "updrow")
+BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm")
+TILE_BODIES = ("potrf", "trsmcol", "updrow", "trsm")
 # Static body parameters, in the order of the kernel's meta words 0..6.
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
           "factor_base", "nt")
@@ -135,10 +133,6 @@ META_FN_OF_BODY = 8   # meta[8 + body] = this table's F_FN of body, or -1
 META_BODY_OF_FN = 16  # meta[16 + fn] = body id of F_FN fn, or -1
 THREADS = 256         # block size when the table holds a tile body
 
-# JAX kernel-table names whose bodies a later slice ports.
-_LATER_BODIES = {
-    "trsm": "ROADMAP queue A, unfused TRSM (_trsm_kernel, row 1f)",
-}
 # JAX constructor arguments this slice leaves out -> ROADMAP entry.
 _LATER_ARGS = {
     "route": "batch tier (BatchSpec/BatchContext, rows 1g/1h) and "
@@ -262,12 +256,8 @@ class _PlainCore:
         self.num_values = mk.num_values
         self.params = mk.params
         self.fn_of = mk.fn_of
-        self.bodies = [
-            mk._plain[n] if n is not None else None for n in mk.kernel_names
-        ]
-        self.body_ids = [
-            BODIES.index(n) if n is not None else -1 for n in mk.kernel_names
-        ]
+        self.bodies = [mk._plain[n] for n in mk.kernel_names]
+        self.body_ids = [BODIES.index(n) for n in mk.kernel_names]
         self.st = st
         self.tasks_in = st["tasks"].flatten().tolist()
         self.ready_in = st["ready"].tolist()
@@ -357,28 +347,29 @@ class _PlainCore:
 
 def _plain_bodies() -> Dict[str, object]:
     # The bodies live with their workloads, as in the JAX package.
-    from .cholesky import potrf_body, trsmcol_body, updrow_body
+    from .cholesky import potrf_body, trsm_body, trsmcol_body, updrow_body
     from .workloads import fib_body, sum_body, uts_node_body
 
     return {
         "fib": fib_body, "sum": sum_body, "uts_node": uts_node_body,
         "potrf": potrf_body, "trsmcol": trsmcol_body, "updrow": updrow_body,
+        "trsm": trsm_body,
     }
 
 
 class Megakernel:
     """Builds and runs the single-block scheduler kernel over a task DAG.
 
-    ``kernels`` is the ordered kernel table: names from ``BODIES`` (or
-    ``None`` for a slot this slice does not run); a task's F_FN indexes
-    it. ``data_specs`` maps buffer names to ``(shape, dtype)``;
-    ``params`` gives the bodies' static parameters (``PARAMS``). Runs on
-    ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain version).
+    ``kernels`` is the ordered kernel table: names from ``BODIES``; a
+    task's F_FN indexes it. ``data_specs`` maps buffer names to
+    ``(shape, dtype)``; ``params`` gives the bodies' static parameters
+    (``PARAMS``). Runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs
+    the plain version).
     """
 
     def __init__(
         self,
-        kernels: Sequence[Optional[str]],
+        kernels: Sequence[str],
         data_specs: Optional[Dict[str, tuple]] = None,
         capacity: int = 4096,
         num_values: int = 4096,
@@ -398,19 +389,15 @@ class Megakernel:
                 )
         names = list(kernels)
         for n in names:
-            if n in _LATER_BODIES:
-                raise NotImplementedError(
-                    f"kernel {n!r} is not ported yet: {_LATER_BODIES[n]}"
-                )
-            if n is not None and n not in BODIES:
+            if n not in BODIES:
                 raise ValueError(
                     f"unknown kernel {n!r}: the table compiled into "
                     f"csrc/megakernel.cu holds {BODIES}"
                 )
-        if not any(n is not None for n in names):
+        if not names:
             raise ValueError("empty kernel table")
         self.kernel_names = names
-        self.fn_of = {n: i for i, n in enumerate(names) if n is not None}
+        self.fn_of = {n: i for i, n in enumerate(names)}
         self.params = {p: 0 for p in PARAMS}
         for p, v in (params or {}).items():
             if p not in self.params:
@@ -435,7 +422,7 @@ class Megakernel:
         for b, n in enumerate(BODIES):
             meta[META_FN_OF_BODY + b] = self.fn_of.get(n, -1)
         for fn, n in enumerate(names):
-            meta[META_BODY_OF_FN + fn] = BODIES.index(n) if n else -1
+            meta[META_BODY_OF_FN + fn] = BODIES.index(n)
         self._meta = meta
         self._plain = _plain_bodies()
 
@@ -461,16 +448,6 @@ class Megakernel:
                 f" = {need}, got {self.num_values}; shrink out slots/presets "
                 "or grow num_values"
             )
-
-    def _check_graph(self, tasks: np.ndarray, n: int) -> None:
-        """Refuse a graph that names a table slot with no body here."""
-        for fn in np.unique(tasks[:n, F_FN]):
-            fn = min(max(int(fn), 0), len(self.kernel_names) - 1)
-            if self.kernel_names[fn] is None:
-                raise NotImplementedError(
-                    f"task kind F_FN={fn} has no body in this port yet "
-                    "(see ROADMAP.md)"
-                )
 
     def _check_data(self, data: Dict[str, torch.Tensor]) -> None:
         if set(data) != set(self.data_specs):
@@ -498,7 +475,6 @@ class Megakernel:
             counts = counts.copy()
             self.widen_value_alloc(counts, ivalues)
         self.check_row_values(int(counts[C_VALLOC]))
-        self._check_graph(tasks, int(counts[C_ALLOC]))
         dev = self.device
         return {
             "tasks": tensor_of(tasks, dev),

@@ -159,8 +159,9 @@ def test_device_cholesky_split_caches_match_jax(chol_pair, buf):
 def test_device_cholesky_entry_point():
     a = t_make_spd(256).astype(np.float32)
     L, info = tc.device_cholesky(a, device="cpu")
+    # The table holds every Cholesky body; the fused graph runs no TRSM.
     assert info["executed"] == 4 and info["dispatch"] == {
-        "potrf": 2, "updrow": 1, "trsmcol": 1}
+        "potrf": 2, "updrow": 1, "trsmcol": 1, "trsm": 0}
     l64 = L.numpy().astype(np.float64)
     assert np.max(np.abs(l64 @ l64.T - a)) / np.max(np.abs(a)) < TOL
 
@@ -182,14 +183,53 @@ def test_standalone_bodies_match_megakernel_on_cpu():
 
 
 def test_left_out_forms_raise():
+    """The batch tier still raises; the unfused graph's TRSM runs."""
     a = t_make_spd(256).astype(np.float32)
     with pytest.raises(NotImplementedError, match="batch tier"):
         tc.device_cholesky(a, batch_updrow=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="TRSM"):
-        tc.device_cholesky(a, fused_trsm=False, device="cpu")
+    L, info = tc.device_cholesky(a, fused_trsm=False, device="cpu")
+    assert info["dispatch"]["trsm"] == 1 and info["executed"] == 4
     mk = tc.make_cholesky_megakernel(2, tile=128, device="cpu")
-    with pytest.raises(NotImplementedError, match="F_FN=1"):
-        mk.run(tc.build_cholesky_graph(2, fused_trsm=False),
-               data=tc.cholesky_buffers(a, 2, 128, device="cpu"))
+    _, d, info = mk.run(tc.build_cholesky_graph(2, fused_trsm=False),
+                        data=tc.cholesky_buffers(a, 2, 128, device="cpu"))
+    assert info["dispatch"] == {"potrf": 2, "trsm": 1, "updrow": 1,
+                                "trsmcol": 0}
+    assert torch.equal(torch.tril(tc._from_tiles(d["tiles"], 2, 128)), L)
     with pytest.raises(ValueError, match="factor_base"):
         tc.make_cholesky_megakernel(2, tile=128, factor_base=96, device="cpu")
+
+
+def test_trsm_plain_matches_jax():
+    """One tile: A inv(L)^T against JAX's mm_nt_rsplit, and the stored
+    split is JAX's split_bf16 of the port's own result, bit for bit."""
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((128, 128)).astype(np.float32)
+    inv = np.tril(rng.standard_normal((128, 128))).astype(np.float32)
+    ih, il = jt.split_bf16(jnp.asarray(inv))
+    want = jt.mm_nt_rsplit(jnp.asarray(a), ih, il)
+    bufs = tc.cholesky_buffers(np.zeros((256, 256), np.float32), 2, 128,
+                               device="cpu")
+    bufs["tiles"][1, 0] = torch.from_numpy(a)
+    bufs["linvsp"][0, 0], bufs["linvsp"][0, 1] = tt.split_bf16(
+        torch.from_numpy(inv))
+    tc.trsm(bufs["tiles"], bufs["linvsp"], bufs["lsp"], 1, 0)
+    got = bufs["tiles"][1, 0].numpy()
+    assert _rel(got, want) < TOL
+    jh, jl = jt.split_bf16(jnp.asarray(got))
+    bits = bufs["lsp"].view(torch.int16).numpy().view(np.uint16)
+    assert np.array_equal(bits[1, 0, 0], _bits(jh))
+    assert np.array_equal(bits[1, 0, 1], _bits(jl))
+
+
+@pytest.mark.parametrize("chol_pair", ["n256_t128"], indirect=True)
+def test_device_cholesky_unfused_matches_jax(chol_pair):
+    """The unfused graph (tile TRSM tasks) against the JAX factor of the
+    fused graph; the per-tile arithmetic is the same, so it also equals
+    the port's fused factor."""
+    a, nt, tile, (dj, _), (dt, _), _ = chol_pair
+    L, info = tc.device_cholesky(a, tile=tile, fused_trsm=False, device="cpu")
+    assert info["executed"] == nt + nt * (nt - 1)
+    assert info["dispatch"]["trsm"] == nt * (nt - 1) // 2
+    lj = np.tril(jc._from_tiles(np.asarray(dj["tiles"]), nt, tile))
+    assert _rel(L.numpy(), lj) < TOL
+    assert torch.equal(L, torch.tril(tc._from_tiles(dt["tiles"], nt, tile)))

@@ -16,7 +16,10 @@ import torch
 
 from hclib_tpu_torch.device import cholesky as tc
 from hclib_tpu_torch.device import workloads as tw
+from hclib_tpu_torch.device import uts_vec as tuv
 from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
+from hclib_tpu_torch.device.uts_fused import uts_fused
+from hclib_tpu_torch.models import uts as tm
 from hclib_tpu_torch.models.cholesky import make_spd
 from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
 
@@ -109,3 +112,48 @@ def test_standalone_tile_bodies_equal_plain(card):
             assert torch.equal(hi, got["lsp"][i, 0, 0])
             assert torch.equal(lo, got["lsp"][i, 0, 1])
         bufs = got
+
+
+def test_trsm_equals_plain(card):
+    """The standalone TRSM entry on tile (2, 0) at tile 256 against its
+    plain version; its stored split is split_bf16 of its own result."""
+    nt, ts = 3, 256
+    a = make_spd(nt * ts, seed=5).astype(np.float32)
+    bufs = tc.cholesky_buffers(a, nt, ts, device="cuda")
+    tc.potrf_plain(bufs["tiles"], bufs["linvsp"], 0, 128)
+    got = {k: v.clone() for k, v in bufs.items()}
+    want = {k: v.clone() for k, v in bufs.items()}
+    tc.trsm(got["tiles"], got["linvsp"], got["lsp"], 2, 0)
+    tc.trsm_plain(want["tiles"], want["linvsp"], want["lsp"], 2, 0)
+    torch.cuda.synchronize()
+    ref = want["tiles"][2, 0].double()
+    assert ((got["tiles"][2, 0].double() - ref).abs().max()
+            / ref.abs().max()) < 1e-5
+    assert torch.equal(got["tiles"][1, 0], want["tiles"][1, 0])
+    hi, lo = split_bf16(got["tiles"][2, 0])
+    assert torch.equal(hi, got["lsp"][2, 0, 0])
+    assert torch.equal(lo, got["lsp"][2, 0, 1])
+
+
+# The small trees of tests/test_uts_vec.py, with their root targets.
+UTS_SMALL = {
+    "fixed": (tm.UTSParams(shape=tm.FIXED, gen_mx=7, b0=4.0, root_seed=19),
+              256),
+    "linear": (tm.UTSParams(shape=tm.LINEAR, gen_mx=8, b0=4.0,
+                            root_seed=34), 128),
+    "cyclic": (tm.UTSParams(shape=tm.CYCLIC, gen_mx=1, b0=6.0,
+                            root_seed=502), 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UTS_SMALL))
+def test_uts_kernel_equals_plain(card, name):
+    """The fused kernel's counts against the plain lockstep engine (run on
+    the CPU, where it is quicker than as ~1,500 small launches a step) and
+    the sequential spec (integers: exact)."""
+    p, target = UTS_SMALL[name]
+    got = uts_fused(p, target_roots=target, lanes=(8, 128), timing_reps=1)
+    want = tuv.uts_vec(p, target_roots=target, device="cpu")
+    assert got["roots"] == want["roots"] > 0
+    triple = lambda r: (r["nodes"], r["leaves"], r["max_depth"])  # noqa: E731
+    assert triple(got) == triple(want) == tm.count_seq(p)

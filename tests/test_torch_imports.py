@@ -53,6 +53,12 @@ ENTRY_POINTS = {
     "device_cholesky": lambda: __import__(
         "hclib_tpu_torch.device.cholesky", fromlist=["x"]).device_cholesky(
             __import__("numpy").eye(128, dtype="float32")),
+    "uts_fused": lambda: __import__(
+        "hclib_tpu_torch.device.uts_fused", fromlist=["x"]).uts_fused(
+            __import__("hclib_tpu_torch.models.uts", fromlist=["x"]).T3),
+    "uts_vec": lambda: __import__(
+        "hclib_tpu_torch.device.uts_vec", fromlist=["x"]).uts_vec(
+            __import__("hclib_tpu_torch.models.uts", fromlist=["x"]).T3),
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),

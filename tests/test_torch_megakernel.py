@@ -6,6 +6,7 @@ for word across the task table, ready ring, counts and value slots."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from hclib_tpu.device import megakernel as jmk
 from hclib_tpu.device import workloads as jw
@@ -230,7 +231,13 @@ def test_left_out_options_raise(kw):
 def test_kernel_table_names():
     with pytest.raises(ValueError, match="unknown kernel"):
         tmk.Megakernel(["addtile"], device="cpu")
-    with pytest.raises(NotImplementedError, match="TRSM"):
-        tmk.Megakernel(["potrf", "trsm"], device="cpu")
+    mk = tmk.Megakernel(
+        ["potrf", "trsm"],
+        data_specs={"tiles": ((1, 1, 128, 128), torch.float32),
+                    "linvsp": ((1, 2, 128, 128), torch.bfloat16),
+                    "lsp": ((1, 1, 2, 128, 128), torch.bfloat16)},
+        params={"tile": 128, "factor_base": 128, "nt": 1}, device="cpu")
+    assert mk.fn_of == {"potrf": 0, "trsm": 1}
+    assert tmk.BODIES.index("trsm") == len(tmk.BODIES) - 1
     with pytest.raises(NotImplementedError, match="batch"):
         tw.make_fib_megakernel(64, batch_width=8, device="cpu")
