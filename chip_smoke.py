@@ -10,25 +10,44 @@ Phases, one JSON line each:
 2. check   - each kernel against its plain version on the same inputs:
              the megakernel (K1) on fib(11) and the CSR fan-out DAG, its
              whole output state word for word; POTRF (K2), TRSMCOL (K3),
-             TRSM (K5) and UPDROW (K4) at tile 512 on make_spd(8192) tiles,
-             within 1e-5 of the largest magnitude; the UTS engine (K6) on
-             three small trees at lanes (8, 128) and on T1 and T5 at the
-             card's lanes, counts equal. Kernel, plain and library times
-             (CUDA events, after a warm-up) and each kernel's bound; the
-             UTS bound counts one SHA-1 child's instructions in the built
-             library's SASS (cuobjdump), printed as the ``sass`` line.
+             TRSM (K5), UPDROW (K4) and the batched UPDROW (updrow_batch,
+             on the last 4 rows of step 0) at tile 512 on make_spd(8192)
+             tiles, within 1e-5 of the largest magnitude; the UTS engine
+             (K6) on three small trees at lanes (8, 128) and on T1 and T5
+             at the card's lanes, counts equal; the batch tier
+             (``batch_tier``: fib(11) and UTS depth 12 at batch_width=8,
+             Cholesky n=1024 tile 256 batched: integer state and tstats
+             word for word, tiles within 1e-5); the SW bodies (``sw``:
+             sw_wave_batch at 512^2 chunk=1 width=2, where the prefetch
+             engages, and 1280^2 at the default chunk and width, every
+             output buffer and tstats equal, H = sw_seq; sw_tile through
+             device_sw at both). Kernel, plain and library times (CUDA
+             events, after a warm-up) and each kernel's bound; the UTS and
+             SW bounds count one SHA-1 child's / one DP row's instructions
+             in the built library's SASS (cuobjdump), the ``sass`` lines.
 3. fib     - device_fib(24): 46,368 with 225,073 tasks executed.
 4. uts     - device_uts_mk at max_depth=20: the plain scheduler's count.
-5. cholesky- device_cholesky at n=8192, tile 512 (151 tasks), residual
-             ||LL^T - A||_max / ||A||_max < 1e-6 in float64 on the card.
+5. cholesky- device_cholesky at n=8192, tile 512 (151 tasks), UPDROW
+             batched (the default): residual ||LL^T - A||_max / ||A||_max
+             < 1e-6 in float64 on the card; tiers 120 batched / 120 routed
+             / 31 scalar / 0 spilled.
+5b. cholesky_scalar_updrow - the same with batch_updrow=False: L equal
+             to phase 5's bit for bit.
 6. uts_canonical - uts_fused on T1, T5, T2 and T1L (at two root
              targets) at the card's lanes: their exact (nodes, leaves,
              max depth), T1L's the same at both targets.
 7. cholesky_unfused - device_cholesky(fused_trsm=False) at n=8192, tile
              512 (256 tasks), the same residual bound, and its largest
              difference from phase 5's L.
+8. fib_batch - device_fib(24, batch_width=8): 46,368 / 225,073.
+9. uts_batch - device_uts_mk(max_depth=20, batch_width=8): 498,965.
+10. sw_wave - device_sw_wave at n = m = 8192, with_h=False, 64 x 64
+             tiles (bench.py's configuration): score = the torch sw_vec
+             score on the card; GCUPS over the launch's CUDA-event time.
+11. sw_engines - device_sw, device_sw_batched and device_sw_wave at
+             2048 x 2048 with H: the three H and scores equal.
 
-Phases 3-7 are the main path: launch counts are zeroed just before each
+Phases 3-11 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -50,6 +69,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_F32 = 67e12    # H100 SXM f32 FLOP/s outside the tensor cores
+# H100 SXM dense bf16 tensor-core FLOP/s (f32 accumulation). The Cholesky
+# tile products take bf16 hi/lo split operands: three bf16 products each
+# (hi*hi + hi*lo + lo*hi, ops/tiles.py mm_nt_split), bound at this rate.
+PEAK_BF16 = 989e12
+SPLIT_PASSES = 3
 HBM_BYTES = 3.35e12  # H100 SXM device memory bytes/s
 SMS = 132  # H100 SXM
 # Thread operations an SM issues a clock (4 schedulers x 32 lanes), and of
@@ -61,6 +85,10 @@ ALU_OPS = {"LOP3", "LOP", "SHF", "SHL", "SHR", "IADD3", "IADD", "ISETP",
            "SEL", "LEA", "PRMT", "IMNMX", "VIMNMX", "IABS", "FLO", "POPC",
            "BMSK", "BREV", "PLOP3", "ISCADD", "SGXT"}
 IMAD_OPS = {"IMAD", "IMUL", "IDP"}
+# Warp shuffles: 32 thread results an SM a clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0).
+SHFL_PER_CLK = 32
+SHFL_OPS = {"SHFL"}
 TOL = 1e-5
 
 
@@ -73,8 +101,8 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -88,7 +116,7 @@ def smi(query: str) -> str:
 
 
 def sass_ops(lib_path, kernels) -> dict:
-    """{kernel: {"alu", "imad", "all": instruction counts}} of every
+    """{kernel: {"alu", "imad", "shfl", "all": instruction counts}} of every
     kernel in a built library's SASS (cuobjdump; the padding NOPs left
     out); fails unless the named ``kernels`` are among them."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
@@ -100,7 +128,7 @@ def sass_ops(lib_path, kernels) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = {"alu": 0, "imad": 0, "all": 0}
+            counts[cur] = {"alu": 0, "imad": 0, "shfl": 0, "all": 0}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_]*)",
                      line)
@@ -111,6 +139,7 @@ def sass_ops(lib_path, kernels) -> dict:
         c["all"] += 1
         c["alu"] += op in ALU_OPS
         c["imad"] += op in IMAD_OPS
+        c["shfl"] += op in SHFL_OPS
     check(set(kernels) <= set(counts), f"SASS of {sorted(kernels)} not all "
           f"found in {lib_path} (found {sorted(counts)})")
     return counts
@@ -134,12 +163,15 @@ def main() -> int:
 
     from hclib_tpu_torch import _build
     from hclib_tpu_torch.device import cholesky as tc
+    from hclib_tpu_torch.device import smithwaterman as tsw
     from hclib_tpu_torch.device import uts_vec as tuv
     from hclib_tpu_torch.device import workloads as tw
     from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
     from hclib_tpu_torch.device.uts_fused import CARD_LANES, UtsLaunch, uts_fused
     from hclib_tpu_torch.models import uts as tm
+    from hclib_tpu_torch.device.sw_vec import sw_score_one
     from hclib_tpu_torch.models.cholesky import make_spd
+    from hclib_tpu_torch.models.smithwaterman import random_seq, sw_seq
     from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
 
     dev = torch.device("cuda")
@@ -159,6 +191,46 @@ def main() -> int:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return float(np.median(times))
+
+    def timed_launch(mk, b, data=None, reps=3):
+        """Median CUDA-event ms of ``mk.launch`` on ``b``'s state, staged
+        anew before each launch outside the timed window, after a warm-up;
+        every launch's bodies are folded into the launch counts. Returns
+        (ms, the last launch's state)."""
+        st = mk.state(b, data=data)
+        mk.fold_dispatches(mk.launch(st))
+        times = []
+        for _ in range(reps):
+            st = mk.state(b, data=data)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            d = mk.launch(st)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+            mk.fold_dispatches(d)
+        return float(np.median(times)), st
+
+    def raw_state(mk, b, data=None):
+        """Every output of one launch on ``b`` (state, tstats, data)."""
+        st = mk.state(b, data=data)
+        mk.launch(st)
+        out = {k: st[k].cpu() for k in ("tasks", "ready", "counts",
+                                         "ivalues", "tstats") if k in st}
+        out.update({"data." + k: v.cpu() for k, v in st["data"].items()})
+        return out
+
+    def ints_equal(got, want, what):
+        for k, v in want.items():
+            if not v.is_floating_point():
+                check(torch.equal(got[k], v), f"{what}: {k} differs from "
+                      "the plain version")
+
+    def plain_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -317,8 +389,8 @@ def main() -> int:
     inv_t = unsplit(*after2["linvsp"][0]).transpose(0, 1).contiguous()
     lms = events_ms(lambda: torch.matmul(col0, inv_t), 3)
     m = nt - 1
-    kb = bound(2.0 * m * ts ** 3, 4 * m * tt + 4 * tt + 4 * m * tt
-               + 4 * m * tt)
+    kb = bound(SPLIT_PASSES * 2.0 * m * ts ** 3,
+               4 * m * tt + 4 * tt + 4 * m * tt + 4 * m * tt, PEAK_BF16)
     kernels["trsmcol"] = {
         "name": "trsmcol", "route": "cuda",
         "source": "hclib_tpu_torch/csrc/tiles.cuh",
@@ -355,7 +427,8 @@ def main() -> int:
         scratch["tiles"], scratch["linvsp"], scratch["lsp"], 1, 0), 3,
         restore_t10)
     lms = events_ms(lambda: torch.matmul(t10, inv_t), 3)
-    kb = bound(2.0 * ts ** 3, 4 * tt + 4 * tt + 4 * tt + 4 * tt)
+    kb = bound(SPLIT_PASSES * 2.0 * ts ** 3,
+               4 * tt + 4 * tt + 4 * tt + 4 * tt, PEAK_BF16)
     kernels["trsm"] = {
         "name": "trsm", "route": "cuda",
         "source": "hclib_tpu_torch/csrc/tiles.cuh",
@@ -391,8 +464,8 @@ def main() -> int:
                     ).transpose(1, 2).contiguous()
     lik_b = lik.expand(m, ts, ts)
     lms = events_ms(lambda: torch.baddbmm(row0, lik_b, ljk_t, alpha=-1.0), 3)
-    kb = bound(2.0 * m * ts ** 3, 4 * tt + 4 * m * tt + 4 * m * tt
-               + 4 * m * tt)
+    kb = bound(SPLIT_PASSES * 2.0 * m * ts ** 3,
+               4 * tt + 4 * m * tt + 4 * m * tt + 4 * m * tt, PEAK_BF16)
     kernels["updrow"] = {
         "name": "updrow", "route": "cuda",
         "source": "hclib_tpu_torch/csrc/tiles.cuh",
@@ -402,6 +475,51 @@ def main() -> int:
     }
     emit({"phase": "check", "kernel": "updrow", "rel_err": r_u,
           "kernel_ms": ms, "plain_ms": pms, "library_ms": lms})
+
+    # K9: the batched UPDROW body on the last UPD_B rows of step 0, on the
+    # kernel's TRSMCOL output: against its plain version, and bit for bit
+    # against UPD_B standalone UPDROW launches (the same device function)
+    rows = [(nt - 1 - r, 0) for r in range(tc.UPD_B)]
+    lo_row = nt - tc.UPD_B
+    lsp3 = after3["lsp"]
+    kt, pt, st_ = (after3["tiles"].clone() for _ in range(3))
+    tc.updrow_batch(kt, lsp3, rows)
+    tc.updrow_batch_plain(pt, lsp3, rows)
+    for i_, k_ in rows:
+        tc.updrow(st_, lsp3, i_, k_)
+    torch.cuda.synchronize()
+    r_b, e_b = rel(kt[lo_row:], pt[lo_row:])
+    check(r_b < TOL, f"updrow_batch differs from plain ({r_b})")
+    check(torch.equal(kt, st_), "updrow_batch differs from UPDROW launches")
+    rows0 = after3["tiles"][lo_row:].clone()
+
+    def restore_rows():
+        kt[lo_row:].copy_(rows0)
+
+    ms = events_ms(lambda: tc.updrow_batch(kt, lsp3, rows), 3, restore_rows)
+    pms = events_ms(lambda: tc.updrow_batch_plain(kt, lsp3, rows), 3,
+                    restore_rows)
+    # The library: one baddbmm over every tile product of the UPD_B rows.
+    ii = [i_ for i_, _ in rows for _j in range(1, i_ + 1)]
+    jj = [j for i_, _ in rows for j in range(1, i_ + 1)]
+    l0 = unsplit(lsp3[:, 0, 0], lsp3[:, 0, 1])
+    lhs, rhs = l0[ii], l0[jj].transpose(1, 2).contiguous()
+    acc = after3["tiles"][ii, jj].clone()
+    lms = events_ms(lambda: torch.baddbmm(acc, lhs, rhs, alpha=-1.0), 3)
+    kb = bound(SPLIT_PASSES * 2.0 * len(ii) * ts ** 3,
+               4 * tt * (len(rows) + nt - 1) + 8 * len(ii) * tt, PEAK_BF16)
+    kernels["updrow_batch"] = {
+        "name": "updrow_batch", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/cholesky.py:285",
+        "max_abs_err": e_b, "ms": ms, "plain_ms": pms,
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": lms,
+    }
+    emit({"phase": "check", "kernel": "updrow_batch", "rows": rows,
+          "tile_products": len(ii), "rel_err": r_b,
+          "equal_to_updrow_launches": True, "kernel_ms": ms,
+          "plain_ms": pms, "library_ms": lms})
+    del kt, pt, st_, l0, lhs, rhs, acc, rows0
     del kb_, pb_, scratch, after2, after3, base
     torch.cuda.synchronize()
 
@@ -499,6 +617,78 @@ def main() -> int:
                 "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None,
             }
 
+    # 2. check: the batch tier (K7) with its batched bodies inside the
+    # megakernel, the card's whole output state against the plain core's
+    for name, make, b in (
+            ("fib11_b8", lambda d: tw.make_fib_megakernel(
+                768, batch_width=8, device=d), fib_graph(11)[0]),
+            ("uts_depth12_b8", lambda d: tw.make_uts_megakernel(
+                max_depth=12, batch_width=8, device=d), ub)):
+        got, want = raw_state(make("cuda"), b), raw_state(make("cpu"), b)
+        ints_equal(got, want, f"batch tier {name}")
+        emit({"phase": "check", "kernel": "batch_tier", "graph": name,
+              "equal": True,
+              "tiers": make("cpu").decode_tier_stats(want["tstats"])})
+    a1 = make_spd(1024).astype(np.float32)
+    got, want = (raw_state(
+        tc.make_cholesky_megakernel(4, tile=256, device=d),
+        tc.build_cholesky_graph(4),
+        tc.cholesky_buffers(a1, 4, 256, device=d)) for d in ("cuda", "cpu"))
+    ints_equal(got, want, "batch tier cholesky n=1024")
+    r_c, e_c = rel(got["data.tiles"], want["data.tiles"])
+    check(r_c < TOL, f"batched cholesky tiles differ from plain ({r_c})")
+    emit({"phase": "check", "kernel": "batch_tier", "graph":
+          "cholesky_n1024_t256", "ints_equal": True, "tiles_rel_err": r_c,
+          "tstats": want["tstats"].tolist()})
+
+    # 2. check: the SW bodies (K10), sw_wave_batch against the plain core
+    # on every output, sw_tile through device_sw, both against sw_seq
+    for n_sw, chunk, width in ((512, 1, 2), (1280, tsw.WAVE_R, tsw.WAVE_B)):
+        sa, sb = random_seq(n_sw, 5), random_seq(n_sw, 6)
+        nts = n_sw // tsw.T
+        ref = torch.from_numpy(sw_seq(sa, sb)[1:, 1:])
+        graph = tsw.build_sw_wave_graph(nts, nts, chunk)
+        data = tsw.sw_wave_buffers(sa, sb)
+        data["htiles"] = np.zeros((nts, nts, tsw.T, tsw.T), np.int32)
+        mkw = {d: tsw.make_sw_wave_megakernel(nts, nts, chunk=chunk,
+                                             width=width, device=d)
+               for d in ("cuda", "cpu")}
+        got, want = (raw_state(mkw[d], graph, data) for d in ("cuda", "cpu"))
+        ints_equal(got, want, f"sw_wave_batch {n_sw}^2")
+        hw = got["data.htiles"].transpose(1, 2).reshape(n_sw, n_sw)
+        check(torch.equal(hw, ref), f"sw_wave_batch {n_sw}^2: H != sw_seq")
+        tiers = mkw["cpu"].decode_tier_stats(want["tstats"])
+        check(chunk > 1 or tiers["prefetch_hits"] > 0,
+              "the prefetch did not engage at chunk=1, width=2")
+        s_c, h_c, _ = tsw.device_sw(sa, sb, device="cuda")
+        s_p, h_p, _ = tsw.device_sw(sa, sb, device="cpu")
+        check(torch.equal(h_c.cpu(), ref) and torch.equal(h_p, ref)
+              and s_c == s_p == int(ref.max()) == int(got["ivalues"][0]),
+              f"sw_tile {n_sw}^2: H or score differ")
+        emit({"phase": "check", "kernel": "sw", "n": n_sw, "chunk": chunk,
+              "width": width, "equal": True, "h_equals_sw_seq": True,
+              "score": s_c, "tiers": tiers})
+    # The SW bound: one DP row of a lane's 4 cells (sw_row_ops less
+    # sw_row_copy_ops in the built library's SASS), charged to each pipe
+    # at its own rate, over the whole card.
+    sw_sass = sass_ops(_build.lib_path("megakernel"),
+                       {"sw_row_ops", "sw_row_copy_ops"})
+    sw_row = {k: sw_sass["sw_row_ops"][k] - sw_sass["sw_row_copy_ops"][k]
+              for k in ("alu", "imad", "shfl", "all")}
+    check(sw_row["shfl"] >= 7 and sw_row["all"] > 20,
+          f"SW row SASS counts {sw_row} are implausible")
+    cell_clocks = max(sw_row["alu"] / ALU_PER_CLK,
+                      sw_row["imad"] / IMAD_PER_CLK,
+                      sw_row["shfl"] / SHFL_PER_CLK,
+                      sw_row["all"] / ISSUE_PER_CLK) / 4
+
+    def sw_bound_ms(cells):
+        return cells * cell_clocks / (SMS * clock_hz) * 1e3
+
+    emit({"phase": "sass", "kernel": "sw", "row_ops": sw_row,
+          "sass": {k: sw_sass[k] for k in ("sw_row_ops", "sw_row_copy_ops")},
+          "sm_clocks_a_cell": cell_clocks})
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -517,9 +707,10 @@ def main() -> int:
     t0 = time.perf_counter()
     check(tw.device_fib(24, capacity=768, device="cpu")[0] == v,
           "plain fib(24) differs")
+    fib_tasks_per_s = info["executed"] / dt
     emit({"phase": "fib", "n": 24, "value": v, "executed": info["executed"],
           "allocated": info["allocated"], "seconds": dt,
-          "tasks_per_s": info["executed"] / dt,
+          "tasks_per_s": fib_tasks_per_s,
           "plain_host_seconds": time.perf_counter() - t0,
           "bound_ms": bound(0.0, info["executed"] * 136.0)[0],
           "launches": launches})
@@ -548,6 +739,9 @@ def main() -> int:
     Ld = L.double()
     resid = float((Ld @ Ld.T - A).abs().max() / A.abs().max())
     check(resid < 1e-6, f"cholesky residual {resid}")
+    tiers = info["tiers"]
+    check((tiers["batch_tasks"], tiers["routed"], tiers["scalar_tasks"],
+           tiers["spilled"]) == (120, 120, 31, 0), f"cholesky tiers {tiers}")
     # Where the time goes, estimated: each body's tile products at the
     # per-tile time of its standalone entry measured in phase 2.
     trsm_tiles = nt * (nt - 1) // 2
@@ -558,11 +752,25 @@ def main() -> int:
         "updrow": upd_tiles * kernels["updrow"]["ms"] / (nt - 1),
     }
     emit({"phase": "cholesky", "n": n, "tile": ts, "tasks": info["executed"],
-          "dispatch": info["dispatch"], "residual": resid,
+          "dispatch": info["dispatch"], "residual": resid, "tiers": tiers,
           "seconds": info["seconds"],
           "gflops": (n ** 3 / 3.0) / info["seconds"] / 1e9,
           "estimated_body_ms": est, "launches": path_done("cholesky")})
     del Ld
+    chol_seconds = info["seconds"]
+
+    # 5b. the same graph with scalar UPDROW dispatch
+    _build.reset_launches()
+    Ls, info = tc.device_cholesky(a, tile=ts, batch_updrow=False,
+                                  device="cuda")
+    check(info["executed"] == 151 and "tiers" not in info,
+          f"scalar-UPDROW cholesky executed {info['executed']}")
+    check(torch.equal(Ls, L), "batched and scalar-UPDROW factors differ")
+    emit({"phase": "cholesky_scalar_updrow", "n": n, "tile": ts,
+          "dispatch": info["dispatch"], "bit_identical_to_batched": True,
+          "seconds": info["seconds"], "batched_seconds": chol_seconds,
+          "launches": path_done("cholesky_scalar_updrow")})
+    del Ls
 
     # 6. UTS on the canonical trees at the card's lanes. T1L at the
     # default target (16 roots a lane) and at one a lane (less host
@@ -609,6 +817,159 @@ def main() -> int:
           "gflops": (n ** 3 / 3.0) / info["seconds"] / 1e9,
           "launches": path_done("cholesky_unfused")})
     del A, Ld, L, L2
+
+    # 8. fib(24) through the batch tier
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    v, info = tw.device_fib(24, capacity=768, batch_width=8, device="cuda")
+    dt = time.perf_counter() - t0
+    check(v == 46368, f"batched fib(24) = {v}")
+    check(info["executed"] == 225073,
+          f"batched fib(24) executed {info['executed']}")
+    fib_b = fib_graph(24)[0]
+    fib_ms, _ = timed_launch(
+        tw.make_fib_megakernel(768, batch_width=8, device="cuda"), fib_b)
+    launches = path_done("fib_batch")
+    fib_pms, (pv, pinfo) = plain_ms(
+        lambda: tw.device_fib(24, capacity=768, batch_width=8, device="cpu"))
+    check(pv == v and pinfo["tiers"] == info["tiers"],
+          "plain batched fib(24) differs")
+    kb = bound(0.0, info["executed"] * 136.0)
+    kernels["fib_batch"] = {
+        "name": "fib_batch", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/workloads.py:86",
+        "max_abs_err": 0.0, "ms": fib_ms, "plain_ms": fib_pms,
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None,
+    }
+    emit({"phase": "fib_batch", "n": 24, "batch_width": 8, "value": v,
+          "executed": info["executed"], "allocated": info["allocated"],
+          "seconds": dt, "tasks_per_s": info["executed"] / dt,
+          "kernel_ms": fib_ms,
+          "kernel_tasks_per_s": info["executed"] / (fib_ms * 1e-3),
+          "scalar_fib_tasks_per_s": fib_tasks_per_s, "tiers": info["tiers"],
+          "plain_host_ms": fib_pms, "bound_ms": kb[0],
+          "library": "none: no PyTorch call runs a task graph",
+          "launches": launches})
+
+    # 9. UTS at max_depth=20 through the batch tier
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    nodes, info = tw.device_uts_mk(max_depth=20, batch_width=8,
+                                   device="cuda")
+    dt = time.perf_counter() - t0
+    check(nodes == 498965, f"batched UTS nodes {nodes} != 498965")
+    uts_b_ms, _ = timed_launch(
+        tw.make_uts_megakernel(max_depth=20, batch_width=8, device="cuda"),
+        ub)
+    launches = path_done("uts_batch")
+    uts_pms, (pn, pinfo) = plain_ms(lambda: tw.device_uts_mk(
+        max_depth=20, batch_width=8, device="cpu"))
+    check(pn == nodes and pinfo["tiers"] == info["tiers"],
+          "plain batched UTS differs")
+    kb = bound(0.0, info["executed"] * 136.0)
+    kernels["uts_node_batch"] = {
+        "name": "uts_node_batch", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/workloads.py:86",
+        "max_abs_err": 0.0, "ms": uts_b_ms, "plain_ms": uts_pms,
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None,
+    }
+    emit({"phase": "uts_batch", "max_depth": 20, "batch_width": 8,
+          "nodes": nodes, "seconds": dt, "nodes_per_s": nodes / dt,
+          "kernel_ms": uts_b_ms,
+          "kernel_nodes_per_s": nodes / (uts_b_ms * 1e-3),
+          "scalar_uts_kernel_ms": uts_ms, "tiers": info["tiers"],
+          "plain_host_ms": uts_pms, "bound_ms": kb[0],
+          "launches": launches})
+
+    # 10. SW wave engine at bench.py's configuration
+    _build.reset_launches()
+    n_sw = 8192
+    nts = n_sw // tsw.T
+    sa, sb = random_seq(n_sw, 5), random_seq(n_sw, 6)
+    t0 = time.perf_counter()
+    score, h, info = tsw.device_sw_wave(sa, sb, with_h=False, device="cuda")
+    dt = time.perf_counter() - t0
+    check(h is None and info["executed"] == nts * nts,
+          f"sw_wave executed {info['executed']} tiles")
+    wave_graph = tsw.build_sw_wave_graph(nts, nts)
+    wmk = tsw.make_sw_wave_megakernel(nts, nts, with_h=False, device="cuda")
+    wave_ms, wst = timed_launch(wmk, wave_graph, tsw.sw_wave_buffers(sa, sb))
+    check(int(wst["ivalues"][0]) == score, "sw_wave timed launch score")
+    t0 = time.perf_counter()
+    vec_score = sw_score_one(sa, sb, device="cuda")
+    vec_s = time.perf_counter() - t0
+    check(score == vec_score, f"sw_wave score {score} != sw_vec {vec_score}")
+    launches = path_done("sw_wave")
+    tiers = info["tiers"]
+    cells = n_sw * n_sw
+    wave_pms, (ps, _, pinfo) = plain_ms(lambda: tsw.device_sw_wave(
+        sa, sb, with_h=False, device="cpu"))
+    check(ps == score and pinfo["tiers"] == tiers, "plain sw_wave differs")
+    kernels["sw_wave_batch"] = {
+        "name": "sw_wave_batch", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/smithwaterman.py:234",
+        "max_abs_err": 0.0, "ms": wave_ms, "plain_ms": wave_pms,
+        "bound_ms": sw_bound_ms(cells), "bound_by": "operations",
+        "library_ms": None,
+    }
+    emit({"phase": "sw_wave", "n": n_sw, "m": n_sw, "tiles": nts * nts,
+          "with_h": False, "score": score, "sw_vec_score": vec_score,
+          "kernel_ms": wave_ms, "gcups": cells / (wave_ms * 1e-3) / 1e9,
+          "entry_seconds": dt, "occupancy": tiers["batch_occupancy"],
+          "prefetch_hits": tiers["prefetch_hits"], "tiers": tiers,
+          "sw_vec_seconds": vec_s, "plain_host_ms": wave_pms,
+          "bound_ms": sw_bound_ms(cells),
+          "library": "none: no PyTorch call computes Smith-Waterman",
+          "launches": launches})
+
+    # 11. the three SW engines at 2048 x 2048 with H
+    _build.reset_launches()
+    n_e = 2048
+    nte = n_e // tsw.T
+    sa, sb = random_seq(n_e, 7), random_seq(n_e, 8)
+    engines = {}
+    for name, fn in (("device_sw", tsw.device_sw),
+                     ("device_sw_batched", tsw.device_sw_batched),
+                     ("device_sw_wave", tsw.device_sw_wave)):
+        score, h, info = fn(sa, sb, device="cuda")
+        engines[name] = (score, h, info)
+    s0, h0, _ = engines["device_sw"]
+    for name, (score, h, info) in engines.items():
+        check(score == s0 and torch.equal(h, h0),
+              f"{name} differs from device_sw at {n_e}^2")
+        check(info["executed"] == nte * nte, f"{name} executed")
+    check(s0 == int(h0.max()), "sw_engines score != max(H)")
+    tile_ms, _ = timed_launch(
+        tsw.make_sw_megakernel(nte, nte, device="cuda"),
+        tsw.build_sw_graph(nte, nte),
+        dict(tsw.sw_wave_buffers(sa, sb),
+             htiles=np.zeros((nte, nte, tsw.T, tsw.T), np.int32)))
+    launches = path_done("sw_engines")
+    tile_pms, (ps, ph, _) = plain_ms(lambda: tsw.device_sw(sa, sb,
+                                                          device="cpu"))
+    check(ps == s0 and torch.equal(ph, h0.cpu()), "plain device_sw differs")
+    cells = n_e * n_e
+    kernels["sw_tile"] = {
+        "name": "sw_tile", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/smithwaterman.py:59",
+        "max_abs_err": 0.0, "ms": tile_ms, "plain_ms": tile_pms,
+        "bound_ms": sw_bound_ms(cells), "bound_by": "operations",
+        "library_ms": None,
+    }
+    emit({"phase": "sw_engines", "n": n_e, "with_h": True, "score": s0,
+          "equal": True, "seconds": {k: v[2]["seconds"]
+                                     for k, v in engines.items()},
+          "gcups": {k: v[2]["cells_per_sec"] / 1e9
+                    for k, v in engines.items()},
+          "tiers": {k: v[2]["tiers"] for k, v in engines.items()
+                    if "tiers" in v[2]},
+          "sw_tile_kernel_ms": tile_ms, "plain_host_ms": tile_pms,
+          "bound_ms": sw_bound_ms(cells), "launches": launches})
+    del engines, h0, ph
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

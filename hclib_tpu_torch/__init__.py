@@ -8,8 +8,10 @@ kernel's plain PyTorch version runs instead. Kernels are CUDA C++ under
 ``csrc/``, built by ``_build.py`` on first use.
 
 Entry points: ``device.workloads.device_fib``,
-``device.workloads.device_uts_mk`` and ``device.cholesky.device_cholesky``,
-all through ``device.megakernel.Megakernel.run``; and the canonical UTS
-engines ``device.uts_fused.uts_fused`` (CUDA) and ``device.uts_vec.uts_vec``
-(its plain lockstep version).
+``device.workloads.device_uts_mk``, ``device.cholesky.device_cholesky``
+and ``device.smithwaterman.device_sw`` / ``device_sw_wave`` /
+``device_sw_batched``, all through ``device.megakernel.Megakernel.run``
+(scalar and batch tiers); ``device.sw_vec.sw_scores`` (torch ops); and
+the canonical UTS engines ``device.uts_fused.uts_fused`` (CUDA) and
+``device.uts_vec.uts_vec`` (its plain lockstep version).
 """

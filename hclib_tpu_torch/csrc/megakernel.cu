@@ -2,38 +2,58 @@
 // bodies of its fixed kernel table.
 //
 // Replaces hclib_tpu/device/megakernel.py Megakernel._build_raw (:2114,
-// pallas_call at :2165) -> _kernel (:1971) -> _make_core (:1111), scalar
-// tier: stage / sched / step / complete / push_ready, KernelContext.spawn /
-// take_continuation / row_values, and the bodies of its kernel table:
+// pallas_call at :2165) -> _kernel (:1971) -> _make_core (:1111): the
+// scalar tier (stage / sched / step / complete / push_ready,
+// KernelContext.spawn / take_continuation / row_values) and the batched
+// same-kind dispatch tier (BatchSpec :548, BatchContext :629, pop-time
+// routing :1770-1810, the ring-drain-first firing policy :1546-1760,
+// batch_round :1394-1492 with the prefetch handshake, the spill at exit
+// :1858-1906, the tstats row :2132-2155), and the bodies of its table:
 //   fib, sum   <- hclib_tpu/device/workloads.py _fib_kernel (:56),
 //                 _sum_kernel (:82)
 //   uts_node   <- workloads.py make_uts_megakernel.node (:241)
 //   potrf, trsmcol, updrow, trsm <- device/cholesky.py, see tiles.cuh
+//   fib_batch, uts_node_batch <- workloads.py batch_of (:86): the scalar
+//                 body on each live slot's row, in slot order
+//   updrow_batch <- cholesky.py _updrow_batch_kernel (:285)
+//   sw_tile    <- device/smithwaterman.py _sw_tile_kernel (:59)
+//   sw_wave_batch <- smithwaterman.py _sw_wave_batch_kernel (:234) with
+//                 _sw_wave_drain (:398), _chunk_dma (:168), _zero_slot
+//                 (:156) and _cummax_lanes (:48)
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
-// scheduler: it pops the newest ready row (LIFO), publishes the row and
-// its body in shared memory, and after a barrier every thread enters the
-// switch - the scalar bodies run on thread 0, the tile bodies on the whole
-// block - then after a second barrier thread 0 completes the row. The
-// serial pop order is what makes executed/allocated and the final task
-// table equal the JAX package's word for word, so every order below is the
-// JAX one: LIFO pop, spawn's free-stack-first allocation with the clamp on
-// overflow, complete()'s succ0, succ1, CSR, pending-1, executed+1,
-// tombstone, free-stack push.
+// scheduler: each round it either fires a batch lane, or pops the newest
+// ready row (LIFO) and routes it into its kind's lane or dispatches it.
+// Routing rounds need no other thread; a round that runs a body publishes
+// the row (or the batch's slot rows) in shared memory, and after a barrier
+// every thread enters the switch - the scalar bodies run on thread 0, the
+// tile and SW bodies on the whole block - then after a second barrier
+// thread 0 completes the row (or slots 0..take-1 in slot order) and updates
+// the lane state and tier counters. The serial order is what makes
+// executed/allocated, the final task table and the tstats row equal the
+// JAX package's word for word, so every order below is the JAX one: LIFO
+// ring pops, LIFO lane pops for non-prefetch lanes (the newest take as one
+// block, base tail - take) and FIFO for prefetch lanes, ring-drain-first
+// firing with the lowest F_FN first, spawn's free-stack-first allocation,
+// complete()'s succ0, succ1, CSR order, and the spill of unrun lane entries
+// to the ring HEAD (positions head0 - 1 - s, so C_HEAD may go negative).
 //
 // Scheduler state (task table, ready ring, counts, value slots, data
-// buffers) lives in global memory and is updated IN PLACE: the pointers
-// the host passes are the outputs, as JAX aliases its inputs to its
-// outputs (megakernel.py:2162). The *_in pointers are the staged inputs;
-// they equal the state pointers unless reps > 1. The counts row is held in
-// shared memory during a rep and written back at its end.
+// buffers, lanes, lane state, tstats) lives in global memory and is updated
+// IN PLACE: the pointers the host passes are the outputs, as JAX aliases
+// its inputs to its outputs (megakernel.py:2162). The *_in pointers are the
+// staged inputs; they equal the state pointers unless reps > 1. The counts
+// row is held in shared memory during a rep and written back at its end.
 //
-// What bounds it: the scalar scheduler is a chain of dependent loads and
-// stores by one thread (each pop, spawn and completion touches a few
+// What bounds it: the scheduler is a chain of dependent loads and stores
+// by one thread (each pop, routing, spawn and completion touches a few
 // words of the task table in L1/L2), so it is latency-bound, not bound by
 // bytes or operations; one SM of the card's 132 does all the work. The
-// tile bodies are bound by that one SM's f32 rate (tiles.cuh). Lifting the
+// batch tier cuts the barriers a task costs (a round's bodies share two)
+// and, for the SW body, spreads a round's tiles over the block's 8 warps.
+// The tile bodies are bound by that one SM's f32 rate (tiles.cuh), the SW
+// tile DP by its integer and shuffle issue (see sw_tile_dp). Lifting the
 // one-block limit is the first thing a later slice does.
 //
 // Integer semantics follow jnp: int32 arithmetic wraps (done in uint32
@@ -59,10 +79,30 @@ constexpr int OVF_ROWS = 1;
 constexpr int VBLOCK = 4;
 
 // Body ids: hclib_tpu_torch/device/megakernel.py BODIES.
-enum { B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, NBODY };
-// Meta words: static body parameters, then the table maps.
-enum { P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT };
-constexpr int META_FN_OF_BODY = 8, META_BODY_OF_FN = 16;
+enum {
+  B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, B_SW_TILE,
+  B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH, NBODY
+};
+// Meta words: static body parameters, then the table maps, then one
+// 4-word row per batch lane (F_FN, width, prefetch, batched body).
+enum {
+  P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT, P_NTJ,
+  P_CHUNK
+};
+constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 32, META_BATCH = 64;
+// Tier counters (megakernel.py TS_*) and lane-state words (LS_*).
+constexpr int TS_BATCH_ROUNDS = 0, TS_BATCH_TASKS = 1, TS_SCALAR_ROUNDS = 2,
+              TS_ROUTED = 3, TS_PREFETCH = 4, TS_FULL_ROUNDS = 5,
+              TS_SPILLED = 6, TS_OFFERED = 7, TS_WORDS = 12;
+constexpr int LS_HEAD = 0, LS_TAIL = 1, LS_PF_BASE = 2, LS_PF_N = 3,
+              LS_PF_BUF = 4, LS_WORDS = 8;
+constexpr int MAX_WIDTH = 8;      // slot rows of a batch round
+constexpr int MAX_SW_SLOTS = 16;  // tile slots of an sw_wave_batch round
+constexpr int MAX_DATA = 8;
+// Smith-Waterman scoring (hclib_tpu/models/smithwaterman.py).
+constexpr int SW_T = 128, MATCH = 2, MISMATCH = -1, GAP = 1;
+constexpr int NEG = -(1 << 30);
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -103,12 +143,15 @@ struct Args {
   const int32_t* ivalues_in;
   int32_t* freestk;  // [0] = count, [1..cap] = rows
   const int32_t* meta;
-  int32_t* dispatch;  // per-body dispatch counts
-  float* tiles;
-  uint16_t* linvsp;
-  uint16_t* lsp;
-  float* work;  // ts*ts f32 scratch of the tile bodies
-  int nfn, cap, num_values, fuel, reps, stage_all_values;
+  int32_t* dispatch;  // per-body dispatch counts (a batch counts one)
+  // Data buffers in data_specs order: tiles, linvsp, lsp (Cholesky) or
+  // aseq, bseq, bot, right[, htiles] (Smith-Waterman).
+  void* data[MAX_DATA];
+  float* work;      // ts*ts f32 scratch of the tile bodies
+  int32_t* lanes;   // (nbatch, cap) per-kind ready lanes
+  int32_t* lstate;  // (nbatch, LS_WORDS)
+  int32_t* tstats;  // (TS_WORDS,) tier counters, or null
+  int nfn, nbatch, cap, num_values, fuel, reps, stage_all_values;
 };
 
 // The scheduler closures of _make_core over one state (thread 0 only).
@@ -213,6 +256,10 @@ struct Sched {
     const int nval = a.stage_all_values ? a.num_values : a.counts_in[C_VALLOC];
     if (a.ivalues_in != iv)
       for (int i = 0; i < nval; ++i) iv[i] = a.ivalues_in[i];
+    // Lanes are per-entry scratch; tstats describe the last rep.
+    for (int i = 0; i < a.nbatch * LS_WORDS; ++i) a.lstate[i] = 0;
+    if (a.nbatch)
+      for (int i = 0; i < TS_WORDS; ++i) a.tstats[i] = 0;
   }
 };
 
@@ -265,16 +312,406 @@ __device__ void uts_body(Sched& S, const int32_t* meta, int idx) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Smith-Waterman tile DP.
+//
+// One warp computes one 128 x 128 tile; lane l holds columns 4l..4l+3 of
+// the current row in registers. Each row is the JAX recurrence
+// (smithwaterman.py:115-135): cand = max(diag + sub, up - GAP), the row's
+// left boundary entering as an extra candidate at column 0, then
+// H = max(0, cummax(cand + j) - j), solved as an in-thread running max
+// over the lane's 4 columns plus a __shfl_up_sync max-scan over the 32
+// lanes (JAX's _cummax_lanes: 7 roll+max steps over 128 lanes). All of it
+// is int32 and exact. Bound: operations - each cell is a handful of
+// integer ops, and each row of 4 cells a lane costs 7 shuffles; the SASS
+// of sw_row_ops below is what chip_smoke.py reads for the bound.
+
+struct SwData {
+  const int32_t* aseq;  // (nt_i, 1, T)
+  const int32_t* bseq;  // (nt_j, 1, T)
+  int32_t* bot;         // (nt_i, nt_j, 1, T)
+  int32_t* right;       // (nt_i, nt_j, 1, T)
+  int32_t* htiles;      // (nt_i, nt_j, T, T) or null
+  int ntj;
+
+  __device__ size_t tile(int ti, int tj) const {
+    return (static_cast<size_t>(ti) * ntj + tj) * SW_T;
+  }
+};
+
+// One row of the DP for this lane's 4 columns, in place on hp (the row
+// above on entry). ai: this row's a character; lft: H[i][-1] (this row's
+// left boundary); prev_left: H[i-1][-1] (the corner on row 0).
+__device__ __forceinline__ void sw_row(int (&hp)[4], const int (&bc)[4],
+                                       int ai, int lft, int prev_left) {
+  const int lane = threadIdx.x & 31, j0 = 4 * lane;
+  const int up3 = __shfl_up_sync(FULL, hp[3], 1);
+  int x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int diag = c ? hp[c - 1] : (lane ? up3 : prev_left);
+    int cand = max(diag + (bc[c] == ai ? MATCH : MISMATCH), hp[c] - GAP);
+    if (c == 0 && lane == 0) cand = max(cand, lft - GAP);
+    x[c] = cand + j0 + c;
+  }
+  x[1] = max(x[1], x[0]);
+  x[2] = max(x[2], x[1]);
+  x[3] = max(x[3], x[2]);
+  int run = x[3];
+#pragma unroll
+  for (int sh = 1; sh < 32; sh <<= 1) {
+    const int o = __shfl_up_sync(FULL, run, sh);
+    if (lane >= sh) run = max(run, o);
+  }
+  int excl = __shfl_up_sync(FULL, run, 1);
+  if (lane == 0) excl = NEG;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) hp[c] = max(max(x[c], excl) - (j0 + c), 0);
+}
+
+// The tile (one warp): a, b its characters, top the row above (null:
+// zeros), left the column to its left (null: zeros), corner H of the
+// diagonal neighbour's last cell. Writes the last row to bot_out, the last
+// column to right_out and, if h_out, every row; returns the tile's max.
+__device__ int sw_tile_dp(const int32_t* a, const int32_t* b,
+                          const int32_t* top, const int32_t* left, int corner,
+                          int32_t* bot_out, int32_t* right_out,
+                          int32_t* h_out) {
+  const int lane = threadIdx.x & 31, j0 = 4 * lane;
+  int bc[4], hp[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    bc[c] = b[j0 + c];
+    hp[c] = top ? top[j0 + c] : 0;
+  }
+  int m = 0, prev_left = corner;
+  for (int i = 0; i < SW_T; ++i) {
+    const int lft = left ? left[i] : 0;
+    sw_row(hp, bc, a[i], lft, prev_left);
+    prev_left = lft;
+    m = max(m, max(max(hp[0], hp[1]), max(hp[2], hp[3])));
+    if (h_out)
+      *reinterpret_cast<int4*>(h_out + i * SW_T + j0) =
+          make_int4(hp[0], hp[1], hp[2], hp[3]);
+    if (lane == 31) right_out[i] = hp[3];
+  }
+  *reinterpret_cast<int4*>(bot_out + j0) =
+      make_int4(hp[0], hp[1], hp[2], hp[3]);
+#pragma unroll
+  for (int o = 16; o; o >>= 1) m = max(m, __shfl_xor_sync(FULL, m, o));
+  return m;
+}
+
+// sw_tile (scalar body): tile (ti, tj) on warp 0, operands straight from
+// global memory. Returns the tile max on lane 0 of warp 0.
+__device__ int sw_tile_body(const SwData& d, int ti, int tj) {
+  const int32_t* top = ti > 0 ? d.bot + d.tile(ti - 1, tj) : nullptr;
+  const int32_t* left = tj > 0 ? d.right + d.tile(ti, tj - 1) : nullptr;
+  const int corner =
+      ti > 0 && tj > 0 ? d.right[d.tile(ti - 1, tj - 1) + SW_T - 1] : 0;
+  return sw_tile_dp(d.aseq + static_cast<size_t>(ti) * SW_T,
+                    d.bseq + static_cast<size_t>(tj) * SW_T, top, left,
+                    corner, d.bot + d.tile(ti, tj), d.right + d.tile(ti, tj),
+                    d.htiles ? d.htiles + d.tile(ti, tj) * SW_T : nullptr);
+}
+
+// cp.async: 16 bytes global -> shared, L2 only (.cg), in commit groups.
+__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_but_newest() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One operand half of sw_wave_batch in dynamic shared memory: per tile
+// slot its a, b, top and left rows and the 16-byte chunk of the diagonal
+// neighbour's right column that holds its corner (lane 3 of 4).
+struct SwHalf {
+  int32_t *a, *b, *top, *left, *corn;
+};
+
+__device__ SwHalf sw_half(int32_t* smem, int slots, int h) {
+  int32_t* p = smem + static_cast<size_t>(h) * slots * (4 * SW_T + 4);
+  return {p, p + slots * SW_T, p + 2 * slots * SW_T, p + 3 * slots * SW_T,
+          p + 4 * slots * SW_T};
+}
+
+// _chunk_dma's starts: put descriptor b's operand rows (tiles (lo+s,
+// w-lo-s), s < cnt) in flight into its slots b*chunk+s of half H, 16 bytes
+// a copy spread over the block; rows with no neighbour are zeroed.
+__device__ void sw_load_desc(const SwData& d, SwHalf H, int b, int chunk,
+                             int w, int lo, int cnt) {
+  constexpr int PARTS = 4 * (SW_T / 4) + 1;  // 4 rows of 32 chunks + corner
+  cnt = min(cnt, chunk);
+  for (int j = threadIdx.x; j < cnt * PARTS; j += blockDim.x) {
+    const int s = j / PARTS, r = j % PARTS;
+    const int slot = b * chunk + s, ti = lo + s, tj = w - ti;
+    int32_t* dst;
+    const int32_t* src = nullptr;
+    if (r == PARTS - 1) {
+      dst = H.corn + slot * 4;
+      if (ti > 0 && tj > 0) src = d.right + d.tile(ti - 1, tj - 1) + SW_T - 4;
+    } else {
+      const int c = (r % (SW_T / 4)) * 4, off = slot * SW_T + c;
+      switch (r / (SW_T / 4)) {
+        case 0:
+          dst = H.a + off;
+          src = d.aseq + static_cast<size_t>(ti) * SW_T + c;
+          break;
+        case 1:
+          dst = H.b + off;
+          src = d.bseq + static_cast<size_t>(tj) * SW_T + c;
+          break;
+        case 2:
+          dst = H.top + off;
+          if (ti > 0) src = d.bot + d.tile(ti - 1, tj) + c;
+          break;
+        default:
+          dst = H.left + off;
+          if (tj > 0) src = d.right + d.tile(ti, tj - 1) + c;
+          break;
+      }
+    }
+    if (src)
+      cp16(dst, src);
+    else
+      *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+  }
+}
+
+// What thread 0 publishes for one round.
+enum { ACT_EXIT, ACT_SCALAR, ACT_BATCH };
+struct Round {
+  int act, body, idx;                         // scalar: row and body
+  int li, width, take, base, pre, buf, nxt;  // batch: lane and handshake
+  int rows[MAX_WIDTH];                        // slot rows (clamped)
+  int next_rows[MAX_WIDTH];                   // the next batch's first rows
+  int ntiles;                                 // sw_wave_batch: live tiles
+  int tile_slot[MAX_SW_SLOTS], tile_ti[MAX_SW_SLOTS], tile_tj[MAX_SW_SLOTS];
+};
+
+// sw_wave_batch: JAX's phases 1-5 on the card. Phase 1 starts the copies
+// of live descriptors the last round's prefetch did not cover; phase 2 puts
+// the next batch's copies in flight into the other half (announced by the
+// tier as nxt); phase 3 retires all but that newest group; phase 4 sweeps
+// the live tiles, one a warp (dead slots, which JAX zeroes and sweeps as
+// part of its planes, are skipped); phase 5's stores go straight from the
+// warps to global memory, and the tile maxes to s_tmax for thread 0.
+__device__ void sw_wave_batch_body(const SwData& d, int32_t* smem,
+                                   const Round& R, Sched& S, int chunk,
+                                   int* s_tmax) {
+  const int slots = R.width * chunk;
+  const SwHalf cur = sw_half(smem, slots, R.buf);
+  const SwHalf oth = sw_half(smem, slots, 1 - R.buf);
+  for (int b = R.pre; b < R.take; ++b) {
+    const int row = R.rows[b];
+    sw_load_desc(d, cur, b, chunk, S.w(row, F_A0), S.w(row, F_A0 + 1),
+                 S.w(row, F_A0 + 2));
+  }
+  cp_commit();
+  for (int b = 0; b < R.nxt; ++b) {
+    const int row = R.next_rows[b];
+    sw_load_desc(d, oth, b, chunk, S.w(row, F_A0), S.w(row, F_A0 + 1),
+                 S.w(row, F_A0 + 2));
+  }
+  cp_commit();
+  cp_wait_but_newest();
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int t = warp; t < R.ntiles; t += nwarps) {
+    const int slot = R.tile_slot[t], ti = R.tile_ti[t], tj = R.tile_tj[t];
+    const size_t o = static_cast<size_t>(slot) * SW_T;
+    const int m = sw_tile_dp(
+        cur.a + o, cur.b + o, cur.top + o, cur.left + o, cur.corn[slot * 4 + 3],
+        d.bot + d.tile(ti, tj), d.right + d.tile(ti, tj),
+        d.htiles ? d.htiles + d.tile(ti, tj) * SW_T : nullptr);
+    if ((threadIdx.x & 31) == 0) s_tmax[t] = m;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The scheduler rounds (thread 0).
+
+// batch_round's pop side for lane li: take, base, the prefetch handshake
+// and the nxt announce, and the slot rows the body reads.
+__device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
+                              Round& R) {
+  const int32_t* bm = a.meta + META_BATCH + 4 * li;
+  const int B = bm[1], prefetch = bm[2], body = bm[3];
+  const int32_t* L = a.lstate + li * LS_WORDS;
+  const int32_t* lane = a.lanes + static_cast<size_t>(li) * a.cap;
+  const int head = L[LS_HEAD], tail = L[LS_TAIL];
+  const int avail = tail - head, take = min(avail, B);
+  const int base = prefetch ? head : tail - take;
+  R.act = ACT_BATCH;
+  R.body = body;
+  R.li = li;
+  R.width = B;
+  R.take = take;
+  R.base = base;
+  R.pre = L[LS_PF_BASE] == head + 1 ? min(L[LS_PF_N], take) : 0;
+  R.buf = L[LS_PF_BUF];
+  // Announce a prefetch only when the lane keeps entries AND fuel admits
+  // another round, so the round that consumes it runs before exit.
+  R.nxt = prefetch && avail - take > 0 &&
+                  S.counts[C_EXECUTED] - e0 + take < a.fuel
+              ? min(avail - take, B)
+              : 0;
+  for (int s = 0; s < take; ++s)
+    R.rows[s] = min(max(lane[floor_mod(base + s, a.cap)], 0), a.cap - 1);
+  for (int s = 0; s < R.nxt; ++s)
+    R.next_rows[s] =
+        min(max(lane[floor_mod(base + take + s, a.cap)], 0), a.cap - 1);
+  R.ntiles = 0;
+  if (body == B_SW_WAVE_BATCH) {
+    const int chunk = a.meta[P_CHUNK];
+    for (int b = 0; b < take; ++b) {
+      const int row = R.rows[b];
+      const int w = S.w(row, F_A0), lo = S.w(row, F_A0 + 1);
+      const int cnt = min(S.w(row, F_A0 + 2), chunk);
+      for (int s = 0; s < cnt; ++s) {
+        R.tile_slot[R.ntiles] = b * chunk + s;
+        R.tile_ti[R.ntiles] = lo + s;
+        R.tile_tj[R.ntiles] = w - lo - s;
+        ++R.ntiles;
+      }
+    }
+  }
+  if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
+}
+
+// batch_round's completion side: per-slot complete in slot order, the lane
+// cursors and the prefetch words, the tstats updates.
+__device__ void finish_batch(Sched& S, const Args& a, const Round& R,
+                             const int* s_tmax) {
+  if (R.body == B_SW_WAVE_BATCH) {
+    // Each descriptor counts as cnt tiles (ctx.add_executed(cnt - 1)),
+    // and every tile folds its max into the best score.
+    for (int b = 0; b < R.take; ++b)
+      S.counts[C_EXECUTED] += S.w(R.rows[b], F_A0 + 2) - 1;
+    for (int t = 0; t < R.ntiles; ++t) S.iv[0] = max(S.iv[0], s_tmax[t]);
+  }
+  const int32_t* lane = a.lanes + static_cast<size_t>(R.li) * a.cap;
+  for (int s = 0; s < R.take; ++s)
+    S.complete(lane[floor_mod(R.base + s, a.cap)]);
+  int32_t* L = a.lstate + R.li * LS_WORDS;
+  if (a.meta[META_BATCH + 4 * R.li + 2]) {  // prefetch: FIFO pops
+    const int head = L[LS_HEAD];
+    L[LS_HEAD] = head + R.take;
+    L[LS_PF_BASE] = R.nxt > 0 ? head + R.take + 1 : 0;
+    L[LS_PF_N] = R.nxt;
+    L[LS_PF_BUF] = 1 - R.buf;
+  } else {  // LIFO pop: the block came off the tail
+    L[LS_TAIL] = R.base;
+  }
+  int32_t* ts = a.tstats;
+  ts[TS_BATCH_ROUNDS] += 1;
+  ts[TS_BATCH_TASKS] += R.take;
+  ts[TS_OFFERED] += R.width;
+  ts[TS_PREFETCH] += R.pre;
+  ts[TS_FULL_ROUNDS] += R.take == R.width;
+}
+
+// Run scheduling rounds until one has a body to run (or the loop ends):
+// the while_loop of sched(), with routing-only rounds done inline.
+__device__ void schedule(Sched& S, const Args& a, int e0, Round& R) {
+  int32_t* c = S.counts;
+  for (;;) {
+    if (!(c[C_PENDING] > 0 && c[C_EXECUTED] - e0 < a.fuel)) break;
+    const int tail = c[C_TAIL];
+    const bool ring_work = c[C_HEAD] < tail;
+    // Ring-drain-first: a lane fires only once the ring is empty; one
+    // dispatch a round, the lowest F_FN (lane order) first.
+    if (!ring_work) {
+      for (int li = 0; li < a.nbatch; ++li) {
+        const int32_t* L = a.lstate + li * LS_WORDS;
+        if (L[LS_TAIL] - L[LS_HEAD] > 0) {
+          prepare_batch(S, a, li, e0, R);
+          return;
+        }
+      }
+      break;  // neither ring nor lane work: stuck (or done)
+    }
+    const int idx = a.ready[floor_mod(tail - 1, a.cap)];
+    c[C_TAIL] = tail - 1;
+    // Pop-time routing: a batch-routed kind goes to its lane.
+    const int fn = S.w(idx, F_FN);
+    bool routed = false;
+    for (int li = 0; li < a.nbatch && !routed; ++li) {
+      if (fn == a.meta[META_BATCH + 4 * li]) {
+        int32_t* L = a.lstate + li * LS_WORDS;
+        const int lt = L[LS_TAIL];
+        a.lanes[static_cast<size_t>(li) * a.cap + floor_mod(lt, a.cap)] = idx;
+        L[LS_TAIL] = lt + 1;
+        a.tstats[TS_ROUTED] += 1;
+        routed = true;
+      }
+    }
+    if (routed) continue;
+    // lax.switch clamps an out-of-range index; so does this.
+    const int body = a.meta[META_BODY_OF_FN + min(max(fn, 0), a.nfn - 1)];
+    if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
+    if (a.nbatch) a.tstats[TS_SCALAR_ROUNDS] += 1;
+    R.act = ACT_SCALAR;
+    R.idx = idx;
+    R.body = body;
+    return;
+  }
+  R.act = ACT_EXIT;
+}
+
+// Exit with unrun lane entries: spill them back to the ring HEAD (the
+// cold end), oldest first at head0 - 1 (any prefetch was drained before).
+__device__ void spill(Sched& S, const Args& a) {
+  for (int li = 0; li < a.nbatch; ++li) {
+    int32_t* L = a.lstate + li * LS_WORDS;
+    const int32_t* lane = a.lanes + static_cast<size_t>(li) * a.cap;
+    const int h = L[LS_HEAD], t = L[LS_TAIL];
+    const int head0 = S.counts[C_HEAD];
+    for (int s = 0; s < t - h; ++s)
+      a.ready[floor_mod(head0 - 1 - s, a.cap)] = lane[floor_mod(h + s, a.cap)];
+    S.counts[C_HEAD] = head0 - (t - h);
+    L[LS_HEAD] = t;
+    L[LS_PF_BASE] = 0;
+    a.tstats[TS_SPILLED] += t - h;
+  }
+}
+
+// kLean: a table with no batch lane and no SW body (the scalar tier with
+// the fib, UTS and Cholesky bodies). Its instance leaves the lane, spill
+// and SW code out of the loop: with that code in, the card ran fib(24)
+// 2.0% and UTS depth 20 4.3% slower a task, though no scalar round enters
+// it (same-card A/B on an H100, scripts/ab_sched.py).
+template <bool kLean>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
-  extern __shared__ float dsm[];
+  extern __shared__ __align__(16) float dsm[];
   __shared__ GemmSmem gs;
   __shared__ int32_t s_counts[8];
-  __shared__ int s_go, s_idx, s_body;
+  __shared__ Round R;
+  __shared__ int s_tmax[MAX_SW_SLOTS];
   const int tid = threadIdx.x;
   Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   const int32_t* meta = a.meta;
   const int ts = meta[P_TILE], nt = meta[P_NT];
   const size_t tt = static_cast<size_t>(ts) * ts;
+  float* tiles = static_cast<float*>(a.data[0]);
+  uint16_t* linvsp = static_cast<uint16_t*>(a.data[1]);
+  uint16_t* lsp = static_cast<uint16_t*>(a.data[2]);
+  const SwData sw{static_cast<const int32_t*>(a.data[0]),
+                  static_cast<const int32_t*>(a.data[1]),
+                  static_cast<int32_t*>(a.data[2]),
+                  static_cast<int32_t*>(a.data[3]),
+                  static_cast<int32_t*>(a.data[4]), meta[P_NTJ]};
+  int32_t* swm = reinterpret_cast<int32_t*>(dsm);
   uint32_t total = 0;
   for (int rep = 0; rep < a.reps; ++rep) {
     int e0 = 0;
@@ -284,59 +721,108 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
     }
     for (;;) {
       if (tid == 0) {
-        int go = 0;
-        if (s_counts[C_PENDING] > 0 && s_counts[C_EXECUTED] - e0 < a.fuel) {
-          const int tail = s_counts[C_TAIL];
-          if (s_counts[C_HEAD] < tail) {
-            const int idx = a.ready[floor_mod(tail - 1, a.cap)];
-            s_counts[C_TAIL] = tail - 1;
-            // lax.switch clamps an out-of-range index; so does this.
-            const int fn = min(max(S.w(idx, F_FN), 0), a.nfn - 1);
-            const int body = meta[META_BODY_OF_FN + fn];
-            if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
-            s_idx = idx;
-            s_body = body;
-            go = 1;
+        if constexpr (!kLean) {
+          schedule(S, a, e0, R);
+        } else {
+          // schedule() with no lane, written out on s_counts: about 6%
+          // faster a task than the call (same A/B).
+          R.act = ACT_EXIT;
+          if (s_counts[C_PENDING] > 0 && s_counts[C_EXECUTED] - e0 < a.fuel) {
+            const int tail = s_counts[C_TAIL];
+            if (s_counts[C_HEAD] < tail) {
+              const int idx = a.ready[floor_mod(tail - 1, a.cap)];
+              s_counts[C_TAIL] = tail - 1;
+              const int fn = min(max(S.w(idx, F_FN), 0), a.nfn - 1);
+              const int body = meta[META_BODY_OF_FN + fn];
+              if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
+              R.idx = idx;
+              R.body = body;
+              R.act = ACT_SCALAR;
+            }
           }
         }
-        s_go = go;
       }
       __syncthreads();
-      if (!s_go) break;
-      const int idx = s_idx;
-      const int a0 = S.w(idx, F_A0);  // k (potrf, trsmcol), i (updrow, trsm)
-      switch (s_body) {
-        case B_FIB:
-          if (tid == 0) fib_body(S, meta, idx);
-          break;
-        case B_SUM:
-          if (tid == 0) sum_body(S, idx);
-          break;
-        case B_UTS:
-          if (tid == 0) uts_body(S, meta, idx);
-          break;
-        case B_POTRF:
-          potrf_tile(gs, dsm,
-                     a.tiles + (static_cast<size_t>(a0) * nt + a0) * tt,
-                     a.work, a.linvsp + static_cast<size_t>(a0) * 2 * tt,
-                     a.linvsp + (static_cast<size_t>(a0) * 2 + 1) * tt, ts,
-                     meta[P_FBASE]);
-          break;
-        case B_TRSMCOL:
-          trsmcol_tile(gs, a.tiles, a.linvsp, a.lsp, a.work, a0, nt, ts);
-          break;
-        case B_UPDROW:
-          updrow_tile(gs, a.tiles, a.lsp, a0, S.w(idx, F_A0 + 1), nt, ts);
-          break;
-        case B_TRSM:
-          trsm_tile(gs, a.tiles, a.linvsp, a.lsp, a.work, a0,
-                    S.w(idx, F_A0 + 1), nt, ts);
-          break;
-        default:
-          break;
+      if (R.act == ACT_EXIT) break;
+      if (R.act == ACT_SCALAR) {
+        const int idx = R.idx;
+        const int a0 = S.w(idx, F_A0);  // k (potrf, trsmcol), i (updrow,..)
+        switch (R.body) {
+          case B_FIB:
+            if (tid == 0) fib_body(S, meta, idx);
+            break;
+          case B_SUM:
+            if (tid == 0) sum_body(S, idx);
+            break;
+          case B_UTS:
+            if (tid == 0) uts_body(S, meta, idx);
+            break;
+          case B_POTRF:
+            potrf_tile(gs, dsm,
+                       tiles + (static_cast<size_t>(a0) * nt + a0) * tt,
+                       a.work, linvsp + static_cast<size_t>(a0) * 2 * tt,
+                       linvsp + (static_cast<size_t>(a0) * 2 + 1) * tt, ts,
+                       meta[P_FBASE]);
+            break;
+          case B_TRSMCOL:
+            trsmcol_tile(gs, tiles, linvsp, lsp, a.work, a0, nt, ts);
+            break;
+          case B_UPDROW:
+            updrow_tile(gs, tiles, lsp, a0, S.w(idx, F_A0 + 1), nt, ts);
+            break;
+          case B_TRSM:
+            trsm_tile(gs, tiles, linvsp, lsp, a.work, a0, S.w(idx, F_A0 + 1),
+                      nt, ts);
+            break;
+          case B_SW_TILE:
+            if constexpr (!kLean) {
+              if (tid < 32) {
+                const int m = sw_tile_body(sw, a0, S.w(idx, F_A0 + 1));
+                if (tid == 0) S.iv[0] = max(S.iv[0], m);
+              }
+            }
+            break;
+          default:  // B_SW_WAVE: JAX's _batch_stub, never dispatched
+            break;
+        }
+        __syncthreads();
+        if (tid == 0) S.complete(idx);
+      } else if constexpr (!kLean) {
+        switch (R.body) {
+          case B_FIB_BATCH:  // batch_of: the scalar body slot by slot
+            if (tid == 0)
+              for (int s = 0; s < R.take; ++s) fib_body(S, meta, R.rows[s]);
+            break;
+          case B_UTS_BATCH:
+            if (tid == 0)
+              for (int s = 0; s < R.take; ++s) uts_body(S, meta, R.rows[s]);
+            break;
+          case B_UPDROW_BATCH:
+            // JAX double-buffers each slot's L_ik split (1 MB at tile 512)
+            // in VMEM while the previous slot streams; no shared memory
+            // holds that, so each slot reads it from L2 as the scalar
+            // UPDROW does. Slots write disjoint rows: bit-identical to
+            // scalar dispatch.
+            for (int s = 0; s < R.take; ++s)
+              updrow_tile(gs, tiles, lsp, S.w(R.rows[s], F_A0),
+                          S.w(R.rows[s], F_A0 + 1), nt, ts);
+            break;
+          case B_SW_WAVE_BATCH:
+            sw_wave_batch_body(sw, swm, R, S, meta[P_CHUNK], s_tmax);
+            break;
+          default:
+            break;
+        }
+        __syncthreads();
+        if (tid == 0) finish_batch(S, a, R, s_tmax);
       }
+    }
+    if constexpr (!kLean) {
+      // _sw_wave_drain: no prefetch copy outlives the round loop (a no-op
+      // for tables without a prefetch lane).
+      cp_wait_all();
       __syncthreads();
-      if (tid == 0) S.complete(idx);
+      if (tid == 0) spill(S, a);
     }
     if (tid == 0) {
       for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
@@ -380,6 +866,18 @@ __global__ void __launch_bounds__(BT)
   updrow_tile(gs, tiles, lsp, i, k, nt, ts);
 }
 
+struct UpdRows {
+  int v[2 * MAX_WIDTH];  // (i, k) of each slot
+};
+
+__global__ void __launch_bounds__(BT)
+    updrow_batch_entry(float* tiles, const uint16_t* lsp, UpdRows rows, int n,
+                       int nt, int ts) {
+  __shared__ GemmSmem gs;
+  for (int s = 0; s < n; ++s)
+    updrow_tile(gs, tiles, lsp, rows.v[2 * s], rows.v[2 * s + 1], nt, ts);
+}
+
 }  // namespace
 
 extern "C" {
@@ -394,19 +892,42 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     const int32_t* ready_in, int32_t* counts,
                     const int32_t* counts_in, int32_t* ivalues,
                     const int32_t* ivalues_in, int32_t* freestk,
-                    const int32_t* meta, int32_t* dispatch, float* tiles,
-                    uint16_t* linvsp, uint16_t* lsp, float* work, int nfn,
+                    const int32_t* meta, int32_t* dispatch,
+                    void* const* data, float* work, int32_t* lanes,
+                    int32_t* lstate, int32_t* tstats, int nfn, int nbatch,
                     int cap, int num_values, int fuel, int reps,
-                    int stage_all_values, int threads, int smem,
+                    int stage_all_values, int lean, int threads, int smem,
                     void* stream) {
+  void (*kernel)(Args) = lean ? mk_kernel<true> : mk_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      mk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  Args a{tasks,   tasks_in, succ,  ready,  ready_in, counts,
-         counts_in, ivalues, ivalues_in, freestk, meta, dispatch,
-         tiles,   linvsp,   lsp,   work,   nfn,      cap,
-         num_values, fuel,  reps,  stage_all_values};
-  mk_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  Args a{};
+  a.tasks = tasks;
+  a.tasks_in = tasks_in;
+  a.succ = succ;
+  a.ready = ready;
+  a.ready_in = ready_in;
+  a.counts = counts;
+  a.counts_in = counts_in;
+  a.ivalues = ivalues;
+  a.ivalues_in = ivalues_in;
+  a.freestk = freestk;
+  a.meta = meta;
+  a.dispatch = dispatch;
+  for (int i = 0; i < MAX_DATA; ++i) a.data[i] = data[i];
+  a.work = work;
+  a.lanes = lanes;
+  a.lstate = lstate;
+  a.tstats = tstats;
+  a.nfn = nfn;
+  a.nbatch = nbatch;
+  a.cap = cap;
+  a.num_values = num_values;
+  a.fuel = fuel;
+  a.reps = reps;
+  a.stage_all_values = stage_all_values;
+  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return cudaGetLastError();
 }
 
@@ -440,6 +961,41 @@ int hclib_updrow_launch(float* tiles, const uint16_t* lsp, int i, int k,
   updrow_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, lsp, i, k, nt, ts);
   return cudaGetLastError();
+}
+
+// rows: n (i, k) pairs, n <= MAX_WIDTH.
+int hclib_updrow_batch_launch(float* tiles, const uint16_t* lsp,
+                              const int* rows, int n, int nt, int ts,
+                              void* stream) {
+  if (n < 1 || n > MAX_WIDTH) return cudaErrorInvalidValue;
+  UpdRows r{};
+  for (int i = 0; i < 2 * n; ++i) r.v[i] = rows[i];
+  updrow_batch_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, lsp, r, n, nt, ts);
+  return cudaGetLastError();
+}
+
+// Never launched: read from the built library's SASS by chip_smoke.py for
+// the SW bound. Both load and store the same words; the first computes
+// one DP row of a lane's 4 cells (sw_row, as sw_tile_dp does), the second
+// a few XORs, so the difference of their instruction counts is one row of
+// 4 cells as this compiler issues it.
+__global__ void sw_row_ops(const int4* __restrict__ in,
+                           int4* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int4 h = in[3 * t], b = in[3 * t + 1], s = in[3 * t + 2];
+  int hp[4] = {h.x, h.y, h.z, h.w};
+  const int bc[4] = {b.x, b.y, b.z, b.w};
+  sw_row(hp, bc, s.x, s.y, s.z);
+  out[t] = make_int4(hp[0], hp[1], hp[2], hp[3]);
+}
+
+__global__ void sw_row_copy_ops(const int4* __restrict__ in,
+                                int4* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int4 h = in[3 * t], b = in[3 * t + 1], s = in[3 * t + 2];
+  out[t] = make_int4(h.x ^ b.x ^ s.x, h.y ^ b.y ^ s.y, h.z ^ b.z ^ s.z,
+                     h.w ^ b.w);
 }
 
 }  // extern "C"

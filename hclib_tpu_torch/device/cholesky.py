@@ -7,23 +7,25 @@
   into lsp[i,k] (the unfused graph, ``fused_trsm=False``).
 - TRSMCOL(k): the column stream of TRSM(i,k) for i > k (the fused graph).
 - UPDROW(i,k): A_ij -= L_ik L_jk^T for j in (k, i], operands from lsp.
+- UPDROW batched (``batch_updrow=True``, the default, as in JAX): the
+  batch tier pops up to ``UPD_B`` ready row tasks a round into one call
+  of ``updrow_batch``, which runs UPDROW on each live slot in slot order.
+  Rows of one step write disjoint tiles, so the factor is bit-identical
+  to the scalar-dispatch run (``batch_updrow=False``).
 
-Both graphs run, with scalar dispatch of UPDROW (``batch_updrow=False``).
-JAX's default routes UPDROW through the batch tier, which is not ported
-yet, so here ``batch_updrow`` defaults to False and True raises.
-
-``potrf`` / ``trsm`` / ``trsmcol`` / ``updrow`` launch the standalone CUDA
-entry of a body on CUDA tensors (counted in ``_build.LAUNCHES``) and run
-the plain version on CPU tensors; the ``*_plain`` functions are those
-plain versions (device-agnostic torch). Inside the megakernel the same
-device functions run fused (``csrc/megakernel.cu``).
+``potrf`` / ``trsm`` / ``trsmcol`` / ``updrow`` / ``updrow_batch`` launch
+the standalone CUDA entry of a body on CUDA tensors (counted in
+``_build.LAUNCHES``) and run the plain version on CPU tensors; the
+``*_plain`` functions are those plain versions (device-agnostic torch).
+Inside the megakernel the same device functions run fused
+(``csrc/megakernel.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +33,15 @@ import torch
 from .. import _build
 from ..ops.tiles import factor_and_inv, mm_nt, mm_nt_rsplit, split_bf16, unsplit
 from .descriptor import TaskGraphBuilder
-from .megakernel import KernelContext, Megakernel, potrf_smem_bytes
+from .megakernel import (BatchContext, BatchSpec, KernelContext, Megakernel,
+                         potrf_smem_bytes)
 from .state import resolve_device
 
 __all__ = [
     "device_cholesky", "build_cholesky_graph", "make_cholesky_megakernel",
     "cholesky_buffers", "potrf", "trsm", "trsmcol", "updrow", "potrf_plain",
-    "trsm_plain", "trsmcol_plain", "updrow_plain",
+    "trsm_plain", "trsmcol_plain", "updrow_plain", "updrow_batch",
+    "updrow_batch_plain", "UPD_B",
 ]
 
 T = 128  # default tile edge
@@ -49,8 +53,7 @@ TRSMCOL = 3
 
 MAX_FACTOR_BASE = 128  # diagonal block + inverse in shared memory
 
-_LATER_BATCH = ("batch_updrow=True routes UPDROW through the batch tier, "
-                "not ported yet (ROADMAP: batch tier, row 1g)")
+UPD_B = 4  # row tasks per batched trailing-update round
 
 
 # ------------------------------------------------------------ plain bodies
@@ -87,6 +90,13 @@ def updrow_plain(tiles: torch.Tensor, lsp: torch.Tensor, i: int,
     tiles[i, k + 1:i + 1] -= mm_nt(lik, ljk)
 
 
+def updrow_batch_plain(tiles: torch.Tensor, lsp: torch.Tensor,
+                       rows: Sequence[Tuple[int, int]]) -> None:
+    """UPDROW of each (i, k) in ``rows``, in order."""
+    for i, k in rows:
+        updrow_plain(tiles, lsp, i, k)
+
+
 def potrf_body(ctx: KernelContext) -> None:
     d = ctx.data
     potrf_plain(d["tiles"], d["linvsp"], ctx.arg(0),
@@ -105,6 +115,12 @@ def trsmcol_body(ctx: KernelContext) -> None:
 
 def updrow_body(ctx: KernelContext) -> None:
     updrow_plain(ctx.data["tiles"], ctx.data["lsp"], ctx.arg(0), ctx.arg(1))
+
+
+def updrow_batch_body(ctx: BatchContext) -> None:
+    updrow_batch_plain(ctx.data["tiles"], ctx.data["lsp"],
+                       [(ctx.arg(s, 0), ctx.arg(s, 1))
+                        for s in range(ctx.count)])
 
 
 # ------------------------------------------------- standalone body wrappers
@@ -219,6 +235,31 @@ def updrow(tiles: torch.Tensor, lsp: torch.Tensor, i: int, k: int) -> None:
     _build.LAUNCHES["updrow"] += 1
 
 
+def updrow_batch(tiles: torch.Tensor, lsp: torch.Tensor,
+                 rows: Sequence[Tuple[int, int]]) -> None:
+    """The batched UPDROW body on ``rows`` ((i, k) pairs, at most
+    ``UPD_B``), in place."""
+    nt, ts = _check_buffers(tiles, lsp=lsp)
+    rows = [(int(i), int(k)) for i, k in rows]
+    if not 1 <= len(rows) <= UPD_B or not all(
+            0 <= k < i < nt for i, k in rows):
+        raise ValueError(f"rows must be 1..{UPD_B} (i, k) with k < i < nt")
+    if tiles.device.type == "cpu":
+        updrow_batch_plain(tiles, lsp, rows)
+        return
+    flat = (ctypes.c_int * (2 * UPD_B))(*[x for r in rows for x in r])
+    lib = _lib()
+    fn = lib.hclib_updrow_batch_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    err = fn(tiles.data_ptr(), lsp.data_ptr(),
+             ctypes.cast(flat, ctypes.c_void_p), len(rows), nt, ts,
+             _stream(tiles))
+    _build.check(lib, err, "updrow_batch")
+    _build.LAUNCHES["updrow_batch"] += 1
+
+
 # --------------------------------------------------------------- the graph
 
 
@@ -267,12 +308,13 @@ def make_cholesky_megakernel(
     tile: int = T,
     factor_base: Optional[int] = None,
     fused_only: bool = False,
-    batch_updrow: bool = False,
+    batch_updrow: bool = True,
     device="cuda",
     **later,
 ) -> Megakernel:
-    if batch_updrow:
-        raise NotImplementedError(_LATER_BATCH)
+    """``batch_updrow`` routes the row tasks through the batch tier
+    (``UPD_B`` a round); ``False`` restores scalar dispatch. The two
+    factors are bit-identical."""
     if factor_base is None:
         factor_base = min(tile, 128)
     _check_base(tile, factor_base)
@@ -295,6 +337,7 @@ def make_cholesky_megakernel(
             4 * ntasks + (nt * nt if fused_only else nt * nt * nt // 2),
         ),
         params={"tile": tile, "factor_base": factor_base, "nt": nt},
+        route={"updrow": BatchSpec(UPD_B)} if batch_updrow else None,
         device=device,
         **later,
     )
@@ -330,19 +373,19 @@ def device_cholesky(
     mk: Optional[Megakernel] = None,
     tile: int = T,
     fused_trsm: bool = True,
-    batch_updrow: bool = False,
+    batch_updrow: bool = True,
     device="cuda",
 ) -> Tuple[torch.Tensor, dict]:
     """Factor SPD ``a`` ((nt*tile)^2) in the megakernel; returns (L as a
     tensor on the run's device, info)."""
-    if batch_updrow:
-        raise NotImplementedError(_LATER_BATCH)
     n = a.shape[0]
     if n % tile != 0:
         raise ValueError(f"matrix size must be a multiple of {tile}")
     nt = n // tile
     if mk is None:
-        mk = make_cholesky_megakernel(nt, tile=tile, device=device)
+        mk = make_cholesky_megakernel(nt, tile=tile,
+                                      batch_updrow=batch_updrow,
+                                      device=device)
     b = build_cholesky_graph(nt, fused_trsm=fused_trsm)
     bufs = cholesky_buffers(a, nt, tile, device=mk.device)
     t0 = time.perf_counter()

@@ -1,14 +1,15 @@
 """The persistent scheduler megakernel on an H100: a resident scheduler
 loop in one CUDA kernel launch.
 
-Port of the scalar tier of ``hclib_tpu/device/megakernel.py``. The TPU
-runs the scheduler as one ``pallas_call`` whose scalar core pops task
-descriptors off an SMEM ready ring and ``lax.switch``-es on ``F_FN`` over
-a table of Pallas bodies. Here it is one CUDA kernel (``csrc/
-megakernel.cu``) launched as ONE block: thread 0 runs the serial
-scheduler (pop, dispatch, complete) exactly as the TPU's scalar core does,
-so the pop order - and with it ``executed``, ``allocated`` and the whole
-final task table - equals the JAX package's word for word; the tile bodies
+Port of the scalar tier and the batched same-kind dispatch tier of
+``hclib_tpu/device/megakernel.py``. The TPU runs the scheduler as one
+``pallas_call`` whose scalar core pops task descriptors off an SMEM ready
+ring and ``lax.switch``-es on ``F_FN`` over a table of Pallas bodies.
+Here it is one CUDA kernel (``csrc/megakernel.cu``) launched as ONE
+block: thread 0 runs the serial scheduler (pop, route, fire, dispatch,
+complete) exactly as the TPU's scalar core does, so the pop order - and
+with it ``executed``, ``allocated``, the whole final task table and the
+tier counters - equals the JAX package's word for word; the tile bodies
 use the whole block between two barriers.
 
 What differs from the JAX class:
@@ -18,18 +19,22 @@ What differs from the JAX class:
   the ``.cu`` (``BODIES``); a task's ``F_FN`` still indexes the instance's
   own list, so graphs and task tables are the JAX package's. Each body's
   static parameters (UTS seed/q_millis/m_children/max_depth, Cholesky
-  tile/factor_base/nt) go in as kernel arguments (``params=``).
+  tile/factor_base/nt, Smith-Waterman nt_j/chunk) go in as kernel
+  arguments (``params=``).
+- ``route={name: BatchSpec(width, prefetch)}`` routes a kind through the
+  batch tier to the batched body compiled for that name
+  (``BATCH_BODIES``), not to a Python body.
 - Scheduler state lives in device memory and is updated IN PLACE (the
-  task table, ready ring, counts and value tensors passed in are the
-  outputs), the counterpart of JAX's ``input_output_aliases``.
+  task table, ready ring, counts, value and tier-counter tensors passed in
+  are the outputs), the counterpart of JAX's ``input_output_aliases``.
 - On a CPU tensor the same scheduler runs as plain Python
-  (``_PlainCore``) over the same seven bodies; that is what the CPU tests
-  and the card-side comparisons hold the kernel against.
+  (``_PlainCore``) over the plain bodies; that is what the CPU tests and
+  the card-side comparisons hold the kernel against.
 
-Left out of this slice (each raises ``NotImplementedError`` naming its
-ROADMAP entry): the batch tier, the vector tier, trace, checkpoint /
-quiesce / ``resume``, priority buckets, lane ages, ``install_descriptor``
-/ ``headroom``, the hclint ``verify`` hook and the program cache.
+Left out (each raises ``NotImplementedError`` naming its ROADMAP entry):
+the vector tier, trace, checkpoint / quiesce / ``resume``, priority
+buckets, lane ages, ``install_descriptor`` / ``headroom``, the hclint
+``verify`` hook and the program cache.
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ from .descriptor import (
 from .state import resolve_device, tensor_of
 
 __all__ = [
-    "KernelContext", "Megakernel", "VBLOCK", "BODIES", "decode_overflow",
-    "fault_mix",
+    "KernelContext", "BatchContext", "BatchSpec", "Megakernel", "VBLOCK",
+    "BODIES", "BATCH_BODIES", "decode_overflow", "fault_mix",
 ]
 
 
@@ -122,34 +127,110 @@ C_OVERFLOW = 6
 C_ROUNDS = 7
 C_VBASE = 7
 
+# Batch-tier statistics (the tstats row a batch-routed megakernel writes,
+# JAX's layout; decoded as info['tiers']). Reset at every stage, so with
+# reps > 1 they describe the last rep.
+TS_BATCH_ROUNDS = 0   # batch rounds fired
+TS_BATCH_TASKS = 1    # descriptors dispatched through batch bodies
+TS_SCALAR_ROUNDS = 2  # descriptors dispatched through the switch
+TS_ROUTED = 3         # ring pops diverted into a per-kind lane
+TS_PREFETCH = 4       # descriptors whose operands came from a prefetch
+TS_FULL_ROUNDS = 5    # batch rounds at full width
+TS_SPILLED = 6        # lane entries spilled back to the ring at exit
+TS_OFFERED = 7        # batch slots offered (sum of widths over fired rounds)
+TS_AGE_FIRES = 8      # lane_max_age fires (not ported: always 0)
+TS_MAX_AGE = 9        # lane_max_age gauge (not ported: always 0)
+TS_BUCKET_FIRES = 10  # priority-bucket fires (not ported: always 0)
+TS_INVERSIONS = 11    # priority-bucket inversions (not ported: always 0)
+TS_WORDS = 12
+
+# Per-lane scheduler state words (the lstate rows): the lane's cursors
+# plus the cross-round prefetch handshake.
+LS_HEAD = 0     # pop cursor (monotonic for FIFO lanes)
+LS_TAIL = 1     # push cursor
+LS_PF_BASE = 2  # head-at-issue + 1 of the outstanding prefetch (0 = none)
+LS_PF_N = 3     # descriptors the outstanding prefetch covers
+LS_PF_BUF = 4   # operand-buffer half the prefetch was written into
+LS_AGE = 5      # lane_max_age clock (not ported)
+LS_WORDS = 8
+
 # The kernel table compiled into csrc/megakernel.cu; the index is the
-# body id of its ``switch``.
-BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm")
-TILE_BODIES = ("potrf", "trsmcol", "updrow", "trsm")
-# Static body parameters, in the order of the kernel's meta words 0..6.
+# body id of its ``switch``. New bodies are appended, never renumbered.
+BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm",
+          "sw_tile", "sw_wave", "fib_batch", "uts_node_batch",
+          "updrow_batch", "sw_wave_batch")
+# Kernel name -> the batched body a BatchSpec routes it to.
+BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
+                "updrow": "updrow_batch", "sw_wave": "sw_wave_batch"}
+# Batched bodies with a drain (the only ones that may take prefetch=True).
+DRAIN_BODIES = ("sw_wave_batch",)
+# Kinds with no scalar body (JAX's _batch_stub): they run only routed.
+ROUTED_ONLY = ("sw_wave",)
+# Bodies whose dispatches are kernel launches (folded into _build.LAUNCHES).
+COUNTED = ("potrf", "trsmcol", "updrow", "trsm", "sw_tile", "fib_batch",
+           "uts_node_batch", "updrow_batch", "sw_wave_batch")
+# Data families: the bodies that read them and their buffers, in the
+# order the kernel's data pointers take (then optional ones).
+DATA_FAMILIES = {
+    "cholesky": (("potrf", "trsmcol", "updrow", "trsm", "updrow_batch"),
+                 ("tiles", "linvsp", "lsp"), ()),
+    "sw": (("sw_tile", "sw_wave", "sw_wave_batch"),
+           ("aseq", "bseq", "bot", "right"), ("htiles",)),
+}
+MAX_DATA = 8
+# Static body parameters, in the order of the kernel's meta words.
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
-          "factor_base", "nt")
-META_FN_OF_BODY = 8   # meta[8 + body] = this table's F_FN of body, or -1
-META_BODY_OF_FN = 16  # meta[16 + fn] = body id of F_FN fn, or -1
-THREADS = 256         # block size when the table holds a tile body
+          "factor_base", "nt", "nt_j", "chunk")
+META_FN_OF_BODY = 16  # meta[16 + body] = this table's F_FN of body, or -1
+META_BODY_OF_FN = 32  # meta[32 + fn] = body id of F_FN fn
+META_BATCH = 64       # meta[64 + 4*li ..] = fid, width, prefetch, body
+MAX_FNS = META_BATCH - META_BODY_OF_FN
+NDISPATCH = 16        # per-body dispatch counters
+MAX_WIDTH = 8         # slot rows of a batch round
+SW_T = 128            # Smith-Waterman tile edge
+MAX_SW_SLOTS = 16     # tile slots of one sw_wave_batch round (width*chunk)
+THREADS = 256         # block size when the table holds a tile or SW body
 
 # JAX constructor arguments this slice leaves out -> ROADMAP entry.
 _LATER_ARGS = {
-    "route": "batch tier (BatchSpec/BatchContext, rows 1g/1h) and "
-             "vector tier (row 1i)",
     "auto_route": "vector tier (row 1i)",
     "trace": "single-device observability (tracebuf, row 1o)",
     "checkpoint": "single-device checkpoint / quiesce (row 1o)",
     "quiesce_stride": "single-device checkpoint / quiesce (row 1o)",
-    "lane_max_age": "batch tier (rows 1g/1h)",
-    "priority_buckets": "frontier and priority buckets (row 1l)",
+    "lane_max_age": "frontier, priority buckets and branch-and-bound "
+                    "(A8, its only users)",
+    "priority_buckets": "frontier, priority buckets and branch-and-bound "
+                        "(A8, row 1l)",
     "verify": "hclint recording hook for CUDA bodies",
 }
 
 
+class BatchSpec:
+    """The batched-dispatch form of one kernel-table entry (JAX's
+    ``BatchSpec`` less its Python body): a kind routed through it is never
+    dispatched through the switch. The scheduler diverts its ready
+    descriptors into a per-kind lane and, each batch round, pops up to
+    ``width`` of them into ONE call of the batched body compiled for that
+    kernel name (``BATCH_BODIES``). Non-prefetch lanes pop LIFO (the
+    newest ``take`` as one block), ``prefetch=True`` lanes FIFO with the
+    cross-round double-buffer protocol; only a body with a drain
+    (``DRAIN_BODIES``) may take it."""
+
+    def __init__(self, width: int = 8, prefetch: bool = False) -> None:
+        if width < 1:
+            raise ValueError(f"batch width must be >= 1, got {width}")
+        if width > MAX_WIDTH:
+            raise ValueError(
+                f"batch width {width} exceeds the {MAX_WIDTH} slot rows a "
+                "batch round publishes (csrc/megakernel.cu)"
+            )
+        self.width = int(width)
+        self.prefetch = bool(prefetch)
+
+
 class KernelContext:
     """What a plain body sees of the scheduler (the JAX ``KernelContext``
-    operations this slice's bodies use). The CUDA bodies do the same
+    operations the ported bodies use). The CUDA bodies do the same
     through the device functions of ``csrc/megakernel.cu``."""
 
     __slots__ = ("idx", "_c")
@@ -246,10 +327,78 @@ class KernelContext:
         return a
 
 
+class BatchContext:
+    """What a plain batched body sees of one batch round (JAX's
+    ``BatchContext``): slots ``[0, count)`` are live, slot ``s``'s row is
+    ``idx(s)``; ``prefetched`` slots had their operands loaded last round
+    into half ``buf``; the body loads the next batch's first
+    ``prefetch_count`` descriptors (``next_idx``) into the other half."""
+
+    __slots__ = ("_c", "_li", "_head", "count", "width", "prefetched",
+                 "buf", "prefetch_count")
+
+    def __init__(self, core: "_PlainCore", li: int, head: int, count: int,
+                 width: int, prefetched: int, buf: int,
+                 prefetch_count: int) -> None:
+        self._c = core
+        self._li = li
+        self._head = head
+        self.count = count
+        self.width = width
+        self.prefetched = prefetched
+        self.buf = buf
+        self.prefetch_count = prefetch_count
+
+    def _row(self, pos: int) -> int:
+        row = self._c.lanes[self._li][max(pos, 0) % self._c.capacity]
+        return min(max(row, 0), self._c.capacity - 1)
+
+    def idx(self, s: int) -> int:
+        return self._row(self._head + min(s, self.count - 1))
+
+    def live(self, s: int) -> bool:
+        return s < self.count
+
+    def arg(self, s: int, i: int) -> int:
+        return self._c.tasks[self.idx(s) * DESC_WORDS + F_A0 + i]
+
+    def slot_ctx(self, s: int) -> KernelContext:
+        return KernelContext(self._c, self.idx(s))
+
+    def next_idx(self, s: int) -> int:
+        return self._row(self._head + self.count
+                         + min(s, self.prefetch_count - 1))
+
+    def next_arg(self, s: int, i: int) -> int:
+        return self._c.tasks[self.next_idx(s) * DESC_WORDS + F_A0 + i]
+
+    @property
+    def data(self):
+        return self._c.data
+
+    @property
+    def params(self):
+        return self._c.params
+
+    @property
+    def scratch(self) -> dict:
+        return self._c.scratch
+
+    def value(self, slot: int) -> int:
+        return self._c.ivalues[slot]
+
+    def set_value(self, slot: int, v: int) -> None:
+        self._c.ivalues[slot] = _i32(v)
+
+    def add_executed(self, n: int) -> None:
+        c = self._c.counts
+        c[C_EXECUTED] = _i32(c[C_EXECUTED] + n)
+
+
 class _PlainCore:
     """The plain version of the CUDA scheduler: the same stage / sched /
     complete over Python lists made from the state tensors (written back
-    at exit)."""
+    at exit), the batch tier included."""
 
     def __init__(self, mk: "Megakernel", st: Dict[str, object]) -> None:
         self.capacity = mk.capacity
@@ -258,6 +407,12 @@ class _PlainCore:
         self.fn_of = mk.fn_of
         self.bodies = [mk._plain[n] for n in mk.kernel_names]
         self.body_ids = [BODIES.index(n) for n in mk.kernel_names]
+        # (fid, spec, batched body id, plain body, plain drain)
+        self.specs = [
+            (fid, spec, BODIES.index(b), mk._plain[b],
+             mk._plain.get(b + "_drain"))
+            for fid, spec, b in mk.batch_specs
+        ]
         self.st = st
         self.tasks_in = st["tasks"].flatten().tolist()
         self.ready_in = st["ready"].tolist()
@@ -270,11 +425,19 @@ class _PlainCore:
         self.ivalues = list(self.ivalues_in)
         self.data = st["data"]
         self.free = [0] * (self.capacity + 1)
-        self.dispatch = [0] * 8
+        self.dispatch = [0] * NDISPATCH
+        nrows = len(self.specs)
+        self.lanes = [[0] * self.capacity for _ in range(nrows)]
+        self.lstate = [[0] * LS_WORDS for _ in range(nrows)]
+        self.tstats = [0] * TS_WORDS
+        self.scratch: dict = {}
 
     def stage(self, stage_all_values: bool) -> None:
         cin, free, cap = self.counts_in, self.free, self.capacity
         free[0] = 0
+        for row in self.lstate:
+            row[:] = [0] * LS_WORDS
+        self.tstats[:] = [0] * TS_WORDS
         self.counts[:] = cin
         self.counts[C_VBASE] = cin[C_VALLOC]
         for i in range(cin[C_ALLOC]):
@@ -314,21 +477,101 @@ class _PlainCore:
             if d == 0:
                 self.push_ready(s)
 
+    def step(self, idx: int) -> None:
+        # lax.switch clamps an out-of-range index; so does the kernel.
+        fn = min(max(self.tasks[idx * DESC_WORDS + F_FN], 0),
+                 len(self.bodies) - 1)
+        self.dispatch[self.body_ids[fn]] += 1
+        self.bodies[fn](KernelContext(self, idx))
+        self.complete(idx)
+
+    def batch_round(self, li: int, e0: int, fuel: int) -> None:
+        """megakernel.py batch_round (nbk == 1): fire one batch off lane
+        li; LIFO pops for non-prefetch specs, FIFO + the prefetch
+        handshake for prefetch specs."""
+        _, spec, body_id, body, _ = self.specs[li]
+        ls, lane, cap, ts = self.lstate[li], self.lanes[li], self.capacity, \
+            self.tstats
+        B = spec.width
+        head, tail = ls[LS_HEAD], ls[LS_TAIL]
+        avail = tail - head
+        take = min(avail, B)
+        fifo = spec.prefetch
+        base = head if fifo else tail - take
+        pre = min(ls[LS_PF_N], take) if ls[LS_PF_BASE] == head + 1 else 0
+        buf = ls[LS_PF_BUF]
+        nxt = 0
+        if spec.prefetch and (avail - take) > 0 and (
+                self.counts[C_EXECUTED] - e0 + take < fuel):
+            nxt = min(avail - take, B)
+        self.dispatch[body_id] += 1
+        body(BatchContext(self, li, base, take, B, pre, buf, nxt))
+        for s in range(take):
+            self.complete(lane[(base + s) % cap])
+        if fifo:
+            ls[LS_HEAD] = head + take
+            ls[LS_PF_BASE] = head + take + 1 if nxt > 0 else 0
+            ls[LS_PF_N] = nxt
+            ls[LS_PF_BUF] = 1 - buf
+        else:
+            ls[LS_TAIL] = base
+        ts[TS_BATCH_ROUNDS] += 1
+        ts[TS_BATCH_TASKS] += take
+        ts[TS_OFFERED] += B
+        ts[TS_PREFETCH] += pre
+        ts[TS_FULL_ROUNDS] += int(take == B)
+
     def sched(self, fuel: int) -> None:
         c, ready, cap = self.counts, self.ready, self.capacity
-        nfn = len(self.bodies)
         e0 = c[C_EXECUTED]
+        ts = self.tstats
         while c[C_PENDING] > 0 and c[C_EXECUTED] - e0 < fuel:
-            tail = c[C_TAIL]
-            if c[C_HEAD] >= tail:
+            head, tail = c[C_HEAD], c[C_TAIL]
+            ring_work = head < tail
+            avails = [ls[LS_TAIL] - ls[LS_HEAD] for ls in self.lstate]
+            lane_work = any(a > 0 for a in avails)
+            # Ring-drain-first: lanes fire only once the ring is empty,
+            # one dispatch a round, the lowest F_FN first.
+            fired = False
+            for li in range(len(self.specs)):
+                eligible = avails[li] > 0 and not ring_work
+                if eligible and not fired:
+                    self.batch_round(li, e0, fuel)
+                fired = fired or eligible
+            if not fired and ring_work:
+                idx = ready[(tail - 1) % cap]
+                c[C_TAIL] = tail - 1
+                # Pop-time routing: a routed kind goes to its lane.
+                fn = self.tasks[idx * DESC_WORDS + F_FN]
+                for li, (fid, _, _, _, _) in enumerate(self.specs):
+                    if fn == fid:
+                        ls, lane = self.lstate[li], self.lanes[li]
+                        lane[ls[LS_TAIL] % cap] = idx
+                        ls[LS_TAIL] += 1
+                        ts[TS_ROUTED] += 1
+                        break
+                else:
+                    self.step(idx)
+                    ts[TS_SCALAR_ROUNDS] += 1
+            if not (ring_work or lane_work):
                 break
-            idx = ready[(tail - 1) % cap]
-            c[C_TAIL] = tail - 1
-            # lax.switch clamps an out-of-range index; so does the kernel.
-            fn = min(max(self.tasks[idx * DESC_WORDS + F_FN], 0), nfn - 1)
-            self.dispatch[self.body_ids[fn]] += 1
-            self.bodies[fn](KernelContext(self, idx))
-            self.complete(idx)
+        # Exit with unrun lane entries: retire an in-flight prefetch,
+        # then spill the entries to the ring HEAD (the cold end).
+        for li, (_, spec, _, _, drain) in enumerate(self.specs):
+            ls, lane = self.lstate[li], self.lanes[li]
+            h, t = ls[LS_HEAD], ls[LS_TAIL]
+            if spec.prefetch:
+                pre = ls[LS_PF_N] if ls[LS_PF_BASE] == h + 1 else 0
+                if pre > 0:
+                    drain(BatchContext(self, li, h, pre, spec.width, pre,
+                                       ls[LS_PF_BUF], 0))
+            head0 = c[C_HEAD]
+            for s in range(t - h):
+                ready[(head0 - 1 - s) % cap] = lane[(h + s) % cap]
+            c[C_HEAD] = head0 - (t - h)
+            ls[LS_HEAD] = t
+            ls[LS_PF_BASE] = 0
+            ts[TS_SPILLED] += t - h
 
     def run(self, fuel: int, reps: int, stage_all_values: bool) -> None:
         total = 0
@@ -343,17 +586,27 @@ class _PlainCore:
         st["ready"].copy_(torch.tensor(self.ready, dtype=torch.int32))
         st["counts"].copy_(torch.tensor(self.counts, dtype=torch.int32))
         st["ivalues"].copy_(torch.tensor(self.ivalues, dtype=torch.int32))
+        if self.specs:
+            st["tstats"].copy_(torch.tensor(self.tstats, dtype=torch.int32))
 
 
 def _plain_bodies() -> Dict[str, object]:
     # The bodies live with their workloads, as in the JAX package.
-    from .cholesky import potrf_body, trsm_body, trsmcol_body, updrow_body
-    from .workloads import fib_body, sum_body, uts_node_body
+    from .cholesky import (potrf_body, trsm_body, trsmcol_body,
+                           updrow_batch_body, updrow_body)
+    from .smithwaterman import (sw_tile_body, sw_wave_batch_body,
+                                sw_wave_batch_drain)
+    from .workloads import (fib_batch_body, fib_body, sum_body,
+                            uts_node_batch_body, uts_node_body)
 
     return {
         "fib": fib_body, "sum": sum_body, "uts_node": uts_node_body,
         "potrf": potrf_body, "trsmcol": trsmcol_body, "updrow": updrow_body,
-        "trsm": trsm_body,
+        "trsm": trsm_body, "sw_tile": sw_tile_body,
+        "sw_wave": lambda ctx: None,  # JAX's _batch_stub: never dispatched
+        "fib_batch": fib_batch_body, "uts_node_batch": uts_node_batch_body,
+        "updrow_batch": updrow_batch_body, "sw_wave_batch": sw_wave_batch_body,
+        "sw_wave_batch_drain": sw_wave_batch_drain,
     }
 
 
@@ -361,10 +614,11 @@ class Megakernel:
     """Builds and runs the single-block scheduler kernel over a task DAG.
 
     ``kernels`` is the ordered kernel table: names from ``BODIES``; a
-    task's F_FN indexes it. ``data_specs`` maps buffer names to
-    ``(shape, dtype)``; ``params`` gives the bodies' static parameters
-    (``PARAMS``). Runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs
-    the plain version).
+    task's F_FN indexes it. ``route`` maps kernel names to ``BatchSpec``s
+    (the batch tier). ``data_specs`` maps buffer names to ``(shape,
+    dtype)`` in the order ``DATA_FAMILIES`` gives them; ``params`` gives
+    the bodies' static parameters (``PARAMS``). Runs on ``device``
+    (default ``"cuda"``; ``"cpu"`` runs the plain version).
     """
 
     def __init__(
@@ -376,6 +630,7 @@ class Megakernel:
         succ_capacity: int = 4096,
         uses_row_values: bool = False,
         params: Optional[Dict[str, int]] = None,
+        route: Optional[Dict[str, BatchSpec]] = None,
         device="cuda",
         **later,
     ) -> None:
@@ -389,15 +644,25 @@ class Megakernel:
                 )
         names = list(kernels)
         for n in names:
-            if n not in BODIES:
+            if n not in BODIES or n in BATCH_BODIES.values():
                 raise ValueError(
                     f"unknown kernel {n!r}: the table compiled into "
-                    f"csrc/megakernel.cu holds {BODIES}"
+                    f"csrc/megakernel.cu holds "
+                    f"{tuple(b for b in BODIES if b not in BATCH_BODIES.values())}"
                 )
         if not names:
             raise ValueError("empty kernel table")
+        if len(names) > MAX_FNS:
+            raise ValueError(f"at most {MAX_FNS} kernels, got {len(names)}")
         self.kernel_names = names
         self.fn_of = {n: i for i, n in enumerate(names)}
+        self.route = dict(route or {})
+        self._check_route()
+        # (F_FN, spec, batched body name), in F_FN order: the lowest F_FN
+        # fires first among eligible lanes.
+        self.batch_specs = sorted(
+            (self.fn_of[n], s, BATCH_BODIES[n]) for n, s in self.route.items()
+        )
         self.params = {p: 0 for p in PARAMS}
         for p, v in (params or {}).items():
             if p not in self.params:
@@ -409,22 +674,88 @@ class Megakernel:
         self.succ_capacity = succ_capacity
         self.uses_row_values = uses_row_values
         self.device = resolve_device(device)
-        self.tile_bodies = [n for n in names if n in TILE_BODIES]
-        if self.tile_bodies and set(self.data_specs) != {
-            "tiles", "linvsp", "lsp"
-        }:
-            raise ValueError(
-                "tile bodies need data buffers tiles/linvsp/lsp"
-            )
-        meta = [0] * (META_BODY_OF_FN + len(names))
+        # Every body this table can dispatch: the kernels, then the
+        # batched bodies of the routed kinds.
+        self.body_names = names + [b for _, _, b in self.batch_specs]
+        self._check_data_family()
+        self.tile_bodies = [b for b in self.body_names
+                            if b in DATA_FAMILIES["cholesky"][0]]
+        self.sw_bodies = [b for b in self.body_names
+                          if b in DATA_FAMILIES["sw"][0]]
+        self.sw_slots = 0
+        if "sw_wave_batch" in self.body_names:
+            self.sw_slots = self.route["sw_wave"].width * self.params["chunk"]
+            if not 1 <= self.sw_slots <= MAX_SW_SLOTS:
+                raise ValueError(
+                    f"sw_wave_batch sweeps width*chunk = {self.sw_slots} "
+                    f"tile slots a round; it must be 1..{MAX_SW_SLOTS}"
+                )
+        meta = [0] * (META_BATCH + 4 * len(self.batch_specs))
         for i, p in enumerate(PARAMS):
             meta[i] = self.params[p]
         for b, n in enumerate(BODIES):
             meta[META_FN_OF_BODY + b] = self.fn_of.get(n, -1)
         for fn, n in enumerate(names):
             meta[META_BODY_OF_FN + fn] = BODIES.index(n)
+        for li, (fid, spec, b) in enumerate(self.batch_specs):
+            meta[META_BATCH + 4 * li:META_BATCH + 4 * li + 4] = [
+                fid, spec.width, int(spec.prefetch), BODIES.index(b)]
         self._meta = meta
         self._plain = _plain_bodies()
+        self._last_info: Optional[dict] = None
+
+    def _check_route(self) -> None:
+        unknown = set(self.route) - set(self.kernel_names)
+        if unknown:
+            raise ValueError(
+                f"route/auto_route names unknown kernels: {sorted(unknown)}"
+            )
+        not_specs = [n for n, s in self.route.items()
+                     if not isinstance(s, BatchSpec)]
+        if not_specs:
+            raise ValueError(
+                f"route values must be BatchSpecs; {sorted(not_specs)} are "
+                "not (the vector tier is not ported: ROADMAP A5)"
+            )
+        no_batch = [n for n in self.route if n not in BATCH_BODIES]
+        if no_batch:
+            raise ValueError(
+                f"route names kernels with no batched body: "
+                f"{sorted(no_batch)}; the table compiled into "
+                f"csrc/megakernel.cu batches {sorted(BATCH_BODIES)}"
+            )
+        for n, spec in self.route.items():
+            if spec.prefetch and BATCH_BODIES[n] not in DRAIN_BODIES:
+                raise ValueError(
+                    f"prefetch=True requires a drain: the batched body "
+                    f"{BATCH_BODIES[n]!r} of {n!r} has none (bodies with a "
+                    f"drain: {DRAIN_BODIES})"
+                )
+        unrouted = [n for n in ROUTED_ONLY
+                    if n in self.kernel_names and n not in self.route]
+        if unrouted:
+            raise ValueError(
+                f"{unrouted} run only batch-routed: pass route="
+                "{name: BatchSpec(...)}"
+            )
+
+    def _check_data_family(self) -> None:
+        fams = [f for f, (bodies, _, _) in DATA_FAMILIES.items()
+                if set(bodies) & set(self.body_names)]
+        if len(fams) > 1:
+            raise ValueError(f"one table holds bodies of one data family, "
+                             f"got {fams}")
+        if not fams:
+            return
+        _, need, optional = DATA_FAMILIES[fams[0]]
+        names = list(self.data_specs)
+        if names[:len(need)] != list(need) or not set(
+                names[len(need):]) <= set(optional) or len(
+                names) > MAX_DATA:
+            raise ValueError(
+                f"{fams[0]} bodies need data buffers {list(need)} in this "
+                f"order (optional: {list(optional)}), got {names}"
+            )
 
     # -- host entry --
 
@@ -476,7 +807,7 @@ class Megakernel:
             self.widen_value_alloc(counts, ivalues)
         self.check_row_values(int(counts[C_VALLOC]))
         dev = self.device
-        return {
+        st = {
             "tasks": tensor_of(tasks, dev),
             "succ": tensor_of(succ, dev),
             "ready": tensor_of(ring, dev),
@@ -488,24 +819,41 @@ class Megakernel:
                 for k, v in dict(data or {}).items()
             },
         }
+        if self.batch_specs:
+            st["tstats"] = torch.zeros(TS_WORDS, dtype=torch.int32,
+                                       device=dev)
+        return st
 
     def launch(self, st: Dict[str, object], fuel: int = 1 << 22,
                reps: int = 1, stage_all_values: bool = False) -> torch.Tensor:
         """Run the scheduler over state ``st`` IN PLACE (its task table,
-        ready ring, counts, value slots and data buffers are the outputs).
+        ready ring, counts, value slots, data buffers and, for a routed
+        table, ``st["tstats"]`` - added if missing - are the outputs).
         ``reps`` > 1 re-stages the input state and re-runs the graph, with
         C_EXECUTED accumulated across reps. Returns the per-body dispatch
-        counts (int32[8] by body id, on the state's device; not synced).
+        counts (int32[NDISPATCH] by body id, on the state's device; not
+        synced).
 
         On CUDA tensors this launches the kernel (and raises if the launch
         fails); on CPU tensors it runs the plain version."""
         self._check_data(st["data"])
         tasks = st["tasks"]
+        if self.batch_specs and "tstats" not in st:
+            st["tstats"] = torch.zeros(TS_WORDS, dtype=torch.int32,
+                                       device=tasks.device)
         if tasks.device.type == "cpu":
             core = _PlainCore(self, st)
             core.run(int(fuel), int(reps), stage_all_values)
             return torch.tensor(core.dispatch, dtype=torch.int32)
         return self._launch_cuda(st, int(fuel), int(reps), stage_all_values)
+
+    def _smem_bytes(self) -> int:
+        smem = 0
+        if "potrf" in self.tile_bodies:
+            smem = potrf_smem_bytes(self.params["factor_base"])
+        if self.sw_slots:
+            smem = max(smem, sw_smem_bytes(self.sw_slots))
+        return smem
 
     def _launch_cuda(self, st, fuel, reps, stage_all_values) -> torch.Tensor:
         dev = st["tasks"].device
@@ -517,6 +865,8 @@ class Megakernel:
             "counts": ((8,), torch.int32),
             "ivalues": ((nv,), torch.int32),
         }
+        if self.batch_specs:
+            want["tstats"] = ((TS_WORDS,), torch.int32)
         for k, (shape, dtype) in want.items():
             t = st[k]
             if (tuple(t.shape) != shape or t.dtype != dtype
@@ -532,22 +882,28 @@ class Megakernel:
         ins = {k: (st[k].clone() if reps > 1 else st[k])
                for k in ("tasks", "ready", "counts", "ivalues")}
         free = torch.empty(cap + 1, dtype=torch.int32, device=dev)
-        dispatch = torch.zeros(8, dtype=torch.int32, device=dev)
+        dispatch = torch.zeros(NDISPATCH, dtype=torch.int32, device=dev)
         meta = torch.tensor(self._meta, dtype=torch.int32, device=dev)
+        nrows = len(self.batch_specs)
+        lanes = torch.empty(max(nrows, 1) * cap, dtype=torch.int32,
+                            device=dev)
+        lstate = torch.zeros(max(nrows, 1) * LS_WORDS, dtype=torch.int32,
+                             device=dev)
+        tstats = st["tstats"] if nrows else None
         data = st["data"]
-        ptr = lambda k: data[k].data_ptr() if k in data else None  # noqa: E731
+        ptrs = (ctypes.c_void_p * MAX_DATA)(
+            *[data[k].data_ptr() for k in self.data_specs])
         work = None
-        threads, smem = 32, 0
+        threads = 32
+        if self.tile_bodies or self.sw_bodies:
+            threads = THREADS
         if self.tile_bodies:
             ts = self.params["tile"]
             work = torch.empty(ts * ts, dtype=torch.float32, device=dev)
-            threads = THREADS
-            if "potrf" in self.tile_bodies:
-                smem = potrf_smem_bytes(self.params["factor_base"])
         lib = _build.library("megakernel")
         fn = lib.hclib_mk_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p
         ]
         err = fn(
@@ -557,10 +913,16 @@ class Megakernel:
             st["counts"].data_ptr(), ins["counts"].data_ptr(),
             st["ivalues"].data_ptr(), ins["ivalues"].data_ptr(),
             free.data_ptr(), meta.data_ptr(), dispatch.data_ptr(),
-            ptr("tiles"), ptr("linvsp"), ptr("lsp"),
+            ctypes.cast(ptrs, ctypes.c_void_p),
             work.data_ptr() if work is not None else None,
-            len(self.kernel_names), cap, nv, min(fuel, 0x7FFFFFFF), reps,
-            int(bool(stage_all_values)), threads, smem,
+            lanes.data_ptr(), lstate.data_ptr(),
+            tstats.data_ptr() if tstats is not None else None,
+            len(self.kernel_names), nrows, cap, nv, min(fuel, 0x7FFFFFFF),
+            reps, int(bool(stage_all_values)),
+            # The kernel's instance without lane and SW code (megakernel.cu
+            # kLean) serves tables that need neither.
+            int(not nrows and not self.sw_bodies),
+            threads, self._smem_bytes(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "megakernel")
@@ -568,15 +930,44 @@ class Megakernel:
         return dispatch
 
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
-        """Per-body dispatch counts of a ``launch`` by name. For a launch
-        on the card, each tile body's dispatches are its launches inside
-        the megakernel and are added to ``_build.LAUNCHES``."""
+        """Per-body dispatch counts of a ``launch`` by name (a batched
+        body counts one per fired batch). For a launch on the card, each
+        tile, SW or batched body's dispatches are its launches inside the
+        megakernel and are added to ``_build.LAUNCHES``."""
         n = dispatch.tolist()
-        out = {b: n[i] for i, b in enumerate(BODIES) if b in self.fn_of}
+        out = {b: n[BODIES.index(b)] for b in self.body_names}
         if dispatch.device.type == "cuda":
-            for b in self.tile_bodies:
-                _build.LAUNCHES[b] += out[b]
+            for b in self.body_names:
+                if b in COUNTED:
+                    _build.LAUNCHES[b] += out[b]
         return out
+
+    def decode_tier_stats(self, tstats) -> Dict[str, object]:
+        """The TS_WORDS counter row as the per-tier stats dict
+        (``info['tiers']``), keys and values as JAX decodes them."""
+        t = [int(x) for x in np.asarray(tstats)]
+        rounds, tasks, offered = (t[TS_BATCH_ROUNDS], t[TS_BATCH_TASKS],
+                                  t[TS_OFFERED])
+        return {
+            "batch_rounds": rounds,
+            "batch_tasks": tasks,
+            "batch_occupancy": tasks / offered if offered else 0.0,
+            "batch_width": max(s.width for _, s, _ in self.batch_specs),
+            "full_rounds": t[TS_FULL_ROUNDS],
+            "scalar_tasks": t[TS_SCALAR_ROUNDS],
+            "routed": t[TS_ROUTED],
+            "prefetch_hits": t[TS_PREFETCH],
+            "spilled": t[TS_SPILLED],
+            "age_fires": t[TS_AGE_FIRES],
+            "max_starved_age": t[TS_MAX_AGE],
+            "bucket_fires": t[TS_BUCKET_FIRES],
+            "bucket_inversions": t[TS_INVERSIONS],
+        }
+
+    def stats_dict(self) -> Dict[str, object]:
+        """Stats of the most recent ``run()`` (tier counters included
+        when batch-routed); {} before any run."""
+        return dict(self._last_info or {})
 
     def run(self, builder: TaskGraphBuilder, data=None, ivalues=None,
             fuel: int = 1 << 22):
@@ -595,6 +986,9 @@ class Megakernel:
             "dispatch": self.fold_dispatches(dispatch),
             "device": str(st["tasks"].device),
         }
+        if self.batch_specs:
+            info["tiers"] = self.decode_tier_stats(st["tstats"].cpu())
+        self._last_info = info
         if info["overflow"]:
             raise RuntimeError(
                 f"megakernel overflow: "
@@ -616,3 +1010,10 @@ def potrf_smem_bytes(factor_base: int) -> int:
     """Dynamic shared memory of the POTRF body: the diagonal block and its
     inverse, each factor_base x (factor_base + 1) f32."""
     return 2 * factor_base * (factor_base + 1) * 4
+
+
+def sw_smem_bytes(slots: int) -> int:
+    """Dynamic shared memory of sw_wave_batch: two operand halves of
+    ``slots`` tile slots, each slot's a, b, top and left rows (SW_T int32
+    each) and the 16-byte chunk that holds its corner."""
+    return 2 * slots * (4 * SW_T + 4) * 4

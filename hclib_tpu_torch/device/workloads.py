@@ -1,24 +1,41 @@
-"""Scalar task bodies of the benchmark workloads: fib and the seeded UTS
-tree (port of the scalar-tier half of ``hclib_tpu/device/workloads.py``).
+"""Task bodies of the benchmark workloads: fib and the seeded UTS tree,
+scalar and batched (port of ``hclib_tpu/device/workloads.py``).
 
 The bodies below are the plain versions; the kernel runs the same code as
-``fib_body`` / ``sum_body`` / ``uts_node_body`` in ``csrc/megakernel.cu``.
+``fib_body`` / ``sum_body`` / ``uts_node_body`` and the batched
+``fib_batch`` / ``uts_node_batch`` in ``csrc/megakernel.cu``.
+``batch_width`` routes FIB (SUM stays scalar) or the UTS node through the
+batch tier, as ``batch_of`` does in JAX: one batch round runs the scalar
+body on each live slot's row in slot order, bit-identical to scalar
+dispatch.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 from .descriptor import TaskGraphBuilder
-from .megakernel import VBLOCK, KernelContext, Megakernel, fault_mix
+from .megakernel import (VBLOCK, BatchContext, BatchSpec, KernelContext,
+                         Megakernel, fault_mix)
 
 __all__ = [
     "FIB", "SUM", "UTS_NODE", "device_fib", "make_fib_megakernel",
     "make_uts_megakernel", "device_uts_mk", "fib_body", "sum_body",
-    "uts_node_body",
+    "uts_node_body", "fib_batch_body", "uts_node_batch_body", "batch_of",
 ]
 
-_BATCH = "batch tier (batch_of / BatchSpec, row 1h) in ROADMAP.md"
+
+def batch_of(name: str, width: int = 8) -> Dict[str, BatchSpec]:
+    """The route of JAX's ``batch_of(scalar_kernel, width)``: kind
+    ``name`` through the batch tier, whose batched body runs the scalar
+    body once per live slot (``fib_batch`` / ``uts_node_batch``)."""
+    return {name: BatchSpec(width=width)}
+
+
+def _per_slot(body, ctx: BatchContext) -> None:
+    for s in range(ctx.count):
+        body(ctx.slot_ctx(s))
+
 
 # ------------------------------------------------------------------- fib
 
@@ -50,14 +67,16 @@ def sum_body(ctx: KernelContext) -> None:
     ctx.set_out(ctx.value(ctx.arg(0)) + ctx.value(ctx.arg(1)))
 
 
+def fib_batch_body(ctx: BatchContext) -> None:
+    _per_slot(fib_body, ctx)
+
+
 def make_fib_megakernel(
     capacity: int = 768,
     num_values: Optional[int] = None,
     batch_width: Optional[int] = None,
     device="cuda",
 ) -> Megakernel:
-    if batch_width:
-        raise NotImplementedError(f"batch_width: {_BATCH}")
     need = VBLOCK * capacity + 16  # 16 host slots for presets/outputs
     if num_values is None:
         num_values = need
@@ -72,6 +91,7 @@ def make_fib_megakernel(
         num_values=num_values,
         succ_capacity=64,
         uses_row_values=True,
+        route=batch_of("fib", batch_width) if batch_width else None,
         device=device,
     )
 
@@ -80,10 +100,12 @@ def device_fib(
     n: int,
     capacity: int = 768,
     num_values: Optional[int] = None,
+    batch_width: Optional[int] = None,
     device="cuda",
 ) -> Tuple[int, dict]:
     """Compute fib(n) inside the megakernel by dynamic task spawning."""
-    mk = make_fib_megakernel(capacity, num_values=num_values, device=device)
+    mk = make_fib_megakernel(capacity, num_values=num_values,
+                             batch_width=batch_width, device=device)
     b = TaskGraphBuilder()
     b.add(FIB, args=[n], out=0)
     ivalues, _, info = mk.run(b)
@@ -113,6 +135,10 @@ def uts_node_body(ctx: KernelContext) -> None:
                       nargs=2)
 
 
+def uts_node_batch_body(ctx: BatchContext) -> None:
+    _per_slot(uts_node_body, ctx)
+
+
 def make_uts_megakernel(
     seed: int = 19,
     q_millis: int = 440,
@@ -123,10 +149,8 @@ def make_uts_megakernel(
     device="cuda",
     **later,
 ) -> Megakernel:
-    """Seeded unbalanced-tree search on the scalar tier (see the JAX
-    docstring); the tree is a pure function of the seed."""
-    if batch_width:
-        raise NotImplementedError(f"batch_width: {_BATCH}")
+    """Seeded unbalanced-tree search (see the JAX docstring); the tree is
+    a pure function of the seed."""
     return Megakernel(
         kernels=["uts_node"],
         capacity=capacity,
@@ -134,6 +158,7 @@ def make_uts_megakernel(
         succ_capacity=8,
         params={"seed": seed, "q_millis": q_millis,
                 "m_children": m_children, "max_depth": max_depth},
+        route=batch_of("uts_node", batch_width) if batch_width else None,
         device=device,
         **later,
     )

@@ -1,0 +1,153 @@
+"""Same-card A/B of the scalar scheduler megakernel across source trees.
+
+Times the two scheduler main-path graphs of the port, fib(24) (capacity
+768) and the UTS tree at max_depth=20, scalar and, where the tree has the
+batch tier, at batch_width=8, on each given checkout of the repo, in
+fresh processes that alternate between the trees (A B B A, ``--rounds``
+times), so that two versions of ``csrc/megakernel.cu`` are compared within
+one call on one card. Each process builds (or reuses) its tree's
+libraries, warms up, and times ``--reps`` launches by CUDA events, the
+graph staged anew outside the timed window. Prints one JSON line per
+process, ``ptxas`` register and stack figures of ``mk_kernel`` per tree,
+the card's name and power limit, and a summary line of medians per tree.
+
+    python3 scripts/ab_sched.py --tree parent=chipcheck/parent --tree change=.
+
+Needs the card (and ``nvcc`` for the ``ptxas`` figures).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+
+def worker(root: str, reps: int, only) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from hclib_tpu_torch import _build
+    from hclib_tpu_torch.device import workloads as tw
+    from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
+
+    _build.build_all()
+    graphs = [
+        ("fib24", lambda **kw: tw.make_fib_megakernel(768, device="cuda",
+                                                      **kw),
+         tw.FIB, [24], 0, 225073),
+        ("uts20", lambda **kw: tw.make_uts_megakernel(
+            max_depth=20, device="cuda", **kw), tw.UTS_NODE, [1, 0], None,
+         None),
+    ]
+    # The batched forms, where the tree has the batch tier.
+    graphs += [(name + "_b8", lambda make=make: make(batch_width=8), *rest)
+               for name, make, *rest in graphs]
+    out = {}
+    for name, make, fn, args, slot, want in graphs:
+        if only and name not in only:
+            continue
+        try:
+            mk = make()
+        except NotImplementedError:
+            continue
+        b = TaskGraphBuilder()
+        b.add(fn, args=args, **({} if slot is None else {"out": slot}))
+        mk.launch(mk.state(b))  # warm-up
+        times = []
+        for _ in range(reps):
+            st = mk.state(b)
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            mk.launch(st)
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        executed = int(st["counts"][5])
+        if want is not None and executed != want:
+            raise SystemExit(f"{root}: {name} executed {executed} != {want}")
+        out[name] = {"ms": times, "executed": executed}
+    return out
+
+
+def ptxas(root: str) -> dict:
+    """``mk_kernel``'s registers, stack frame and spills from ptxas -v."""
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
+    r = subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-c", "-o", os.devnull, "-Xptxas", "-v", src],
+        capture_output=True, text=True)
+    lines = r.stderr.splitlines()
+    for i, line in enumerate(lines):
+        if "mk_kernel" in line and "Compiling" in line:
+            text = " ".join(lines[i:i + 4])
+            return {k: int(v) for v, k in re.findall(
+                r"(\d+) (bytes stack frame|bytes spill stores|registers)",
+                text)}
+    return {"error": r.stderr[-400:]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="name=path of a checkout (two or more)")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--graphs", default="",
+                    help="comma-separated subset of fib24, uts20, fib24_b8, "
+                    "uts20_b8 (default: all)")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ns = ap.parse_args()
+    if ns.worker:
+        print(json.dumps(worker(ns.worker, ns.reps,
+                                set(filter(None, ns.graphs.split(","))))))
+        return 0
+    trees = dict(t.split("=", 1) for t in ns.tree)
+    if len(trees) < 2:
+        ap.error("give two or more --tree name=path")
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_sched.py: no CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0])
+    for name, root in trees.items():
+        print(json.dumps({"tree": name, "ptxas_mk_kernel": ptxas(root)}))
+    names = list(trees)
+    order = []
+    for r in range(ns.rounds):
+        order += names if r % 2 == 0 else names[::-1]
+        order += names[::-1] if r % 2 == 0 else names
+    runs = {n: {} for n in names}
+    for name in order:
+        p = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             trees[name], "--reps", str(ns.reps), "--graphs", ns.graphs],
+            capture_output=True, text=True)
+        if p.returncode != 0:
+            print(p.stderr[-2000:], file=sys.stderr)
+            return 1
+        res = json.loads(p.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": name, **res}))
+        for g, r in res.items():
+            runs[name].setdefault(g, []).extend(r["ms"])
+    summary = {n: {g: {"median_ms": statistics.median(v), "min_ms": min(v),
+                       "max_ms": max(v), "n": len(v)}
+                   for g, v in runs[n].items()} for n in names}
+    print(json.dumps({"summary": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -114,7 +114,7 @@ def chol_pair(request):
         _, dj, ij = mj.run(jc.build_cholesky_graph(nt),
                            data=jc.cholesky_buffers(a, nt, tile))
     mt = tc.make_cholesky_megakernel(nt, tile=tile, factor_base=128,
-                                     device="cpu")
+                                     batch_updrow=False, device="cpu")
     _, dt, it = mt.run(tc.build_cholesky_graph(nt),
                        data=tc.cholesky_buffers(a, nt, tile, device="cpu"))
     # The float64 truth of each buffer: L's tiles and the inverses of its
@@ -159,9 +159,10 @@ def test_device_cholesky_split_caches_match_jax(chol_pair, buf):
 def test_device_cholesky_entry_point():
     a = t_make_spd(256).astype(np.float32)
     L, info = tc.device_cholesky(a, device="cpu")
-    # The table holds every Cholesky body; the fused graph runs no TRSM.
+    # The table holds every Cholesky body; the fused graph runs no TRSM,
+    # and the default routes UPDROW through the batch tier.
     assert info["executed"] == 4 and info["dispatch"] == {
-        "potrf": 2, "updrow": 1, "trsmcol": 1, "trsm": 0}
+        "potrf": 2, "updrow": 0, "trsmcol": 1, "trsm": 0, "updrow_batch": 1}
     l64 = L.numpy().astype(np.float64)
     assert np.max(np.abs(l64 @ l64.T - a)) / np.max(np.abs(a)) < TOL
 
@@ -175,7 +176,8 @@ def test_standalone_bodies_match_megakernel_on_cpu():
     tc.trsmcol(d["tiles"], d["linvsp"], d["lsp"], 0)
     tc.updrow(d["tiles"], d["lsp"], 1, 0)
     tc.potrf(d["tiles"], d["linvsp"], 1, 128)
-    mk = tc.make_cholesky_megakernel(2, tile=128, device="cpu")
+    mk = tc.make_cholesky_megakernel(2, tile=128, batch_updrow=False,
+                                     device="cpu")
     _, dm, _ = mk.run(tc.build_cholesky_graph(2),
                       data=tc.cholesky_buffers(a, 2, 128, device="cpu"))
     for k in d:
@@ -183,13 +185,18 @@ def test_standalone_bodies_match_megakernel_on_cpu():
 
 
 def test_left_out_forms_raise():
-    """The batch tier still raises; the unfused graph's TRSM runs."""
+    """Every form runs: batch_updrow=True (the default) and False give
+    the same factor bit for bit; the unfused graph's TRSM runs."""
     a = t_make_spd(256).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="batch tier"):
-        tc.device_cholesky(a, batch_updrow=True, device="cpu")
+    Lb, info = tc.device_cholesky(a, batch_updrow=True, device="cpu")
+    assert info["tiers"]["batch_tasks"] == 1
+    assert info["tiers"]["scalar_tasks"] == 3
+    Ls, info = tc.device_cholesky(a, batch_updrow=False, device="cpu")
+    assert "tiers" not in info and torch.equal(Lb, Ls)
     L, info = tc.device_cholesky(a, fused_trsm=False, device="cpu")
     assert info["dispatch"]["trsm"] == 1 and info["executed"] == 4
-    mk = tc.make_cholesky_megakernel(2, tile=128, device="cpu")
+    mk = tc.make_cholesky_megakernel(2, tile=128, batch_updrow=False,
+                                     device="cpu")
     _, d, info = mk.run(tc.build_cholesky_graph(2, fused_trsm=False),
                         data=tc.cholesky_buffers(a, 2, 128, device="cpu"))
     assert info["dispatch"] == {"potrf": 2, "trsm": 1, "updrow": 1,

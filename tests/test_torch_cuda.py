@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from hclib_tpu_torch.device import cholesky as tc
+from hclib_tpu_torch.device import smithwaterman as ts
 from hclib_tpu_torch.device import workloads as tw
 from hclib_tpu_torch.device import uts_vec as tuv
 from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
 from hclib_tpu_torch.device.uts_fused import uts_fused
 from hclib_tpu_torch.models import uts as tm
 from hclib_tpu_torch.models.cholesky import make_spd
+from hclib_tpu_torch.models.smithwaterman import random_seq, sw_seq
 from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
 
 pytestmark = pytest.mark.cuda
@@ -33,10 +35,14 @@ def card():
     return torch.device("cuda")
 
 
-def _raw(mk, b, reps=1, stage_all=False):
-    st = mk.state(b)
-    mk.launch(st, reps=reps, stage_all_values=stage_all)
-    return {k: st[k].cpu() for k in ("tasks", "ready", "counts", "ivalues")}
+def _raw(mk, b, reps=1, stage_all=False, fuel=1 << 22, data=None):
+    st = mk.state(b, data=data)
+    mk.launch(st, fuel=fuel, reps=reps, stage_all_values=stage_all)
+    keys = ["tasks", "ready", "counts", "ivalues"] + (
+        ["tstats"] if "tstats" in st else [])
+    out = {k: st[k].cpu() for k in keys}
+    out.update({f"data.{k}": v.cpu() for k, v in st["data"].items()})
+    return out
 
 
 @pytest.mark.parametrize("n", [11, 15])
@@ -157,3 +163,71 @@ def test_uts_kernel_equals_plain(card, name):
     assert got["roots"] == want["roots"] > 0
     triple = lambda r: (r["nodes"], r["leaves"], r["max_depth"])  # noqa: E731
     assert triple(got) == triple(want) == tm.count_seq(p)
+
+
+# The batch tier (K1) with its batched bodies (K2-K4): the card's whole
+# output state, tstats included, equals the plain core's word for word.
+
+@pytest.mark.parametrize("n,fuel", [(11, 1 << 22), (13, 500)])
+def test_batch_tier_fib_equals_plain(card, n, fuel):
+    """fib_batch; at fuel 500 fib(13) runs out and spills its lane."""
+    b = TaskGraphBuilder()
+    b.add(tw.FIB, args=[n], out=0)
+    got = _raw(tw.make_fib_megakernel(768, batch_width=8, device="cuda"), b,
+               fuel=fuel)
+    want = _raw(tw.make_fib_megakernel(768, batch_width=8, device="cpu"), b,
+                fuel=fuel)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_batch_tier_uts_equals_plain(card):
+    b = TaskGraphBuilder()
+    b.add(tw.UTS_NODE, args=[1, 0])
+    got = _raw(tw.make_uts_megakernel(batch_width=8, device="cuda"), b)
+    want = _raw(tw.make_uts_megakernel(batch_width=8, device="cpu"), b)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_updrow_batch_equals_scalar(card):
+    """The batched Cholesky factor on the card is bit-identical to the
+    scalar-UPDROW one, and the standalone batched entry to four UPDROWs."""
+    a = make_spd(768).astype(np.float32)
+    lb, ib = tc.device_cholesky(a, tile=128, device="cuda")
+    ls, _ = tc.device_cholesky(a, tile=128, batch_updrow=False, device="cuda")
+    assert torch.equal(lb, ls)
+    assert ib["tiers"]["batch_tasks"] == 15 and ib["tiers"]["spilled"] == 0
+    bufs = tc.cholesky_buffers(a, 6, 128, device="cuda")
+    tc.potrf_plain(bufs["tiles"], bufs["linvsp"], 0, 128)
+    tc.trsmcol_plain(bufs["tiles"], bufs["linvsp"], bufs["lsp"], 0)
+    rows = [(5, 0), (4, 0), (3, 0), (2, 0)]
+    got, want = bufs["tiles"].clone(), bufs["tiles"].clone()
+    tc.updrow_batch(got, bufs["lsp"], rows)
+    for i, k in rows:
+        tc.updrow(want, bufs["lsp"], i, k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,chunk,width", [(512, 1, 2), (1280, 8, 2)])
+def test_sw_engines_equal_plain(card, n, chunk, width):
+    """sw_tile and sw_wave_batch (with its cp.async prefetch) against the
+    plain core: every output buffer and tstats equal; H = sw_seq."""
+    a, b = random_seq(n, 5), random_seq(n, 6)
+    nt = n // ts.T
+    data = ts.sw_wave_buffers(a, b)
+    data["htiles"] = np.zeros((nt, nt, ts.T, ts.T), np.int32)
+    graph = ts.build_sw_wave_graph(nt, nt, chunk=chunk)
+    got = _raw(ts.make_sw_wave_megakernel(nt, nt, chunk=chunk, width=width,
+                                          device="cuda"), graph, data=data)
+    want = _raw(ts.make_sw_wave_megakernel(nt, nt, chunk=chunk, width=width,
+                                           device="cpu"), graph, data=data)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if chunk == 1:  # mid-waves queue 3-4 descriptors: prefetch engages
+        assert int(want["tstats"][4]) > 0
+    ref = torch.from_numpy(sw_seq(a, b)[1:, 1:])
+    score, h, _ = ts.device_sw(a, b, device="cuda")
+    assert torch.equal(h.cpu(), ref) and score == int(ref.max())
+    hw = got["data.htiles"].transpose(1, 2).reshape(n, n)
+    assert torch.equal(hw, ref)

@@ -59,6 +59,24 @@ ENTRY_POINTS = {
     "uts_vec": lambda: __import__(
         "hclib_tpu_torch.device.uts_vec", fromlist=["x"]).uts_vec(
             __import__("hclib_tpu_torch.models.uts", fromlist=["x"]).T3),
+    "device_sw": lambda: __import__(
+        "hclib_tpu_torch.device.smithwaterman", fromlist=["x"]).device_sw(
+            __import__("numpy").zeros(128, "int32"),
+            __import__("numpy").zeros(128, "int32")),
+    "device_sw_wave": lambda: __import__(
+        "hclib_tpu_torch.device.smithwaterman",
+        fromlist=["x"]).device_sw_wave(
+            __import__("numpy").zeros(128, "int32"),
+            __import__("numpy").zeros(128, "int32")),
+    "device_sw_batched": lambda: __import__(
+        "hclib_tpu_torch.device.smithwaterman",
+        fromlist=["x"]).device_sw_batched(
+            __import__("numpy").zeros(128, "int32"),
+            __import__("numpy").zeros(128, "int32")),
+    "sw_scores": lambda: __import__(
+        "hclib_tpu_torch.device.sw_vec", fromlist=["x"]).sw_scores(
+            __import__("numpy").zeros((1, 8), "int32"),
+            __import__("numpy").zeros((1, 8), "int32")),
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),

@@ -220,7 +220,7 @@ def test_uts_tree_counts_pinned():
 
 
 @pytest.mark.parametrize("kw", [
-    {"route": {"fib": object()}}, {"trace": 64}, {"checkpoint": True},
+    {"lane_max_age": 4}, {"trace": 64}, {"checkpoint": True},
     {"priority_buckets": 2}, {"verify": True},
 ])
 def test_left_out_options_raise(kw):
@@ -238,6 +238,11 @@ def test_kernel_table_names():
                     "lsp": ((1, 1, 2, 128, 128), torch.bfloat16)},
         params={"tile": 128, "factor_base": 128, "nt": 1}, device="cpu")
     assert mk.fn_of == {"potrf": 0, "trsm": 1}
-    assert tmk.BODIES.index("trsm") == len(tmk.BODIES) - 1
-    with pytest.raises(NotImplementedError, match="batch"):
-        tw.make_fib_megakernel(64, batch_width=8, device="cpu")
+    # Bodies are appended, never renumbered.
+    assert tmk.BODIES.index("trsm") == 6
+    # batch_width routes FIB through the batch tier; SUM stays scalar.
+    mk = tw.make_fib_megakernel(64, batch_width=8, device="cpu")
+    assert mk.body_names == ["fib", "sum", "fib_batch"]
+    v, info = tw.device_fib(9, capacity=64, batch_width=8, device="cpu")
+    assert v == 34 and info["dispatch"]["fib"] == 0
+    assert info["tiers"]["routed"] == info["tiers"]["batch_tasks"] == 109
