@@ -25,6 +25,14 @@ Phases, one JSON line each:
              events, after a warm-up) and each kernel's bound; the UTS and
              SW bounds count one SHA-1 child's / one DP row's instructions
              in the built library's SASS (cuobjdump), the ``sass`` lines.
+             The subtree engine (``vector``: its standalone entry against
+             the plain runner at lanes (8, 128) on vfib(16) and
+             nqueens(8), max_steps 3, 50 and unbounded, nodes, sums,
+             overflow flag and steps equal; device_vfib(20) and
+             device_nqueens(8) and a routed fib graph on their whole
+             output state) and the batched SW score kernel
+             (``sw_scores``: against its plain version and sw_seq at
+             small shapes, an m that is no multiple of 32 among them).
 3. fib     - device_fib(24): 46,368 with 225,073 tasks executed.
 4. uts     - device_uts_mk at max_depth=20: the plain scheduler's count.
 5. cholesky- device_cholesky at n=8192, tile 512 (151 tasks), UPDROW
@@ -46,8 +54,18 @@ Phases, one JSON line each:
              score on the card; GCUPS over the launch's CUDA-event time.
 11. sw_engines - device_sw, device_sw_batched and device_sw_wave at
              2048 x 2048 with H: the three H and scores equal.
+12. vfib   - device_vfib(30) on the vector tier: 832,040 with 2,692,537
+             executed; CUDA-event ms the mean of 3 launches after a
+             warm-up, tasks/s; then (outside the launch counts) the
+             engine's standalone entry on the same subtree, equal to the
+             plain runner, its lock-step steps and lane efficiency.
+13. nqueens - device_nqueens(12): 14,200, executed = the sequential count
+             of safe placements + 1; the standalone entry as in 12.
+14. sw_scores - sw_scores_pallas at B = 1024 pairs, m = 1024, n = 256
+             and 2048 (bench.py's bench_device_sw): equal to the plain
+             version on the card; ms a launch and the GCUPS slope.
 
-Phases 3-11 are the main path: launch counts are zeroed just before each
+Phases 3-14 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -164,13 +182,17 @@ def main() -> int:
     from hclib_tpu_torch import _build
     from hclib_tpu_torch.device import cholesky as tc
     from hclib_tpu_torch.device import smithwaterman as tsw
+    from hclib_tpu_torch.device import sw_pallas as tsp
+    from hclib_tpu_torch.device import vector_engine as tv
     from hclib_tpu_torch.device import uts_vec as tuv
     from hclib_tpu_torch.device import workloads as tw
+    from hclib_tpu_torch.device import megakernel as tmk
     from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
     from hclib_tpu_torch.device.uts_fused import CARD_LANES, UtsLaunch, uts_fused
     from hclib_tpu_torch.models import uts as tm
     from hclib_tpu_torch.device.sw_vec import sw_score_one
     from hclib_tpu_torch.models.cholesky import make_spd
+    from hclib_tpu_torch.models.nqueens import count_seq as nq_count
     from hclib_tpu_torch.models.smithwaterman import random_seq, sw_seq
     from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
 
@@ -192,11 +214,11 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return float(np.median(times))
 
-    def timed_launch(mk, b, data=None, reps=3):
-        """Median CUDA-event ms of ``mk.launch`` on ``b``'s state, staged
-        anew before each launch outside the timed window, after a warm-up;
-        every launch's bodies are folded into the launch counts. Returns
-        (ms, the last launch's state)."""
+    def timed_launch(mk, b, data=None, reps=3, agg=np.median):
+        """Median (or ``agg``) CUDA-event ms of ``mk.launch`` on ``b``'s
+        state, staged anew before each launch outside the timed window,
+        after a warm-up; every launch's bodies are folded into the launch
+        counts. Returns (ms, the last launch's state)."""
         st = mk.state(b, data=data)
         mk.fold_dispatches(mk.launch(st))
         times = []
@@ -210,7 +232,7 @@ def main() -> int:
             e.synchronize()
             times.append(s.elapsed_time(e))
             mk.fold_dispatches(d)
-        return float(np.median(times)), st
+        return float(agg(times)), st
 
     def raw_state(mk, b, data=None):
         """Every output of one launch on ``b`` (state, tstats, data)."""
@@ -237,6 +259,7 @@ def main() -> int:
     per_source = _build.build_all()
     _build.library("megakernel")
     _build.library("uts")
+    _build.library("sw_scores")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_source})
 
@@ -689,6 +712,98 @@ def main() -> int:
           "sass": {k: sw_sass[k] for k in ("sw_row_ops", "sw_row_copy_ops")},
           "sm_clocks_a_cell": cell_clocks})
 
+    # 2. check: the subtree engine (row 1i) against the plain runner, its
+    # standalone entry at the main path's lanes, truncated and complete
+    vspecs = (("vfib16", tv.fib_spec(18), (16,), 2),
+              ("nqueens8", tv.nqueens_spec(8), (0, 0, 0), 8))
+    for name, spec, frame, count in vspecs:
+        for steps in (3, 50, tv.NO_LIMIT):
+            got = tv.subtree_run(spec, frame, count, steps, device="cuda")
+            want = tv.subtree_run(spec, frame, count, steps, device="cpu")
+            check(got == want, f"vector {name} max_steps={steps}: kernel "
+                  f"{got} != plain {want}")
+            emit({"phase": "check", "kernel": "vector", "family": name,
+                  "lanes": list(spec.lanes), "max_steps": steps,
+                  "nodes_acc_over_steps": [got[0], got[1], got[2], got[3]],
+                  "equal": True})
+    vgraphs = (
+        ("device_vfib20", lambda d: tw.make_vfib_megakernel(22, device=d),
+         tw.VFIB, [20]),
+        ("device_nqueens8", lambda d: tmk.Megakernel(
+            [("vnqueens", tv.nqueens_spec(8))], capacity=64, num_values=16,
+            succ_capacity=8, device=d), tw.VNQUEENS, [0]),
+    )
+    for name, make, fn, args in vgraphs:
+        b = TaskGraphBuilder()
+        b.add(fn, args=args, out=0)
+        got, want = raw_state(make("cuda"), b), raw_state(make("cpu"), b)
+        ints_equal(got, want, f"vector table {name}")
+        emit({"phase": "check", "kernel": "vector", "graph": name,
+              "equal": True, "value": int(got["ivalues"][0]),
+              "executed": int(got["counts"][5])})
+    rb = TaskGraphBuilder()
+    r0 = rb.add(tw.FIB, args=[9], out=0)
+    r1 = rb.add(tw.FIB, args=[10], out=1)
+    rb.add(tw.SUM, args=[0, 1], deps=[r0, r1], out=2)
+    rb.reserve_values(3)
+    got, want = (raw_state(tmk.Megakernel(
+        ["fib", "sum"], route={"fib": tv.fib_spec(14, (1, 8))}, capacity=16,
+        num_values=16, succ_capacity=8, device=d), rb)
+        for d in ("cuda", "cpu"))
+    ints_equal(got, want, "routed fib graph")
+    check(got["ivalues"][:3].tolist() == [34, 55, 89]
+          and int(got["counts"][5]) == 109 + 177 + 1, "routed fib results")
+    emit({"phase": "check", "kernel": "vector", "graph": "routed_fib_9_10",
+          "equal": True, "executed": int(got["counts"][5])})
+    # Its bound: every expanded node is one lane step of its family
+    # (vfib_step_ops / vnqueens_step_ops less the copies of the same
+    # words), each pipe at its rate over the whole card.
+    vsass = sass_ops(_build.lib_path("megakernel"), {
+        "vfib_step_ops", "vfib_copy_ops", "vnqueens_step_ops",
+        "vnqueens_copy_ops"})
+    node_clocks_of = {}
+    for fam in ("vfib", "vnqueens"):
+        d = {k: vsass[fam + "_step_ops"][k] - vsass[fam + "_copy_ops"][k]
+             for k in ("alu", "imad", "all")}
+        check(d["all"] > 5, f"{fam} step SASS counts {d} are implausible")
+        node_clocks_of[fam] = max(d["alu"] / ALU_PER_CLK,
+                                  d["imad"] / IMAD_PER_CLK,
+                                  d["all"] / ISSUE_PER_CLK)
+        emit({"phase": "sass", "kernel": "vector", "family": fam,
+              "step_ops": d, "sm_clocks_a_node": node_clocks_of[fam]})
+
+    def vector_bound_ms(fam, nodes):
+        return nodes * node_clocks_of[fam] / (SMS * clock_hz) * 1e3
+
+    # 2. check: the batched SW score kernel (row 3) against its plain
+    # version and the sequential DP
+    for B_, n_, m_ in ((9, 64, 256), (6, 97, 128), (5, 50, 45),
+                       (3, 33, 300)):
+        rng = np.random.default_rng(B_)
+        sa = rng.integers(0, 4, (B_, n_)).astype(np.int32)
+        sb = rng.integers(0, 4, (B_, m_)).astype(np.int32)
+        got = tsp.sw_scores_pallas(sa, sb, device="cuda").cpu()
+        at, bt_ = (torch.from_numpy(x).to(dev) for x in (sa, sb))
+        want = tsp.sw_scores_plain(at.T.contiguous(), bt_.T.contiguous())
+        seq = [int(sw_seq(sa[i], sb[i]).max()) for i in range(B_)]
+        check(torch.equal(got, want.cpu()) and got.tolist() == seq,
+              f"sw_scores {B_}x{n_}x{m_}: kernel {got.tolist()}, plain "
+              f"{want.tolist()}, sw_seq {seq}")
+        emit({"phase": "check", "kernel": "sw_scores", "B": B_, "n": n_,
+              "m": m_, "equal": True, "equal_to_sw_seq": True})
+    swc = sass_ops(_build.lib_path("sw_scores"),
+                   {"sw_chunk_ops", "sw_chunk_copy_ops"})
+    chunk_row = {k: swc["sw_chunk_ops"][k] - swc["sw_chunk_copy_ops"][k]
+                 for k in ("alu", "imad", "shfl", "all")}
+    check(chunk_row["shfl"] >= 7 and chunk_row["all"] > 20,
+          f"SW chunk SASS counts {chunk_row} are implausible")
+    score_cell_clocks = max(chunk_row["alu"] / ALU_PER_CLK,
+                            chunk_row["imad"] / IMAD_PER_CLK,
+                            chunk_row["shfl"] / SHFL_PER_CLK,
+                            chunk_row["all"] / ISSUE_PER_CLK) / 4
+    emit({"phase": "sass", "kernel": "sw_scores", "chunk_row_ops": chunk_row,
+          "sm_clocks_a_cell": score_cell_clocks})
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -970,6 +1085,128 @@ def main() -> int:
           "sw_tile_kernel_ms": tile_ms, "plain_host_ms": tile_pms,
           "bound_ms": sw_bound_ms(cells), "launches": launches})
     del engines, h0, ph
+
+    # 12. fib(30) on the vector tier
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    v, info = tw.device_vfib(30, device="cuda")
+    dt = time.perf_counter() - t0
+    check(v == 832040, f"vfib(30) = {v}")
+    check(info["executed"] == 2692537, f"vfib(30) executed {info['executed']}")
+    vb = TaskGraphBuilder()
+    vb.add(tw.VFIB, args=[30], out=0)
+    vfib_ms, vst = timed_launch(tw.make_vfib_megakernel(32, device="cuda"),
+                                vb, agg=np.mean)
+    check(int(vst["ivalues"][0]) == v, "vfib(30) timed launch value")
+    launches = path_done("vfib")
+    vfib_pms, (pv, pinfo) = plain_ms(lambda: tw.device_vfib(30, device="cpu"))
+    check(pv == v and pinfo["executed"] == info["executed"],
+          "plain vfib(30) differs")
+    nodes = info["executed"] - 1
+
+    def standalone(spec, frame, count):
+        """The engine's standalone entry on the phase's subtree: equal to
+        the plain runner (steps included); its steps, lane efficiency
+        and CUDA-event ms (median of 3 after a warm-up)."""
+        got = tv.subtree_run(spec, frame, count, device="cuda")
+        check(got == tv.subtree_run(spec, frame, count, device="cpu"),
+              f"standalone {spec.name} differs from the plain runner")
+        ms = events_ms(lambda: tv.subtree_run(spec, frame, count,
+                                              device="cuda"), 3)
+        nl = spec.lanes[0] * spec.lanes[1]
+        return {"steps": got[3], "lane_efficiency": got[0] / (got[3] * nl),
+                "standalone_ms": ms, "equal_to_plain": True}
+    kernels["vector"] = {
+        "name": "vector", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/vector.cuh",
+        "replaces": "hclib_tpu/device/vector_engine.py:136",
+        "max_abs_err": 0.0, "ms": vfib_ms, "plain_ms": vfib_pms,
+        "bound_ms": vector_bound_ms("vfib", nodes), "bound_by": "operations",
+        "library_ms": None,
+    }
+    emit({"phase": "vfib", "n": 30, "lanes": [8, 128], "value": v,
+          "executed": info["executed"], "entry_seconds": dt,
+          "kernel_ms": vfib_ms,
+          "kernel_tasks_per_s": info["executed"] / (vfib_ms * 1e-3),
+          "plain_host_ms": vfib_pms,
+          "bound_ms": vector_bound_ms("vfib", nodes),
+          "library": "none: no PyTorch call runs a task subtree",
+          "launches": launches,
+          "engine": standalone(tv.fib_spec(32), (30,), 2)})
+
+    # 13. n-queens(12) on the vector tier
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    v, info = tw.device_nqueens(12, device="cuda")
+    dt = time.perf_counter() - t0
+    nb = TaskGraphBuilder()
+    nb.add(tw.VNQUEENS, args=[0], out=0)
+    nq_ms, _ = timed_launch(tmk.Megakernel(
+        [("vnqueens", tv.nqueens_spec(12))], capacity=64, num_values=16,
+        succ_capacity=8, device="cuda"), nb, agg=np.mean)
+    launches = path_done("nqueens")
+    sols, placements = nq_count(12)
+    check(v == sols == 14200, f"nqueens(12) = {v} (sequential {sols})")
+    check(info["executed"] == placements + 1,
+          f"nqueens(12) executed {info['executed']} != {placements} + 1")
+    nq_pms, (pv, _) = plain_ms(lambda: tw.device_nqueens(12, device="cpu"))
+    check(pv == v, "plain nqueens(12) differs")
+    emit({"phase": "nqueens", "n": 12, "lanes": [8, 128], "value": v,
+          "executed": info["executed"], "entry_seconds": dt,
+          "kernel_ms": nq_ms,
+          "kernel_tasks_per_s": info["executed"] / (nq_ms * 1e-3),
+          "plain_host_ms": nq_pms,
+          "bound_ms": vector_bound_ms("vnqueens", placements),
+          "launches": launches,
+          "engine": standalone(tv.nqueens_spec(12), (0, 0, 0), 12)})
+
+    # 14. batched SW scores at bench_device_sw's shapes
+    _build.reset_launches()
+    rng = np.random.default_rng(1)
+    B_, m_ = 1024, 1024
+    bseq = torch.from_numpy(rng.integers(0, 4, (m_, B_)).astype(np.int32)
+                            ).T.contiguous().to(dev)
+    aseq = {n_: torch.from_numpy(rng.integers(0, 4, (n_, B_)).astype(
+        np.int32)).T.contiguous().to(dev) for n_ in (256, 2048)}
+    score_ms, scores = {}, {}
+    for n_, a_ in aseq.items():
+        scores[n_] = tsp.sw_scores_pallas(a_, bseq, device="cuda")
+        score_ms[n_] = events_ms(
+            lambda a_=a_: tsp.sw_scores_pallas(a_, bseq, device="cuda"), 5)
+    launches = path_done("sw_scores")
+    plain_score_ms = {}
+    for n_, a_ in aseq.items():
+        t0 = time.perf_counter()
+        want = tsp.sw_scores_plain(a_.T.contiguous(), bseq.T.contiguous())
+        torch.cuda.synchronize()
+        plain_score_ms[n_] = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(scores[n_], want),
+              f"sw_scores n={n_}: kernel differs from plain")
+    cells = {n_: B_ * n_ * m_ for n_ in aseq}
+    slope = (cells[2048] - cells[256]) / (
+        (score_ms[2048] - score_ms[256]) * 1e-3) / 1e9
+    # Its bound: the cells at one 4-cell lane chunk's SASS over the card,
+    # or its bytes (a, b read once, the scores written), the larger.
+    score_bound = {n_: max(
+        (c * score_cell_clocks / (SMS * clock_hz) * 1e3, "operations"),
+        (B_ * (n_ + m_ + 1) * 4 / HBM_BYTES * 1e3, "bytes"))
+        for n_, c in cells.items()}
+    kernels["sw_scores"] = {
+        "name": "sw_scores", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/sw_scores.cu",
+        "replaces": "hclib_tpu/device/sw_pallas.py:86",
+        "max_abs_err": 0.0, "ms": score_ms[2048],
+        "plain_ms": plain_score_ms[2048], "bound_ms": score_bound[2048][0],
+        "bound_by": score_bound[2048][1], "library_ms": None,
+    }
+    emit({"phase": "sw_scores", "B": B_, "m": m_, "kernel_ms": score_ms,
+          "gcups": {n_: cells[n_] / (score_ms[n_] * 1e-3) / 1e9
+                    for n_ in aseq},
+          "gcups_slope": slope, "plain_ms_on_card": plain_score_ms,
+          "bound_ms": {n_: b[0] for n_, b in score_bound.items()},
+          "equal_to_plain": True,
+          "library": "none: no PyTorch call computes Smith-Waterman",
+          "launches": launches})
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

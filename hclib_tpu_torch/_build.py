@@ -11,7 +11,9 @@ raises with nvcc's stderr; nothing falls back to another path.
 ``LAUNCHES`` holds one plain integer per kernel of the main path: each
 wrapper adds to it where it launches its kernel (the tile, SW and batched
 bodies that run fused inside the megakernel are counted by the megakernel
-itself, one per dispatch or fired batch, see ``device/megakernel.py``).
+itself, one per dispatch or fired batch, see ``device/megakernel.py``;
+``"vector"`` counts the subtree engine's runs, inside the megakernel and
+standalone).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ FLAGS = [
 LAUNCHES: Dict[str, int] = {
     "megakernel": 0, "potrf": 0, "trsmcol": 0, "updrow": 0, "trsm": 0,
     "uts": 0, "fib_batch": 0, "uts_node_batch": 0, "updrow_batch": 0,
-    "sw_tile": 0, "sw_wave_batch": 0,
+    "sw_tile": 0, "sw_wave_batch": 0, "vector": 0, "sw_scores": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

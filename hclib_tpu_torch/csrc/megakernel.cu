@@ -20,6 +20,9 @@
 //   sw_wave_batch <- smithwaterman.py _sw_wave_batch_kernel (:234) with
 //                 _sw_wave_drain (:398), _chunk_dma (:168), _zero_slot
 //                 (:156) and _cummax_lanes (:48)
+//   vfib, vnqueens <- the vector tier: megakernel.py _wrap_vector_spec
+//                 (:771) over vector_engine.py make_subtree_runner (:136)
+//                 with fib_spec (:342) / nqueens_spec (:396), see vector.cuh
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -64,6 +67,7 @@
 #include <stdint.h>
 
 #include "tiles.cuh"
+#include "vector.cuh"
 
 namespace {
 
@@ -75,21 +79,25 @@ constexpr int F_FN = 0, F_DEP = 1, F_SUCC0 = 2, F_SUCC1 = 3, F_CSR_OFF = 4,
 constexpr int NO_TASK = -1;
 constexpr int C_HEAD = 0, C_TAIL = 1, C_ALLOC = 2, C_PENDING = 3,
               C_VALLOC = 4, C_EXECUTED = 5, C_OVERFLOW = 6, C_VBASE = 7;
-constexpr int OVF_ROWS = 1;
+constexpr int OVF_ROWS = 1, OVF_ENGINE = 4;
 constexpr int VBLOCK = 4;
 
 // Body ids: hclib_tpu_torch/device/megakernel.py BODIES.
 enum {
   B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, B_SW_TILE,
-  B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH, NBODY
+  B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH,
+  B_VFIB, B_VNQUEENS, NBODY
 };
 // Meta words: static body parameters, then the table maps, then one
-// 4-word row per batch lane (F_FN, width, prefetch, batched body).
+// 4-word row per batch lane (F_FN, width, prefetch, batched body), then
+// (vector tables) one 8-word row per F_FN: rows, cols, stack depth,
+// min_idle_div, family parameter.
 enum {
   P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT, P_NTJ,
   P_CHUNK
 };
-constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 32, META_BATCH = 64;
+constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 32, META_BATCH = 64,
+              META_VEC = 192, VEC_WORDS = 8;
 // Tier counters (megakernel.py TS_*) and lane-state words (LS_*).
 constexpr int TS_BATCH_ROUNDS = 0, TS_BATCH_TASKS = 1, TS_SCALAR_ROUNDS = 2,
               TS_ROUTED = 3, TS_PREFETCH = 4, TS_FULL_ROUNDS = 5,
@@ -151,6 +159,7 @@ struct Args {
   int32_t* lanes;   // (nbatch, cap) per-kind ready lanes
   int32_t* lstate;  // (nbatch, LS_WORDS)
   int32_t* tstats;  // (TS_WORDS,) tier counters, or null
+  int32_t* vstack;  // the subtree engine's lane stacks, or null
   int nfn, nbatch, cap, num_values, fuel, reps, stage_all_values;
 };
 
@@ -538,6 +547,30 @@ __device__ void sw_wave_batch_body(const SwData& d, int32_t* smem,
   }
 }
 
+// A vector F_FN's body (_wrap_vector_spec): the whole block runs the
+// subtree of its family's engine from the task's 6 arg words; thread 0
+// writes the out accumulator to F_OUT, credits the expanded nodes to
+// C_EXECUTED and flags OVF_ENGINE on overflow (the scheduler completes
+// the task after the barrier that follows).
+__device__ void vector_body(Sched& S, const Args& a, int idx, int body,
+                            VecSmem& vs) {
+  const int fn = min(max(S.w(idx, F_FN), 0), a.nfn - 1);
+  const int32_t* vm = a.meta + META_VEC + VEC_WORDS * fn;
+  const VecParams p{vm[0], vm[1], vm[2], vm[3], vm[4]};
+  int args[6];
+  for (int i = 0; i < 6; ++i) args[i] = S.w(idx, F_A0 + i);
+  VecResult r;
+  if (body == B_VFIB)
+    r = vector_seeded<VFib>(p, args, a.vstack, vs);
+  else
+    r = vector_seeded<VNQueens>(p, args, a.vstack, vs);
+  if (threadIdx.x == 0) {
+    S.iv[S.w(idx, F_OUT)] = r.acc;
+    S.counts[C_EXECUTED] = wrap_add(S.counts[C_EXECUTED], r.nodes);
+    if (r.over) S.counts[C_OVERFLOW] |= OVF_ENGINE;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The scheduler rounds (thread 0).
 
@@ -686,13 +719,16 @@ __device__ void spill(Sched& S, const Args& a) {
   }
 }
 
-// kLean: a table with no batch lane and no SW body (the scalar tier with
-// the fib, UTS and Cholesky bodies). Its instance leaves the lane, spill
-// and SW code out of the loop: with that code in, the card ran fib(24)
-// 2.0% and UTS depth 20 4.3% slower a task, though no scalar round enters
-// it (same-card A/B on an H100, scripts/ab_sched.py).
-template <bool kLean>
+// kMode picks the instance. 0 (lean): a table with no batch lane, no SW
+// and no vector body (the scalar tier with the fib, UTS and Cholesky
+// bodies); its instance leaves the lane, spill and SW code out of the
+// loop: with that code in, the card ran fib(24) 2.0% and UTS depth 20
+// 4.3% slower a task, though no scalar round enters it (same-card A/B on
+// an H100, scripts/ab_sched.py). 1: lanes and SW. 2: those and the
+// vector engine, kept out of the other two for the same reason.
+template <int kMode>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
+  constexpr bool kLean = kMode == 0, kVector = kMode == 2;
   extern __shared__ __align__(16) float dsm[];
   __shared__ GemmSmem gs;
   __shared__ int32_t s_counts[8];
@@ -782,6 +818,13 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
               }
             }
             break;
+          case B_VFIB:
+          case B_VNQUEENS:
+            if constexpr (kVector) {
+              __shared__ VecSmem vs;
+              vector_body(S, a, idx, R.body, vs);
+            }
+            break;
           default:  // B_SW_WAVE: JAX's _batch_stub, never dispatched
             break;
         }
@@ -866,6 +909,81 @@ __global__ void __launch_bounds__(BT)
   updrow_tile(gs, tiles, lsp, i, k, nt, ts);
 }
 
+// Standalone run of the subtree engine (JAX's make_subtree_runner with
+// max_steps): out = nodes, acc, over, steps.
+__global__ void __launch_bounds__(BT)
+    vector_entry(int family, VecParams p, int s0, int s1, int s2,
+                 int seed_count, int max_steps, int32_t* stk, int32_t* out) {
+  __shared__ VecSmem vs;
+  VecResult r;
+  if (family == 0) {
+    const int f[1] = {s0};
+    r = subtree<VFib>(p, f, seed_count, max_steps, stk, vs);
+  } else {
+    const int f[3] = {s0, s1, s2};
+    r = subtree<VNQueens>(p, f, seed_count, max_steps, stk, vs);
+  }
+  if (threadIdx.x == 0) {
+    out[0] = r.nodes;
+    out[1] = r.acc;
+    out[2] = r.over;
+    out[3] = r.steps;
+  }
+}
+
+// For the bound (never launched; chip_smoke.py reads their SASS): one
+// lane step of a family, one lane a thread, its state loaded from and
+// stored back to st, against the same loads and stores of the lane state
+// and of one stack level (a step pushes or pops at most one) with no step
+// between.
+constexpr int VEC_STATE = 9;  // sp, ch, cn, 3 frame words, nodes, acc, base
+
+template <class F>
+__device__ void step_ops(int32_t* stk, int32_t* st, int S, int board) {
+  constexpr int U = F::U;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nl = gridDim.x * blockDim.x;
+  int32_t* s = st + static_cast<size_t>(l) * VEC_STATE;
+  VecLane<U> L{s[0], s[1], s[2], s[8]};
+#pragma unroll
+  for (int w = 0; w < U; ++w) L.f[w] = s[3 + w];
+  int over = 0, nodes = s[6], acc = s[7];
+  vec_step<F>(stk, nl, l, S, board, L, over, nodes, acc);
+  s[0] = L.sp | over;
+  s[1] = L.ch;
+  s[2] = L.cn;
+#pragma unroll
+  for (int w = 0; w < U; ++w) s[3 + w] = L.f[w];
+  s[6] = nodes;
+  s[7] = acc;
+  s[8] = L.base;
+}
+
+template <class F>
+__device__ void step_copy_ops(int32_t* stk, int32_t* st) {
+  constexpr int U = F::U, W = U + 2;
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nl = gridDim.x * blockDim.x;
+  int32_t* s = st + static_cast<size_t>(l) * VEC_STATE;
+  int v[3 + U + 3];
+#pragma unroll
+  for (int i = 0; i < 3 + U; ++i) v[i] = s[i];
+  v[3 + U] = s[6];
+  v[4 + U] = s[7];
+  v[5 + U] = s[8];
+  int32_t* at = stk + static_cast<size_t>(v[0] + v[5 + U]) * W * nl + l;
+  int w[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) w[i] = at[i * nl];
+#pragma unroll
+  for (int i = 0; i < W; ++i) at[i * nl] = w[i] ^ v[1];
+#pragma unroll
+  for (int i = 0; i < 3 + U; ++i) s[i] = v[i] ^ w[0];
+  s[6] = v[3 + U];
+  s[7] = v[4 + U];
+  s[8] = v[5 + U];
+}
+
 struct UpdRows {
   int v[2 * MAX_WIDTH];  // (i, k) of each slot
 };
@@ -894,11 +1012,13 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     const int32_t* ivalues_in, int32_t* freestk,
                     const int32_t* meta, int32_t* dispatch,
                     void* const* data, float* work, int32_t* lanes,
-                    int32_t* lstate, int32_t* tstats, int nfn, int nbatch,
-                    int cap, int num_values, int fuel, int reps,
-                    int stage_all_values, int lean, int threads, int smem,
-                    void* stream) {
-  void (*kernel)(Args) = lean ? mk_kernel<true> : mk_kernel<false>;
+                    int32_t* lstate, int32_t* tstats, int32_t* vstack,
+                    int nfn, int nbatch, int cap, int num_values, int fuel,
+                    int reps, int stage_all_values, int mode, int threads,
+                    int smem, void* stream) {
+  void (*kernel)(Args) = mode == 0   ? mk_kernel<0>
+                         : mode == 1 ? mk_kernel<1>
+                                     : mk_kernel<2>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -920,6 +1040,7 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
   a.lanes = lanes;
   a.lstate = lstate;
   a.tstats = tstats;
+  a.vstack = vstack;
   a.nfn = nfn;
   a.nbatch = nbatch;
   a.cap = cap;
@@ -973,6 +1094,34 @@ int hclib_updrow_batch_launch(float* tiles, const uint16_t* lsp,
   updrow_batch_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, lsp, r, n, nt, ts);
   return cudaGetLastError();
+}
+
+// family: 0 vfib, 1 vnqueens (vector_engine.py VECTOR_BODIES).
+int hclib_vector_launch(int family, int rows, int cols, int S,
+                        int min_idle_div, int board, int s0, int s1, int s2,
+                        int seed_count, int max_steps, int32_t* stk,
+                        int32_t* out, void* stream) {
+  if (family < 0 || family > 1 || rows < 1 || cols < 2 ||
+      rows * cols > VEC_MAX_LANES || S < 1 || min_idle_div < 1)
+    return cudaErrorInvalidValue;
+  const VecParams p{rows, cols, S, min_idle_div, board};
+  vector_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
+      family, p, s0, s1, s2, seed_count, max_steps, stk, out);
+  return cudaGetLastError();
+}
+
+__global__ void vfib_step_ops(int32_t* stk, int32_t* st, int S, int board) {
+  step_ops<VFib>(stk, st, S, board);
+}
+__global__ void vfib_copy_ops(int32_t* stk, int32_t* st) {
+  step_copy_ops<VFib>(stk, st);
+}
+__global__ void vnqueens_step_ops(int32_t* stk, int32_t* st, int S,
+                                  int board) {
+  step_ops<VNQueens>(stk, st, S, board);
+}
+__global__ void vnqueens_copy_ops(int32_t* stk, int32_t* st) {
+  step_copy_ops<VNQueens>(stk, st);
 }
 
 // Never launched: read from the built library's SASS by chip_smoke.py for

@@ -1,10 +1,11 @@
 """The persistent scheduler megakernel on an H100: a resident scheduler
 loop in one CUDA kernel launch.
 
-Port of the scalar tier and the batched same-kind dispatch tier of
-``hclib_tpu/device/megakernel.py``. The TPU runs the scheduler as one
-``pallas_call`` whose scalar core pops task descriptors off an SMEM ready
-ring and ``lax.switch``-es on ``F_FN`` over a table of Pallas bodies.
+Port of the scalar tier, the batched same-kind dispatch tier and the
+vector (subtree) tier of ``hclib_tpu/device/megakernel.py``. The TPU runs
+the scheduler as one ``pallas_call`` whose scalar core pops task
+descriptors off an SMEM ready ring and ``lax.switch``-es on ``F_FN`` over
+a table of Pallas bodies.
 Here it is one CUDA kernel (``csrc/megakernel.cu``) launched as ONE
 block: thread 0 runs the serial scheduler (pop, route, fire, dispatch,
 complete) exactly as the TPU's scalar core does, so the pop order - and
@@ -24,6 +25,13 @@ What differs from the JAX class:
 - ``route={name: BatchSpec(width, prefetch)}`` routes a kind through the
   batch tier to the batched body compiled for that name
   (``BATCH_BODIES``), not to a Python body.
+- The vector tier: a kernel-table entry ``(name, VectorTaskSpec)`` or
+  ``route={name: VectorTaskSpec}`` (``auto_route=`` is an alias) runs a
+  popped descriptor's whole subtree on the CUDA subtree engine of the
+  spec's compiled family (``VECTOR_BODIES``: ``vfib``, ``vnqueens``),
+  JAX's ``_wrap_vector_spec`` bridge included (seed from the 6 arg words,
+  ``root_contrib`` for a leaf seed, the out accumulator to ``F_OUT``, the
+  expanded nodes to ``C_EXECUTED``, ``OVF_ENGINE`` on overflow).
 - Scheduler state lives in device memory and is updated IN PLACE (the
   task table, ready ring, counts, value and tier-counter tensors passed in
   are the outputs), the counterpart of JAX's ``input_output_aliases``.
@@ -32,9 +40,9 @@ What differs from the JAX class:
   the card-side comparisons hold the kernel against.
 
 Left out (each raises ``NotImplementedError`` naming its ROADMAP entry):
-the vector tier, trace, checkpoint / quiesce / ``resume``, priority
-buckets, lane ages, ``install_descriptor`` / ``headroom``, the hclint
-``verify`` hook and the program cache.
+trace, checkpoint / quiesce / ``resume``, priority buckets, lane ages,
+``install_descriptor`` / ``headroom``, the hclint ``verify`` hook and the
+program cache.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from .descriptor import (
     TaskGraphBuilder,
 )
 from .state import resolve_device, tensor_of
+from .vector_engine import VECTOR_BODIES, VectorTaskSpec, make_subtree_runner
 
 __all__ = [
     "KernelContext", "BatchContext", "BatchSpec", "Megakernel", "VBLOCK",
@@ -158,7 +167,7 @@ LS_WORDS = 8
 # body id of its ``switch``. New bodies are appended, never renumbered.
 BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm",
           "sw_tile", "sw_wave", "fib_batch", "uts_node_batch",
-          "updrow_batch", "sw_wave_batch")
+          "updrow_batch", "sw_wave_batch", "vfib", "vnqueens")
 # Kernel name -> the batched body a BatchSpec routes it to.
 BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
                 "updrow": "updrow_batch", "sw_wave": "sw_wave_batch"}
@@ -166,9 +175,12 @@ BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
 DRAIN_BODIES = ("sw_wave_batch",)
 # Kinds with no scalar body (JAX's _batch_stub): they run only routed.
 ROUTED_ONLY = ("sw_wave",)
-# Bodies whose dispatches are kernel launches (folded into _build.LAUNCHES).
-COUNTED = ("potrf", "trsmcol", "updrow", "trsm", "sw_tile", "fib_batch",
-           "uts_node_batch", "updrow_batch", "sw_wave_batch")
+# Bodies whose dispatches are kernel launches, and the _build.LAUNCHES
+# counter each is folded into (the two vector families share the engine's).
+COUNTED = {b: b for b in ("potrf", "trsmcol", "updrow", "trsm", "sw_tile",
+                          "fib_batch", "uts_node_batch", "updrow_batch",
+                          "sw_wave_batch")}
+COUNTED.update({b: "vector" for b in VECTOR_BODIES})
 # Data families: the bodies that read them and their buffers, in the
 # order the kernel's data pointers take (then optional ones).
 DATA_FAMILIES = {
@@ -185,15 +197,19 @@ META_FN_OF_BODY = 16  # meta[16 + body] = this table's F_FN of body, or -1
 META_BODY_OF_FN = 32  # meta[32 + fn] = body id of F_FN fn
 META_BATCH = 64       # meta[64 + 4*li ..] = fid, width, prefetch, body
 MAX_FNS = META_BATCH - META_BODY_OF_FN
+# meta[META_VEC + VEC_WORDS*fn ..] = a vector F_FN's rows, cols, stack
+# depth, min_idle_div and family parameter.
+META_VEC = META_BATCH + 4 * MAX_FNS
+VEC_WORDS = 8
 NDISPATCH = 16        # per-body dispatch counters
 MAX_WIDTH = 8         # slot rows of a batch round
 SW_T = 128            # Smith-Waterman tile edge
 MAX_SW_SLOTS = 16     # tile slots of one sw_wave_batch round (width*chunk)
-THREADS = 256         # block size when the table holds a tile or SW body
+THREADS = 256         # block size when the table holds a tile, SW or
+                      # vector body
 
 # JAX constructor arguments this slice leaves out -> ROADMAP entry.
 _LATER_ARGS = {
-    "auto_route": "vector tier (row 1i)",
     "trace": "single-device observability (tracebuf, row 1o)",
     "checkpoint": "single-device checkpoint / quiesce (row 1o)",
     "quiesce_stride": "single-device checkpoint / quiesce (row 1o)",
@@ -275,6 +291,13 @@ class KernelContext:
     def fn_id(self, name: str) -> int:
         """F_FN of body ``name`` in this megakernel's table."""
         return self._c.fn_of[name]
+
+    def add_executed(self, n: int) -> None:
+        c = self._c.counts
+        c[C_EXECUTED] = _i32(c[C_EXECUTED] + n)
+
+    def flag_overflow(self) -> None:
+        self._c.counts[C_OVERFLOW] |= OVF_ENGINE
 
     def take_continuation(self, new_idx: int) -> None:
         t = self._c.tasks
@@ -405,8 +428,8 @@ class _PlainCore:
         self.num_values = mk.num_values
         self.params = mk.params
         self.fn_of = mk.fn_of
-        self.bodies = [mk._plain[n] for n in mk.kernel_names]
-        self.body_ids = [BODIES.index(n) for n in mk.kernel_names]
+        self.bodies = mk._fn_plain
+        self.body_ids = [BODIES.index(n) for n in mk.fn_bodies]
         # (fid, spec, batched body id, plain body, plain drain)
         self.specs = [
             (fid, spec, BODIES.index(b), mk._plain[b],
@@ -610,12 +633,38 @@ def _plain_bodies() -> Dict[str, object]:
     }
 
 
+def _vector_body(spec: VectorTaskSpec):
+    """JAX's ``_wrap_vector_spec`` as a plain body: popping a task of this
+    F_FN runs its whole subtree (the plain runner); the seed comes from the
+    6 arg words, a leaf seed adds ``root_contrib``, the out accumulator
+    lands in F_OUT, the expanded nodes are credited to C_EXECUTED and an
+    overflow sets OVF_ENGINE."""
+    runner = make_subtree_runner(spec)
+
+    def body(ctx: KernelContext) -> None:
+        args = tuple(ctx.arg(i) for i in range(6))
+        seed_frame, seed_count = spec.seed(args)
+        nodes, accs, over = runner(seed_frame, seed_count)
+        if spec.root_contrib is not None and seed_count == 0:
+            rc = spec.root_contrib(args)
+            accs = {k: v + rc.get(k, 0) for k, v in accs.items()}
+        if spec.out_acc is not None:
+            ctx.set_out(accs[spec.out_acc])
+        ctx.add_executed(nodes)
+        if over:
+            ctx.flag_overflow()
+
+    return body
+
+
 class Megakernel:
     """Builds and runs the single-block scheduler kernel over a task DAG.
 
-    ``kernels`` is the ordered kernel table: names from ``BODIES``; a
-    task's F_FN indexes it. ``route`` maps kernel names to ``BatchSpec``s
-    (the batch tier). ``data_specs`` maps buffer names to ``(shape,
+    ``kernels`` is the ordered kernel table: names from ``BODIES``, or
+    ``(name, VectorTaskSpec)`` entries of the vector tier; a task's F_FN
+    indexes it. ``route`` (alias ``auto_route``) maps kernel names to
+    ``BatchSpec``s (the batch tier) or ``VectorTaskSpec``s (the vector
+    tier). ``data_specs`` maps buffer names to ``(shape,
     dtype)`` in the order ``DATA_FAMILIES`` gives them; ``params`` gives
     the bodies' static parameters (``PARAMS``). Runs on ``device``
     (default ``"cuda"``; ``"cpu"`` runs the plain version).
@@ -630,7 +679,8 @@ class Megakernel:
         succ_capacity: int = 4096,
         uses_row_values: bool = False,
         params: Optional[Dict[str, int]] = None,
-        route: Optional[Dict[str, BatchSpec]] = None,
+        route: Optional[Dict[str, object]] = None,
+        auto_route: Optional[Dict[str, VectorTaskSpec]] = None,
         device="cuda",
         **later,
     ) -> None:
@@ -642,14 +692,25 @@ class Megakernel:
                     f"Megakernel({name}=...) is not ported yet: "
                     f"{_LATER_ARGS[name]} in ROADMAP.md"
                 )
-        names = list(kernels)
-        for n in names:
-            if n not in BODIES or n in BATCH_BODIES.values():
-                raise ValueError(
-                    f"unknown kernel {n!r}: the table compiled into "
-                    f"csrc/megakernel.cu holds "
-                    f"{tuple(b for b in BODIES if b not in BATCH_BODIES.values())}"
-                )
+        names, table_specs = [], {}
+        scalar = tuple(b for b in BODIES if b not in BATCH_BODIES.values()
+                       and b not in VECTOR_BODIES)
+        for k in kernels:
+            if isinstance(k, str):
+                if k not in scalar:
+                    raise ValueError(
+                        f"unknown kernel {k!r}: the table compiled into "
+                        f"csrc/megakernel.cu holds {scalar}, and the vector "
+                        f"families {VECTOR_BODIES} as (name, VectorTaskSpec)"
+                    )
+                names.append(k)
+            else:
+                name, spec = k
+                if not isinstance(spec, VectorTaskSpec):
+                    raise ValueError(f"kernel {name!r}: a table entry is a "
+                                     "name or (name, VectorTaskSpec)")
+                table_specs[name] = spec
+                names.append(name)
         if not names:
             raise ValueError("empty kernel table")
         if len(names) > MAX_FNS:
@@ -657,12 +718,25 @@ class Megakernel:
         self.kernel_names = names
         self.fn_of = {n: i for i, n in enumerate(names)}
         self.route = dict(route or {})
+        self.route.update(auto_route or {})
         self._check_route()
         # (F_FN, spec, batched body name), in F_FN order: the lowest F_FN
         # fires first among eligible lanes.
         self.batch_specs = sorted(
             (self.fn_of[n], s, BATCH_BODIES[n]) for n, s in self.route.items()
+            if isinstance(s, BatchSpec)
         )
+        # F_FN -> the VectorTaskSpec its descriptors run as a subtree.
+        table_specs.update((n, s) for n, s in self.route.items()
+                           if isinstance(s, VectorTaskSpec))
+        self.vector_specs = {self.fn_of[n]: s for n, s in table_specs.items()}
+        for spec in self.vector_specs.values():
+            spec.check_compiled()
+        # The body each F_FN dispatches to.
+        self.fn_bodies = [
+            self.vector_specs[f].name if f in self.vector_specs else n
+            for f, n in enumerate(names)
+        ]
         self.params = {p: 0 for p in PARAMS}
         for p, v in (params or {}).items():
             if p not in self.params:
@@ -674,9 +748,10 @@ class Megakernel:
         self.succ_capacity = succ_capacity
         self.uses_row_values = uses_row_values
         self.device = resolve_device(device)
-        # Every body this table can dispatch: the kernels, then the
+        # Every body this table can dispatch: the kernels' bodies, then the
         # batched bodies of the routed kinds.
-        self.body_names = names + [b for _, _, b in self.batch_specs]
+        self.body_names = list(dict.fromkeys(self.fn_bodies)) + [
+            b for _, _, b in self.batch_specs]
         self._check_data_family()
         self.tile_bodies = [b for b in self.body_names
                             if b in DATA_FAMILIES["cholesky"][0]]
@@ -690,18 +765,28 @@ class Megakernel:
                     f"sw_wave_batch sweeps width*chunk = {self.sw_slots} "
                     f"tile slots a round; it must be 1..{MAX_SW_SLOTS}"
                 )
-        meta = [0] * (META_BATCH + 4 * len(self.batch_specs))
+        meta = [0] * (META_VEC + VEC_WORDS * len(names)
+                      if self.vector_specs else
+                      META_BATCH + 4 * len(self.batch_specs))
         for i, p in enumerate(PARAMS):
             meta[i] = self.params[p]
         for b, n in enumerate(BODIES):
             meta[META_FN_OF_BODY + b] = self.fn_of.get(n, -1)
-        for fn, n in enumerate(names):
+        for fn, n in enumerate(self.fn_bodies):
             meta[META_BODY_OF_FN + fn] = BODIES.index(n)
         for li, (fid, spec, b) in enumerate(self.batch_specs):
             meta[META_BATCH + 4 * li:META_BATCH + 4 * li + 4] = [
                 fid, spec.width, int(spec.prefetch), BODIES.index(b)]
+        for fn, spec in self.vector_specs.items():
+            o = META_VEC + VEC_WORDS * fn
+            meta[o:o + 5] = [*spec.lanes, spec.stack_depth,
+                             spec.min_idle_div, spec.param]
         self._meta = meta
         self._plain = _plain_bodies()
+        self._fn_plain = [
+            _vector_body(self.vector_specs[f]) if f in self.vector_specs
+            else self._plain[n] for f, n in enumerate(names)
+        ]
         self._last_info: Optional[dict] = None
 
     def _check_route(self) -> None:
@@ -711,20 +796,22 @@ class Megakernel:
                 f"route/auto_route names unknown kernels: {sorted(unknown)}"
             )
         not_specs = [n for n, s in self.route.items()
-                     if not isinstance(s, BatchSpec)]
+                     if not isinstance(s, (BatchSpec, VectorTaskSpec))]
         if not_specs:
             raise ValueError(
-                f"route values must be BatchSpecs; {sorted(not_specs)} are "
-                "not (the vector tier is not ported: ROADMAP A5)"
+                f"route values must be VectorTaskSpecs or BatchSpecs; "
+                f"{sorted(not_specs)} are not"
             )
-        no_batch = [n for n in self.route if n not in BATCH_BODIES]
+        batched = {n: s for n, s in self.route.items()
+                   if isinstance(s, BatchSpec)}
+        no_batch = [n for n in batched if n not in BATCH_BODIES]
         if no_batch:
             raise ValueError(
                 f"route names kernels with no batched body: "
                 f"{sorted(no_batch)}; the table compiled into "
                 f"csrc/megakernel.cu batches {sorted(BATCH_BODIES)}"
             )
-        for n, spec in self.route.items():
+        for n, spec in batched.items():
             if spec.prefetch and BATCH_BODIES[n] not in DRAIN_BODIES:
                 raise ValueError(
                     f"prefetch=True requires a drain: the batched body "
@@ -732,7 +819,7 @@ class Megakernel:
                     f"drain: {DRAIN_BODIES})"
                 )
         unrouted = [n for n in ROUTED_ONLY
-                    if n in self.kernel_names and n not in self.route]
+                    if n in self.kernel_names and n not in batched]
         if unrouted:
             raise ValueError(
                 f"{unrouted} run only batch-routed: pass route="
@@ -893,17 +980,29 @@ class Megakernel:
         data = st["data"]
         ptrs = (ctypes.c_void_p * MAX_DATA)(
             *[data[k].data_ptr() for k in self.data_specs])
-        work = None
+        work = vstack = None
         threads = 32
-        if self.tile_bodies or self.sw_bodies:
+        if self.tile_bodies or self.sw_bodies or self.vector_specs:
             threads = THREADS
         if self.tile_bodies:
             ts = self.params["tile"]
             work = torch.empty(ts * ts, dtype=torch.float32, device=dev)
+        if self.vector_specs:
+            # The lane stacks of the subtree engine, [slot][word][lane]
+            # (too large for shared memory at full width).
+            vstack = torch.empty(max(
+                s.stack_depth * (s.frame_words + 2) * s.lanes[0] * s.lanes[1]
+                for s in self.vector_specs.values()), dtype=torch.int32,
+                device=dev)
+        # The kernel's instances (megakernel.cu kMode): without lane, SW
+        # and vector code for tables that need none of them; with lane
+        # and SW code; with the vector engine too.
+        mode = 2 if self.vector_specs else int(
+            bool(nrows or self.sw_bodies))
         lib = _build.library("megakernel")
         fn = lib.hclib_mk_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p
         ]
         err = fn(
@@ -917,12 +1016,10 @@ class Megakernel:
             work.data_ptr() if work is not None else None,
             lanes.data_ptr(), lstate.data_ptr(),
             tstats.data_ptr() if tstats is not None else None,
+            vstack.data_ptr() if vstack is not None else None,
             len(self.kernel_names), nrows, cap, nv, min(fuel, 0x7FFFFFFF),
-            reps, int(bool(stage_all_values)),
-            # The kernel's instance without lane and SW code (megakernel.cu
-            # kLean) serves tables that need neither.
-            int(not nrows and not self.sw_bodies),
-            threads, self._smem_bytes(),
+            reps, int(bool(stage_all_values)), mode, threads,
+            self._smem_bytes(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         _build.check(lib, err, "megakernel")
@@ -932,14 +1029,14 @@ class Megakernel:
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
         """Per-body dispatch counts of a ``launch`` by name (a batched
         body counts one per fired batch). For a launch on the card, each
-        tile, SW or batched body's dispatches are its launches inside the
-        megakernel and are added to ``_build.LAUNCHES``."""
+        tile, SW, batched or vector body's dispatches are its launches
+        inside the megakernel and are added to ``_build.LAUNCHES``."""
         n = dispatch.tolist()
         out = {b: n[BODIES.index(b)] for b in self.body_names}
         if dispatch.device.type == "cuda":
             for b in self.body_names:
                 if b in COUNTED:
-                    _build.LAUNCHES[b] += out[b]
+                    _build.LAUNCHES[COUNTED[b]] += out[b]
         return out
 
     def decode_tier_stats(self, tstats) -> Dict[str, object]:

@@ -7,7 +7,8 @@ The bodies below are the plain versions; the kernel runs the same code as
 ``batch_width`` routes FIB (SUM stays scalar) or the UTS node through the
 batch tier, as ``batch_of`` does in JAX: one batch round runs the scalar
 body on each live slot's row in slot order, bit-identical to scalar
-dispatch.
+dispatch. ``device_vfib`` and ``device_nqueens`` run one seed descriptor
+whose whole subtree goes through the vector tier (``vector_engine.py``).
 """
 
 from __future__ import annotations
@@ -17,11 +18,14 @@ from typing import Dict, Optional, Tuple
 from .descriptor import TaskGraphBuilder
 from .megakernel import (VBLOCK, BatchContext, BatchSpec, KernelContext,
                          Megakernel, fault_mix)
+from .vector_engine import fib_spec, nqueens_spec
 
 __all__ = [
     "FIB", "SUM", "UTS_NODE", "device_fib", "make_fib_megakernel",
     "make_uts_megakernel", "device_uts_mk", "fib_body", "sum_body",
     "uts_node_body", "fib_batch_body", "uts_node_batch_body", "batch_of",
+    "VFIB", "make_vfib_megakernel", "device_vfib", "VNQUEENS",
+    "device_nqueens",
 ]
 
 
@@ -112,6 +116,43 @@ def device_fib(
     return int(ivalues[0]), info
 
 
+# ------------------------------------------------------- fib, vector tier
+
+VFIB = 0
+
+
+def make_vfib_megakernel(
+    max_n: int = 32,
+    lanes: Tuple[int, int] = (8, 128),
+    device="cuda",
+    capacity: int = 64,
+) -> Megakernel:
+    """fib on the vector tier: one seed descriptor in the scalar table,
+    its subtree expanded across lanes (the tree lives in per-lane stacks,
+    not in descriptor rows, so far larger fibs fit)."""
+    return Megakernel(
+        kernels=[("vfib", fib_spec(max_n=max_n, lanes=lanes))],
+        capacity=capacity,
+        num_values=16,
+        succ_capacity=8,
+        device=device,
+    )
+
+
+def device_vfib(
+    n: int,
+    lanes: Tuple[int, int] = (8, 128),
+    device="cuda",
+) -> Tuple[int, dict]:
+    """fib(n) through the vector tier; info['executed'] counts the whole
+    recursion tree (2*fib(n+1) - 1 tasks)."""
+    mk = make_vfib_megakernel(max_n=n + 2, lanes=lanes, device=device)
+    b = TaskGraphBuilder()
+    b.add(VFIB, args=[n], out=0)
+    ivalues, _, info = mk.run(b)
+    return int(ivalues[0]), info
+
+
 # ------------------------------------------------------ UTS, scalar tier
 
 UTS_NODE = 0
@@ -175,5 +216,30 @@ def device_uts_mk(
         mk = make_uts_megakernel(seed=seed, device=device, **mk_kw)
     b = TaskGraphBuilder()
     b.add(UTS_NODE, args=[1, 0])
+    ivalues, _, info = mk.run(b)
+    return int(ivalues[0]), info
+
+
+# --------------------------------------------------- n-queens, vector tier
+
+VNQUEENS = 0
+
+
+def device_nqueens(
+    n: int,
+    lanes: Tuple[int, int] = (8, 128),
+    device="cuda",
+) -> Tuple[int, dict]:
+    """n-queens solutions through the vector tier; info['executed'] counts
+    the safe partial placements (the search tree) plus the seed task."""
+    mk = Megakernel(
+        kernels=[("vnqueens", nqueens_spec(n, lanes=lanes))],
+        capacity=64,
+        num_values=16,
+        succ_capacity=8,
+        device=device,
+    )
+    b = TaskGraphBuilder()
+    b.add(VNQUEENS, args=[0], out=0)
     ivalues, _, info = mk.run(b)
     return int(ivalues[0]), info

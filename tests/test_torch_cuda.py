@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from hclib_tpu_torch.device import cholesky as tc
+from hclib_tpu_torch.device import megakernel as tmk
 from hclib_tpu_torch.device import smithwaterman as ts
+from hclib_tpu_torch.device import sw_pallas as tsp
+from hclib_tpu_torch.device import vector_engine as tv
 from hclib_tpu_torch.device import workloads as tw
 from hclib_tpu_torch.device import uts_vec as tuv
 from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
@@ -231,3 +234,71 @@ def test_sw_engines_equal_plain(card, n, chunk, width):
     assert torch.equal(h.cpu(), ref) and score == int(ref.max())
     hw = got["data.htiles"].transpose(1, 2).reshape(n, n)
     assert torch.equal(hw, ref)
+
+
+# The vector tier (row 1i) and the batched SW score kernel (row 3).
+
+@pytest.mark.parametrize("max_steps", [7, 40, tv.NO_LIMIT])
+@pytest.mark.parametrize("family", ["vfib14", "nqueens6"])
+@pytest.mark.parametrize("lanes", [(1, 8), (2, 8), (8, 128)])
+def test_subtree_engine_equals_plain(card, lanes, family, max_steps):
+    """The standalone engine against the plain runner, truncated runs
+    included: nodes, sums, overflow flag and steps equal."""
+    if family == "vfib14":
+        spec, frame, count = tv.fib_spec(16, lanes), (14,), 2
+    else:
+        spec, frame, count = tv.nqueens_spec(6, lanes), (0, 0, 0), 6
+    got = tv.subtree_run(spec, frame, count, max_steps, device="cuda")
+    want = tv.subtree_run(spec, frame, count, max_steps, device="cpu")
+    assert got == want
+
+
+def test_subtree_engine_overflow_equals_plain(card):
+    spec = tv.fib_spec(3, (1, 8))
+    got = tv.subtree_run(spec, (12,), 2, 100000, device="cuda")
+    assert got == tv.subtree_run(spec, (12,), 2, 100000, device="cpu")
+    assert got[2]
+
+
+@pytest.mark.parametrize("name", ["vfib20", "nqueens8", "routed"])
+def test_vector_tables_equal_plain(card, name):
+    """device_vfib(20), device_nqueens(8) and a routed fib graph: the
+    card's whole output state equals the plain core's."""
+    b = TaskGraphBuilder()
+    if name == "vfib20":
+        make = lambda d: tw.make_vfib_megakernel(22, device=d)  # noqa: E731
+        b.add(tw.VFIB, args=[20], out=0)
+    elif name == "nqueens8":
+        make = lambda d: tmk.Megakernel(  # noqa: E731
+            [("vnqueens", tv.nqueens_spec(8))], capacity=64, num_values=16,
+            succ_capacity=8, device=d)
+        b.add(tw.VNQUEENS, args=[0], out=0)
+    else:
+        make = lambda d: tmk.Megakernel(  # noqa: E731
+            ["fib", "sum"], route={"fib": tv.fib_spec(14, (1, 8))},
+            capacity=16, num_values=16, succ_capacity=8, device=d)
+        t0 = b.add(tw.FIB, args=[9], out=0)
+        t1 = b.add(tw.FIB, args=[10], out=1)
+        b.add(tw.SUM, args=[0, 1], deps=[t0, t1], out=2)
+        b.reserve_values(3)
+    got, want = _raw(make("cuda"), b), _raw(make("cpu"), b)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    v, info = (tw.device_vfib(20) if name == "vfib20" else
+               tw.device_nqueens(8) if name == "nqueens8" else (None, None))
+    if v is not None:
+        assert v == int(want["ivalues"][0]) and info["executed"] == int(
+            want["counts"][5])
+
+
+@pytest.mark.parametrize("B,n,m", [(9, 64, 256), (6, 97, 128), (5, 50, 45),
+                                   (3, 33, 300)])
+def test_sw_scores_equal_plain(card, B, n, m):
+    rng = np.random.default_rng(B)
+    a = rng.integers(0, 4, (B, n)).astype(np.int32)
+    b = rng.integers(0, 4, (B, m)).astype(np.int32)
+    got = tsp.sw_scores_pallas(a, b)
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    want = tsp.sw_scores_plain(at.T.contiguous(), bt.T.contiguous())
+    assert torch.equal(got, want)
+    assert got.tolist() == [int(sw_seq(a[i], b[i]).max()) for i in range(B)]

@@ -25,7 +25,10 @@ def _submodules():
 
 def test_imports_pull_in_no_jax():
     mods = _submodules()
-    assert "hclib_tpu_torch.device.megakernel" in mods
+    assert {"hclib_tpu_torch.device.megakernel",
+            "hclib_tpu_torch.device.vector_engine",
+            "hclib_tpu_torch.device.sw_pallas",
+            "hclib_tpu_torch.models.nqueens"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -75,6 +78,18 @@ ENTRY_POINTS = {
             __import__("numpy").zeros(128, "int32")),
     "sw_scores": lambda: __import__(
         "hclib_tpu_torch.device.sw_vec", fromlist=["x"]).sw_scores(
+            __import__("numpy").zeros((1, 8), "int32"),
+            __import__("numpy").zeros((1, 8), "int32")),
+    "device_vfib": lambda: __import__(
+        "hclib_tpu_torch.device.workloads", fromlist=["x"]).device_vfib(10),
+    "device_nqueens": lambda: __import__(
+        "hclib_tpu_torch.device.workloads",
+        fromlist=["x"]).device_nqueens(6),
+    "subtree_run": lambda: (lambda ve: ve.subtree_run(
+        ve.fib_spec(12), (10,), 2))(__import__(
+            "hclib_tpu_torch.device.vector_engine", fromlist=["x"])),
+    "sw_scores_pallas": lambda: __import__(
+        "hclib_tpu_torch.device.sw_pallas", fromlist=["x"]).sw_scores_pallas(
             __import__("numpy").zeros((1, 8), "int32"),
             __import__("numpy").zeros((1, 8), "int32")),
     "Megakernel": lambda: __import__(
