@@ -64,8 +64,28 @@ Phases, one JSON line each:
 14. sw_scores - sw_scores_pallas at B = 1024 pairs, m = 1024, n = 256
              and 2048 (bench.py's bench_device_sw): equal to the plain
              version on the card; ms a launch and the GCUPS slope.
+15. forasync_stencil - run_forasync_device on the 5-point stencil at
+             H = W = 4096 (16,384 tiles of 8 x 128; PolyBench jacobi-2d
+             EXTRALARGE's N = 4000 rounded up to the tile) at width 0 and
+             at width 8 with the prefetch: gout (halo included) equal to
+             the numpy reference bit for bit; tiles/s, the tiers, the
+             bound; then (outside the launch counts) the plain core's
+             time at full size and the tile body's standalone entry (the
+             same rounds without the scheduler; at width 8 also without
+             the prefetch).
+16. forasync_map - the same for the map loop at T = 16,384 blocks of
+             8 x 128; the library call is torch.add(7, x, alpha=3).
+17. arrayadd - device_arrayadd(16384) (16,384 add_tile tasks over
+             (16384, 8, 128) f32 buffers): c = a + b bit for bit; the
+             library call is torch.add(a, b).
 
-Phases 3-14 are the main path: launch counts are zeroed just before each
+The ``check`` phase also holds the tile bodies (``tiles``: fa_stencil
+and fa_map at bench.py --forasync's sizes, stencil 64 x 1024 and map
+T = 64, at width 0, 8 with and without the prefetch and cut by fuel;
+arrayadd on 64 tiles; the standalone tile entry) against the plain core
+on the whole output state.
+
+Phases 3-17 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -77,6 +97,7 @@ card, or outside a checkout of the repo, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -181,6 +202,7 @@ def main() -> int:
 
     from hclib_tpu_torch import _build
     from hclib_tpu_torch.device import cholesky as tc
+    from hclib_tpu_torch.device import forasync_tier as tfa
     from hclib_tpu_torch.device import smithwaterman as tsw
     from hclib_tpu_torch.device import sw_pallas as tsp
     from hclib_tpu_torch.device import vector_engine as tv
@@ -234,10 +256,10 @@ def main() -> int:
             mk.fold_dispatches(d)
         return float(agg(times)), st
 
-    def raw_state(mk, b, data=None):
+    def raw_state(mk, b, data=None, fuel=1 << 22):
         """Every output of one launch on ``b`` (state, tstats, data)."""
         st = mk.state(b, data=data)
-        mk.launch(st)
+        mk.launch(st, fuel)
         out = {k: st[k].cpu() for k in ("tasks", "ready", "counts",
                                          "ivalues", "tstats") if k in st}
         out.update({"data." + k: v.cpu() for k, v in st["data"].items()})
@@ -804,6 +826,70 @@ def main() -> int:
     emit({"phase": "sass", "kernel": "sw_scores", "chunk_row_ops": chunk_row,
           "sm_clocks_a_cell": score_cell_clocks})
 
+    # 2. check: the tile bodies (rows 1k, 1h') against the plain core at
+    # bench.py --forasync's sizes: every output, data buffers included
+    def fa_graph(bounds, tile):
+        b = TaskGraphBuilder()
+        return b, tfa.seed_tiles(b, bounds, tile)
+
+    def fa_reference(tk, src):
+        return (tw.stencil_reference(src) if tk.name == "fa_stencil"
+                else tw.map_reference(src))
+
+    fa_small = (("stencil", tw.stencil_loop(64, 1024),
+                 tw.stencil_data(64, 1024)),
+                ("map", tw.map_loop(64), tw.map_data(64)))
+    for loop, (tk, bounds, tile), arrays in fa_small:
+        b, total = fa_graph(bounds, tile)
+        data = dict(zip(tk.data_specs, arrays))
+        ref = torch.from_numpy(fa_reference(tk, arrays[0]))
+        dst = "data." + tk.out_names[0]
+        for width, prefetch, fuel in ((0, True, 1 << 22), (8, True, 1 << 22),
+                                      (8, False, 1 << 22), (8, True, 20)):
+            got, want = (raw_state(tfa.make_forasync_megakernel(
+                tk, width=width, prefetch=prefetch, capacity=total + 8,
+                device=d), b, data, fuel) for d in ("cuda", "cpu"))
+            ints_equal(got, want, f"{loop} width {width} prefetch "
+                       f"{prefetch} fuel {fuel}")
+            check(fuel < total or torch.equal(got[dst], ref),
+                  f"{loop} width {width}: output != numpy reference")
+            emit({"phase": "check", "kernel": "tiles", "loop": loop,
+                  "tiles": total, "width": width, "prefetch": prefetch,
+                  "fuel": fuel, "equal": True,
+                  "executed": int(got["counts"][5]),
+                  "tiers": None if not width else
+                  tfa.make_forasync_megakernel(
+                      tk, width=width, prefetch=prefetch,
+                      device="cpu").decode_tier_stats(want["tstats"])})
+        for width in (0, 8):
+            outs = {}
+            for d in ("cuda", "cpu"):
+                mk = tfa.make_forasync_megakernel(tk, width=width, device=d)
+                bufs = {k: torch.from_numpy(v).to(d)
+                        for k, v in data.items()}
+                tfa.tile_rounds(mk, tfa.tile_arg_table(bounds, tile), bufs)
+                outs[d] = bufs[tk.out_names[0]].cpu()
+            check(torch.equal(outs["cuda"], outs["cpu"])
+                  and torch.equal(outs["cpu"], ref),
+                  f"{loop} standalone tile entry width {width} differs")
+        emit({"phase": "check", "kernel": "tiles", "loop": loop,
+              "standalone_entry": [0, 8], "equal": True})
+    ab64 = TaskGraphBuilder()
+    for t in range(64):
+        ab64.add(tw.ADD_TILE, args=[t])
+    rng = np.random.default_rng(2)
+    add_data = {k: rng.standard_normal((64, 8, 128)).astype(np.float32)
+                for k in ("a", "b")}
+    add_data["c"] = np.zeros((64, 8, 128), np.float32)
+    got, want = (raw_state(tw.make_arrayadd_megakernel(64, device=d), ab64,
+                           add_data) for d in ("cuda", "cpu"))
+    ints_equal(got, want, "arrayadd")
+    check(torch.equal(got["data.c"], want["data.c"]) and torch.equal(
+        got["data.c"], torch.from_numpy(add_data["a"] + add_data["b"])),
+        "arrayadd differs from the plain version or a + b")
+    emit({"phase": "check", "kernel": "tiles", "loop": "arrayadd",
+          "tiles": 64, "equal": True, "equal_to_a_plus_b": True})
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -1207,6 +1293,132 @@ def main() -> int:
           "equal_to_plain": True,
           "library": "none: no PyTorch call computes Smith-Waterman",
           "launches": launches})
+
+    # 15, 16. the forasync loops at full size, each arm through the entry
+    # point and timed on its megakernel; the bound is the unique bytes
+    # (each input element read once, each output written once) plus
+    # 136 bytes a descriptor, over the card's memory rate.
+    def forasync_phase(phase, tk, bounds, tile, arrays, library):
+        src_name, dst_name = tk.data_specs
+        ref = torch.from_numpy(fa_reference(tk, arrays[0])).to(dev)
+        bufs = {k: torch.from_numpy(v).to(dev)
+                for k, v in zip(tk.data_specs, arrays)}
+        b, total = fa_graph(bounds, tile)
+        out_bytes = math.prod(tile) * total * 4
+        nbytes = arrays[0].nbytes + out_bytes + 136.0 * total
+        kb = bound(0.0, nbytes)
+        _build.reset_launches()
+        arms = {}
+        for width in (0, 8):
+            bufs[dst_name].zero_()
+            t0 = time.perf_counter()
+            out, info = tfa.run_forasync_device(tk, bounds, tile, bufs,
+                                                width=width, device="cuda")
+            torch.cuda.synchronize()
+            entry_s = time.perf_counter() - t0
+            check(torch.equal(out[dst_name], ref) and info["executed"]
+                  == total, f"{phase} width {width}: output != reference")
+            mk = tfa.make_forasync_megakernel(tk, width=width,
+                                              capacity=total + 8,
+                                              device="cuda")
+            bufs[dst_name].zero_()
+            ms, st = timed_launch(mk, b, bufs)
+            check(torch.equal(st["data"][dst_name], ref),
+                  f"{phase} width {width}: timed launch output")
+            arms[width] = {"kernel_ms": ms, "tiles_per_s": total / (
+                ms * 1e-3), "entry_seconds": entry_s,
+                "tiers": info.get("tiers")}
+        launches = path_done(phase)
+        host = {k: v for k, v in zip(tk.data_specs, arrays)}
+        for width in (0, 8):
+            mkc = tfa.make_forasync_megakernel(tk, width=width,
+                                               capacity=total + 8,
+                                               device="cpu")
+            stc = mkc.state(b, data=host)
+            arms[width]["plain_host_ms"], _ = plain_ms(
+                lambda: mkc.launch(stc))
+            check(torch.equal(stc["data"][dst_name], ref.cpu()),
+                  f"{phase} width {width}: plain output != reference")
+            # The same rounds without the scheduler (at width 8 also
+            # without the prefetch: what overlapping the loads buys).
+            args = torch.from_numpy(tfa.tile_arg_table(bounds, tile)).to(
+                dev, torch.int32)
+            for key, prefetch in (("standalone_ms", True),
+                                  ("standalone_no_prefetch_ms", False)):
+                if key != "standalone_ms" and not width:
+                    continue
+                mks = tfa.make_forasync_megakernel(
+                    tk, width=width, prefetch=prefetch, device="cuda")
+                bufs[dst_name].zero_()
+                arms[width][key] = events_ms(
+                    lambda: tfa.tile_rounds(mks, args, bufs), 3)
+                check(torch.equal(bufs[dst_name], ref),
+                      f"{phase} width {width}: standalone output")
+        lib_ms = None
+        if library is not None:
+            got = library(bufs[src_name])
+            check(torch.equal(got.view(-1), ref.view(-1)),
+                  f"{phase}: the library call's output")
+            lib_ms = events_ms(lambda: library(bufs[src_name]), 5)
+        for width, body in ((0, tk.name), (8, tk.name + "_batch")):
+            kernels[body] = {
+                "name": body, "route": "cuda",
+                "source": "hclib_tpu_torch/csrc/forasync.cuh",
+                "replaces": "hclib_tpu/device/forasync_tier.py:"
+                            + ("267" if width == 0 else "326"),
+                "max_abs_err": 0.0, "ms": arms[width]["kernel_ms"],
+                "plain_ms": arms[width]["plain_host_ms"],
+                "bound_ms": kb[0], "bound_by": kb[1], "library_ms": lib_ms,
+            }
+        emit({"phase": phase, "tiles": total, "tile": list(tile),
+              "equal_to_reference": True, "arms": arms,
+              "bound_ms": kb[0], "bound_bytes": nbytes,
+              "library_ms": lib_ms, "launches": launches})
+        del bufs, ref
+
+    forasync_phase("forasync_stencil", *tw.stencil_loop(4096, 4096),
+                   tw.stencil_data(4096, 4096), None)
+    c7 = torch.tensor(tw.MAP_ADD, dtype=torch.int32, device=dev)
+    forasync_phase("forasync_map", *tw.map_loop(16384), tw.map_data(16384),
+                   lambda x: torch.add(c7, x, alpha=tw.MAP_MUL))
+
+    # 17. arrayadd, 16,384 add_tile tasks
+    _build.reset_launches()
+    nta = 16384
+    t0 = time.perf_counter()
+    a_, b_, c_, info = tw.device_arrayadd(nta, device="cuda")
+    entry_s = time.perf_counter() - t0
+    want_c = torch.from_numpy(a_ + b_).to(dev)
+    check(torch.equal(c_, want_c) and info["executed"] == nta,
+          "arrayadd: c != a + b")
+    ab = TaskGraphBuilder()
+    for t in range(nta):
+        ab.add(tw.ADD_TILE, args=[t])
+    add_bufs = {"a": torch.from_numpy(a_).to(dev),
+                "b": torch.from_numpy(b_).to(dev),
+                "c": torch.zeros_like(want_c)}
+    add_ms, st = timed_launch(tw.make_arrayadd_megakernel(nta, device="cuda"),
+                              ab, add_bufs)
+    check(torch.equal(st["data"]["c"], want_c), "arrayadd timed launch")
+    launches = path_done("arrayadd")
+    mkc = tw.make_arrayadd_megakernel(nta, device="cpu")
+    stc = mkc.state(ab, data={"a": a_, "b": b_, "c": np.zeros_like(a_)})
+    add_pms, _ = plain_ms(lambda: mkc.launch(stc))
+    check(torch.equal(stc["data"]["c"], want_c.cpu()), "plain arrayadd")
+    add_lms = events_ms(lambda: torch.add(add_bufs["a"], add_bufs["b"]), 5)
+    kb = bound(0.0, 3 * a_.nbytes + 136.0 * nta)
+    kernels["add_tile"] = {
+        "name": "add_tile", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/forasync.cuh",
+        "replaces": "hclib_tpu/device/workloads.py:515",
+        "max_abs_err": 0.0, "ms": add_ms, "plain_ms": add_pms,
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": add_lms,
+    }
+    emit({"phase": "arrayadd", "tiles": nta, "equal_to_a_plus_b": True,
+          "kernel_ms": add_ms, "tiles_per_s": nta / (add_ms * 1e-3),
+          "entry_seconds": entry_s, "plain_host_ms": add_pms,
+          "bound_ms": kb[0], "library_ms": add_lms, "launches": launches})
+    del add_bufs, want_c, c_
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

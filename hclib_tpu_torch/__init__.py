@@ -13,5 +13,7 @@ and ``device.smithwaterman.device_sw`` / ``device_sw_wave`` /
 ``device_sw_batched``, all through ``device.megakernel.Megakernel.run``
 (scalar and batch tiers); ``device.sw_vec.sw_scores`` (torch ops); and
 the canonical UTS engines ``device.uts_fused.uts_fused`` (CUDA) and
-``device.uts_vec.uts_vec`` (its plain lockstep version).
+``device.uts_vec.uts_vec`` (its plain lockstep version); the forasync
+tier ``device.forasync_tier.run_forasync_device`` and
+``device.workloads.device_arrayadd``.
 """

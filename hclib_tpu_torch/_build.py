@@ -42,6 +42,8 @@ LAUNCHES: Dict[str, int] = {
     "megakernel": 0, "potrf": 0, "trsmcol": 0, "updrow": 0, "trsm": 0,
     "uts": 0, "fib_batch": 0, "uts_node_batch": 0, "updrow_batch": 0,
     "sw_tile": 0, "sw_wave_batch": 0, "vector": 0, "sw_scores": 0,
+    "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
+    "fa_map_batch": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

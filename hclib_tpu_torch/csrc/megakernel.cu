@@ -23,6 +23,11 @@
 //   vfib, vnqueens <- the vector tier: megakernel.py _wrap_vector_spec
 //                 (:771) over vector_engine.py make_subtree_runner (:136)
 //                 with fib_spec (:342) / nqueens_spec (:396), see vector.cuh
+//   add_tile   <- workloads.py _addtile_kernel (:515)
+//   fa_stencil, fa_map, fa_stencil_batch, fa_map_batch <- the forasync
+//                 tier's slab pipeline, forasync_tier.py scalar_kernel
+//                 (:267), batch_body (:326), batch_drain (:386), see
+//                 forasync.cuh
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -66,6 +71,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "forasync.cuh"
 #include "tiles.cuh"
 #include "vector.cuh"
 
@@ -86,18 +92,22 @@ constexpr int VBLOCK = 4;
 enum {
   B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, B_SW_TILE,
   B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH,
-  B_VFIB, B_VNQUEENS, NBODY
+  B_VFIB, B_VNQUEENS, B_ADD_TILE, B_FA_STENCIL, B_FA_MAP, B_FA_STENCIL_BATCH,
+  B_FA_MAP_BATCH, NBODY
 };
 // Meta words: static body parameters, then the table maps, then one
 // 4-word row per batch lane (F_FN, width, prefetch, batched body), then
 // (vector tables) one 8-word row per F_FN: rows, cols, stack depth,
-// min_idle_div, family parameter.
+// min_idle_div, family parameter; then (tile tables) the slab words at
+// META_SLAB (forasync.cuh).
 enum {
   P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT, P_NTJ,
   P_CHUNK
 };
-constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 32, META_BATCH = 64,
-              META_VEC = 192, VEC_WORDS = 8;
+constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 48, META_BATCH = 80,
+              META_VEC = 208, VEC_WORDS = 8;
+static_assert(NBODY <= META_BODY_OF_FN - META_FN_OF_BODY, "body ids");
+static_assert(META_VEC + 32 * VEC_WORDS == META_SLAB, "meta layout");
 // Tier counters (megakernel.py TS_*) and lane-state words (LS_*).
 constexpr int TS_BATCH_ROUNDS = 0, TS_BATCH_TASKS = 1, TS_SCALAR_ROUNDS = 2,
               TS_ROUTED = 3, TS_PREFETCH = 4, TS_FULL_ROUNDS = 5,
@@ -424,23 +434,6 @@ __device__ int sw_tile_body(const SwData& d, int ti, int tj) {
                     d.htiles ? d.htiles + d.tile(ti, tj) * SW_T : nullptr);
 }
 
-// cp.async: 16 bytes global -> shared, L2 only (.cg), in commit groups.
-__device__ __forceinline__ void cp16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // One operand half of sw_wave_batch in dynamic shared memory: per tile
 // slot its a, b, top and left rows and the 16-byte chunk of the diagonal
 // neighbour's right column that holds its corner (lane 3 of 4).
@@ -496,6 +489,15 @@ __device__ void sw_load_desc(const SwData& d, SwHalf H, int b, int chunk,
       *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
   }
 }
+
+// The 4 arg words of a tile body's slot b: those of task row rows[b].
+struct TaskArgs {
+  const int32_t* tasks;
+  const int* rows;
+  __device__ const int32_t* operator()(int b) const {
+    return tasks + static_cast<size_t>(rows[b]) * DESC + F_A0;
+  }
+};
 
 // What thread 0 publishes for one round.
 enum { ACT_EXIT, ACT_SCALAR, ACT_BATCH };
@@ -725,10 +727,12 @@ __device__ void spill(Sched& S, const Args& a) {
 // loop: with that code in, the card ran fib(24) 2.0% and UTS depth 20
 // 4.3% slower a task, though no scalar round enters it (same-card A/B on
 // an H100, scripts/ab_sched.py). 1: lanes and SW. 2: those and the
-// vector engine, kept out of the other two for the same reason.
+// vector engine, kept out of the other two for the same reason. 3: lanes
+// and the tile bodies (forasync.cuh), out of 0-2 for that reason too.
 template <int kMode>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
   constexpr bool kLean = kMode == 0, kVector = kMode == 2;
+  constexpr bool kSw = kMode == 1 || kMode == 2, kTile = kMode == 3;
   extern __shared__ __align__(16) float dsm[];
   __shared__ GemmSmem gs;
   __shared__ int32_t s_counts[8];
@@ -811,7 +815,7 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                       nt, ts);
             break;
           case B_SW_TILE:
-            if constexpr (!kLean) {
+            if constexpr (kSw) {
               if (tid < 32) {
                 const int m = sw_tile_body(sw, a0, S.w(idx, F_A0 + 1));
                 if (tid == 0) S.iv[0] = max(S.iv[0], m);
@@ -824,6 +828,16 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
               __shared__ VecSmem vs;
               vector_body(S, a, idx, R.body, vs);
             }
+            break;
+          case B_ADD_TILE:
+          case B_FA_STENCIL:
+          case B_FA_MAP:
+            if constexpr (kTile)
+              tile_round(R.body == B_ADD_TILE     ? TILE_ADD
+                         : R.body == B_FA_STENCIL ? TILE_STENCIL
+                                                  : TILE_MAP,
+                         meta, a.data, swm, 1, 1, 0, 0, 0,
+                         TaskArgs{a.tasks, &R.idx}, TaskArgs{a.tasks, &R.idx});
             break;
           default:  // B_SW_WAVE: JAX's _batch_stub, never dispatched
             break;
@@ -851,7 +865,17 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                           S.w(R.rows[s], F_A0 + 1), nt, ts);
             break;
           case B_SW_WAVE_BATCH:
-            sw_wave_batch_body(sw, swm, R, S, meta[P_CHUNK], s_tmax);
+            if constexpr (kSw)
+              sw_wave_batch_body(sw, swm, R, S, meta[P_CHUNK], s_tmax);
+            break;
+          case B_FA_STENCIL_BATCH:
+          case B_FA_MAP_BATCH:
+            if constexpr (kTile)
+              tile_round(R.body == B_FA_STENCIL_BATCH ? TILE_STENCIL
+                                                      : TILE_MAP,
+                         meta, a.data, swm, R.width, R.take, R.pre, R.buf,
+                         R.nxt, TaskArgs{a.tasks, R.rows},
+                         TaskArgs{a.tasks, R.next_rows});
             break;
           default:
             break;
@@ -861,8 +885,9 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
       }
     }
     if constexpr (!kLean) {
-      // _sw_wave_drain: no prefetch copy outlives the round loop (a no-op
-      // for tables without a prefetch lane).
+      // _sw_wave_drain and the tile tier's batch_drain: no prefetch copy
+      // outlives the round loop (a no-op for tables without a prefetch
+      // lane).
       cp_wait_all();
       __syncthreads();
       if (tid == 0) spill(S, a);
@@ -984,6 +1009,42 @@ __device__ void step_copy_ops(int32_t* stk, int32_t* st) {
   s[8] = v[5 + U];
 }
 
+// Standalone run of a tile body (forasync.cuh), without the scheduler:
+// tiles [0, n) of the (n, 4) arg words, in rounds of `width` slots in
+// order, with the FIFO prefetch protocol when `prefetch` (the next
+// round's tiles loaded into the other half under this round's compute);
+// width 1 without prefetch is the scalar body, one tile a round.
+struct ListArgs {
+  const int32_t* args;
+  int first;
+  __device__ const int32_t* operator()(int b) const {
+    return args + 4 * (first + b);
+  }
+};
+
+struct DataPtrs {
+  void* p[MAX_DATA];
+};
+
+__global__ void __launch_bounds__(BT)
+    tile_entry(const int32_t* meta, DataPtrs data, const int32_t* args,
+               int n, int width, int prefetch, int op) {
+  extern __shared__ __align__(16) float dsm[];
+  int32_t* smem = reinterpret_cast<int32_t*>(dsm);
+  int pre = 0, buf = 0;
+  for (int first = 0; first < n;) {
+    const int take = min(width, n - first);
+    const int nxt = prefetch ? min(width, n - first - take) : 0;
+    tile_round(op, meta, data.p, smem, width, take, pre, buf, nxt,
+               ListArgs{args, first}, ListArgs{args, first + take});
+    __syncthreads();
+    first += take;
+    pre = nxt;
+    if (prefetch) buf = 1 - buf;
+  }
+  cp_wait_all();
+}
+
 struct UpdRows {
   int v[2 * MAX_WIDTH];  // (i, k) of each slot
 };
@@ -1018,7 +1079,8 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     int smem, void* stream) {
   void (*kernel)(Args) = mode == 0   ? mk_kernel<0>
                          : mode == 1 ? mk_kernel<1>
-                                     : mk_kernel<2>;
+                         : mode == 2 ? mk_kernel<2>
+                                     : mk_kernel<3>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1093,6 +1155,23 @@ int hclib_updrow_batch_launch(float* tiles, const uint16_t* lsp,
   for (int i = 0; i < 2 * n; ++i) r.v[i] = rows[i];
   updrow_batch_entry<<<1, BT, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, lsp, r, n, nt, ts);
+  return cudaGetLastError();
+}
+
+// op: 0 add, 1 stencil, 2 map (forasync.cuh TILE_*); meta holds the
+// table's slab words; data its buffers; args (n, 4) tile arg words.
+int hclib_tile_launch(const int32_t* meta, void* const* data,
+                      const int32_t* args, int n, int width, int prefetch,
+                      int op, int smem, void* stream) {
+  if (n < 1 || width < 1 || width > MAX_WIDTH || op < 0 || op > 2)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      tile_entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  DataPtrs d{};
+  for (int i = 0; i < MAX_DATA; ++i) d.p[i] = data[i];
+  tile_entry<<<1, BT, smem, static_cast<cudaStream_t>(stream)>>>(
+      meta, d, args, n, width, prefetch, op);
   return cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 loop in one CUDA kernel launch.
 
 Port of the scalar tier, the batched same-kind dispatch tier and the
-vector (subtree) tier of ``hclib_tpu/device/megakernel.py``. The TPU runs
+vector (subtree) tier of ``hclib_tpu/device/megakernel.py``, with the
+forasync tier's tile bodies. The TPU runs
 the scheduler as one ``pallas_call`` whose scalar core pops task
 descriptors off an SMEM ready ring and ``lax.switch``-es on ``F_FN`` over
 a table of Pallas bodies.
@@ -32,6 +33,11 @@ What differs from the JAX class:
   JAX's ``_wrap_vector_spec`` bridge included (seed from the 6 arg words,
   ``root_contrib`` for a leaf seed, the out accumulator to ``F_OUT``, the
   expanded nodes to ``C_EXECUTED``, ``OVF_ENGINE`` on overflow).
+- The tile bodies (``add_tile`` and the forasync families ``fa_stencil``
+  and ``fa_map``, scalar and batched, ``csrc/forasync.cuh``) run one slab
+  pipeline whose geometry the table carries as data: ``slabs=(loads,
+  stores)`` (``forasync_tier.Slab``) becomes the slab words at
+  ``META_SLAB``, which the CUDA bodies and the plain ones both read.
 - Scheduler state lives in device memory and is updated IN PLACE (the
   task table, ready ring, counts, value and tier-counter tensors passed in
   are the outputs), the counterpart of JAX's ``input_output_aliases``.
@@ -48,6 +54,7 @@ program cache.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -167,19 +174,32 @@ LS_WORDS = 8
 # body id of its ``switch``. New bodies are appended, never renumbered.
 BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm",
           "sw_tile", "sw_wave", "fib_batch", "uts_node_batch",
-          "updrow_batch", "sw_wave_batch", "vfib", "vnqueens")
+          "updrow_batch", "sw_wave_batch", "vfib", "vnqueens", "add_tile",
+          "fa_stencil", "fa_map", "fa_stencil_batch", "fa_map_batch")
 # Kernel name -> the batched body a BatchSpec routes it to.
 BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
-                "updrow": "updrow_batch", "sw_wave": "sw_wave_batch"}
+                "updrow": "updrow_batch", "sw_wave": "sw_wave_batch",
+                "fa_stencil": "fa_stencil_batch", "fa_map": "fa_map_batch"}
 # Batched bodies with a drain (the only ones that may take prefetch=True).
-DRAIN_BODIES = ("sw_wave_batch",)
+DRAIN_BODIES = ("sw_wave_batch", "fa_stencil_batch", "fa_map_batch")
+# The tile bodies (csrc/forasync.cuh): one slab pipeline, load slabs ->
+# per-family arithmetic -> store slab, whose geometry the table carries
+# as slab words (``slabs=``). Body -> its family's (load slabs, shape
+# rule of load to store, dtype).
+TILE_BODIES = {
+    "add_tile": ("add_tile", 2, "same", torch.float32),
+    "fa_stencil": ("fa_stencil", 1, "halo", torch.int32),
+    "fa_stencil_batch": ("fa_stencil", 1, "halo", torch.int32),
+    "fa_map": ("fa_map", 1, "same", torch.int32),
+    "fa_map_batch": ("fa_map", 1, "same", torch.int32),
+}
 # Kinds with no scalar body (JAX's _batch_stub): they run only routed.
 ROUTED_ONLY = ("sw_wave",)
 # Bodies whose dispatches are kernel launches, and the _build.LAUNCHES
 # counter each is folded into (the two vector families share the engine's).
 COUNTED = {b: b for b in ("potrf", "trsmcol", "updrow", "trsm", "sw_tile",
                           "fib_batch", "uts_node_batch", "updrow_batch",
-                          "sw_wave_batch")}
+                          "sw_wave_batch", *TILE_BODIES)}
 COUNTED.update({b: "vector" for b in VECTOR_BODIES})
 # Data families: the bodies that read them and their buffers, in the
 # order the kernel's data pointers take (then optional ones).
@@ -188,20 +208,39 @@ DATA_FAMILIES = {
                  ("tiles", "linvsp", "lsp"), ()),
     "sw": (("sw_tile", "sw_wave", "sw_wave_batch"),
            ("aseq", "bseq", "bot", "right"), ("htiles",)),
+    "arrayadd": (("add_tile",), ("a", "b", "c"), ()),
+    "fa_stencil": (("fa_stencil", "fa_stencil_batch"), ("gin", "gout"), ()),
+    "fa_map": (("fa_map", "fa_map_batch"), ("vin", "vout"), ()),
 }
 MAX_DATA = 8
 # Static body parameters, in the order of the kernel's meta words.
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
           "factor_base", "nt", "nt_j", "chunk")
+MAX_BODIES = 32
 META_FN_OF_BODY = 16  # meta[16 + body] = this table's F_FN of body, or -1
-META_BODY_OF_FN = 32  # meta[32 + fn] = body id of F_FN fn
-META_BATCH = 64       # meta[64 + 4*li ..] = fid, width, prefetch, body
-MAX_FNS = META_BATCH - META_BODY_OF_FN
+META_BODY_OF_FN = META_FN_OF_BODY + MAX_BODIES  # [.. + fn] = body of fn
+MAX_FNS = 32
+META_BATCH = META_BODY_OF_FN + MAX_FNS  # [.. + 4*li ..] = fid, width,
+                                        # prefetch, body
 # meta[META_VEC + VEC_WORDS*fn ..] = a vector F_FN's rows, cols, stack
 # depth, min_idle_div and family parameter.
 META_VEC = META_BATCH + 4 * MAX_FNS
 VEC_WORDS = 8
-NDISPATCH = 16        # per-body dispatch counters
+# meta[META_SLAB ..] = the tile body's slab words: a header (load slabs,
+# store slabs, int32 words of one slot's load slabs in shared memory),
+# then per slab, loads first: its buffer (data_specs index), the
+# buffer's leading stride, rows, cols, the shared-memory row pitch and
+# offset within a slot (loads), and its start element in the buffer as
+# an affine form of the 4 arg words: c0*a0 + c1*a1 + c2*a2 + c3*a3 + k.
+META_SLAB = META_VEC + VEC_WORDS * MAX_FNS
+SLAB_HDR = 4
+SLAB_WORDS = 12
+SL_BUF, SL_LD, SL_ROWS, SL_COLS, SL_PITCH, SL_SOFF, SL_C0, SL_K = (
+    0, 1, 2, 3, 4, 5, 6, 10)
+# Dynamic shared memory a tile table may take: the 232,448 bytes a block
+# can use less 16 KB kept for mk_kernel's static shared memory.
+TILE_SMEM_LIMIT = 232448 - 16384
+NDISPATCH = MAX_BODIES  # per-body dispatch counters
 MAX_WIDTH = 8         # slot rows of a batch round
 SW_T = 128            # Smith-Waterman tile edge
 MAX_SW_SLOTS = 16     # tile slots of one sw_wave_batch round (width*chunk)
@@ -262,6 +301,10 @@ class KernelContext:
     @property
     def params(self):
         return self._c.params
+
+    @property
+    def core(self) -> "_PlainCore":
+        return self._c
 
     def arg(self, i: int) -> int:
         return self._c.tasks[self.idx * DESC_WORDS + F_A0 + i]
@@ -407,6 +450,10 @@ class BatchContext:
     def scratch(self) -> dict:
         return self._c.scratch
 
+    @property
+    def core(self) -> "_PlainCore":
+        return self._c
+
     def value(self, slot: int) -> int:
         return self._c.ivalues[slot]
 
@@ -447,6 +494,10 @@ class _PlainCore:
         self.counts = list(self.counts_in)
         self.ivalues = list(self.ivalues_in)
         self.data = st["data"]
+        # The tile bodies' view: the slab words and the buffers in
+        # data_specs order (the slab words' buffer indices).
+        self.slab_words = mk.slab_words
+        self.buffers = [st["data"][k] for k in mk.data_specs]
         self.free = [0] * (self.capacity + 1)
         self.dispatch = [0] * NDISPATCH
         nrows = len(self.specs)
@@ -619,10 +670,12 @@ def _plain_bodies() -> Dict[str, object]:
                            updrow_batch_body, updrow_body)
     from .smithwaterman import (sw_tile_body, sw_wave_batch_body,
                                 sw_wave_batch_drain)
+    from .forasync_tier import plain_tile_bodies
     from .workloads import (fib_batch_body, fib_body, sum_body,
                             uts_node_batch_body, uts_node_body)
 
     return {
+        **plain_tile_bodies(),
         "fib": fib_body, "sum": sum_body, "uts_node": uts_node_body,
         "potrf": potrf_body, "trsmcol": trsmcol_body, "updrow": updrow_body,
         "trsm": trsm_body, "sw_tile": sw_tile_body,
@@ -666,7 +719,8 @@ class Megakernel:
     ``BatchSpec``s (the batch tier) or ``VectorTaskSpec``s (the vector
     tier). ``data_specs`` maps buffer names to ``(shape,
     dtype)`` in the order ``DATA_FAMILIES`` gives them; ``params`` gives
-    the bodies' static parameters (``PARAMS``). Runs on ``device``
+    the bodies' static parameters (``PARAMS``); ``slabs`` the windows a
+    tile body (``TILE_BODIES``) loads and stores. Runs on ``device``
     (default ``"cuda"``; ``"cpu"`` runs the plain version).
     """
 
@@ -681,6 +735,7 @@ class Megakernel:
         params: Optional[Dict[str, int]] = None,
         route: Optional[Dict[str, object]] = None,
         auto_route: Optional[Dict[str, VectorTaskSpec]] = None,
+        slabs: Optional[tuple] = None,
         device="cuda",
         **later,
     ) -> None:
@@ -757,6 +812,9 @@ class Megakernel:
                             if b in DATA_FAMILIES["cholesky"][0]]
         self.sw_bodies = [b for b in self.body_names
                           if b in DATA_FAMILIES["sw"][0]]
+        self.slab_body = next((b for b in self.body_names
+                               if b in TILE_BODIES), None)
+        self.slab_words = self._encode_slabs(slabs)
         self.sw_slots = 0
         if "sw_wave_batch" in self.body_names:
             self.sw_slots = self.route["sw_wave"].width * self.params["chunk"]
@@ -765,7 +823,8 @@ class Megakernel:
                     f"sw_wave_batch sweeps width*chunk = {self.sw_slots} "
                     f"tile slots a round; it must be 1..{MAX_SW_SLOTS}"
                 )
-        meta = [0] * (META_VEC + VEC_WORDS * len(names)
+        meta = [0] * (META_SLAB + len(self.slab_words) if self.slab_words
+                      else META_VEC + VEC_WORDS * len(names)
                       if self.vector_specs else
                       META_BATCH + 4 * len(self.batch_specs))
         for i, p in enumerate(PARAMS):
@@ -781,6 +840,7 @@ class Megakernel:
             o = META_VEC + VEC_WORDS * fn
             meta[o:o + 5] = [*spec.lanes, spec.stack_depth,
                              spec.min_idle_div, spec.param]
+        meta[META_SLAB:META_SLAB + len(self.slab_words)] = self.slab_words
         self._meta = meta
         self._plain = _plain_bodies()
         self._fn_plain = [
@@ -825,6 +885,83 @@ class Megakernel:
                 f"{unrouted} run only batch-routed: pass route="
                 "{name: BatchSpec(...)}"
             )
+
+    def _encode_slabs(self, slabs) -> list:
+        """The slab words (see META_SLAB) of the table's tile body from
+        ``slabs = (loads, stores)``: windows of ``data_specs`` buffers
+        with a start per buffer dimension (an int, or the affine form
+        ``(c0, c1, c2, c3, k)`` of the arg words) and a shape of rank 1
+        or 2 on the buffer's trailing dimensions (leading ones picked).
+        Checks the window against its family's shape rule and the
+        shared memory the body's operand slots take."""
+        if slabs is None:
+            if self.slab_body:
+                raise ValueError(f"tile body {self.slab_body!r} needs "
+                                 "slabs=(loads, stores)")
+            return []
+        if not self.slab_body:
+            raise ValueError("slabs= given to a table with no tile body "
+                             f"(tile bodies: {sorted(TILE_BODIES)})")
+        family, nload, rule, dtype = TILE_BODIES[self.slab_body]
+        loads, stores = (list(x) for x in slabs)
+        if len(loads) != nload or len(stores) != 1:
+            raise ValueError(f"{family} takes {nload} load slab(s) and one "
+                             f"store slab, got {len(loads)} and "
+                             f"{len(stores)}")
+        names = list(self.data_specs)
+        words, soff = [len(loads), len(stores), 0, 0], 0
+        for k, s in enumerate(loads + stores):
+            if s.data not in self.data_specs:
+                raise ValueError(f"slab {s.name!r} targets undeclared "
+                                 f"buffer {s.data!r}")
+            shape, dt = self.data_specs[s.data]
+            shape = tuple(int(x) for x in shape)
+            if dt != dtype:
+                raise ValueError(f"{family} slabs move {dtype} buffers; "
+                                 f"{s.data!r} is {dt}")
+            if math.prod(shape) >= 1 << 31:
+                raise ValueError(f"buffer {s.data!r} {shape} exceeds 2^31 "
+                                 "elements (slab starts are int32)")
+            if not 1 <= len(s.shape) <= min(2, len(shape)) or len(
+                    s.start) != len(shape):
+                raise ValueError(
+                    f"slab {s.name!r}: a window of rank 1 or 2 on the "
+                    f"trailing dimensions of {s.data!r} {shape}, with one "
+                    f"start per dimension (got shape {s.shape}, "
+                    f"{len(s.start)} starts)")
+            strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+            coef = [0] * 5
+            for st, stride in zip(s.start, strides):
+                aff = (0, 0, 0, 0, st) if isinstance(st, int) else st
+                coef = [c + a * stride for c, a in zip(coef, aff)]
+            rows = s.shape[0] if len(s.shape) == 2 else 1
+            cols = s.shape[-1]
+            pitch = -(-cols // 4) * 4  # 16-byte rows in shared memory
+            load = k < len(loads)
+            words += [names.index(s.data), shape[-1], rows, cols,
+                      pitch if load else 0, soff if load else 0, *coef, 0]
+            soff += rows * pitch if load else 0
+        words[2] = soff
+        want = tuple(x + 2 for x in stores[0].shape) if rule == "halo" \
+            else stores[0].shape
+        if any(tuple(s.shape) != tuple(want) for s in loads):
+            raise ValueError(
+                f"{family}: load slabs must be {want} for a {stores[0].shape}"
+                f" store slab, got {[tuple(s.shape) for s in loads]}")
+        need = 4 * soff * self._slab_slots()
+        if need > TILE_SMEM_LIMIT:
+            raise ValueError(
+                f"{self.slab_body}'s operand slabs take {need} bytes of "
+                f"shared memory ({self._slab_slots()} slots of {4 * soff}),"
+                f" above the {TILE_SMEM_LIMIT} a block gives them: shrink "
+                "the tile or the batch width")
+        return words
+
+    def _slab_slots(self) -> int:
+        """Operand slots of the tile body: one, or two halves of
+        ``width`` for a batched body."""
+        spec = self.route.get(TILE_BODIES[self.slab_body][0])
+        return 2 * spec.width if isinstance(spec, BatchSpec) else 1
 
     def _check_data_family(self) -> None:
         fams = [f for f, (bodies, _, _) in DATA_FAMILIES.items()
@@ -936,6 +1073,8 @@ class Megakernel:
 
     def _smem_bytes(self) -> int:
         smem = 0
+        if self.slab_words:
+            smem = 4 * self.slab_words[2] * self._slab_slots()
         if "potrf" in self.tile_bodies:
             smem = potrf_smem_bytes(self.params["factor_base"])
         if self.sw_slots:
@@ -982,7 +1121,8 @@ class Megakernel:
             *[data[k].data_ptr() for k in self.data_specs])
         work = vstack = None
         threads = 32
-        if self.tile_bodies or self.sw_bodies or self.vector_specs:
+        if (self.tile_bodies or self.sw_bodies or self.vector_specs
+                or self.slab_words):
             threads = THREADS
         if self.tile_bodies:
             ts = self.params["tile"]
@@ -996,8 +1136,9 @@ class Megakernel:
                 device=dev)
         # The kernel's instances (megakernel.cu kMode): without lane, SW
         # and vector code for tables that need none of them; with lane
-        # and SW code; with the vector engine too.
-        mode = 2 if self.vector_specs else int(
+        # and SW code; with the vector engine too; with lanes and the
+        # tile bodies.
+        mode = 3 if self.slab_words else 2 if self.vector_specs else int(
             bool(nrows or self.sw_bodies))
         lib = _build.library("megakernel")
         fn = lib.hclib_mk_launch

@@ -1,5 +1,6 @@
 """Task bodies of the benchmark workloads: fib and the seeded UTS tree,
-scalar and batched (port of ``hclib_tpu/device/workloads.py``).
+scalar and batched, the forasync tile loops and arrayadd (port of
+``hclib_tpu/device/workloads.py``).
 
 The bodies below are the plain versions; the kernel runs the same code as
 ``fib_body`` / ``sum_body`` / ``uts_node_body`` and the batched
@@ -9,11 +10,20 @@ batch tier, as ``batch_of`` does in JAX: one batch round runs the scalar
 body on each live slot's row in slot order, bit-identical to scalar
 dispatch. ``device_vfib`` and ``device_nqueens`` run one seed descriptor
 whose whole subtree goes through the vector tier (``vector_engine.py``).
+``stencil_loop`` and ``map_loop`` are the forasync tier's two int32
+loops (``forasync_tier.py``), with their numpy references and data
+factories copied from the JAX package (same inputs from the same seed);
+``device_arrayadd`` runs one ``add_tile`` task per (8, 128) f32 block.
+The host-runtime bodies ``stencil_body`` / ``map_body`` wait for the
+host runtime (ROADMAP A13).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
 
 from .descriptor import TaskGraphBuilder
 from .megakernel import (VBLOCK, BatchContext, BatchSpec, KernelContext,
@@ -25,7 +35,9 @@ __all__ = [
     "make_uts_megakernel", "device_uts_mk", "fib_body", "sum_body",
     "uts_node_body", "fib_batch_body", "uts_node_batch_body", "batch_of",
     "VFIB", "make_vfib_megakernel", "device_vfib", "VNQUEENS",
-    "device_nqueens",
+    "device_nqueens", "MAP_MUL", "MAP_ADD", "stencil_loop",
+    "stencil_reference", "stencil_data", "map_loop", "map_reference",
+    "map_data", "ADD_TILE", "make_arrayadd_megakernel", "device_arrayadd",
 ]
 
 
@@ -243,3 +255,132 @@ def device_nqueens(
     b.add(VNQUEENS, args=[0], out=0)
     ivalues, _, info = mk.run(b)
     return int(ivalues[0]), info
+
+
+# --------------------------------------- forasync tile loops (device tier)
+#
+# The two acceptance workloads of the forasync device tier
+# (forasync_tier.py): a 2D Jacobi-style 5-point stencil and a map-style
+# batched-apply loop. Both are int32, so the scalar and batched arms are
+# bit-identical (no float summation-order caveats); inputs are bounded so
+# no arithmetic wraps.
+
+MAP_MUL = 3
+MAP_ADD = 7
+
+
+def stencil_loop(H: int, W: int, th: int = 8, tw: int = 128):
+    """2D Jacobi-style stencil over an (H, W) interior held in (H+2, W+2)
+    halo-padded int32 grids ``gin`` -> ``gout``:
+
+        gout[i, j] = gin[i, j] + gin[i-1, j] + gin[i+1, j]
+                   + gin[i, j-1] + gin[i, j+1]      (padded coordinates)
+
+    Returns ``(tile_kernel, bounds, tile)`` for the forasync entry
+    points. Each (th, tw) tile's operand slab is the (th+2, tw+2) window
+    around it: interior row i lives at padded row i+1, so the slab around
+    interior rows [lo0, lo0+th) is padded rows [lo0, lo0+th+2), and the
+    store window starts at (lo0+1, lo1+1)."""
+    from .forasync_tier import Slab, TileKernel, affine
+
+    pad = ((H + 2, W + 2), torch.int32)
+    lo0, lo1 = affine(0, 1), affine(0, 0, 1)
+    tk = TileKernel(
+        loads=[Slab("vin", "gin", (lo0, lo1), (th + 2, tw + 2))],
+        stores=[Slab("vout", "gout", (affine(0, 1, const=1),
+                                      affine(0, 0, 1, const=1)), (th, tw))],
+        data_specs={"gin": pad, "gout": pad},
+        name="fa_stencil",
+    )
+    return tk, [H, W], [th, tw]
+
+
+def stencil_reference(gin: np.ndarray) -> np.ndarray:
+    """Vectorized numpy oracle (padded in -> padded out, halo zero)."""
+    out = np.zeros_like(gin)
+    out[1:-1, 1:-1] = (
+        gin[1:-1, 1:-1] + gin[:-2, 1:-1] + gin[2:, 1:-1]
+        + gin[1:-1, :-2] + gin[1:-1, 2:]
+    )
+    return out
+
+
+def stencil_data(H: int, W: int, seed: int = 0):
+    """Padded (gin, gout) int32 grids; values bounded so the 5-point sum
+    never wraps."""
+    rng = np.random.default_rng(seed)
+    gin = np.zeros((H + 2, W + 2), np.int32)
+    gin[1:-1, 1:-1] = rng.integers(0, 1 << 20, size=(H, W), dtype=np.int32)
+    return gin, np.zeros_like(gin)
+
+
+def map_loop(T: int, th: int = 8, tw: int = 128):
+    """Map-style batched-apply loop (the batched-inference shape): block
+    t of the (T, th, tw) int32 input maps elementwise through
+    ``x * MAP_MUL + MAP_ADD`` into the output block. The 1D loop runs
+    over all T*th*tw elements with one (th*tw)-element tile per block,
+    so the flat tile index IS the block index."""
+    from .forasync_tier import Slab, TileKernel, affine
+
+    spec = ((T, th, tw), torch.int32)
+    block = (affine(1), 0, 0)
+    tk = TileKernel(
+        loads=[Slab("vin", "vin", block, (th, tw))],
+        stores=[Slab("vout", "vout", block, (th, tw))],
+        data_specs={"vin": spec, "vout": spec},
+        name="fa_map",
+    )
+    return tk, [T * th * tw], [th * tw]
+
+
+def map_reference(vin: np.ndarray) -> np.ndarray:
+    return (vin * MAP_MUL + MAP_ADD).astype(np.int32)
+
+
+def map_data(T: int, th: int = 8, tw: int = 128, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    vin = rng.integers(0, 1 << 20, size=(T, th, tw), dtype=np.int32)
+    return vin, np.zeros_like(vin)
+
+
+# --------------------------------------------------------------- arrayadd
+
+ADD_TILE = 0
+_TILE = (8, 128)  # the f32 tile of the JAX body
+
+
+def make_arrayadd_megakernel(ntiles: int, device="cuda") -> Megakernel:
+    """The scalar table of arrayadd: ``add_tile`` tasks, arg0 the block
+    index t of the (ntiles, 8, 128) f32 buffers a, b, c; each loads
+    a[t] and b[t] and stores c[t] = a[t] + b[t]."""
+    from .forasync_tier import Slab, affine
+
+    spec = ((ntiles,) + _TILE, torch.float32)
+    block = (affine(1), 0, 0)
+    return Megakernel(
+        kernels=["add_tile"],
+        data_specs={"a": spec, "b": spec, "c": spec},
+        slabs=([Slab("va", "a", block, _TILE), Slab("vb", "b", block, _TILE)],
+               [Slab("vc", "c", block, _TILE)]),
+        capacity=max(64, ntiles),
+        num_values=8,
+        succ_capacity=8,
+        device=device,
+    )
+
+
+def device_arrayadd(ntiles: int = 16, device="cuda"):
+    """c = a + b over (ntiles, 8, 128) f32 blocks, one tile task per
+    block; a and b are ``default_rng(0)`` standard normals, as in JAX.
+    Returns (a, b, c, info): a and b numpy, c a tensor on the device."""
+    shape = (ntiles,) + _TILE
+    mk = make_arrayadd_megakernel(ntiles, device=device)
+    b = TaskGraphBuilder()
+    for t in range(ntiles):
+        b.add(ADD_TILE, args=[t])
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal(shape).astype(np.float32)
+    bb = rng.standard_normal(shape).astype(np.float32)
+    c = np.zeros(shape, dtype=np.float32)
+    _, data, info = mk.run(b, data={"a": a, "b": bb, "c": c})
+    return a, bb, data["c"], info

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from hclib_tpu_torch.device import cholesky as tc
+from hclib_tpu_torch.device import forasync_tier as tfa
 from hclib_tpu_torch.device import megakernel as tmk
 from hclib_tpu_torch.device import smithwaterman as ts
 from hclib_tpu_torch.device import sw_pallas as tsp
@@ -302,3 +303,97 @@ def test_sw_scores_equal_plain(card, B, n, m):
     want = tsp.sw_scores_plain(at.T.contiguous(), bt.T.contiguous())
     assert torch.equal(got, want)
     assert got.tolist() == [int(sw_seq(a[i], b[i]).max()) for i in range(B)]
+
+
+# The forasync tile tier (row 1k) and the arrayadd tile (row 1h').
+
+FA_LOOPS = {
+    # bench.py --forasync's stencil size; rows alternate 16- and 8-byte
+    # aligned (W + 2 = 1026 int32)
+    "stencil": lambda: (tw.stencil_loop(64, 1024),
+                        tw.stencil_data(64, 1024)),
+    # 85-wide tiles: slab rows start 4 bytes off, 87-word rows have tails
+    "stencil_odd": lambda: (tw.stencil_loop(24, 510, th=8, tw=85),
+                            tw.stencil_data(24, 510, seed=4)),
+    "map": lambda: (tw.map_loop(64), tw.map_data(64)),
+    # 3 x 33 blocks: 99 words, so blocks start 4 bytes off 16
+    "map_odd": lambda: (tw.map_loop(16, th=3, tw=33),
+                        tw.map_data(16, th=3, tw=33, seed=6)),
+}
+
+
+def _fa_pair(loop, width, prefetch, fuel=1 << 22):
+    (tk, bounds, tile), arrays = FA_LOOPS[loop]()
+    data = dict(zip(tk.data_specs, arrays))
+    b = TaskGraphBuilder()
+    total = tfa.seed_tiles(b, bounds, tile)
+    out = {}
+    for d in ("cuda", "cpu"):
+        mk = tfa.make_forasync_megakernel(tk, width=width, prefetch=prefetch,
+                                          capacity=total + 8, device=d)
+        out[d] = _raw(mk, b, fuel=fuel, data=data)
+    return out["cuda"], out["cpu"], arrays
+
+
+@pytest.mark.parametrize("width,prefetch", [(0, True), (4, True), (4, False),
+                                            (8, True), (8, False)])
+@pytest.mark.parametrize("loop", sorted(FA_LOOPS))
+def test_forasync_equals_plain(card, loop, width, prefetch):
+    """The scalar and batched tile bodies against the plain core: the whole
+    output state, tstats and both buffers (halo included) word for word,
+    and the output equal to the numpy reference."""
+    got, want, (src, _) = _fa_pair(loop, width, prefetch)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    ref = (tw.stencil_reference(src) if loop.startswith("stencil")
+           else tw.map_reference(src))
+    dst = got["data.gout" if loop.startswith("stencil") else "data.vout"]
+    assert np.array_equal(dst.numpy(), ref)
+    if width and prefetch:
+        assert int(want["tstats"][4]) > 0  # prefetch hits
+
+
+@pytest.mark.parametrize("loop", ["stencil", "map"])
+def test_forasync_fuel_cut_equals_plain(card, loop):
+    """Cut by fuel mid-loop at width 8 with the prefetch: lane entries
+    spill to the ring head, no copy outlives the run, state equal."""
+    got, want, _ = _fa_pair(loop, 8, True, fuel=20)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert int(want["tstats"][6]) > 0 and int(want["counts"][3]) > 0
+
+
+def test_arrayadd_equals_plain(card):
+    b = TaskGraphBuilder()
+    for t in range(64):
+        b.add(tw.ADD_TILE, args=[t])
+    rng = np.random.default_rng(2)
+    data = {k: rng.standard_normal((64, 8, 128)).astype(np.float32)
+            for k in ("a", "b")}
+    data["c"] = np.zeros((64, 8, 128), np.float32)
+    got, want = (_raw(tw.make_arrayadd_megakernel(64, device=d), b,
+                      data=data) for d in ("cuda", "cpu"))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["data.c"],
+                       torch.from_numpy(data["a"] + data["b"]))
+    a, b_, c, info = tw.device_arrayadd(16)
+    assert np.array_equal(c.cpu().numpy(), a + b_) and info["executed"] == 16
+
+
+@pytest.mark.parametrize("width,prefetch", [(0, True), (8, True),
+                                            (8, False)])
+def test_tile_rounds_equal_plain(card, width, prefetch):
+    """The standalone tile entry (no scheduler) against the plain rounds."""
+    (tk, bounds, tile), (gin, gout) = FA_LOOPS["stencil_odd"]()
+    args = tfa.tile_arg_table(bounds, tile)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        mk = tfa.make_forasync_megakernel(tk, width=width, prefetch=prefetch,
+                                          device=d)
+        data = {"gin": torch.from_numpy(gin).to(d),
+                "gout": torch.from_numpy(gout).to(d)}
+        tfa.tile_rounds(mk, args, data)
+        outs[d] = data["gout"].cpu()
+    assert torch.equal(outs["cuda"], outs["cpu"])
+    assert np.array_equal(outs["cuda"].numpy(), tw.stencil_reference(gin))

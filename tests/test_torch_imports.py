@@ -28,6 +28,8 @@ def test_imports_pull_in_no_jax():
     assert {"hclib_tpu_torch.device.megakernel",
             "hclib_tpu_torch.device.vector_engine",
             "hclib_tpu_torch.device.sw_pallas",
+            "hclib_tpu_torch.device.forasync_tier",
+            "hclib_tpu_torch.runtime.env",
             "hclib_tpu_torch.models.nqueens"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
@@ -92,6 +94,14 @@ ENTRY_POINTS = {
         "hclib_tpu_torch.device.sw_pallas", fromlist=["x"]).sw_scores_pallas(
             __import__("numpy").zeros((1, 8), "int32"),
             __import__("numpy").zeros((1, 8), "int32")),
+    "run_forasync_device": lambda: (lambda fa, w: fa.run_forasync_device(
+        *w.map_loop(2), dict(zip(("vin", "vout"), w.map_data(2)))))(
+            __import__("hclib_tpu_torch.device.forasync_tier",
+                       fromlist=["x"]),
+            __import__("hclib_tpu_torch.device.workloads", fromlist=["x"])),
+    "device_arrayadd": lambda: __import__(
+        "hclib_tpu_torch.device.workloads",
+        fromlist=["x"]).device_arrayadd(2),
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),
