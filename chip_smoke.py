@@ -78,14 +78,37 @@ Phases, one JSON line each:
 17. arrayadd - device_arrayadd(16384) (16,384 add_tile tasks over
              (16384, 8, 128) f32 buffers): c = a + b bit for bit; the
              library call is torch.add(a, b).
+18. graph_bench - run_frontier on bench.py --graph's graph
+             (rmat_edges(9, efactor=8, seed=7), 512 vertices, 366 blocks;
+             capacity 4096, m0 = 4096, reps = 64): BFS, SSSP and PageRank
+             scalar and at width 8 (edge-slab prefetch, lane-age trigger
+             at 4 x width), and SSSP at 8 priority buckets (delta-
+             stepping): distances equal host_bfs / host_sssp, ranks equal
+             host_pagerank_push, delta-SSSP equal to unordered SSSP; TEPS
+             over each launch's CUDA-event time, the tiers, the EXPAND
+             ratio bucketed / unordered, the bound, and (outside the
+             launch counts) the standalone EXPAND entry's round time.
+19. graph_scale16 - BFS, SSSP and delta-SSSP at width 8 on
+             rmat_edges(16, efactor=16, seed=7) (Graph500's R-MAT and edge
+             factor at scale 16: 65,536 vertices, 955,311 edges, 43,587
+             blocks; capacity 2^17): equal host_bfs / host_sssp; TEPS,
+             tiers, bound, standalone round time.
+20. bnb     - run_bnb on bench.py --bnb's instance (make_knapsack(16,
+             seed=5), width 4, capacity 2048) unordered and at 8 buckets:
+             optimum 609 = host_knapsack_opt; nodes/s.
 
 The ``check`` phase also holds the tile bodies (``tiles``: fa_stencil
 and fa_map at bench.py --forasync's sizes, stencil 64 x 1024 and map
 T = 64, at width 0, 8 with and without the prefetch and cut by fuel;
 arrayadd on 64 tiles; the standalone tile entry) against the plain core
-on the whole output state.
+on the whole output state, and the frontier and knapsack bodies with the
+policy scheduler (``frontier``: BFS, SSSP and PageRank on phase 18's
+graph scalar and at width 8, delta-SSSP at 8 buckets, and a width-8
+PageRank cut by fuel with a prefetch in flight; the standalone EXPAND
+entry; ``bnb``: the 12-item knapsack scalar, at width 4 and at 8
+buckets), word for word.
 
-Phases 3-17 are the main path: launch counts are zeroed just before each
+Phases 3-20 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -201,7 +224,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from hclib_tpu_torch import _build
+    from hclib_tpu_torch.device import bnb as tb
     from hclib_tpu_torch.device import cholesky as tc
+    from hclib_tpu_torch.device import frontier as tf
     from hclib_tpu_torch.device import forasync_tier as tfa
     from hclib_tpu_torch.device import smithwaterman as tsw
     from hclib_tpu_torch.device import sw_pallas as tsp
@@ -236,16 +261,16 @@ def main() -> int:
             times.append(s.elapsed_time(e))
         return float(np.median(times))
 
-    def timed_launch(mk, b, data=None, reps=3, agg=np.median):
+    def timed_launch(mk, b, data=None, reps=3, agg=np.median, ivalues=None):
         """Median (or ``agg``) CUDA-event ms of ``mk.launch`` on ``b``'s
         state, staged anew before each launch outside the timed window,
         after a warm-up; every launch's bodies are folded into the launch
         counts. Returns (ms, the last launch's state)."""
-        st = mk.state(b, data=data)
+        st = mk.state(b, data=data, ivalues=ivalues)
         mk.fold_dispatches(mk.launch(st))
         times = []
         for _ in range(reps):
-            st = mk.state(b, data=data)
+            st = mk.state(b, data=data, ivalues=ivalues)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -256,9 +281,9 @@ def main() -> int:
             mk.fold_dispatches(d)
         return float(agg(times)), st
 
-    def raw_state(mk, b, data=None, fuel=1 << 22):
+    def raw_state(mk, b, data=None, fuel=1 << 22, ivalues=None):
         """Every output of one launch on ``b`` (state, tstats, data)."""
-        st = mk.state(b, data=data)
+        st = mk.state(b, data=data, ivalues=ivalues)
         mk.launch(st, fuel)
         out = {k: st[k].cpu() for k in ("tasks", "ready", "counts",
                                          "ivalues", "tstats") if k in st}
@@ -890,6 +915,70 @@ def main() -> int:
     emit({"phase": "check", "kernel": "tiles", "loop": "arrayadd",
           "tiles": 64, "equal": True, "equal_to_a_plus_b": True})
 
+    # 2. check: the frontier bodies and the policy scheduler (kMode 4) on
+    # bench.py --graph's graph, every arm, and the knapsack NODE bodies,
+    # each on its whole output state against the plain core
+    g9 = tf.Graph(*tw.rmat_edges(9, efactor=8, seed=7))
+    GB = {"capacity": 4096, "m0": 4096, "reps": 64}
+
+    def fr_mk(kind, g, width, nbk=0, capacity=GB["capacity"], device="cuda"):
+        fk = (tf.pagerank_kernel(GB["reps"]) if kind == "pagerank"
+              else tf._KINDS[kind]())
+        return tf.make_frontier_megakernel(fk, g, width=width,
+                                           capacity=capacity,
+                                           priority_buckets=nbk,
+                                           device=device)
+
+    fr_plain_ms = {}
+    for kind, width, nbk, fuel in (
+            ("bfs", 0, 0, 1 << 22), ("bfs", 8, 0, 1 << 22),
+            ("sssp", 0, 0, 1 << 22), ("sssp", 8, 0, 1 << 22),
+            ("pagerank", 0, 0, 1 << 22), ("pagerank", 8, 0, 1 << 22),
+            ("sssp", 8, 8, 1 << 22), ("pagerank", 8, 0, 300)):
+        out = {}
+        for d in ("cuda", "cpu"):
+            mk = fr_mk(kind, g9, width, nbk, device=d)
+            b, iv, data = tf.frontier_state(kind, g9, mk, m0=GB["m0"],
+                                            reps=GB["reps"])
+            t0 = time.perf_counter()
+            out[d] = raw_state(mk, b, data, fuel, ivalues=iv)
+            if d == "cpu" and fuel == 1 << 22:
+                fr_plain_ms[kind, width, nbk] = (
+                    time.perf_counter() - t0) * 1e3
+        ints_equal(out["cuda"], out["cpu"], f"frontier {kind} width "
+                   f"{width} buckets {nbk} fuel {fuel}")
+        emit({"phase": "check", "kernel": "frontier", "graph": "rmat9",
+              "kind": kind, "width": width, "buckets": nbk, "fuel": fuel,
+              "equal": True, "executed": int(out["cpu"]["counts"][5]),
+              "tiers": None if not width else mk.decode_tier_stats(
+                  out["cpu"]["tstats"])})
+    for width in (0, 8):
+        out = {}
+        for d in ("cuda", "cpu"):
+            mk = fr_mk("sssp", g9, width, device=d)
+            b, iv, data = tf.frontier_state("sssp", g9, mk)
+            st = mk.state(b, data=data, ivalues=iv)
+            tf.expand_rounds(mk, st, range(int(st["counts"][2])))
+            out[d] = {k: st[k].cpu() for k in ("tasks", "ready", "counts",
+                                                "ivalues")}
+        ints_equal(out["cuda"], out["cpu"], f"expand_rounds width {width}")
+    emit({"phase": "check", "kernel": "frontier", "standalone_entry": [0, 8],
+          "equal": True})
+    kp12 = tb.make_knapsack(12, seed=5)
+    for width, nbk in ((0, 0), (4, 0), (4, 8)):
+        out = {}
+        for d in ("cuda", "cpu"):
+            mk = tb.make_bnb_megakernel(kp12, width=width,
+                                        priority_buckets=nbk, device=d)
+            b, iv = tb.bnb_state(kp12, mk)
+            out[d] = raw_state(mk, b, ivalues=iv)
+        ints_equal(out["cuda"], out["cpu"], f"bnb width {width} buckets {nbk}")
+        check(int(out["cuda"]["ivalues"][tb.V_BEST])
+              == tb.host_knapsack_opt(kp12), "bnb 12 items: optimum")
+        emit({"phase": "check", "kernel": "bnb", "items": 12, "width": width,
+              "buckets": nbk, "equal": True,
+              "executed": int(out["cpu"]["counts"][5])})
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -1419,6 +1508,160 @@ def main() -> int:
           "entry_seconds": entry_s, "plain_host_ms": add_pms,
           "bound_ms": kb[0], "library_ms": add_lms, "launches": launches})
     del add_bufs, want_c, c_
+
+    # 18-19. the graph frontier. The bound: each traversed edge's index
+    # (and weight) read once and its state word read once, and 136 bytes
+    # a descriptor, over the card's memory rate.
+    def fr_bound(info, kind):
+        return bound(0.0, info["edges"] * (8 + 4 * (kind == "sssp"))
+                     + 136.0 * info["executed"])
+
+    def graph_arm(g, kind, width, nbk, ref, capacity, reps=3):
+        """One arm through run_frontier (equal to ``ref``), then timed
+        on its megakernel: TEPS over the launch's CUDA-event ms."""
+        mk = fr_mk(kind, g, width, nbk, capacity)
+        t0 = time.perf_counter()
+        r, info = tf.run_frontier(kind, g, 0, m0=GB["m0"], reps=GB["reps"],
+                                  mk=mk, device="cuda")
+        entry_s = time.perf_counter() - t0
+        check(np.array_equal(r, ref), f"{kind} width {width} buckets "
+              f"{nbk}: result differs from the host reference")
+        b, iv, data = tf.frontier_state(kind, g, mk, m0=GB["m0"],
+                                        reps=GB["reps"])
+        ms, st = timed_launch(mk, b, data, reps=reps, ivalues=iv)
+        check(int(st["ivalues"][0]) == info["edges"],
+              f"{kind} width {width}: timed launch edges")
+        kb = fr_bound(info, kind)
+        return mk, {"kernel_ms": ms, "teps": info["edges"] / (ms * 1e-3),
+                    "edges": info["edges"], "executed": info["executed"],
+                    "allocated": info["allocated"],
+                    "relaxations": info["relaxations"],
+                    "entry_seconds": entry_s, "tiers": info.get("tiers"),
+                    "bound_ms": kb[0], "bound_by": kb[1]}
+
+    def fr_round_ms(mk, kind, g):
+        """The standalone EXPAND entry on the seed rows (staged anew
+        outside the timed window): CUDA-event ms a round."""
+        b, iv, data = tf.frontier_state(kind, g, mk, m0=GB["m0"],
+                                        reps=GB["reps"])
+        hold = {}
+
+        def fresh():
+            hold["st"] = mk.state(b, data=data, ivalues=iv)
+
+        fresh()
+        rows = range(int(hold["st"]["counts"][2]))
+        tf.expand_rounds(mk, hold["st"], rows)
+        ms = events_ms(lambda: tf.expand_rounds(mk, hold["st"], rows), 3,
+                       before=fresh)
+        width = mk.batch_specs[0][1].width if mk.batch_specs else 1
+        return ms / -(-len(rows) // width)
+
+    # 18. bench.py --graph's graph, every arm
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    refs = {"bfs": tf.host_bfs(g9), "sssp": tf.host_sssp(g9),
+            "pagerank": tf.host_pagerank_push(g9, m0=GB["m0"],
+                                              reps=GB["reps"])[0]}
+    host_s = time.perf_counter() - t0
+    arms, mks = {}, {}
+    for kind, width, nbk in (("bfs", 0, 0), ("bfs", 8, 0), ("sssp", 0, 0),
+                             ("sssp", 8, 0), ("pagerank", 0, 0),
+                             ("pagerank", 8, 0), ("sssp", 8, 8)):
+        key = f"{kind}_w{width}" + (f"_b{nbk}" if nbk else "")
+        mks[key], arms[key] = graph_arm(g9, kind, width, nbk, refs[kind],
+                                        GB["capacity"])
+    launches = path_done("graph_bench")
+    ratio = arms["sssp_w8_b8"]["executed"] / arms["sssp_w8"]["executed"]
+    round_ms = {k: fr_round_ms(mks[k], "sssp", g9)
+                for k in ("sssp_w0", "sssp_w8")}
+    for key, body, kind, width in (("sssp_w0", "fr_expand", "sssp", 0),
+                                   ("sssp_w8", "fr_expand_batch", "sssp", 8)):
+        kernels[body] = {
+            "name": body, "route": "cuda",
+            "source": "hclib_tpu_torch/csrc/frontier.cuh",
+            "replaces": "hclib_tpu/device/frontier.py:"
+                        + ("347" if width == 0 else "407"),
+            "max_abs_err": 0.0, "ms": arms[key]["kernel_ms"],
+            "plain_ms": fr_plain_ms[kind, width, 0],
+            "bound_ms": arms[key]["bound_ms"],
+            "bound_by": arms[key]["bound_by"], "library_ms": None,
+        }
+    emit({"phase": "graph_bench", "graph": "rmat_edges(9, efactor=8, "
+          "seed=7)", "vertices": g9.n, "edges": g9.m, "blocks": g9.nblocks,
+          **GB, "equal_to_host_references": True,
+          "delta_sssp_equal_to_unordered": True,
+          "sssp_delta_expand_ratio": ratio, "arms": arms,
+          "standalone_round_ms": round_ms, "host_reference_seconds": host_s,
+          "library": "none: no PyTorch call runs a label-correcting "
+                     "traversal", "launches": launches})
+
+    # 19. Graph500's R-MAT at scale 16, width 8
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g16 = tf.Graph(*tw.rmat_edges(16, efactor=16, seed=7))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs16 = {"bfs": tf.host_bfs(g16), "sssp": tf.host_sssp(g16)}
+    host_s = time.perf_counter() - t0
+    arms16, mks16 = {}, {}
+    for kind, nbk in (("bfs", 0), ("sssp", 0), ("sssp", 8)):
+        key = f"{kind}_w8" + (f"_b{nbk}" if nbk else "")
+        mks16[key], arms16[key] = graph_arm(g16, kind, 8, nbk, refs16[kind],
+                                            1 << 17, reps=2)
+    launches = path_done("graph_scale16")
+    emit({"phase": "graph_scale16", "graph": "rmat_edges(16, efactor=16, "
+          "seed=7)", "vertices": g16.n, "edges": g16.m,
+          "blocks": g16.nblocks, "capacity": 1 << 17,
+          "delta": tf.default_delta(g16), "equal_to_host_references": True,
+          "sssp_delta_expand_ratio": arms16["sssp_w8_b8"]["executed"]
+          / arms16["sssp_w8"]["executed"], "arms": arms16,
+          "standalone_round_ms": fr_round_ms(mks16["sssp_w8"], "sssp", g16),
+          "graph_build_seconds": build_s, "host_reference_seconds": host_s,
+          "launches": launches})
+    del g16, refs16, mks16
+
+    # 20. bench.py --bnb's knapsack, unordered and best-first
+    _build.reset_launches()
+    kp16 = tb.make_knapsack(16, seed=5)
+    opt = tb.host_knapsack_opt(kp16)
+    check(opt == 609, f"host_knapsack_opt = {opt}")
+    bnb_arms = {}
+    for nbk in (0, 8):
+        mk = tb.make_bnb_megakernel(kp16, width=4, priority_buckets=nbk,
+                                    capacity=2048, device="cuda")
+        best, info = tb.run_bnb(kp16, mk=mk, device="cuda")
+        check(best == opt, f"bnb buckets {nbk}: optimum {best} != {opt}")
+        b, iv = tb.bnb_state(kp16, mk)
+        ms, st = timed_launch(mk, b, ivalues=iv)
+        check(int(st["ivalues"][tb.V_BEST]) == opt, "bnb timed launch")
+        kb = bound(0.0, 136.0 * info["executed"])
+        bnb_arms[f"b{nbk}"] = {
+            "best": best, "executed": info["executed"],
+            "pruned": info["pruned"], "leaves": info["leaves"],
+            "allocated": info["allocated"], "kernel_ms": ms,
+            "nodes_per_s": info["executed"] / (ms * 1e-3),
+            "tiers": info["tiers"], "bound_ms": kb[0], "bound_by": kb[1]}
+    launches = path_done("bnb")
+    for nbk in (0, 8):
+        mkc = tb.make_bnb_megakernel(kp16, width=4, priority_buckets=nbk,
+                                     capacity=2048, device="cpu")
+        bnb_arms[f"b{nbk}"]["plain_host_ms"], (pb, _) = plain_ms(
+            lambda: tb.run_bnb(kp16, mk=mkc, device="cpu"))
+        check(pb == opt, "plain bnb optimum")
+    kernels["bnb_node"] = {
+        "name": "bnb_node", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/frontier.cuh",
+        "replaces": "hclib_tpu/device/bnb.py:195",
+        "max_abs_err": 0.0, "ms": bnb_arms["b0"]["kernel_ms"],
+        "plain_ms": bnb_arms["b0"]["plain_host_ms"],
+        "bound_ms": bnb_arms["b0"]["bound_ms"],
+        "bound_by": bnb_arms["b0"]["bound_by"], "library_ms": None,
+    }
+    emit({"phase": "bnb", "items": 16, "seed": 5, "width": 4,
+          "capacity": 2048, "optimum": opt, "arms": bnb_arms,
+          "library": "none: no PyTorch call runs a branch-and-bound",
+          "launches": launches})
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

@@ -13,7 +13,9 @@ wrapper adds to it where it launches its kernel (the tile, SW and batched
 bodies that run fused inside the megakernel are counted by the megakernel
 itself, one per dispatch or fired batch, see ``device/megakernel.py``;
 ``"vector"`` counts the subtree engine's runs, inside the megakernel and
-standalone).
+standalone; ``"fr_expand"`` / ``"fr_expand_batch"`` the frontier's
+scalar and batched EXPAND bodies of the three families, and
+``"bnb_node"`` the knapsack NODE body, scalar and batched).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ LAUNCHES: Dict[str, int] = {
     "uts": 0, "fib_batch": 0, "uts_node_batch": 0, "updrow_batch": 0,
     "sw_tile": 0, "sw_wave_batch": 0, "vector": 0, "sw_scores": 0,
     "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
-    "fa_map_batch": 0,
+    "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -28,6 +28,13 @@
 //                 tier's slab pipeline, forasync_tier.py scalar_kernel
 //                 (:267), batch_body (:326), batch_drain (:386), see
 //                 forasync.cuh
+//   fr_bfs, fr_sssp, fr_pagerank and their _batch forms <- frontier.py
+//                 scalar_kernel (:347), batch_body (:407), batch_drain
+//                 (:453) and the relax closures, see frontier.cuh
+//   bnb_node, bnb_node_batch <- bnb.py _node_kernel (:195), batch_of-shaped
+// and, in the policy instance (kMode 4), the lane-age firing policy
+// (megakernel.py :893-909, the starved pass and age clock :1596-1836) and
+// the priority-bucket rings (:910-929, :1196-1215, :1622-1799).
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -72,6 +79,7 @@
 #include <stdint.h>
 
 #include "forasync.cuh"
+#include "frontier.cuh"
 #include "tiles.cuh"
 #include "vector.cuh"
 
@@ -93,7 +101,8 @@ enum {
   B_FIB, B_SUM, B_UTS, B_POTRF, B_TRSMCOL, B_UPDROW, B_TRSM, B_SW_TILE,
   B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH,
   B_VFIB, B_VNQUEENS, B_ADD_TILE, B_FA_STENCIL, B_FA_MAP, B_FA_STENCIL_BATCH,
-  B_FA_MAP_BATCH, NBODY
+  B_FA_MAP_BATCH, B_FR_BFS, B_FR_SSSP, B_FR_PAGERANK, B_FR_BFS_BATCH,
+  B_FR_SSSP_BATCH, B_FR_PAGERANK_BATCH, B_BNB_NODE, B_BNB_NODE_BATCH, NBODY
 };
 // Meta words: static body parameters, then the table maps, then one
 // 4-word row per batch lane (F_FN, width, prefetch, batched body), then
@@ -102,18 +111,25 @@ enum {
 // META_SLAB (forasync.cuh).
 enum {
   P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT, P_NTJ,
-  P_CHUNK
+  P_CHUNK, P_STBASE, P_NBLOCKS, P_REPS, P_KN, P_KCAP
 };
 constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 48, META_BATCH = 80,
               META_VEC = 208, VEC_WORDS = 8;
+// The priority rule of routed kind li at META_PRIO + 4 li (bucketed
+// tables): rule (megakernel.py PRIORITY_RULES), arg word, two parameters.
+constexpr int META_PRIO = META_SLAB + 64, PRIO_WORDS = 4;
+enum { PR_NONE, PR_DIV, PR_BAND, PR_LINEAR_DESC };
+constexpr int BK_MAX = 8;
 static_assert(NBODY <= META_BODY_OF_FN - META_FN_OF_BODY, "body ids");
 static_assert(META_VEC + 32 * VEC_WORDS == META_SLAB, "meta layout");
 // Tier counters (megakernel.py TS_*) and lane-state words (LS_*).
 constexpr int TS_BATCH_ROUNDS = 0, TS_BATCH_TASKS = 1, TS_SCALAR_ROUNDS = 2,
               TS_ROUTED = 3, TS_PREFETCH = 4, TS_FULL_ROUNDS = 5,
-              TS_SPILLED = 6, TS_OFFERED = 7, TS_WORDS = 12;
+              TS_SPILLED = 6, TS_OFFERED = 7, TS_AGE_FIRES = 8,
+              TS_MAX_AGE = 9, TS_BUCKET_FIRES = 10, TS_INVERSIONS = 11,
+              TS_WORDS = 12;
 constexpr int LS_HEAD = 0, LS_TAIL = 1, LS_PF_BASE = 2, LS_PF_N = 3,
-              LS_PF_BUF = 4, LS_WORDS = 8;
+              LS_PF_BUF = 4, LS_AGE = 5, LS_WORDS = 8;
 constexpr int MAX_WIDTH = 8;      // slot rows of a batch round
 constexpr int MAX_SW_SLOTS = 16;  // tile slots of an sw_wave_batch round
 constexpr int MAX_DATA = 8;
@@ -166,11 +182,12 @@ struct Args {
   // aseq, bseq, bot, right[, htiles] (Smith-Waterman).
   void* data[MAX_DATA];
   float* work;      // ts*ts f32 scratch of the tile bodies
-  int32_t* lanes;   // (nbatch, cap) per-kind ready lanes
-  int32_t* lstate;  // (nbatch, LS_WORDS)
+  int32_t* lanes;   // (nrows, cap) lane rows: nbk bucket rings a kind
+  int32_t* lstate;  // (nrows, LS_WORDS)
   int32_t* tstats;  // (TS_WORDS,) tier counters, or null
   int32_t* vstack;  // the subtree engine's lane stacks, or null
-  int nfn, nbatch, cap, num_values, fuel, reps, stage_all_values;
+  int nfn, nbatch, nrows, nbk, max_age, cap, num_values, fuel, reps,
+      stage_all_values;
 };
 
 // The scheduler closures of _make_core over one state (thread 0 only).
@@ -276,7 +293,7 @@ struct Sched {
     if (a.ivalues_in != iv)
       for (int i = 0; i < nval; ++i) iv[i] = a.ivalues_in[i];
     // Lanes are per-entry scratch; tstats describe the last rep.
-    for (int i = 0; i < a.nbatch * LS_WORDS; ++i) a.lstate[i] = 0;
+    for (int i = 0; i < a.nrows * LS_WORDS; ++i) a.lstate[i] = 0;
     if (a.nbatch)
       for (int i = 0; i < TS_WORDS; ++i) a.tstats[i] = 0;
   }
@@ -576,17 +593,21 @@ __device__ void vector_body(Sched& S, const Args& a, int idx, int body,
 // ---------------------------------------------------------------------------
 // The scheduler rounds (thread 0).
 
-// batch_round's pop side for lane li: take, base, the prefetch handshake
-// and the nxt announce, and the slot rows the body reads.
+// batch_round's pop side for lane row li (in the policy instance, bucket
+// ring li % nbk of kind li / nbk): take, base, the prefetch handshake and
+// the nxt announce, and the slot rows the body reads. Bucket rings pop
+// FIFO; a bucketed table has no prefetch lane (the host refuses one).
+template <bool kPolicy>
 __device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
                               Round& R) {
-  const int32_t* bm = a.meta + META_BATCH + 4 * li;
+  const int nbk = kPolicy ? a.nbk : 1;
+  const int32_t* bm = a.meta + META_BATCH + 4 * (li / nbk);
   const int B = bm[1], prefetch = bm[2], body = bm[3];
   const int32_t* L = a.lstate + li * LS_WORDS;
   const int32_t* lane = a.lanes + static_cast<size_t>(li) * a.cap;
   const int head = L[LS_HEAD], tail = L[LS_TAIL];
   const int avail = tail - head, take = min(avail, B);
-  const int base = prefetch ? head : tail - take;
+  const int base = prefetch || nbk > 1 ? head : tail - take;
   R.act = ACT_BATCH;
   R.body = body;
   R.li = li;
@@ -626,8 +647,10 @@ __device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
 
 // batch_round's completion side: per-slot complete in slot order, the lane
 // cursors and the prefetch words, the tstats updates.
+template <bool kPolicy>
 __device__ void finish_batch(Sched& S, const Args& a, const Round& R,
                              const int* s_tmax) {
+  const int nbk = kPolicy ? a.nbk : 1;
   if (R.body == B_SW_WAVE_BATCH) {
     // Each descriptor counts as cnt tiles (ctx.add_executed(cnt - 1)),
     // and every tile folds its max into the best score.
@@ -639,12 +662,14 @@ __device__ void finish_batch(Sched& S, const Args& a, const Round& R,
   for (int s = 0; s < R.take; ++s)
     S.complete(lane[floor_mod(R.base + s, a.cap)]);
   int32_t* L = a.lstate + R.li * LS_WORDS;
-  if (a.meta[META_BATCH + 4 * R.li + 2]) {  // prefetch: FIFO pops
+  if (a.meta[META_BATCH + 4 * (R.li / nbk) + 2]) {  // prefetch: FIFO pops
     const int head = L[LS_HEAD];
     L[LS_HEAD] = head + R.take;
     L[LS_PF_BASE] = R.nxt > 0 ? head + R.take + 1 : 0;
     L[LS_PF_N] = R.nxt;
     L[LS_PF_BUF] = 1 - R.buf;
+  } else if (nbk > 1) {  // a bucket ring: FIFO pops, no prefetch
+    L[LS_HEAD] += R.take;
   } else {  // LIFO pop: the block came off the tail
     L[LS_TAIL] = R.base;
   }
@@ -670,7 +695,7 @@ __device__ void schedule(Sched& S, const Args& a, int e0, Round& R) {
       for (int li = 0; li < a.nbatch; ++li) {
         const int32_t* L = a.lstate + li * LS_WORDS;
         if (L[LS_TAIL] - L[LS_HEAD] > 0) {
-          prepare_batch(S, a, li, e0, R);
+          prepare_batch<false>(S, a, li, e0, R);
           return;
         }
       }
@@ -704,10 +729,120 @@ __device__ void schedule(Sched& S, const Args& a, int e0, Round& R) {
   R.act = ACT_EXIT;
 }
 
+// The bucket of a routed descriptor with arg words x under its kind's
+// priority rule pm (megakernel.py bucket_of), clipped into [0, nbk).
+__device__ int bucket_of(const int32_t* pm, const int32_t* x, int nbk) {
+  const int v = x[pm[1]];
+  long long b = 0;
+  if (pm[0] == PR_DIV) {
+    b = floor_div(v, pm[2]);
+  } else if (pm[0] == PR_BAND) {
+    for (int k = 1; k < BK_MAX; ++k)
+      b += static_cast<long long>(v) >= (static_cast<long long>(pm[2]) << k);
+  } else if (pm[0] == PR_LINEAR_DESC) {
+    b = floor_div(wmul(wsub(pm[2], v), pm[3]), pm[2] + 1);
+  }
+  return static_cast<int>(min(max(b, 0ll), static_cast<long long>(nbk - 1)));
+}
+
+// The starved-round clocks after a round (lane_max_age on): a row that
+// holds entries and did not fire (fired: the row a batch fired off, or -1)
+// ages by one, the others reset; TS_MAX_AGE keeps the largest age.
+__device__ void age_clock(const Args& a, int fired) {
+  if (a.max_age <= 0 || a.nrows == 0) return;
+  int top = a.tstats[TS_MAX_AGE];
+  for (int r = 0; r < a.nrows; ++r) {
+    int32_t* L = a.lstate + r * LS_WORDS;
+    const int age = r == fired || L[LS_TAIL] == L[LS_HEAD] ? 0 : L[LS_AGE] + 1;
+    L[LS_AGE] = age;
+    top = max(top, age);
+  }
+  a.tstats[TS_MAX_AGE] = top;
+}
+
+// schedule() with JAX's full firing policy (the policy instance): each
+// round fires the first starved row (kind by kind, its lowest starved
+// bucket; age >= lane_max_age), which jumps a busy ring, else with the
+// ring empty the lowest non-empty bucket over all kinds (ties to the lower
+// F_FN), else pops the ring; routing pushes a descriptor into its kind's
+// bucket ring. Every routing pop is one JAX round: the starved check runs
+// before it and the age clock after it (after a batch fire, the clock runs
+// once finish_batch has moved the cursors).
+__device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
+  int32_t* c = S.counts;
+  const int nbk = a.nbk;
+  for (;;) {
+    if (!(c[C_PENDING] > 0 && c[C_EXECUTED] - e0 < a.fuel)) break;
+    const int tail = c[C_TAIL];
+    const bool ring_work = c[C_HEAD] < tail;
+    int row = -1;
+    bool starved = false;
+    if (a.max_age > 0)
+      for (int r = 0; r < a.nrows && row < 0; ++r) {
+        const int32_t* L = a.lstate + r * LS_WORDS;
+        if (L[LS_TAIL] - L[LS_HEAD] > 0 && L[LS_AGE] >= a.max_age) {
+          row = r;
+          starved = true;
+        }
+      }
+    if (row < 0 && !ring_work)
+      for (int bk = 0; bk < nbk && row < 0; ++bk)
+        for (int li = 0; li < a.nbatch && row < 0; ++li) {
+          const int32_t* L = a.lstate + (li * nbk + bk) * LS_WORDS;
+          if (L[LS_TAIL] - L[LS_HEAD] > 0) row = li * nbk + bk;
+        }
+    if (row >= 0) {
+      const int bk = row % nbk;
+      if (starved && ring_work) a.tstats[TS_AGE_FIRES] += 1;
+      if (starved && nbk > 1)
+        for (int r = 0; r < a.nrows; ++r) {
+          const int32_t* L = a.lstate + r * LS_WORDS;
+          if (r % nbk < bk && L[LS_TAIL] - L[LS_HEAD] > 0) {
+            a.tstats[TS_INVERSIONS] += 1;
+            break;
+          }
+        }
+      if (bk > 0) a.tstats[TS_BUCKET_FIRES] += 1;
+      prepare_batch<true>(S, a, row, e0, R);
+      return;
+    }
+    if (!ring_work) break;  // neither ring nor lane work: stuck (or done)
+    const int idx = a.ready[floor_mod(tail - 1, a.cap)];
+    c[C_TAIL] = tail - 1;
+    const int fn = S.w(idx, F_FN);
+    bool routed = false;
+    for (int li = 0; li < a.nbatch && !routed; ++li) {
+      if (fn == a.meta[META_BATCH + 4 * li]) {
+        const int r =
+            li * nbk + (nbk > 1 ? bucket_of(a.meta + META_PRIO + PRIO_WORDS * li,
+                                            &S.w(idx, F_A0), nbk)
+                                : 0);
+        int32_t* L = a.lstate + r * LS_WORDS;
+        const int lt = L[LS_TAIL];
+        a.lanes[static_cast<size_t>(r) * a.cap + floor_mod(lt, a.cap)] = idx;
+        L[LS_TAIL] = lt + 1;
+        a.tstats[TS_ROUTED] += 1;
+        routed = true;
+      }
+    }
+    age_clock(a, -1);
+    if (routed) continue;
+    const int body = a.meta[META_BODY_OF_FN + min(max(fn, 0), a.nfn - 1)];
+    if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
+    if (a.nbatch) a.tstats[TS_SCALAR_ROUNDS] += 1;
+    R.act = ACT_SCALAR;
+    R.idx = idx;
+    R.body = body;
+    return;
+  }
+  R.act = ACT_EXIT;
+}
+
 // Exit with unrun lane entries: spill them back to the ring HEAD (the
-// cold end), oldest first at head0 - 1 (any prefetch was drained before).
+// cold end), oldest first at head0 - 1 (any prefetch was drained before),
+// row by row.
 __device__ void spill(Sched& S, const Args& a) {
-  for (int li = 0; li < a.nbatch; ++li) {
+  for (int li = 0; li < a.nrows; ++li) {
     int32_t* L = a.lstate + li * LS_WORDS;
     const int32_t* lane = a.lanes + static_cast<size_t>(li) * a.cap;
     const int h = L[LS_HEAD], t = L[LS_TAIL];
@@ -728,11 +863,15 @@ __device__ void spill(Sched& S, const Args& a) {
 // 4.3% slower a task, though no scalar round enters it (same-card A/B on
 // an H100, scripts/ab_sched.py). 1: lanes and SW. 2: those and the
 // vector engine, kept out of the other two for the same reason. 3: lanes
-// and the tile bodies (forasync.cuh), out of 0-2 for that reason too.
+// and the tile bodies (forasync.cuh), out of 0-2 for that reason too. 4:
+// lanes with the lane-age and priority-bucket policies (schedule_policy)
+// and the frontier and knapsack bodies (frontier.cuh), so that 0-3
+// compile what they compiled before the policies existed.
 template <int kMode>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
   constexpr bool kLean = kMode == 0, kVector = kMode == 2;
   constexpr bool kSw = kMode == 1 || kMode == 2, kTile = kMode == 3;
+  constexpr bool kPolicy = kMode == 4;
   extern __shared__ __align__(16) float dsm[];
   __shared__ GemmSmem gs;
   __shared__ int32_t s_counts[8];
@@ -752,6 +891,9 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                   static_cast<int32_t*>(a.data[3]),
                   static_cast<int32_t*>(a.data[4]), meta[P_NTJ]};
   int32_t* swm = reinterpret_cast<int32_t*>(dsm);
+  const FrGraph fg{static_cast<const int32_t*>(a.data[0]),
+                   static_cast<const int32_t*>(a.data[1]), meta[P_STBASE],
+                   meta[P_NBLOCKS], meta[P_REPS]};
   uint32_t total = 0;
   for (int rep = 0; rep < a.reps; ++rep) {
     int e0 = 0;
@@ -761,7 +903,9 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
     }
     for (;;) {
       if (tid == 0) {
-        if constexpr (!kLean) {
+        if constexpr (kPolicy) {
+          schedule_policy(S, a, e0, R);
+        } else if constexpr (!kLean) {
           schedule(S, a, e0, R);
         } else {
           // schedule() with no lane, written out on s_counts: about 6%
@@ -839,6 +983,17 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                          meta, a.data, swm, 1, 1, 0, 0, 0,
                          TaskArgs{a.tasks, &R.idx}, TaskArgs{a.tasks, &R.idx});
             break;
+          case B_FR_BFS:
+          case B_FR_SSSP:
+          case B_FR_PAGERANK:
+            if constexpr (kPolicy)
+              fr_expand(S, R.body - B_FR_BFS, fg, swm, a.tasks, &R.idx);
+            break;
+          case B_BNB_NODE:
+            if constexpr (kPolicy)
+              if (tid == 0)
+                bnb_node(S, &S.w(idx, F_A0), meta[P_KN], meta[P_KCAP]);
+            break;
           default:  // B_SW_WAVE: JAX's _batch_stub, never dispatched
             break;
         }
@@ -877,11 +1032,29 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                          R.nxt, TaskArgs{a.tasks, R.rows},
                          TaskArgs{a.tasks, R.next_rows});
             break;
+          case B_FR_BFS_BATCH:
+          case B_FR_SSSP_BATCH:
+          case B_FR_PAGERANK_BATCH:
+            if constexpr (kPolicy)
+              fr_expand_round(S, R.body - B_FR_BFS_BATCH, fg, swm, a.tasks,
+                              R.width, R.take, R.pre, R.buf, R.nxt, R.rows,
+                              R.next_rows);
+            break;
+          case B_BNB_NODE_BATCH:  // batch_of: the NODE body slot by slot
+            if constexpr (kPolicy)
+              if (tid == 0)
+                for (int s = 0; s < R.take; ++s)
+                  bnb_node(S, &S.w(R.rows[s], F_A0), meta[P_KN],
+                           meta[P_KCAP]);
+            break;
           default:
             break;
         }
         __syncthreads();
-        if (tid == 0) finish_batch(S, a, R, s_tmax);
+        if (tid == 0) {
+          finish_batch<kPolicy>(S, a, R, s_tmax);
+          if constexpr (kPolicy) age_clock(a, R.li);
+        }
       }
     }
     if constexpr (!kLean) {
@@ -1057,6 +1230,57 @@ __global__ void __launch_bounds__(BT)
     updrow_tile(gs, tiles, lsp, rows.v[2 * s], rows.v[2 * s + 1], nt, ts);
 }
 
+// Standalone run of a frontier EXPAND body, without the scheduler: the
+// descriptors at task rows rows[0, n) of a state, in rounds of `width`
+// slots in order with the prefetch protocol when `prefetch` (width 0: the
+// scalar body, one row a round). Relaxes write the value slots; spawns go
+// to the ready ring (and the task table) and are not run.
+struct FrEntry {
+  int32_t* tasks;
+  int32_t* ready;
+  int32_t* counts;
+  int32_t* iv;
+  int32_t* freestk;
+  const int32_t* meta;
+  const int32_t* rows;
+  const int32_t* idx;
+  const int32_t* wgt;
+  int n, width, prefetch, cap;
+};
+
+__global__ void __launch_bounds__(BT) fr_entry(FrEntry e) {
+  extern __shared__ __align__(16) float dsm[];
+  __shared__ int32_t s_counts[8];
+  int32_t* smem = reinterpret_cast<int32_t*>(dsm);
+  Sched S{e.tasks, nullptr, e.ready, s_counts, e.iv, e.freestk, e.cap};
+  if (threadIdx.x < 8) s_counts[threadIdx.x] = e.counts[threadIdx.x];
+  __syncthreads();
+  const FrGraph g{e.idx, e.wgt, e.meta[P_STBASE], e.meta[P_NBLOCKS],
+                  e.meta[P_REPS]};
+  const int fam = e.meta[META_BODY_OF_FN] - B_FR_BFS;
+  if (e.width == 0) {
+    for (int i = 0; i < e.n; ++i) {
+      fr_expand(S, fam, g, smem, e.tasks, e.rows + i);
+      __syncthreads();
+    }
+  } else {
+    int pre = 0, buf = 0;
+    for (int first = 0; first < e.n;) {
+      const int take = min(e.width, e.n - first);
+      const int nxt = e.prefetch ? min(e.width, e.n - first - take) : 0;
+      fr_expand_round(S, fam, g, smem, e.tasks, e.width, take, pre, buf, nxt,
+                      e.rows + first, e.rows + first + take);
+      __syncthreads();
+      first += take;
+      pre = nxt;
+      if (e.prefetch) buf = 1 - buf;
+    }
+  }
+  cp_wait_all();
+  __syncthreads();
+  if (threadIdx.x < 8) e.counts[threadIdx.x] = s_counts[threadIdx.x];
+}
+
 }  // namespace
 
 extern "C" {
@@ -1074,13 +1298,17 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     const int32_t* meta, int32_t* dispatch,
                     void* const* data, float* work, int32_t* lanes,
                     int32_t* lstate, int32_t* tstats, int32_t* vstack,
-                    int nfn, int nbatch, int cap, int num_values, int fuel,
-                    int reps, int stage_all_values, int mode, int threads,
-                    int smem, void* stream) {
+                    int nfn, int nbatch, int nrows, int nbk, int max_age,
+                    int cap, int num_values, int fuel, int reps,
+                    int stage_all_values, int mode, int threads, int smem,
+                    void* stream) {
+  if (mode < 0 || mode > 4 || (mode != 4 && (nbk != 1 || max_age != 0)))
+    return cudaErrorInvalidValue;
   void (*kernel)(Args) = mode == 0   ? mk_kernel<0>
                          : mode == 1 ? mk_kernel<1>
                          : mode == 2 ? mk_kernel<2>
-                                     : mk_kernel<3>;
+                         : mode == 3 ? mk_kernel<3>
+                                     : mk_kernel<4>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1105,6 +1333,9 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
   a.vstack = vstack;
   a.nfn = nfn;
   a.nbatch = nbatch;
+  a.nrows = nrows;
+  a.nbk = nbk;
+  a.max_age = max_age;
   a.cap = cap;
   a.num_values = num_values;
   a.fuel = fuel;
@@ -1172,6 +1403,27 @@ int hclib_tile_launch(const int32_t* meta, void* const* data,
   for (int i = 0; i < MAX_DATA; ++i) d.p[i] = data[i];
   tile_entry<<<1, BT, smem, static_cast<cudaStream_t>(stream)>>>(
       meta, d, args, n, width, prefetch, op);
+  return cudaGetLastError();
+}
+
+// A frontier table's EXPAND body over task rows rows[0, n) (fr_entry);
+// data: the table's buffers (indices[, weights]).
+int hclib_fr_launch(int32_t* tasks, int32_t* ready, int32_t* counts,
+                    int32_t* ivalues, int32_t* freestk, const int32_t* meta,
+                    void* const* data, const int32_t* rows, int n, int width,
+                    int prefetch, int cap, int smem, int threads,
+                    void* stream) {
+  if (n < 1 || width < 0 || width > MAX_WIDTH || threads < 32 ||
+      threads > BT)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fr_entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const FrEntry fe{tasks, ready, counts, ivalues, freestk, meta, rows,
+                   static_cast<const int32_t*>(data[0]),
+                   static_cast<const int32_t*>(data[1]), n, width, prefetch,
+                   cap};
+  fr_entry<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(fe);
   return cudaGetLastError();
 }
 

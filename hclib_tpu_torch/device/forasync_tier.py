@@ -383,11 +383,18 @@ def run_forasync_device(
     capacity: Optional[int] = None,
     fuel: int = 1 << 22,
     mk: Optional[Megakernel] = None,
+    trace=None,
     device="cuda",
 ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """Run one forasync tile loop on the device tier to completion;
     returns ``(data_out, info)`` (the data buffers as tensors on the
-    run's device). Single device only: ``placement`` / ``mesh`` raise."""
+    run's device). Single device only: ``placement`` / ``mesh`` raise,
+    and so does ``trace``."""
+    if trace:
+        raise NotImplementedError(
+            "run_forasync_device(trace=...): the device flight recorder "
+            "(single-device observability and checkpoint) is ROADMAP A9"
+        )
     if placement is not None or mesh is not None:
         raise NotImplementedError(
             "forasync placement=/mesh= (place_tiles, MeshPlacement and the "

@@ -1,9 +1,11 @@
 """The persistent scheduler megakernel on an H100: a resident scheduler
 loop in one CUDA kernel launch.
 
-Port of the scalar tier, the batched same-kind dispatch tier and the
-vector (subtree) tier of ``hclib_tpu/device/megakernel.py``, with the
-forasync tier's tile bodies. The TPU runs
+Port of the scalar tier, the batched same-kind dispatch tier (with its
+lane-age firing policy and priority-bucket rings) and the vector
+(subtree) tier of ``hclib_tpu/device/megakernel.py``, with the forasync
+tier's tile bodies and the graph-frontier and branch-and-bound bodies.
+The TPU runs
 the scheduler as one ``pallas_call`` whose scalar core pops task
 descriptors off an SMEM ready ring and ``lax.switch``-es on ``F_FN`` over
 a table of Pallas bodies.
@@ -23,9 +25,10 @@ What differs from the JAX class:
   static parameters (UTS seed/q_millis/m_children/max_depth, Cholesky
   tile/factor_base/nt, Smith-Waterman nt_j/chunk) go in as kernel
   arguments (``params=``).
-- ``route={name: BatchSpec(width, prefetch)}`` routes a kind through the
-  batch tier to the batched body compiled for that name
-  (``BATCH_BODIES``), not to a Python body.
+- ``route={name: BatchSpec(width, prefetch, priority)}`` routes a kind
+  through the batch tier to the batched body compiled for that name
+  (``BATCH_BODIES``), not to a Python body; ``priority`` is a named rule
+  with integer parameters (``PRIORITY_RULES``), not a traced callable.
 - The vector tier: a kernel-table entry ``(name, VectorTaskSpec)`` or
   ``route={name: VectorTaskSpec}`` (``auto_route=`` is an alias) runs a
   popped descriptor's whole subtree on the CUDA subtree engine of the
@@ -45,10 +48,16 @@ What differs from the JAX class:
   (``_PlainCore``) over the plain bodies; that is what the CPU tests and
   the card-side comparisons hold the kernel against.
 
-Left out (each raises ``NotImplementedError`` naming its ROADMAP entry):
-trace, checkpoint / quiesce / ``resume``, priority buckets, lane ages,
+``lane_max_age`` and ``priority_buckets`` (and their environment
+variables ``HCLIB_TPU_LANE_MAX_AGE`` / ``HCLIB_TPU_PRIORITY_BUCKETS``)
+act as in JAX. Left out (each raises ``NotImplementedError`` naming its
+ROADMAP entry, also when ``HCLIB_TPU_TRACE`` / ``HCLIB_TPU_CHECKPOINT``
+turn it on): trace, checkpoint / quiesce / ``resume``,
 ``install_descriptor`` / ``headroom``, the hclint ``verify`` hook and the
-program cache.
+program cache. On the card, the age and bucket policies run in the
+scheduler instance that holds the frontier, knapsack, fib, UTS and
+Cholesky bodies; a table that also holds SW, vector or tile bodies
+refuses them there (the plain core runs every combination).
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..runtime.env import env_bool, env_int, env_raw
 from ..runtime.resilience import StallError
 from .descriptor import (
     DESC_WORDS,
@@ -80,7 +90,8 @@ from .vector_engine import VECTOR_BODIES, VectorTaskSpec, make_subtree_runner
 
 __all__ = [
     "KernelContext", "BatchContext", "BatchSpec", "Megakernel", "VBLOCK",
-    "BODIES", "BATCH_BODIES", "decode_overflow", "fault_mix",
+    "BODIES", "BATCH_BODIES", "decode_overflow", "fault_mix", "BK_MAX",
+    "PRIORITY_RULES", "bucket_of",
 ]
 
 
@@ -154,11 +165,17 @@ TS_PREFETCH = 4       # descriptors whose operands came from a prefetch
 TS_FULL_ROUNDS = 5    # batch rounds at full width
 TS_SPILLED = 6        # lane entries spilled back to the ring at exit
 TS_OFFERED = 7        # batch slots offered (sum of widths over fired rounds)
-TS_AGE_FIRES = 8      # lane_max_age fires (not ported: always 0)
-TS_MAX_AGE = 9        # lane_max_age gauge (not ported: always 0)
-TS_BUCKET_FIRES = 10  # priority-bucket fires (not ported: always 0)
-TS_INVERSIONS = 11    # priority-bucket inversions (not ported: always 0)
+TS_AGE_FIRES = 8      # starved-lane fires that jumped a busy ring
+TS_MAX_AGE = 9        # the largest lane age reached (lane_max_age on)
+TS_BUCKET_FIRES = 10  # batch rounds fired from a nonzero bucket ring
+TS_INVERSIONS = 11    # starved fires while a lower bucket held entries
 TS_WORDS = 12
+
+# Priority-bucket tier: ``priority_buckets=B`` (2..BK_MAX) makes every
+# routed kind's lane B bucket rings (lane rows ``kind * B + bucket``),
+# popped lowest-non-empty-first at ring-drain time. The bucket is a pure
+# function of the descriptor's own arg words (the spec's named rule).
+BK_MAX = 8
 
 # Per-lane scheduler state words (the lstate rows): the lane's cursors
 # plus the cross-round prefetch handshake.
@@ -167,7 +184,7 @@ LS_TAIL = 1     # push cursor
 LS_PF_BASE = 2  # head-at-issue + 1 of the outstanding prefetch (0 = none)
 LS_PF_N = 3     # descriptors the outstanding prefetch covers
 LS_PF_BUF = 4   # operand-buffer half the prefetch was written into
-LS_AGE = 5      # lane_max_age clock (not ported)
+LS_AGE = 5      # rounds the row held entries without firing
 LS_WORDS = 8
 
 # The kernel table compiled into csrc/megakernel.cu; the index is the
@@ -175,13 +192,25 @@ LS_WORDS = 8
 BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm",
           "sw_tile", "sw_wave", "fib_batch", "uts_node_batch",
           "updrow_batch", "sw_wave_batch", "vfib", "vnqueens", "add_tile",
-          "fa_stencil", "fa_map", "fa_stencil_batch", "fa_map_batch")
+          "fa_stencil", "fa_map", "fa_stencil_batch", "fa_map_batch",
+          "fr_bfs", "fr_sssp", "fr_pagerank", "fr_bfs_batch",
+          "fr_sssp_batch", "fr_pagerank_batch", "bnb_node", "bnb_node_batch")
 # Kernel name -> the batched body a BatchSpec routes it to.
 BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
                 "updrow": "updrow_batch", "sw_wave": "sw_wave_batch",
-                "fa_stencil": "fa_stencil_batch", "fa_map": "fa_map_batch"}
+                "fa_stencil": "fa_stencil_batch", "fa_map": "fa_map_batch",
+                "fr_bfs": "fr_bfs_batch", "fr_sssp": "fr_sssp_batch",
+                "fr_pagerank": "fr_pagerank_batch",
+                "bnb_node": "bnb_node_batch"}
 # Batched bodies with a drain (the only ones that may take prefetch=True).
-DRAIN_BODIES = ("sw_wave_batch", "fa_stencil_batch", "fa_map_batch")
+DRAIN_BODIES = ("sw_wave_batch", "fa_stencil_batch", "fa_map_batch",
+                "fr_bfs_batch", "fr_sssp_batch", "fr_pagerank_batch")
+# The graph-frontier EXPAND bodies (csrc/frontier.cuh) and the knapsack
+# NODE bodies: they run only in the scheduler instance with the lane-age
+# and bucket policies (megakernel.cu kMode 4).
+FRONTIER_BODIES = ("fr_bfs", "fr_sssp", "fr_pagerank", "fr_bfs_batch",
+                   "fr_sssp_batch", "fr_pagerank_batch")
+POLICY_BODIES = FRONTIER_BODIES + ("bnb_node", "bnb_node_batch")
 # The tile bodies (csrc/forasync.cuh): one slab pipeline, load slabs ->
 # per-family arithmetic -> store slab, whose geometry the table carries
 # as slab words (``slabs=``). Body -> its family's (load slabs, shape
@@ -201,6 +230,9 @@ COUNTED = {b: b for b in ("potrf", "trsmcol", "updrow", "trsm", "sw_tile",
                           "fib_batch", "uts_node_batch", "updrow_batch",
                           "sw_wave_batch", *TILE_BODIES)}
 COUNTED.update({b: "vector" for b in VECTOR_BODIES})
+COUNTED.update({b: "fr_expand_batch" if b.endswith("_batch") else
+                "fr_expand" for b in FRONTIER_BODIES})
+COUNTED.update({"bnb_node": "bnb_node", "bnb_node_batch": "bnb_node"})
 # Data families: the bodies that read them and their buffers, in the
 # order the kernel's data pointers take (then optional ones).
 DATA_FAMILIES = {
@@ -211,11 +243,13 @@ DATA_FAMILIES = {
     "arrayadd": (("add_tile",), ("a", "b", "c"), ()),
     "fa_stencil": (("fa_stencil", "fa_stencil_batch"), ("gin", "gout"), ()),
     "fa_map": (("fa_map", "fa_map_batch"), ("vin", "vout"), ()),
+    "frontier": (FRONTIER_BODIES, ("indices",), ("weights",)),
 }
 MAX_DATA = 8
 # Static body parameters, in the order of the kernel's meta words.
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
-          "factor_base", "nt", "nt_j", "chunk")
+          "factor_base", "nt", "nt_j", "chunk", "st_base", "nblocks", "reps",
+          "n", "cap")
 MAX_BODIES = 32
 META_FN_OF_BODY = 16  # meta[16 + body] = this table's F_FN of body, or -1
 META_BODY_OF_FN = META_FN_OF_BODY + MAX_BODIES  # [.. + fn] = body of fn
@@ -237,6 +271,12 @@ SLAB_HDR = 4
 SLAB_WORDS = 12
 SL_BUF, SL_LD, SL_ROWS, SL_COLS, SL_PITCH, SL_SOFF, SL_C0, SL_K = (
     0, 1, 2, 3, 4, 5, 6, 10)
+# meta[META_PRIO + PRIO_WORDS*kind ..] = the routed kind's priority rule
+# (bucketed tables only): rule id (PRIORITY_RULES order, 0 = none), the
+# arg word it reads, and two integer parameters.
+MAX_SLAB_WORDS = 64
+META_PRIO = META_SLAB + MAX_SLAB_WORDS
+PRIO_WORDS = 4
 # Dynamic shared memory a tile table may take: the 232,448 bytes a block
 # can use less 16 KB kept for mk_kernel's static shared memory.
 TILE_SMEM_LIMIT = 232448 - 16384
@@ -246,18 +286,79 @@ SW_T = 128            # Smith-Waterman tile edge
 MAX_SW_SLOTS = 16     # tile slots of one sw_wave_batch round (width*chunk)
 THREADS = 256         # block size when the table holds a tile, SW or
                       # vector body
+EBLOCK = 128          # a frontier edge block (frontier.py EBLOCK)
 
-# JAX constructor arguments this slice leaves out -> ROADMAP entry.
+# JAX constructor arguments this port leaves out -> ROADMAP entry.
 _LATER_ARGS = {
-    "trace": "single-device observability (tracebuf, row 1o)",
-    "checkpoint": "single-device checkpoint / quiesce (row 1o)",
-    "quiesce_stride": "single-device checkpoint / quiesce (row 1o)",
-    "lane_max_age": "frontier, priority buckets and branch-and-bound "
-                    "(A8, its only users)",
-    "priority_buckets": "frontier, priority buckets and branch-and-bound "
-                        "(A8, row 1l)",
-    "verify": "hclint recording hook for CUDA bodies",
+    "trace": "single-device observability and checkpoint (ROADMAP A9, "
+             "row 1o: tracebuf)",
+    "checkpoint": "single-device observability and checkpoint (ROADMAP "
+                  "A9, row 1o: quiesce / resume)",
+    "quiesce_stride": "single-device observability and checkpoint "
+                      "(ROADMAP A9, row 1o: quiesce / resume)",
+    "verify": "hclint recording hook for CUDA bodies (ROADMAP A13)",
 }
+
+# Named priority rules (a spec's ``priority=(name, word, *params)``),
+# each a pure function of arg word ``word`` of the routed descriptor,
+# clipped by the scheduler into [0, priority_buckets). Their order is the
+# rule id in the meta words (megakernel.cu PR_*). Parameters:
+#   ("div", word, d)                   arg // d (floor), d >= 1
+#   ("band", word, reps)               #k in 1..BK_MAX-1 with
+#                                      arg >= reps * 2**k
+#   ("linear_desc", word, total, nbk)  ((total - arg) * nbk) // (total+1)
+#                                      in wrapping int32 arithmetic
+PRIORITY_RULES = {"div": 1, "band": 2, "linear_desc": 3}
+_RULE_PARAMS = {"div": 1, "band": 1, "linear_desc": 2}
+
+
+def _check_rule(rule) -> tuple:
+    if callable(rule):
+        raise NotImplementedError(
+            "a priority callable runs Python on the host; the card's "
+            f"scheduler takes a named rule {sorted(PRIORITY_RULES)}: "
+            "user-defined bodies and rules are ROADMAP A4")
+    if not (isinstance(rule, tuple) and rule and isinstance(rule[0], str)):
+        raise ValueError(
+            "priority must be a named rule (name, word, *params) with name "
+            f"in {sorted(PRIORITY_RULES)}, got {rule!r}")
+    name = rule[0]
+    if name not in PRIORITY_RULES:
+        raise NotImplementedError(
+            f"unknown priority rule {name!r}: the card's scheduler knows "
+            f"{sorted(PRIORITY_RULES)}; user-defined rules are ROADMAP A4")
+    if len(rule) != 2 + _RULE_PARAMS[name] or not all(
+            isinstance(x, (int, np.integer)) for x in rule[1:]):
+        raise ValueError(f"priority rule {name!r} takes (word, "
+                         f"{_RULE_PARAMS[name]} int parameter(s)), got "
+                         f"{rule[1:]!r}")
+    word, *p = (int(x) for x in rule[1:])
+    if not 0 <= word < 6:
+        raise ValueError(f"priority rule reads arg word {word}; 0..5 exist")
+    ok = {"div": p[0] >= 1,
+          "band": 1 <= p[0] and p[0] << (BK_MAX - 1) < 1 << 31,
+          "linear_desc": 0 <= p[0] < (1 << 31) - 1 and 1 <= p[-1]}[name]
+    if not ok:
+        raise ValueError(f"priority rule {rule!r}: parameter out of range")
+    return (name, word, *p)
+
+
+def bucket_of(rule, args: Sequence[int], nbk: int) -> int:
+    """The bucket of a descriptor with arg words ``args`` under a named
+    rule, clipped into [0, nbk) (the plain core's routing, and the host
+    spelling the card's ``bucket_of`` in csrc/megakernel.cu mirrors).
+    ``rule`` None is bucket 0."""
+    if rule is None:
+        return 0
+    name, word, *p = rule
+    x = int(args[word])
+    if name == "div":
+        b = x // p[0]
+    elif name == "band":
+        b = sum(x >= p[0] << k for k in range(1, BK_MAX))
+    else:
+        b = _i32(_i32(p[0] - x) * p[1]) // (p[0] + 1)
+    return min(max(b, 0), nbk - 1)
 
 
 class BatchSpec:
@@ -269,9 +370,13 @@ class BatchSpec:
     kernel name (``BATCH_BODIES``). Non-prefetch lanes pop LIFO (the
     newest ``take`` as one block), ``prefetch=True`` lanes FIFO with the
     cross-round double-buffer protocol; only a body with a drain
-    (``DRAIN_BODIES``) may take it."""
+    (``DRAIN_BODIES``) may take it. ``priority`` (a named rule,
+    ``PRIORITY_RULES``) picks the descriptor's bucket ring when the
+    megakernel is built with ``priority_buckets``; bucket rings pop FIFO
+    and never prefetch, so a bucketed table refuses ``prefetch=True``."""
 
-    def __init__(self, width: int = 8, prefetch: bool = False) -> None:
+    def __init__(self, width: int = 8, prefetch: bool = False,
+                 priority=None) -> None:
         if width < 1:
             raise ValueError(f"batch width must be >= 1, got {width}")
         if width > MAX_WIDTH:
@@ -281,6 +386,7 @@ class BatchSpec:
             )
         self.width = int(width)
         self.prefetch = bool(prefetch)
+        self.priority = None if priority is None else _check_rule(priority)
 
 
 class KernelContext:
@@ -500,7 +606,10 @@ class _PlainCore:
         self.buffers = [st["data"][k] for k in mk.data_specs]
         self.free = [0] * (self.capacity + 1)
         self.dispatch = [0] * NDISPATCH
-        nrows = len(self.specs)
+        # Lane rows: nbk bucket rings per routed kind (row kind*nbk + bk).
+        self.nbk = mk.nbk
+        self.max_age = mk.lane_max_age
+        nrows = len(self.specs) * self.nbk
         self.lanes = [[0] * self.capacity for _ in range(nrows)]
         self.lstate = [[0] * LS_WORDS for _ in range(nrows)]
         self.tstats = [0] * TS_WORDS
@@ -559,18 +668,19 @@ class _PlainCore:
         self.bodies[fn](KernelContext(self, idx))
         self.complete(idx)
 
-    def batch_round(self, li: int, e0: int, fuel: int) -> None:
-        """megakernel.py batch_round (nbk == 1): fire one batch off lane
-        li; LIFO pops for non-prefetch specs, FIFO + the prefetch
-        handshake for prefetch specs."""
-        _, spec, body_id, body, _ = self.specs[li]
-        ls, lane, cap, ts = self.lstate[li], self.lanes[li], self.capacity, \
-            self.tstats
+    def batch_round(self, row: int, e0: int, fuel: int) -> None:
+        """megakernel.py batch_round: fire one batch off lane row ``row``
+        (a kind's bucket ring); LIFO pops for non-prefetch specs, FIFO
+        for bucket rings and for prefetch specs, with the prefetch
+        handshake for the latter."""
+        _, spec, body_id, body, _ = self.specs[row // self.nbk]
+        ls, lane, cap, ts = self.lstate[row], self.lanes[row], \
+            self.capacity, self.tstats
         B = spec.width
         head, tail = ls[LS_HEAD], ls[LS_TAIL]
         avail = tail - head
         take = min(avail, B)
-        fifo = spec.prefetch
+        fifo = spec.prefetch or self.nbk > 1
         base = head if fifo else tail - take
         pre = min(ls[LS_PF_N], take) if ls[LS_PF_BASE] == head + 1 else 0
         buf = ls[LS_PF_BUF]
@@ -579,14 +689,15 @@ class _PlainCore:
                 self.counts[C_EXECUTED] - e0 + take < fuel):
             nxt = min(avail - take, B)
         self.dispatch[body_id] += 1
-        body(BatchContext(self, li, base, take, B, pre, buf, nxt))
+        body(BatchContext(self, row, base, take, B, pre, buf, nxt))
         for s in range(take):
             self.complete(lane[(base + s) % cap])
         if fifo:
             ls[LS_HEAD] = head + take
-            ls[LS_PF_BASE] = head + take + 1 if nxt > 0 else 0
-            ls[LS_PF_N] = nxt
-            ls[LS_PF_BUF] = 1 - buf
+            if spec.prefetch:
+                ls[LS_PF_BASE] = head + take + 1 if nxt > 0 else 0
+                ls[LS_PF_N] = nxt
+                ls[LS_PF_BUF] = 1 - buf
         else:
             ls[LS_TAIL] = base
         ts[TS_BATCH_ROUNDS] += 1
@@ -595,43 +706,83 @@ class _PlainCore:
         ts[TS_PREFETCH] += pre
         ts[TS_FULL_ROUNDS] += int(take == B)
 
+    def _select(self, avails, ring_work: bool):
+        """The row this round fires and whether the starved pass chose
+        it, or (None, False). The starved pass (lane_max_age on): the
+        first kind, in F_FN order, with a row aged >= lane_max_age, its
+        lowest such bucket; it jumps a busy ring. Then ring-drain-first:
+        with the ring empty, the lowest non-empty bucket over all kinds,
+        ties to the lower F_FN."""
+        nbk, nk = self.nbk, len(self.specs)
+        if self.max_age:
+            for r in range(nk * nbk):
+                if avails[r] > 0 and self.lstate[r][LS_AGE] >= self.max_age:
+                    return r, True
+        if not ring_work:
+            for bk in range(nbk):
+                for li in range(nk):
+                    if avails[li * nbk + bk] > 0:
+                        return li * nbk + bk, False
+        return None, False
+
     def sched(self, fuel: int) -> None:
         c, ready, cap = self.counts, self.ready, self.capacity
         e0 = c[C_EXECUTED]
-        ts = self.tstats
+        ts, nbk = self.tstats, self.nbk
         while c[C_PENDING] > 0 and c[C_EXECUTED] - e0 < fuel:
             head, tail = c[C_HEAD], c[C_TAIL]
             ring_work = head < tail
             avails = [ls[LS_TAIL] - ls[LS_HEAD] for ls in self.lstate]
             lane_work = any(a > 0 for a in avails)
-            # Ring-drain-first: lanes fire only once the ring is empty,
-            # one dispatch a round, the lowest F_FN first.
-            fired = False
-            for li in range(len(self.specs)):
-                eligible = avails[li] > 0 and not ring_work
-                if eligible and not fired:
-                    self.batch_round(li, e0, fuel)
-                fired = fired or eligible
-            if not fired and ring_work:
+            # One dispatch a round: a batch off the selected row, or a
+            # ring pop.
+            row, starved = self._select(avails, ring_work)
+            if row is not None:
+                bk = row % nbk
+                if starved and ring_work:
+                    ts[TS_AGE_FIRES] += 1
+                if starved and nbk > 1 and any(
+                        a > 0 and r % nbk < bk for r, a in enumerate(avails)):
+                    ts[TS_INVERSIONS] += 1
+                if bk > 0:
+                    ts[TS_BUCKET_FIRES] += 1
+                self.batch_round(row, e0, fuel)
+            elif ring_work:
                 idx = ready[(tail - 1) % cap]
                 c[C_TAIL] = tail - 1
-                # Pop-time routing: a routed kind goes to its lane.
-                fn = self.tasks[idx * DESC_WORDS + F_FN]
-                for li, (fid, _, _, _, _) in enumerate(self.specs):
+                # Pop-time routing: a routed kind goes to its lane (its
+                # bucket ring under the priority tier).
+                r = idx * DESC_WORDS
+                fn = self.tasks[r + F_FN]
+                for li, (fid, spec, _, _, _) in enumerate(self.specs):
                     if fn == fid:
-                        ls, lane = self.lstate[li], self.lanes[li]
-                        lane[ls[LS_TAIL] % cap] = idx
+                        bk = 0 if nbk == 1 else bucket_of(
+                            spec.priority,
+                            self.tasks[r + F_A0:r + F_A0 + 6], nbk)
+                        ls = self.lstate[li * nbk + bk]
+                        self.lanes[li * nbk + bk][ls[LS_TAIL] % cap] = idx
                         ls[LS_TAIL] += 1
                         ts[TS_ROUTED] += 1
                         break
                 else:
                     self.step(idx)
                     ts[TS_SCALAR_ROUNDS] += 1
+            if self.max_age:
+                # The starved-round clocks, after dispatch: a row that
+                # holds entries and did not fire ages by one, the others
+                # reset.
+                for i, ls in enumerate(self.lstate):
+                    age = 0 if i == row or ls[LS_TAIL] == ls[LS_HEAD] \
+                        else ls[LS_AGE] + 1
+                    ls[LS_AGE] = age
+                    ts[TS_MAX_AGE] = max(ts[TS_MAX_AGE], age)
             if not (ring_work or lane_work):
                 break
         # Exit with unrun lane entries: retire an in-flight prefetch,
-        # then spill the entries to the ring HEAD (the cold end).
-        for li, (_, spec, _, _, drain) in enumerate(self.specs):
+        # then spill the entries to the ring HEAD (the cold end), row by
+        # row.
+        for li in range(len(self.lstate)):
+            _, spec, _, _, drain = self.specs[li // nbk]
             ls, lane = self.lstate[li], self.lanes[li]
             h, t = ls[LS_HEAD], ls[LS_TAIL]
             if spec.prefetch:
@@ -654,13 +805,17 @@ class _PlainCore:
             self.sched(fuel)
             total += self.counts[C_EXECUTED]
         self.counts[C_EXECUTED] = _i32(total)
+        self.write_back()
+
+    def write_back(self) -> None:
+        """Copy the working state back into the state tensors."""
         st = self.st
         st["tasks"].copy_(torch.tensor(self.tasks, dtype=torch.int32)
                           .view(self.capacity, DESC_WORDS))
         st["ready"].copy_(torch.tensor(self.ready, dtype=torch.int32))
         st["counts"].copy_(torch.tensor(self.counts, dtype=torch.int32))
         st["ivalues"].copy_(torch.tensor(self.ivalues, dtype=torch.int32))
-        if self.specs:
+        if "tstats" in st:
             st["tstats"].copy_(torch.tensor(self.tstats, dtype=torch.int32))
 
 
@@ -670,12 +825,15 @@ def _plain_bodies() -> Dict[str, object]:
                            updrow_batch_body, updrow_body)
     from .smithwaterman import (sw_tile_body, sw_wave_batch_body,
                                 sw_wave_batch_drain)
+    from .bnb import bnb_node_batch_body, bnb_node_body
     from .forasync_tier import plain_tile_bodies
+    from .frontier import plain_frontier_bodies
     from .workloads import (fib_batch_body, fib_body, sum_body,
                             uts_node_batch_body, uts_node_body)
 
     return {
-        **plain_tile_bodies(),
+        **plain_tile_bodies(), **plain_frontier_bodies(),
+        "bnb_node": bnb_node_body, "bnb_node_batch": bnb_node_batch_body,
         "fib": fib_body, "sum": sum_body, "uts_node": uts_node_body,
         "potrf": potrf_body, "trsmcol": trsmcol_body, "updrow": updrow_body,
         "trsm": trsm_body, "sw_tile": sw_tile_body,
@@ -720,8 +878,11 @@ class Megakernel:
     tier). ``data_specs`` maps buffer names to ``(shape,
     dtype)`` in the order ``DATA_FAMILIES`` gives them; ``params`` gives
     the bodies' static parameters (``PARAMS``); ``slabs`` the windows a
-    tile body (``TILE_BODIES``) loads and stores. Runs on ``device``
-    (default ``"cuda"``; ``"cpu"`` runs the plain version).
+    tile body (``TILE_BODIES``) loads and stores. ``lane_max_age`` and
+    ``priority_buckets`` arm the batch tier's age-triggered firing policy
+    and its bucket rings as in JAX (unset: ``HCLIB_TPU_LANE_MAX_AGE`` /
+    ``HCLIB_TPU_PRIORITY_BUCKETS``). Runs on ``device`` (default
+    ``"cuda"``; ``"cpu"`` runs the plain version).
     """
 
     def __init__(
@@ -737,16 +898,53 @@ class Megakernel:
         auto_route: Optional[Dict[str, VectorTaskSpec]] = None,
         slabs: Optional[tuple] = None,
         device="cuda",
-        **later,
+        trace=None,
+        checkpoint: Optional[bool] = None,
+        quiesce_stride: Optional[int] = None,
+        lane_max_age: Optional[int] = None,
+        priority_buckets: Optional[int] = None,
+        verify: Optional[bool] = None,
     ) -> None:
-        for name, value in later.items():
-            if name not in _LATER_ARGS:
-                raise TypeError(f"unexpected argument {name!r}")
+        # The build variables, read where JAX reads them (megakernel.py
+        # :852-929) and with its semantics. Tracing and checkpointing are
+        # not ported: turning either on, by argument or environment,
+        # raises.
+        if trace is None:
+            env = env_raw("HCLIB_TPU_TRACE", "")
+            if env and env != "0":
+                try:
+                    n = int(env)
+                except ValueError:
+                    n = 1
+                trace = n if n > 0 else None
+        if checkpoint is None:
+            checkpoint = env_bool("HCLIB_TPU_CHECKPOINT")
+        for name, value in (("trace", trace), ("checkpoint", checkpoint),
+                            ("quiesce_stride", quiesce_stride),
+                            ("verify", verify)):
             if value:
                 raise NotImplementedError(
                     f"Megakernel({name}=...) is not ported yet: "
                     f"{_LATER_ARGS[name]} in ROADMAP.md"
                 )
+        # Without checkpointing the stride changes nothing (as in JAX).
+        self.quiesce_stride = max(1, int(env_int(
+            "HCLIB_TPU_QUIESCE_STRIDE", None, malformed=1) or 1))
+        if lane_max_age is None:
+            lane_max_age = env_int("HCLIB_TPU_LANE_MAX_AGE", None)
+        lane_max_age = int(lane_max_age or 0)
+        if lane_max_age < 0:
+            raise ValueError(
+                f"lane_max_age must be >= 0 (0 = off), got {lane_max_age}")
+        self.lane_max_age = lane_max_age
+        if priority_buckets is None:
+            priority_buckets = env_int("HCLIB_TPU_PRIORITY_BUCKETS", None)
+        priority_buckets = int(priority_buckets or 0)
+        if priority_buckets and not 2 <= priority_buckets <= BK_MAX:
+            raise ValueError(
+                f"priority_buckets must be 0 (off) or 2..{BK_MAX} "
+                f"(the static bucket-ring set), got {priority_buckets}")
+        self.priority_buckets = priority_buckets
         names, table_specs = [], {}
         scalar = tuple(b for b in BODIES if b not in BATCH_BODIES.values()
                        and b not in VECTOR_BODIES)
@@ -781,6 +979,9 @@ class Megakernel:
             (self.fn_of[n], s, BATCH_BODIES[n]) for n, s in self.route.items()
             if isinstance(s, BatchSpec)
         )
+        # Bucket rings a routed kind's lane holds (1: the bucket-free tier).
+        self.nbk = priority_buckets if (
+            self.batch_specs and priority_buckets) else 1
         # F_FN -> the VectorTaskSpec its descriptors run as a subtree.
         table_specs.update((n, s) for n, s in self.route.items()
                            if isinstance(s, VectorTaskSpec))
@@ -823,7 +1024,9 @@ class Megakernel:
                     f"sw_wave_batch sweeps width*chunk = {self.sw_slots} "
                     f"tile slots a round; it must be 1..{MAX_SW_SLOTS}"
                 )
-        meta = [0] * (META_SLAB + len(self.slab_words) if self.slab_words
+        meta = [0] * (META_PRIO + PRIO_WORDS * len(self.batch_specs)
+                      if self.nbk > 1 else
+                      META_SLAB + len(self.slab_words) if self.slab_words
                       else META_VEC + VEC_WORDS * len(names)
                       if self.vector_specs else
                       META_BATCH + 4 * len(self.batch_specs))
@@ -841,6 +1044,12 @@ class Megakernel:
             meta[o:o + 5] = [*spec.lanes, spec.stack_depth,
                              spec.min_idle_div, spec.param]
         meta[META_SLAB:META_SLAB + len(self.slab_words)] = self.slab_words
+        if self.nbk > 1:
+            for li, (_, spec, _) in enumerate(self.batch_specs):
+                if spec.priority is not None:
+                    name, word, *p = spec.priority
+                    o = META_PRIO + PRIO_WORDS * li
+                    meta[o:o + 2 + len(p)] = [PRIORITY_RULES[name], word, *p]
         self._meta = meta
         self._plain = _plain_bodies()
         self._fn_plain = [
@@ -872,6 +1081,13 @@ class Megakernel:
                 f"csrc/megakernel.cu batches {sorted(BATCH_BODIES)}"
             )
         for n, spec in batched.items():
+            if spec.prefetch and self.priority_buckets:
+                raise ValueError(
+                    f"prefetch=True on {n!r} with priority_buckets="
+                    f"{self.priority_buckets}: bucket rings pop FIFO and "
+                    "never prefetch (the next ring to fire is chosen at "
+                    "fire time, and the operand halves would be shared "
+                    "across rings); pass prefetch=False")
             if spec.prefetch and BATCH_BODIES[n] not in DRAIN_BODIES:
                 raise ValueError(
                     f"prefetch=True requires a drain: the batched body "
@@ -942,6 +1158,10 @@ class Megakernel:
                       pitch if load else 0, soff if load else 0, *coef, 0]
             soff += rows * pitch if load else 0
         words[2] = soff
+        if len(words) > MAX_SLAB_WORDS:
+            raise ValueError(f"{len(loads) + len(stores)} slabs take "
+                             f"{len(words)} slab words, above "
+                             f"{MAX_SLAB_WORDS}")
         want = tuple(x + 2 for x in stores[0].shape) if rule == "halo" \
             else stores[0].shape
         if any(tuple(s.shape) != tuple(want) for s in loads):
@@ -1073,6 +1293,13 @@ class Megakernel:
 
     def _smem_bytes(self) -> int:
         smem = 0
+        fr = [b for b in self.body_names if b in FRONTIER_BODIES]
+        if fr:
+            # The EXPAND bodies' edge slabs: a block row and its weight
+            # row a slot, one slot or two halves of width slots.
+            spec = self.route.get(self.kernel_names[0])
+            slots = 2 * spec.width if isinstance(spec, BatchSpec) else 1
+            smem = 4 * EBLOCK * slots * 2
         if self.slab_words:
             smem = 4 * self.slab_words[2] * self._slab_slots()
         if "potrf" in self.tile_bodies:
@@ -1110,12 +1337,13 @@ class Megakernel:
         free = torch.empty(cap + 1, dtype=torch.int32, device=dev)
         dispatch = torch.zeros(NDISPATCH, dtype=torch.int32, device=dev)
         meta = torch.tensor(self._meta, dtype=torch.int32, device=dev)
-        nrows = len(self.batch_specs)
+        nbatch = len(self.batch_specs)
+        nrows = nbatch * self.nbk
         lanes = torch.empty(max(nrows, 1) * cap, dtype=torch.int32,
                             device=dev)
         lstate = torch.zeros(max(nrows, 1) * LS_WORDS, dtype=torch.int32,
                              device=dev)
-        tstats = st["tstats"] if nrows else None
+        tstats = st["tstats"] if nbatch else None
         data = st["data"]
         ptrs = (ctypes.c_void_p * MAX_DATA)(
             *[data[k].data_ptr() for k in self.data_specs])
@@ -1137,13 +1365,25 @@ class Megakernel:
         # The kernel's instances (megakernel.cu kMode): without lane, SW
         # and vector code for tables that need none of them; with lane
         # and SW code; with the vector engine too; with lanes and the
-        # tile bodies.
-        mode = 3 if self.slab_words else 2 if self.vector_specs else int(
-            bool(nrows or self.sw_bodies))
+        # tile bodies; with lanes, the age and bucket policies and the
+        # frontier and knapsack bodies.
+        policy = nbatch and (self.lane_max_age or self.nbk > 1)
+        if policy or set(self.body_names) & set(POLICY_BODIES):
+            if self.slab_words or self.vector_specs or self.sw_bodies:
+                raise NotImplementedError(
+                    "lane_max_age / priority_buckets on the card run in the "
+                    "scheduler instance with the frontier, knapsack, fib, "
+                    "UTS and Cholesky bodies; this table also holds "
+                    f"{self.slab_body or self.sw_bodies or 'vector'} "
+                    "bodies (run it on the CPU, or without the policies)")
+            mode = 4
+        else:
+            mode = 3 if self.slab_words else 2 if self.vector_specs else \
+                int(bool(nbatch or self.sw_bodies))
         lib = _build.library("megakernel")
         fn = lib.hclib_mk_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p
         ]
         err = fn(
@@ -1158,7 +1398,9 @@ class Megakernel:
             lanes.data_ptr(), lstate.data_ptr(),
             tstats.data_ptr() if tstats is not None else None,
             vstack.data_ptr() if vstack is not None else None,
-            len(self.kernel_names), nrows, cap, nv, min(fuel, 0x7FFFFFFF),
+            len(self.kernel_names), nbatch, nrows, self.nbk,
+            self.lane_max_age if mode == 4 else 0, cap, nv,
+            min(fuel, 0x7FFFFFFF),
             reps, int(bool(stage_all_values)), mode, threads,
             self._smem_bytes(),
             torch.cuda.current_stream(dev).cuda_stream,

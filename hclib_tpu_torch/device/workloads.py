@@ -14,6 +14,8 @@ whose whole subtree goes through the vector tier (``vector_engine.py``).
 loops (``forasync_tier.py``), with their numpy references and data
 factories copied from the JAX package (same inputs from the same seed);
 ``device_arrayadd`` runs one ``add_tile`` task per (8, 128) f32 block.
+``rmat_edges`` is the frontier tier's seeded R-MAT edge factory, copied
+word for word so both packages draw the same graph from the same seed.
 The host-runtime bodies ``stencil_body`` / ``map_body`` wait for the
 host runtime (ROADMAP A13).
 """
@@ -38,6 +40,7 @@ __all__ = [
     "device_nqueens", "MAP_MUL", "MAP_ADD", "stencil_loop",
     "stencil_reference", "stencil_data", "map_loop", "map_reference",
     "map_data", "ADD_TILE", "make_arrayadd_megakernel", "device_arrayadd",
+    "rmat_edges",
 ]
 
 
@@ -384,3 +387,45 @@ def device_arrayadd(ntiles: int = 16, device="cuda"):
     c = np.zeros(shape, dtype=np.float32)
     _, data, info = mk.run(b, data={"a": a, "b": bb, "c": c})
     return a, bb, data["c"], info
+
+
+# ------------------------------------------------- R-MAT graph generator
+
+
+def rmat_edges(
+    scale: int,
+    efactor: int = 8,
+    seed: int = 0,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    max_weight: int = 16,
+):
+    """Seeded R-MAT-style edge list over ``N = 2**scale`` vertices with
+    ``efactor * N`` samples (self-loops dropped, duplicates merged, so
+    the returned edge count is a bit lower). Returns ``(n, src, dst,
+    weights)`` int32 arrays - weights uniform in [1, max_weight], for
+    the SSSP arm. Pure function of the arguments (one seeded
+    Generator), so every arm rebuilds the identical graph."""
+    if scale < 1:
+        raise ValueError(f"rmat scale must be >= 1, got {scale}")
+    n = 1 << scale
+    ne = int(efactor) * n
+    rng = np.random.default_rng(seed)
+    src = np.zeros(ne, np.int64)
+    dst = np.zeros(ne, np.int64)
+    d = 1.0 - a - b - c
+    if d <= 0:
+        raise ValueError(f"rmat quadrants must leave d > 0, got {d}")
+    for _ in range(scale):
+        sb = rng.random(ne) >= (a + b)  # src bit: lower half vs upper
+        pd = np.where(sb, d / (c + d), b / (a + b))
+        db = rng.random(ne) < pd
+        src = (src << 1) | sb
+        dst = (dst << 1) | db
+    keep = src != dst
+    key = np.unique(src[keep] * n + dst[keep])
+    src = (key // n).astype(np.int32)
+    dst = (key % n).astype(np.int32)
+    w = rng.integers(1, max_weight + 1, size=len(src)).astype(np.int32)
+    return n, src, dst, w

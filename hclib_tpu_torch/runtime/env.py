@@ -1,8 +1,9 @@
 """The ``HCLIB_TPU_*`` environment variables the port reads, with the
 semantics of ``hclib_tpu/runtime/env.py``: every name is declared once
-here, read only through the typed accessor, and malformed text raises
-(a typo must not silently change behavior). The port reads the JAX
-package's own variables; it adds none of its own.
+here, read only through the typed accessors, and malformed text raises
+unless the row says otherwise (a typo must not silently change
+behavior). The port reads the JAX package's own variables; it adds none
+of its own.
 """
 
 from __future__ import annotations
@@ -10,12 +11,31 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["REGISTRY", "env_int"]
+__all__ = ["REGISTRY", "env_int", "env_raw", "env_set", "env_bool"]
 
 # name -> (kind, default, doc), as the JAX package's registry rows.
 REGISTRY = {
     "HCLIB_TPU_FORASYNC_WIDTH": (
         "int", "8", "default forasync device-tier batch width"),
+    "HCLIB_TPU_TRACE": (
+        "int", "0 (off)",
+        "flight-recorder ring capacity (1 = default capacity; malformed "
+        "text counts as 1, 0 or below is off)"),
+    "HCLIB_TPU_CHECKPOINT": (
+        "bool", "off", "compile the quiesce protocol into schedulers"),
+    "HCLIB_TPU_QUIESCE_STRIDE": (
+        "int", "1",
+        "poll the quiesce word every Nth round (malformed text counts as "
+        "1)"),
+    "HCLIB_TPU_LANE_MAX_AGE": (
+        "int", "0 (off)",
+        "age-triggered lane firing policy threshold, rounds (malformed "
+        "text raises)"),
+    "HCLIB_TPU_PRIORITY_BUCKETS": (
+        "int", "0 (off)",
+        "priority-bucket dispatch tier: bucket rings per batch lane, "
+        "popped lowest-nonempty-first (2..8; malformed or out-of-range "
+        "text raises)"),
 }
 
 
@@ -29,13 +49,36 @@ def _lookup(name: str) -> Optional[str]:
     return os.environ.get(name)
 
 
-def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
+def env_raw(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The text as set (empty included); unset -> ``default``."""
+    v = _lookup(name)
+    return default if v is None else v
+
+
+def env_set(name: str) -> bool:
+    """Variable present AND nonempty (any text, including '0')."""
+    return bool(_lookup(name))
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    """Unset -> default; ''/'0' -> False; anything else -> True."""
+    v = _lookup(name)
+    if v is None:
+        return default
+    return v not in ("", "0")
+
+
+def env_int(name: str, default: Optional[int] = None, *,
+            malformed="raise") -> Optional[int]:
     """Int value; unset/empty -> ``default``. Malformed text raises
-    ``ValueError`` naming the variable."""
+    ``ValueError`` naming the variable unless ``malformed=`` supplies a
+    fallback."""
     v = _lookup(name)
     if not v:
         return default
     try:
         return int(v)
     except (TypeError, ValueError):
-        raise ValueError(f"{name}={v!r} must be an int") from None
+        if malformed == "raise":
+            raise ValueError(f"{name}={v!r} must be an int") from None
+        return malformed

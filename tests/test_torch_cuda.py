@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from hclib_tpu_torch.device import cholesky as tc
+from hclib_tpu_torch.device import bnb as tb
 from hclib_tpu_torch.device import forasync_tier as tfa
+from hclib_tpu_torch.device import frontier as tf
 from hclib_tpu_torch.device import megakernel as tmk
 from hclib_tpu_torch.device import smithwaterman as ts
 from hclib_tpu_torch.device import sw_pallas as tsp
@@ -39,8 +41,9 @@ def card():
     return torch.device("cuda")
 
 
-def _raw(mk, b, reps=1, stage_all=False, fuel=1 << 22, data=None):
-    st = mk.state(b, data=data)
+def _raw(mk, b, reps=1, stage_all=False, fuel=1 << 22, data=None,
+         ivalues=None):
+    st = mk.state(b, data=data, ivalues=ivalues)
     mk.launch(st, fuel=fuel, reps=reps, stage_all_values=stage_all)
     keys = ["tasks", "ready", "counts", "ivalues"] + (
         ["tstats"] if "tstats" in st else [])
@@ -397,3 +400,104 @@ def test_tile_rounds_equal_plain(card, width, prefetch):
         outs[d] = data["gout"].cpu()
     assert torch.equal(outs["cuda"], outs["cpu"])
     assert np.array_equal(outs["cuda"].numpy(), tw.stencil_reference(gin))
+
+
+# The graph frontier and branch-and-bound in the policy instance (kMode 4):
+# bench_graph's R-MAT parameters at scale 7, and the 12-item knapsack.
+FR_GRAPH = tf.Graph(*tw.rmat_edges(7, efactor=8, seed=7))
+
+
+def _fr_pair(kind, width, fuel=1 << 22, nbk=0):
+    outs = []
+    for d in ("cuda", "cpu"):
+        fk = tf.pagerank_kernel() if kind == "pagerank" \
+            else tf._KINDS[kind]()
+        mk = tf.make_frontier_megakernel(fk, FR_GRAPH, width=width,
+                                         capacity=2048, priority_buckets=nbk,
+                                         device=d)
+        b, iv, data = tf.frontier_state(kind, FR_GRAPH, mk, m0=1 << 12)
+        outs.append(_raw(mk, b, fuel=fuel, data=data, ivalues=iv))
+    return outs
+
+
+@pytest.mark.parametrize("width,fuel", [(0, 1 << 22), (8, 1 << 22),
+                                        (8, 60)])
+@pytest.mark.parametrize("kind", ["bfs", "sssp", "pagerank"])
+def test_frontier_equals_plain(card, kind, width, fuel):
+    """Scalar, width 8 with the edge-slab prefetch and the age trigger,
+    and cut by fuel with a prefetch in flight (the spill word for word)."""
+    got, want = _fr_pair(kind, width, fuel)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if fuel < 1 << 22:
+        assert int(want["tstats"][6]) > 0  # spilled
+    elif kind != "pagerank":
+        st = FR_GRAPH.st_base
+        ref = tf.host_bfs(FR_GRAPH) if kind == "bfs" else tf.host_sssp(
+            FR_GRAPH)
+        assert np.array_equal(got["ivalues"][st:st + FR_GRAPH.n].numpy(),
+                              ref)
+
+
+def test_delta_sssp_equals_plain(card):
+    got, want = _fr_pair("sssp", 8, nbk=8)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert int(want["tstats"][10]) > 0  # bucket fires
+
+
+@pytest.mark.parametrize("width,nbk", [(0, 0), (4, 0), (4, 8)])
+def test_bnb_equals_plain(card, width, nbk):
+    kp = tb.make_knapsack(12, seed=5)
+    outs = []
+    for d in ("cuda", "cpu"):
+        mk = tb.make_bnb_megakernel(kp, width=width, priority_buckets=nbk,
+                                    device=d)
+        b, iv = tb.bnb_state(kp, mk)
+        outs.append(_raw(mk, b, ivalues=iv))
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    assert int(outs[0]["ivalues"][tb.V_BEST]) == tb.host_knapsack_opt(kp)
+
+
+@pytest.mark.parametrize("name", ["fib9_age1", "fib10_buckets4_age3"])
+def test_policy_instance_fib_equals_plain(card, name):
+    """The age and bucket policies on the fib bodies (the fault the port
+    had: HCLIB_TPU_LANE_MAX_AGE=1 at width 4)."""
+    outs = []
+    for d in ("cuda", "cpu"):
+        if name == "fib9_age1":
+            mk = tmk.Megakernel(["fib", "sum"], route={
+                "fib": tmk.BatchSpec(4)}, capacity=64,
+                num_values=4 * 64 + 16, succ_capacity=64,
+                uses_row_values=True, lane_max_age=1, device=d)
+        else:
+            mk = tmk.Megakernel(["fib", "sum"], route={
+                "fib": tmk.BatchSpec(2, priority=("div", 0, 1))},
+                capacity=128, num_values=4 * 128 + 16, succ_capacity=8,
+                uses_row_values=True, priority_buckets=4, lane_max_age=3,
+                device=d)
+        b = TaskGraphBuilder()
+        b.add(tw.FIB, args=[9 if name == "fib9_age1" else 10], out=0)
+        outs.append(_raw(mk, b))
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    if name == "fib9_age1":
+        assert outs[0]["tstats"][8] == 100 and outs[0]["counts"][2] == 11
+
+
+@pytest.mark.parametrize("width", [0, 8])
+def test_expand_rounds_equal_plain(card, width):
+    """The standalone EXPAND entry (no scheduler) on the seed rows."""
+    outs = []
+    for d in ("cuda", "cpu"):
+        mk = tf.make_frontier_megakernel(tf.sssp_kernel(), FR_GRAPH,
+                                         width=width, capacity=2048,
+                                         device=d)
+        b, iv, data = tf.frontier_state("sssp", FR_GRAPH, mk)
+        st = mk.state(b, data=data, ivalues=iv)
+        tf.expand_rounds(mk, st, range(int(st["counts"][2])))
+        outs.append({k: st[k].cpu() for k in ("tasks", "ready", "counts",
+                                               "ivalues")})
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k

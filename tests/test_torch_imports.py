@@ -29,6 +29,8 @@ def test_imports_pull_in_no_jax():
             "hclib_tpu_torch.device.vector_engine",
             "hclib_tpu_torch.device.sw_pallas",
             "hclib_tpu_torch.device.forasync_tier",
+            "hclib_tpu_torch.device.frontier",
+            "hclib_tpu_torch.device.bnb",
             "hclib_tpu_torch.runtime.env",
             "hclib_tpu_torch.models.nqueens"} <= set(mods)
     code = (
@@ -102,6 +104,12 @@ ENTRY_POINTS = {
     "device_arrayadd": lambda: __import__(
         "hclib_tpu_torch.device.workloads",
         fromlist=["x"]).device_arrayadd(2),
+    "run_frontier": lambda: (lambda f, w: f.run_frontier(
+        "bfs", f.Graph(*w.rmat_edges(3, efactor=2, seed=1))))(
+            __import__("hclib_tpu_torch.device.frontier", fromlist=["x"]),
+            __import__("hclib_tpu_torch.device.workloads", fromlist=["x"])),
+    "run_bnb": lambda: (lambda b: b.run_bnb(b.make_knapsack(4)))(
+        __import__("hclib_tpu_torch.device.bnb", fromlist=["x"])),
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),

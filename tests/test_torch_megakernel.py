@@ -224,6 +224,14 @@ def test_uts_tree_counts_pinned():
     {"priority_buckets": 2}, {"verify": True},
 ])
 def test_left_out_options_raise(kw):
+    """The options still left out raise naming their ROADMAP item; the
+    lane-age and bucket knobs are ported and taken as JAX takes them
+    (tests/test_torch_priority.py holds them to JAX word for word)."""
+    (name, value), = kw.items()
+    if name in ("lane_max_age", "priority_buckets"):
+        mk = tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
+        assert getattr(mk, name) == value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
 
