@@ -96,6 +96,28 @@ Phases, one JSON line each:
 20. bnb     - run_bnb on bench.py --bnb's instance (make_knapsack(16,
              seed=5), width 4, capacity 2048) unordered and at 8 buckets:
              optimum 609 = host_knapsack_opt; nodes/s.
+21. dyngraph_bench - run_dyngraph on bench.py --graph dyngraph's
+             configuration uncut (rmat_edges(7, efactor=8, seed=7): 128
+             vertices, 707 static edges, 108 static blocks; spare_blocks 2,
+             upd_cap 24, capacity 1024; 24 updates and 4 queries drawn from
+             default_rng(11) as bench.py draws them): BFS and SSSP at width
+             0 and 8, SSSP at 8 buckets, each equal to host_dyngraph with
+             24 updates applied, none dropped and spare_in_use =
+             spare_needed(); PageRank at width 8 with the mass of
+             host_incremental_pagerank; updates/s, query TEPS and
+             queries/s as bench.py defines them over the CUDA-event time of
+             the width-8 BFS and SSSP launches; then a QUERY stream alone
+             (one query a vertex) on SSSP's converged state, equal to the
+             host labels.
+22. dyngraph_scale16 - phase 19's graph as a DynGraph (spare_blocks 2,
+             upd_cap 32,768) with 32,768 updates (3.4% of its 955,311
+             edges, bench.py's share and rule: default_rng(11), uniform
+             endpoints, weights 1-7) and 64 queries: BFS, SSSP and SSSP at
+             8 buckets at width 8, each equal to host_dyngraph with none
+             dropped; then the incremental arm: the UPDATE stream alone
+             against phase 19's converged SSSP labels laid out on the
+             DynGraph, at width 8 and 0, equal to host_dyngraph; ms and
+             us a splice, re-expansions included.
 
 The ``check`` phase also holds the tile bodies (``tiles``: fa_stencil
 and fa_map at bench.py --forasync's sizes, stencil 64 x 1024 and map
@@ -106,9 +128,15 @@ policy scheduler (``frontier``: BFS, SSSP and PageRank on phase 18's
 graph scalar and at width 8, delta-SSSP at 8 buckets, and a width-8
 PageRank cut by fuel with a prefetch in flight; the standalone EXPAND
 entry; ``bnb``: the 12-item knapsack scalar, at width 4 and at 8
-buckets), word for word.
+buckets), and the dynamic-graph bodies (``dyngraph``: the JAX tests'
+graph rmat_edges(5, efactor=4, seed=9) with their 4 updates, spare_blocks
+2, upd_cap 16: scalar SSSP with queries, BFS at width 4 unordered and at
+2 buckets, PageRank scalar and at width 4, a width-4 SSSP cut by fuel;
+and a stream that fills a vertex's spare row and drops, scalar and at
+width 4; each with both edge buffers; the spare-exhaustion graph, which
+raises on the card as on the CPU), word for word.
 
-Phases 3-20 are the main path: launch counts are zeroed just before each
+Phases 3-22 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -226,6 +254,7 @@ def main() -> int:
     from hclib_tpu_torch import _build
     from hclib_tpu_torch.device import bnb as tb
     from hclib_tpu_torch.device import cholesky as tc
+    from hclib_tpu_torch.device import dyngraph as td
     from hclib_tpu_torch.device import frontier as tf
     from hclib_tpu_torch.device import forasync_tier as tfa
     from hclib_tpu_torch.device import smithwaterman as tsw
@@ -291,10 +320,16 @@ def main() -> int:
         return out
 
     def ints_equal(got, want, what):
+        """Check every integer output against the plain version's; the
+        largest absolute difference (0 when they agree)."""
+        err = 0
         for k, v in want.items():
             if not v.is_floating_point():
                 check(torch.equal(got[k], v), f"{what}: {k} differs from "
                       "the plain version")
+                err = max(err, int((got[k].long() - v.long()).abs().max())
+                          if v.numel() else 0)
+        return float(err)
 
     def plain_ms(fn):
         t0 = time.perf_counter()
@@ -979,6 +1014,65 @@ def main() -> int:
               "buckets": nbk, "equal": True,
               "executed": int(out["cpu"]["counts"][5])})
 
+    # 2. check: the dynamic-graph bodies (UPDATE, QUERY, the clamped and
+    # spare-aware EXPAND) on the JAX tests' graph and stream, a stream that
+    # fills a vertex's spare row and then drops, and the spare-exhaustion
+    # graph, each arm on its whole output state, both edge buffers
+    # included, against the plain core
+    full = (8, np.concatenate([np.zeros(128, np.int64), [1]]),
+            np.concatenate([1 + np.arange(128) % 7, [2]]).astype(np.int64))
+
+    def dg_small(name):
+        """(graph, updates, queries) of a check arm."""
+        if name == "rmat5":
+            return (td.DynGraph(*tw.rmat_edges(5, efactor=4, seed=9),
+                                spare_blocks=2, upd_cap=16),
+                    [(1, 5, 3), (2, 7, 1), (0, 9, 2), (4, 3, 6)], [0, 5, 9])
+        ups = ([(0, 7, 1), (1, 3, 1)] if name == "exhaustion" else
+               [(0, 1 + i % 7, 1 + i % 3) for i in range(130)] + [(1, 3, 1)])
+        return (td.DynGraph(*full, np.ones(129, np.int64),
+                            spare_blocks=int(name == "spares"), upd_cap=160),
+                ups, [0])
+
+    for name, kind, width, nbk, fuel in (
+            ("rmat5", "sssp", 0, 0, 1 << 22), ("rmat5", "bfs", 4, 0, 1 << 22),
+            ("rmat5", "bfs", 4, 2, 1 << 22),
+            ("rmat5", "pagerank", 0, 0, 1 << 22),
+            ("rmat5", "pagerank", 4, 0, 1 << 22), ("rmat5", "sssp", 4, 0, 40),
+            ("spares", "sssp", 0, 0, 1 << 22), ("spares", "sssp", 4, 0, 1 << 22),
+            ("exhaustion", "bfs", 0, 0, 1 << 22)):
+        out = {}
+        for d in ("cuda", "cpu"):
+            g, ups, qs = dg_small(name)
+            for up in ups:
+                g.add_update(*up)
+            mk = td.make_dyngraph_megakernel(
+                kind, g, width=width, priority_buckets=nbk, update_priority=0,
+                capacity=768 if kind == "pagerank" else 512, device=d)
+            b, iv, data = td.dyngraph_state(kind, g, mk, queries=qs,
+                                            m0=GB["m0"], reps=GB["reps"])
+            out[d] = raw_state(mk, b, data, fuel, ivalues=iv)
+        ints_equal(out["cuda"], out["cpu"], f"dyngraph {name} {kind} width "
+                   f"{width} buckets {nbk} fuel {fuel}")
+        iv = out["cpu"]["ivalues"]
+        emit({"phase": "check", "kernel": "dyngraph", "graph": name,
+              "kind": kind, "width": width, "buckets": nbk, "fuel": fuel,
+              "equal": True, "executed": int(out["cpu"]["counts"][5]),
+              "updates_applied": int(iv[td.V_UPDATES]),
+              "spare_in_use": int(iv[td.V_FREE]),
+              "dropped": int(iv[td.V_DROPPED]),
+              "overflow": int(out["cpu"]["counts"][6])})
+    for d in ("cuda", "cpu"):
+        g, ups, _ = dg_small("exhaustion")
+        try:
+            td.run_dyngraph("bfs", g, 0, updates=ups, width=0, device=d)
+        except RuntimeError as e:
+            check("overflow" in str(e), f"exhaustion on {d}: {e}")
+        else:
+            check(False, f"spare exhaustion did not raise on {d}")
+    emit({"phase": "check", "kernel": "dyngraph", "graph": "exhaustion",
+          "raises_on": ["cuda", "cpu"]})
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -1516,9 +1610,12 @@ def main() -> int:
         return bound(0.0, info["edges"] * (8 + 4 * (kind == "sssp"))
                      + 136.0 * info["executed"])
 
+    fr_results = {}
+
     def graph_arm(g, kind, width, nbk, ref, capacity, reps=3):
-        """One arm through run_frontier (equal to ``ref``), then timed
-        on its megakernel: TEPS over the launch's CUDA-event ms."""
+        """One arm through run_frontier (equal to ``ref``; kept in
+        ``fr_results``), then timed on its megakernel: TEPS over the
+        launch's CUDA-event ms."""
         mk = fr_mk(kind, g, width, nbk, capacity)
         t0 = time.perf_counter()
         r, info = tf.run_frontier(kind, g, 0, m0=GB["m0"], reps=GB["reps"],
@@ -1526,6 +1623,7 @@ def main() -> int:
         entry_s = time.perf_counter() - t0
         check(np.array_equal(r, ref), f"{kind} width {width} buckets "
               f"{nbk}: result differs from the host reference")
+        fr_results[g.n, kind, width, nbk] = r
         b, iv, data = tf.frontier_state(kind, g, mk, m0=GB["m0"],
                                         reps=GB["reps"])
         ms, st = timed_launch(mk, b, data, reps=reps, ivalues=iv)
@@ -1599,7 +1697,8 @@ def main() -> int:
     # 19. Graph500's R-MAT at scale 16, width 8
     _build.reset_launches()
     t0 = time.perf_counter()
-    g16 = tf.Graph(*tw.rmat_edges(16, efactor=16, seed=7))
+    e16 = tw.rmat_edges(16, efactor=16, seed=7)
+    g16 = tf.Graph(*e16)
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     refs16 = {"bfs": tf.host_bfs(g16), "sssp": tf.host_sssp(g16)}
@@ -1662,6 +1761,248 @@ def main() -> int:
           "capacity": 2048, "optimum": opt, "arms": bnb_arms,
           "library": "none: no PyTorch call runs a branch-and-bound",
           "launches": launches})
+
+    # 21-22. the dynamic-graph tier. The bound: bytes over the memory
+    # rate, 136 B a descriptor, each splice's five ledger and flag words
+    # read and the index (and weight) word it writes, or its whole fresh
+    # row, and the EXPAND edges as fr_bound counts them.
+    def dg_bound(info, kind, nsplice):
+        wt = 1 + (kind == "sssp")
+        fresh = info["spare_in_use"]
+        return bound(0.0, 136.0 * info["executed"] + 20.0 * nsplice
+                     + 4.0 * wt * (info["updates_applied"] - fresh)
+                     + 512.0 * wt * fresh
+                     + info["edges"] * (8 + 4 * (kind == "sssp")))
+
+    def dg_draw(g, nup, nq):
+        """bench.py's stream: default_rng(11), uniform endpoints, weights
+        1-7, then the queries."""
+        rng = np.random.default_rng(11)
+        for u, v, w in zip(rng.integers(0, g.n, nup), rng.integers(0, g.n, nup),
+                           rng.integers(1, 8, nup)):
+            g.add_update(int(u), int(v), int(w))
+        return [int(q) for q in rng.integers(0, g.n, nq)]
+
+    def dg_arm(g, kind, width, nbk, capacity, queries, reps=3,
+               num_values=None):
+        """One arm through run_dyngraph, then timed on its megakernel,
+        staged from the numpy buffers before each launch."""
+        mk = td.make_dyngraph_megakernel(
+            kind, g, width=width, priority_buckets=nbk, capacity=capacity,
+            num_values=num_values, reps=GB["reps"], device="cuda")
+        t0 = time.perf_counter()
+        r, info = td.run_dyngraph(kind, g, 0, queries=queries, m0=GB["m0"],
+                                  reps=GB["reps"], mk=mk, device="cuda")
+        entry_s = time.perf_counter() - t0
+        check(info["updates_applied"] == len(g.updates)
+              and info["dropped"] == 0
+              and info["spare_in_use"] == g.spare_needed(),
+              f"dyngraph {kind} width {width}: {info['updates_applied']} "
+              f"applied, {info['dropped']} dropped, {info['spare_in_use']} "
+              "spare blocks")
+        b, iv, data = td.dyngraph_state(kind, g, mk, 0, queries, m0=GB["m0"],
+                                        reps=GB["reps"])
+        ms, st = timed_launch(mk, b, data, reps=reps, ivalues=iv)
+        check(int(st["ivalues"][tf.V_EDGES]) == info["edges"],
+              f"dyngraph {kind} width {width}: timed launch edges")
+        kb = dg_bound(info, kind, len(g.updates))
+        return r, st, {
+            "kernel_ms": ms, "edges": info["edges"],
+            "executed": info["executed"], "allocated": info["allocated"],
+            "relaxations": info["relaxations"],
+            "updates_applied": info["updates_applied"],
+            "spare_in_use": info["spare_in_use"], "queries": info["queries"],
+            "query_values": info["query_values"][:8],
+            "entry_seconds": entry_s, "tiers": info.get("tiers"),
+            "bound_ms": kb[0], "bound_by": kb[1]}
+
+    # 21. bench.py --graph dyngraph's configuration, uncut
+    _build.reset_launches()
+    g7 = td.DynGraph(*tw.rmat_edges(7, efactor=8, seed=7), spare_blocks=2,
+                     upd_cap=24)
+    qs7 = dg_draw(g7, 24, 4)
+    DG = {"capacity": 1024, "updates": 24, "queries": qs7}
+    t0 = time.perf_counter()
+    refs7 = {k: td.host_dyngraph(k, g7, 0) for k in ("bfs", "sssp")}
+    pr_mass = int(td.host_incremental_pagerank(g7, m0=GB["m0"],
+                                               reps=GB["reps"])[0].sum())
+    host_s = time.perf_counter() - t0
+    arms7, st7 = {}, {}
+    cfg7 = (("bfs", 0, 0), ("bfs", 8, 0), ("sssp", 0, 0), ("sssp", 8, 0),
+            ("sssp", 8, 8), ("pagerank", 8, 0))
+    for kind, width, nbk in cfg7:
+        key = f"{kind}_w{width}" + (f"_b{nbk}" if nbk else "")
+        r, st7[key], arms7[key] = dg_arm(g7, kind, width, nbk,
+                                         DG["capacity"], qs7)
+        if kind == "pagerank":
+            check(int(r.sum()) == pr_mass, f"dyngraph pagerank mass "
+                  f"{int(r.sum())} != {pr_mass}")
+        else:
+            check(np.array_equal(r, refs7[kind]), f"dyngraph {key} differs "
+                  "from host_dyngraph")
+    # A QUERY stream alone (one query a vertex) on SSSP's converged state.
+    nvq = g7.num_value_slots + g7.n
+    conv = st7["sssp_w0"]["ivalues"].cpu().numpy()[:g7.num_value_slots]
+    ivq = np.zeros(nvq, np.int32)
+    ivq[:len(conv)] = conv
+    bq = TaskGraphBuilder()
+    bq.reserve_values(g7.num_value_slots)
+    qbase = g7.st_base + g7.n
+    for v in range(g7.n):
+        bq.add(td.DG_QUERY, args=[v], out=qbase + v)
+    mkq = {d: td.make_dyngraph_megakernel("sssp", g7, width=0,
+                                          capacity=DG["capacity"],
+                                          num_values=nvq, device=d)
+           for d in ("cuda", "cpu")}
+    q_ms, stq = timed_launch(mkq["cuda"], bq, td.fk_data(g7, mkq["cuda"]),
+                             ivalues=ivq)
+    check(np.array_equal(stq["ivalues"][qbase:qbase + g7.n].cpu().numpy(),
+                         refs7["sssp"]), "query stream differs from the "
+          "host labels")
+    launches = path_done("dyngraph_bench")
+    q_plain_ms, stq_plain = plain_ms(lambda: raw_state(
+        mkq["cpu"], bq, td.fk_data(g7, mkq["cpu"]), ivalues=ivq))
+    q_err = ints_equal(raw_state(mkq["cuda"], bq, td.fk_data(
+        g7, mkq["cuda"]), ivalues=ivq), stq_plain, "query stream")
+    # Every arm on the card against the plain core, word for word on the
+    # whole state: the rows the splices wrote, the counters, the tiers.
+    for kind, width, nbk in cfg7:
+        key = f"{kind}_w{width}" + (f"_b{nbk}" if nbk else "")
+        out = {}
+        for d in ("cuda", "cpu"):
+            mk = td.make_dyngraph_megakernel(
+                kind, g7, width=width, priority_buckets=nbk,
+                capacity=DG["capacity"], reps=GB["reps"], device=d)
+            b, iv, data = td.dyngraph_state(kind, g7, mk, 0, qs7,
+                                            m0=GB["m0"], reps=GB["reps"])
+            # (the plain run goes last: its time is the one kept)
+            ms, out[d] = plain_ms(lambda: raw_state(mk, b, data,
+                                                    ivalues=iv))
+        if kind != "pagerank":
+            check(np.array_equal(out["cuda"]["ivalues"][
+                g7.st_base:g7.st_base + g7.n].numpy(), refs7[kind]),
+                f"dyngraph {key}: compared launch differs from "
+                "host_dyngraph")
+        arms7[key]["plain_host_ms"] = ms
+        arms7[key]["max_abs_err"] = ints_equal(out["cuda"], out["cpu"],
+                                               f"dyngraph {key}")
+    q_bound = bound(0.0, g7.n * (136.0 + 8.0))
+    w8 = (arms7["bfs_w8"], arms7["sssp_w8"])
+    wall_s = sum(a["kernel_ms"] for a in w8) * 1e-3
+    emit({"phase": "dyngraph_bench", "graph": "rmat_edges(7, efactor=8, "
+          "seed=7)", "vertices": g7.n, "static_edges": g7.m,
+          "static_blocks": g7.static_nblocks, "spare_blocks": g7.spare,
+          "upd_cap": g7.upd_cap, **DG, "spare_needed": g7.spare_needed(),
+          "equal_to_host_dyngraph": True, "pagerank_mass": pr_mass,
+          "updates_per_s": sum(a["updates_applied"] for a in w8) / wall_s,
+          "query_teps": sum(a["edges"] for a in w8) / wall_s,
+          "queries_per_s": sum(a["queries"] for a in w8) / wall_s,
+          "arms": arms7, "host_reference_seconds": host_s,
+          "query_stream": {"queries": g7.n, "kernel_ms": q_ms,
+                           "plain_host_ms": q_plain_ms,
+                           "max_abs_err": q_err, "bound_ms": q_bound[0],
+                           "equal_to_host_labels": True},
+          "equal_to_plain_core": True,
+          "library": "none: no PyTorch call splices a blocked CSR",
+          "launches": launches})
+
+    # 22. phase 19's graph with 32,768 updates, width 8; then the
+    # incremental arm from phase 19's converged SSSP labels
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    g16d = td.DynGraph(*e16, spare_blocks=2, upd_cap=1 << 15)
+    qs16 = dg_draw(g16d, 1 << 15, 64)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gm = g16d.mutated()  # host_dyngraph's graph, built once for both
+    refs16d = {"bfs": tf.host_bfs(gm), "sssp": tf.host_sssp(gm)}
+    host_s = time.perf_counter() - t0
+    del gm
+    # 2^17 rows do not hold it: SSSP's run peaks at 201,241 (its 32,768
+    # UPDATE rows wait in their lane while the traversal runs).
+    cap16 = 1 << 18
+    nv16 = g16d.num_value_slots + 64
+    arms22 = {}
+    for kind, nbk in (("bfs", 0), ("sssp", 0), ("sssp", 8)):
+        key = f"{kind}_w8" + (f"_b{nbk}" if nbk else "")
+        r, _, arms22[key] = dg_arm(g16d, kind, 8, nbk, cap16, qs16,
+                                   reps=2, num_values=nv16)
+        check(np.array_equal(r, refs16d[kind]), f"dyngraph scale 16 {key} "
+              "differs from host_dyngraph")
+    st = g16d.st_base
+    iv_inc = g16d.preset_values(nv16, tf.INF)
+    iv_inc[st:st + g16d.n] = fr_results[g16d.n, "sssp", 8, 0]
+    bu = TaskGraphBuilder()
+    bu.reserve_values(g16d.num_value_slots)
+    for uid, (u, v, w) in enumerate(g16d.updates):
+        bu.add(td.DG_UPDATE, args=[u, v, w, uid])
+    incr, mki = {}, {}
+    for width in (8, 0):
+        mki[width] = td.make_dyngraph_megakernel(
+            "sssp", g16d, width=width, capacity=cap16, num_values=nv16,
+            device="cuda")
+        ms, sti = timed_launch(mki[width], bu, td.fk_data(g16d, mki[width]),
+                               reps=2, ivalues=iv_inc)
+        ivo = sti["ivalues"].cpu().numpy()
+        check(np.array_equal(ivo[st:st + g16d.n], refs16d["sssp"]),
+              f"incremental arm width {width} differs from host_dyngraph")
+        flags = ivo[g16d.flag_base:g16d.flag_base + g16d.upd_cap]
+        info = {"executed": int(sti["counts"][5]),
+                "edges": int(ivo[tf.V_EDGES]),
+                "relaxations": int(ivo[tf.V_RELAX]),
+                "updates_applied": int((flags != 0).sum()),
+                "spare_in_use": int(ivo[td.V_FREE]),
+                "dropped": int(ivo[td.V_DROPPED])}
+        check(info["dropped"] == 0 and info["updates_applied"] == 1 << 15,
+              f"incremental arm width {width}: {info}")
+        kb = dg_bound(info, "sssp", 1 << 15)
+        incr[f"w{width}"] = {**info, "kernel_ms": ms,
+                             "us_per_splice": ms * 1e3 / (1 << 15),
+                             "bound_ms": kb[0], "bound_by": kb[1]}
+    launches = path_done("dyngraph_scale16")
+    for width in (8, 0):
+        mkc = td.make_dyngraph_megakernel(
+            "sssp", g16d, width=width, capacity=cap16, num_values=nv16,
+            device="cpu")
+        incr[f"w{width}"]["plain_host_ms"], want = plain_ms(
+            lambda: raw_state(mkc, bu, td.fk_data(g16d, mkc),
+                              ivalues=iv_inc))
+        got = raw_state(mki[width], bu, td.fk_data(g16d, mki[width]),
+                        ivalues=iv_inc)
+        check(np.array_equal(got["ivalues"][st:st + g16d.n].numpy(),
+                             refs16d["sssp"]), f"incremental arm width "
+              f"{width}: compared launch differs from host_dyngraph")
+        incr[f"w{width}"]["max_abs_err"] = ints_equal(
+            got, want, f"incremental arm width {width}")
+        del got, want
+    emit({"phase": "dyngraph_scale16", "graph": "rmat_edges(16, efactor=16, "
+          "seed=7)", "vertices": g16d.n, "static_edges": g16d.m,
+          "static_blocks": g16d.static_nblocks, "spare_blocks": g16d.spare,
+          "updates": 1 << 15, "queries": len(qs16), "capacity": cap16,
+          "spare_needed": g16d.spare_needed(),
+          "equal_to_host_dyngraph": True, "arms": arms22,
+          "incremental": incr, "incremental_equal_to_plain_core": True,
+          "from_scratch_ms": arms22["sssp_w8"]["kernel_ms"],
+          "graph_build_seconds": build_s, "host_reference_seconds": host_s,
+          "launches": launches})
+    for key, src_line, arm in (
+            ("dg_splice", "508", incr["w0"]),
+            ("dg_splice_batch", "512", incr["w8"]),
+            ("dg_query", "523", {"kernel_ms": q_ms, "bound_ms": q_bound[0],
+                                 "bound_by": q_bound[1],
+                                 "plain_host_ms": q_plain_ms,
+                                 "max_abs_err": q_err}),
+            ("dg_expand", "279", arms7["sssp_w8"])):
+        kernels[key] = {
+            "name": key, "route": "cuda",
+            "source": "hclib_tpu_torch/csrc/frontier.cuh",
+            "replaces": "hclib_tpu/device/dyngraph.py:" + src_line,
+            "max_abs_err": arm["max_abs_err"], "ms": arm["kernel_ms"],
+            "plain_ms": arm["plain_host_ms"],
+            "bound_ms": arm["bound_ms"], "bound_by": arm["bound_by"],
+            "library_ms": None,
+        }
+    del g16d, refs16d, mki
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

@@ -14,8 +14,11 @@ bodies that run fused inside the megakernel are counted by the megakernel
 itself, one per dispatch or fired batch, see ``device/megakernel.py``;
 ``"vector"`` counts the subtree engine's runs, inside the megakernel and
 standalone; ``"fr_expand"`` / ``"fr_expand_batch"`` the frontier's
-scalar and batched EXPAND bodies of the three families, and
-``"bnb_node"`` the knapsack NODE body, scalar and batched).
+scalar and batched EXPAND bodies of the three families, ``"dg_expand"``
+the same bodies run in a dynamic-graph table (clamped, spare-aware),
+``"dg_splice"`` / ``"dg_splice_batch"`` the UPDATE bodies, ``"dg_query"``
+the QUERY body, scalar and batched, and ``"bnb_node"`` the knapsack NODE
+body, scalar and batched).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ LAUNCHES: Dict[str, int] = {
     "sw_tile": 0, "sw_wave_batch": 0, "vector": 0, "sw_scores": 0,
     "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
+    "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -60,7 +60,7 @@
 namespace hc {
 
 // megakernel.py META_SLAB / SLAB_HDR / SLAB_WORDS / SL_*.
-constexpr int META_SLAB = 464, SLAB_HDR = 4, SLAB_WORDS = 12;
+constexpr int META_SLAB = 480, SLAB_HDR = 4, SLAB_WORDS = 12;
 enum { SL_BUF, SL_LD, SL_ROWS, SL_COLS, SL_PITCH, SL_SOFF, SL_C0, SL_K = 10 };
 enum { TILE_ADD, TILE_STENCIL, TILE_MAP };
 // hclib_tpu/device/workloads.py MAP_MUL, MAP_ADD.

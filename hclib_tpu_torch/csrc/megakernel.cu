@@ -32,7 +32,11 @@
 //                 scalar_kernel (:347), batch_body (:407), batch_drain
 //                 (:453) and the relax closures, see frontier.cuh
 //   bnb_node, bnb_node_batch <- bnb.py _node_kernel (:195), batch_of-shaped
-// and, in the policy instance (kMode 4), the lane-age firing policy
+//   dg_update, dg_update_batch, dg_query, dg_query_batch <- dyngraph.py
+//                 SpliceKernel (:370-520) and QueryKernel (:523-546); under
+//                 the dynamic layout the frontier EXPAND bodies are
+//                 DynFrontierKernel's (:279), see frontier.cuh
+// and, in the policy instances (kMode 4, 5), the lane-age firing policy
 // (megakernel.py :893-909, the starved pass and age clock :1596-1836) and
 // the priority-bucket rings (:910-929, :1196-1215, :1622-1799).
 //
@@ -102,7 +106,8 @@ enum {
   B_SW_WAVE, B_FIB_BATCH, B_UTS_BATCH, B_UPDROW_BATCH, B_SW_WAVE_BATCH,
   B_VFIB, B_VNQUEENS, B_ADD_TILE, B_FA_STENCIL, B_FA_MAP, B_FA_STENCIL_BATCH,
   B_FA_MAP_BATCH, B_FR_BFS, B_FR_SSSP, B_FR_PAGERANK, B_FR_BFS_BATCH,
-  B_FR_SSSP_BATCH, B_FR_PAGERANK_BATCH, B_BNB_NODE, B_BNB_NODE_BATCH, NBODY
+  B_FR_SSSP_BATCH, B_FR_PAGERANK_BATCH, B_BNB_NODE, B_BNB_NODE_BATCH,
+  B_DG_UPDATE, B_DG_UPDATE_BATCH, B_DG_QUERY, B_DG_QUERY_BATCH, NBODY
 };
 // Meta words: static body parameters, then the table maps, then one
 // 4-word row per batch lane (F_FN, width, prefetch, batched body), then
@@ -111,15 +116,17 @@ enum {
 // META_SLAB (forasync.cuh).
 enum {
   P_SEED, P_QMILLIS, P_MCHILD, P_MAXDEPTH, P_TILE, P_FBASE, P_NT, P_NTJ,
-  P_CHUNK, P_STBASE, P_NBLOCKS, P_REPS, P_KN, P_KCAP
+  P_CHUNK, P_STBASE, P_NBLOCKS, P_REPS, P_KN, P_KCAP, P_SPARE_BASE, P_SPARE,
+  P_BCS_BASE, P_FLAG_BASE, P_DYN
 };
-constexpr int META_FN_OF_BODY = 16, META_BODY_OF_FN = 48, META_BATCH = 80,
-              META_VEC = 208, VEC_WORDS = 8;
+constexpr int META_FN_OF_BODY = 32, META_BODY_OF_FN = 64, META_BATCH = 96,
+              META_VEC = 224, VEC_WORDS = 8;
 // The priority rule of routed kind li at META_PRIO + 4 li (bucketed
 // tables): rule (megakernel.py PRIORITY_RULES), arg word, two parameters.
 constexpr int META_PRIO = META_SLAB + 64, PRIO_WORDS = 4;
-enum { PR_NONE, PR_DIV, PR_BAND, PR_LINEAR_DESC };
+enum { PR_NONE, PR_DIV, PR_BAND, PR_LINEAR_DESC, PR_CONST };
 constexpr int BK_MAX = 8;
+static_assert(P_DYN < META_FN_OF_BODY, "parameter words");
 static_assert(NBODY <= META_BODY_OF_FN - META_FN_OF_BODY, "body ids");
 static_assert(META_VEC + 32 * VEC_WORDS == META_SLAB, "meta layout");
 // Tier counters (megakernel.py TS_*) and lane-state words (LS_*).
@@ -236,6 +243,9 @@ struct Sched {
     }
     return a;
   }
+
+  // KernelContext.flag_overflow: the host raises after the run.
+  __device__ void flag_overflow() { counts[C_OVERFLOW] |= OVF_ENGINE; }
 
   __device__ void take_continuation(int idx, int nidx) {
     w(nidx, F_SUCC0) = w(idx, F_SUCC0);
@@ -741,6 +751,8 @@ __device__ int bucket_of(const int32_t* pm, const int32_t* x, int nbk) {
       b += static_cast<long long>(v) >= (static_cast<long long>(pm[2]) << k);
   } else if (pm[0] == PR_LINEAR_DESC) {
     b = floor_div(wmul(wsub(pm[2], v), pm[3]), pm[2] + 1);
+  } else if (pm[0] == PR_CONST) {
+    b = pm[2];
   }
   return static_cast<int>(min(max(b, 0ll), static_cast<long long>(nbk - 1)));
 }
@@ -856,6 +868,16 @@ __device__ void spill(Sched& S, const Args& a) {
   }
 }
 
+// The graph of a frontier or dynamic-graph table: its buffers and the
+// layout parameters.
+__device__ __forceinline__ FrGraph fr_graph(const int32_t* meta, void* idx,
+                                            void* wgt) {
+  return {static_cast<int32_t*>(idx), static_cast<int32_t*>(wgt),
+          meta[P_STBASE],   meta[P_NBLOCKS],  meta[P_REPS],
+          meta[P_SPARE_BASE], meta[P_SPARE], meta[P_BCS_BASE],
+          meta[P_FLAG_BASE]};
+}
+
 // kMode picks the instance. 0 (lean): a table with no batch lane, no SW
 // and no vector body (the scalar tier with the fib, UTS and Cholesky
 // bodies); its instance leaves the lane, spill and SW code out of the
@@ -866,12 +888,16 @@ __device__ void spill(Sched& S, const Args& a) {
 // and the tile bodies (forasync.cuh), out of 0-2 for that reason too. 4:
 // lanes with the lane-age and priority-bucket policies (schedule_policy)
 // and the frontier and knapsack bodies (frontier.cuh), so that 0-3
-// compile what they compiled before the policies existed.
+// compile what they compiled before the policies existed. 5: 4 under the
+// dynamic-graph layout (the UPDATE and QUERY bodies, the clamped and
+// spare-aware EXPAND), kept out of 4: with it in, a static scalar EXPAND
+// cost 12% more (SSSP on bench.py --graph's graph at width 0, 22.30 ->
+// 24.97 ms, same-card A/B on an H100, scripts/ab_sched.py).
 template <int kMode>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
   constexpr bool kLean = kMode == 0, kVector = kMode == 2;
   constexpr bool kSw = kMode == 1 || kMode == 2, kTile = kMode == 3;
-  constexpr bool kPolicy = kMode == 4;
+  constexpr bool kPolicy = kMode >= 4, kDyn = kMode == 5;
   extern __shared__ __align__(16) float dsm[];
   __shared__ GemmSmem gs;
   __shared__ int32_t s_counts[8];
@@ -891,9 +917,10 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
                   static_cast<int32_t*>(a.data[3]),
                   static_cast<int32_t*>(a.data[4]), meta[P_NTJ]};
   int32_t* swm = reinterpret_cast<int32_t*>(dsm);
-  const FrGraph fg{static_cast<const int32_t*>(a.data[0]),
-                   static_cast<const int32_t*>(a.data[1]), meta[P_STBASE],
-                   meta[P_NBLOCKS], meta[P_REPS]};
+  const FrGraph fg = fr_graph(meta, a.data[0], a.data[1]);
+  // The family a splice relaxes with: that of F_FN 0, the EXPAND kind
+  // every relax spawns.
+  [[maybe_unused]] const int dg_fam = meta[META_BODY_OF_FN] - B_FR_BFS;
   uint32_t total = 0;
   for (int rep = 0; rep < a.reps; ++rep) {
     int e0 = 0;
@@ -987,12 +1014,21 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
           case B_FR_SSSP:
           case B_FR_PAGERANK:
             if constexpr (kPolicy)
-              fr_expand(S, R.body - B_FR_BFS, fg, swm, a.tasks, &R.idx);
+              fr_expand<kDyn>(S, R.body - B_FR_BFS, fg, swm, a.tasks,
+                              &R.idx);
             break;
           case B_BNB_NODE:
             if constexpr (kPolicy)
               if (tid == 0)
                 bnb_node(S, &S.w(idx, F_A0), meta[P_KN], meta[P_KCAP]);
+            break;
+          case B_DG_UPDATE:
+            if constexpr (kDyn)
+              if (tid == 0) dg_splice(S, dg_fam, fg, &S.w(idx, F_A0));
+            break;
+          case B_DG_QUERY:
+            if constexpr (kDyn)
+              if (tid == 0) dg_query(S, fg, &S.w(idx, 0));
             break;
           default:  // B_SW_WAVE: JAX's _batch_stub, never dispatched
             break;
@@ -1036,9 +1072,21 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
           case B_FR_SSSP_BATCH:
           case B_FR_PAGERANK_BATCH:
             if constexpr (kPolicy)
-              fr_expand_round(S, R.body - B_FR_BFS_BATCH, fg, swm, a.tasks,
-                              R.width, R.take, R.pre, R.buf, R.nxt, R.rows,
-                              R.next_rows);
+              fr_expand_round<kDyn>(S, R.body - B_FR_BFS_BATCH, fg, swm,
+                                    a.tasks, R.width, R.take, R.pre, R.buf,
+                                    R.nxt, R.rows, R.next_rows);
+            break;
+          case B_DG_UPDATE_BATCH:  // slot by slot, in slot order
+            if constexpr (kDyn)
+              if (tid == 0)
+                for (int s = 0; s < R.take; ++s)
+                  dg_splice(S, dg_fam, fg, &S.w(R.rows[s], F_A0));
+            break;
+          case B_DG_QUERY_BATCH:
+            if constexpr (kDyn)
+              if (tid == 0)
+                for (int s = 0; s < R.take; ++s)
+                  dg_query(S, fg, &S.w(R.rows[s], 0));
             break;
           case B_BNB_NODE_BATCH:  // batch_of: the NODE body slot by slot
             if constexpr (kPolicy)
@@ -1230,7 +1278,8 @@ __global__ void __launch_bounds__(BT)
     updrow_tile(gs, tiles, lsp, rows.v[2 * s], rows.v[2 * s + 1], nt, ts);
 }
 
-// Standalone run of a frontier EXPAND body, without the scheduler: the
+// Standalone run of a static frontier table's EXPAND body, without the
+// scheduler (a dynamic-graph table is refused by the caller): the
 // descriptors at task rows rows[0, n) of a state, in rounds of `width`
 // slots in order with the prefetch protocol when `prefetch` (width 0: the
 // scalar body, one row a round). Relaxes write the value slots; spawns go
@@ -1243,8 +1292,8 @@ struct FrEntry {
   int32_t* freestk;
   const int32_t* meta;
   const int32_t* rows;
-  const int32_t* idx;
-  const int32_t* wgt;
+  void* idx;
+  void* wgt;
   int n, width, prefetch, cap;
 };
 
@@ -1255,12 +1304,11 @@ __global__ void __launch_bounds__(BT) fr_entry(FrEntry e) {
   Sched S{e.tasks, nullptr, e.ready, s_counts, e.iv, e.freestk, e.cap};
   if (threadIdx.x < 8) s_counts[threadIdx.x] = e.counts[threadIdx.x];
   __syncthreads();
-  const FrGraph g{e.idx, e.wgt, e.meta[P_STBASE], e.meta[P_NBLOCKS],
-                  e.meta[P_REPS]};
+  const FrGraph g = fr_graph(e.meta, e.idx, e.wgt);
   const int fam = e.meta[META_BODY_OF_FN] - B_FR_BFS;
   if (e.width == 0) {
     for (int i = 0; i < e.n; ++i) {
-      fr_expand(S, fam, g, smem, e.tasks, e.rows + i);
+      fr_expand<false>(S, fam, g, smem, e.tasks, e.rows + i);
       __syncthreads();
     }
   } else {
@@ -1268,8 +1316,8 @@ __global__ void __launch_bounds__(BT) fr_entry(FrEntry e) {
     for (int first = 0; first < e.n;) {
       const int take = min(e.width, e.n - first);
       const int nxt = e.prefetch ? min(e.width, e.n - first - take) : 0;
-      fr_expand_round(S, fam, g, smem, e.tasks, e.width, take, pre, buf, nxt,
-                      e.rows + first, e.rows + first + take);
+      fr_expand_round<false>(S, fam, g, smem, e.tasks, e.width, take, pre,
+                             buf, nxt, e.rows + first, e.rows + first + take);
       __syncthreads();
       first += take;
       pre = nxt;
@@ -1302,13 +1350,14 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     int cap, int num_values, int fuel, int reps,
                     int stage_all_values, int mode, int threads, int smem,
                     void* stream) {
-  if (mode < 0 || mode > 4 || (mode != 4 && (nbk != 1 || max_age != 0)))
+  if (mode < 0 || mode > 5 || (mode < 4 && (nbk != 1 || max_age != 0)))
     return cudaErrorInvalidValue;
   void (*kernel)(Args) = mode == 0   ? mk_kernel<0>
                          : mode == 1 ? mk_kernel<1>
                          : mode == 2 ? mk_kernel<2>
                          : mode == 3 ? mk_kernel<3>
-                                     : mk_kernel<4>;
+                         : mode == 4 ? mk_kernel<4>
+                                     : mk_kernel<5>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1420,9 +1469,7 @@ int hclib_fr_launch(int32_t* tasks, int32_t* ready, int32_t* counts,
       fr_entry, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const FrEntry fe{tasks, ready, counts, ivalues, freestk, meta, rows,
-                   static_cast<const int32_t*>(data[0]),
-                   static_cast<const int32_t*>(data[1]), n, width, prefetch,
-                   cap};
+                   data[0], data[1], n, width, prefetch, cap};
   fr_entry<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(fe);
   return cudaGetLastError();
 }

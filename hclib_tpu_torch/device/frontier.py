@@ -26,8 +26,12 @@ What differs from the JAX module:
 - ``priority_buckets`` rides a named rule (``("div", 2, delta)`` for
   BFS/SSSP, ``("band", 2, reps)`` for PageRank), the spelling of JAX's
   ``_bucket_fn`` that the card's scheduler reads.
-- ``spawn=`` takes only the default block spawner: dyngraph's spare-aware
-  spawner is ROADMAP A12. ``placement=`` / ``mesh=`` / ``runner=`` /
+- ``spawn=`` takes the default block spawner or dyngraph's spare-aware
+  one (``dyngraph._dyn_spawn``), each compiled into ``fr_spawn_blocks``:
+  a spawner carries the layout parameters (``layout``) that select the
+  dynamic-graph form of the EXPAND bodies (``dyn``: the live-edge clamp
+  ``_eff_cnt`` and the static-then-spare spawn order); any other callable
+  raises naming A4. ``placement=`` / ``mesh=`` / ``runner=`` /
   ``quantum=`` / ``window=`` / ``hop_order=`` (the multi-device runners)
   raise naming A11, ``trace=`` / ``checkpoint=`` naming A9.
 - ``si_claim`` is kept as the attribute only: the certification
@@ -171,12 +175,43 @@ class Graph:
 
 def _spawn_blocks(ctx: KernelContext, u: int, carry: int) -> None:
     """Spawn one EXPAND per adjacency block of vertex ``u`` (JAX's
-    ``_spawn_blocks``; ``fr_spawn_blocks`` in csrc/frontier.cuh)."""
+    ``_spawn_blocks``; ``fr_spawn_blocks`` in csrc/frontier.cuh). Under the
+    dynamic-graph layout (parameter ``dyn``) it is JAX's ``_dyn_spawn``
+    (dyngraph.py:306): the static rows ``[bs, bs + min(bc, bcs))``, then
+    the vertex's spare ordinals ``[0, bc - min(bc, bcs))``, each block's
+    live count from ``deg`` as the static spawner derives it."""
     vt = VT_BASE + 3 * u
     bs, bc, deg = ctx.value(vt), ctx.value(vt + 1), ctx.value(vt + 2)
-    for i in range(bc):
+    p = ctx.params
+    bcs = ctx.value(p["bcs_base"] + u) if p["dyn"] else bc
+    ns = min(bc, bcs)
+    for i in range(ns):
         cnt = min(max(deg - i * EBLOCK, 0), EBLOCK)
         ctx.spawn(FR_EXPAND, [u, bs + i, carry, cnt], nargs=4)
+    for j in range(bc - ns):
+        cnt = min(max(_i32(deg - (bcs + j) * EBLOCK), 0), EBLOCK)
+        ctx.spawn(FR_EXPAND, [u, _i32(p["spare_base"] + u * p["spare"] + j),
+                              carry, cnt], nargs=4)
+
+
+def _eff_cnt(ctx: KernelContext, v: int, blk: int, cnt: int) -> int:
+    """The live-edge count an EXPAND relaxes: the descriptor's ``cnt``,
+    clamped under the dynamic-graph layout to the edges the vertex table
+    shows live in block ``blk`` (JAX's ``DynFrontierKernel._eff_cnt``,
+    dyngraph.py:291; a spare row's ordinal continues after the static
+    block count)."""
+    p = ctx.params
+    if not p["dyn"]:
+        return cnt
+    vt = VT_BASE + 3 * v
+    bs, deg = ctx.value(vt), ctx.value(vt + 2)
+    if blk >= p["spare_base"]:
+        ordinal = _i32(ctx.value(p["bcs_base"] + v)
+                       + _i32(blk - p["spare_base"] - v * p["spare"]))
+    else:
+        ordinal = _i32(blk - bs)
+    live = min(max(_i32(deg - ordinal * EBLOCK), 0), EBLOCK)
+    return min(cnt, live)
 
 
 def _pr_split(q, deg):
@@ -221,10 +256,11 @@ _RELAX = {"fr_bfs": _relax_bfs, "fr_sssp": _relax_sssp,
 
 def _expand(family: str, ctx: KernelContext) -> None:
     """One EXPAND (JAX's ``_relax_block`` over the loaded slab): count
-    ``cnt`` into V_EDGES, then relax the live edges in edge order. The
-    block index is clamped into the table as a DMA's slice start is; the
-    loop reads at most one block row."""
-    _, blk, carry, cnt = (ctx.arg(i) for i in range(4))
+    ``cnt`` (clamped by ``_eff_cnt``) into V_EDGES, then relax the live
+    edges in edge order. The block index is clamped into the table as a
+    DMA's slice start is; the loop reads at most one block row."""
+    v, blk, carry, cnt = (ctx.arg(i) for i in range(4))
+    cnt = _eff_cnt(ctx, v, blk, cnt)
     blk = min(max(blk, 0), ctx.params["nblocks"] - 1)
     ctx.set_value(V_EDGES, ctx.value(V_EDGES) + cnt)
     n = min(max(cnt, 0), EBLOCK)
@@ -265,7 +301,8 @@ class FrontierKernel:
     one graph layout (``st_base``)."""
 
     def __init__(self, name: str, weighted: bool, state0: int,
-                 reps: Optional[int] = None) -> None:
+                 reps: Optional[int] = None,
+                 spawn: Callable = _spawn_blocks) -> None:
         if name not in _RELAX:
             raise NotImplementedError(
                 f"frontier family {name!r} is not compiled (the card "
@@ -276,6 +313,9 @@ class FrontierKernel:
         self.state0 = int(state0)
         self.reps = reps
         self.st_base: Optional[int] = None
+        # The spawner's layout parameters: {} for the static block
+        # spawner, the dynamic-graph words for the spare-aware one.
+        self.layout = _spawn_layout(spawn)
 
     def data_specs(self, graph: Graph) -> Dict[str, tuple]:
         specs = {"indices": ((graph.nblocks, EBLOCK), torch.int32)}
@@ -284,37 +324,49 @@ class FrontierKernel:
         return specs
 
 
-def _default_spawn(spawn) -> None:
-    if spawn is not _spawn_blocks:
-        raise NotImplementedError(
-            "a frontier kernel spawns through the compiled block spawner; "
-            "dyngraph's spare-aware spawner is ROADMAP A12")
+# The layout words a spare-aware spawner carries (megakernel.py PARAMS).
+DYN_LAYOUT = ("dyn", "spare_base", "spare", "bcs_base")
+
+
+def _spawn_layout(spawn) -> Dict[str, int]:
+    """The layout parameters of a spawner: {} for the static block
+    spawner, the ``DYN_LAYOUT`` words of dyngraph's spare-aware one (its
+    ``layout`` attribute). Both are compiled (``fr_spawn_blocks``); any
+    other callable would run Python on the host."""
+    if spawn is _spawn_blocks:
+        return {}
+    layout = getattr(spawn, "layout", None)
+    if isinstance(layout, dict) and set(layout) == set(DYN_LAYOUT) \
+            and layout["dyn"] == 1:
+        return dict(layout)
+    raise NotImplementedError(
+        "a frontier kernel spawns through the compiled block spawner or "
+        "dyngraph's spare-aware one (dyngraph._dyn_spawn); user-defined "
+        "spawners are ROADMAP A4")
 
 
 def bfs_kernel(spawn: Callable = _spawn_blocks) -> FrontierKernel:
     """Level-style BFS as monotone label correction: carry is dist[v] at
     spawn; an improving hop re-spawns the target's blocks."""
-    _default_spawn(spawn)
-    return FrontierKernel("fr_bfs", weighted=False, state0=INF)
+    return FrontierKernel("fr_bfs", weighted=False, state0=INF, spawn=spawn)
 
 
 def sssp_kernel(spawn: Callable = _spawn_blocks) -> FrontierKernel:
     """SSSP (nonnegative int weights): the same monotone relaxation with
     ``carry + w``; with ``priority_buckets`` the build runs delta-stepping
     (bucket = dist // delta, lowest first)."""
-    _default_spawn(spawn)
-    return FrontierKernel("fr_sssp", weighted=True, state0=INF)
+    return FrontierKernel("fr_sssp", weighted=True, state0=INF, spawn=spawn)
 
 
 def pagerank_kernel(reps: int = 64,
                     spawn: Callable = _spawn_blocks) -> FrontierKernel:
     """Push-style PageRank on integer fixed-point mass; ``q < reps`` (or a
     zero child, or a dangling target) folds the delivery into rank[u]."""
-    _default_spawn(spawn)
     reps = int(reps)
     if reps < 1:
         raise ValueError(f"pagerank reps must be >= 1, got {reps}")
-    return FrontierKernel("fr_pagerank", weighted=False, state0=0, reps=reps)
+    return FrontierKernel("fr_pagerank", weighted=False, state0=0, reps=reps,
+                          spawn=spawn)
 
 
 # ------------------------------------------------------------ host side
@@ -565,7 +617,7 @@ def make_frontier_megakernel(
         num_values=num_values,
         succ_capacity=8,
         params={"st_base": graph.st_base, "nblocks": graph.nblocks,
-                "reps": fk.reps or 0},
+                "reps": fk.reps or 0, **fk.layout},
         trace=trace,
         checkpoint=checkpoint,
         lane_max_age=lane_max_age,
@@ -676,8 +728,8 @@ def run_frontier(
 
 def expand_rounds(mk: Megakernel, st: Dict[str, object], rows) -> None:
     """Run the EXPAND descriptors at task rows ``rows`` of state ``st``
-    through ``mk``'s frontier body directly, without the scheduler, in
-    place: rounds of the table's batch width in row order with its
+    through ``mk``'s static frontier body directly, without the
+    scheduler, in place: rounds of the table's batch width in row order with its
     prefetch protocol (one row a round for a scalar table). Relaxes write
     the value slots; spawned EXPANDs go to the ready ring and are not
     run. On CUDA tensors this launches the body's standalone entry
@@ -687,6 +739,9 @@ def expand_rounds(mk: Megakernel, st: Dict[str, object], rows) -> None:
     body = mk.kernel_names[0]
     if body not in _RELAX:
         raise ValueError("expand_rounds needs a frontier table")
+    if mk.params["dyn"]:
+        raise ValueError("expand_rounds runs a static frontier table, not "
+                         "one with the dynamic-graph layout")
     mk._check_data(st["data"])
     rows = [int(r) for r in rows]
     width, prefetch = 1, False
@@ -719,5 +774,6 @@ def expand_rounds(mk: Megakernel, st: Dict[str, object], rows) -> None:
              mk.capacity, mk._smem_bytes(), 32,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "fr_entry")
-    _build.LAUNCHES["fr_expand_batch" if mk.batch_specs else "fr_expand"] += 1
+    _build.LAUNCHES[mk.counter_of(body + "_batch" if mk.batch_specs
+                                  else body)] += 1
 

@@ -4,7 +4,8 @@ loop in one CUDA kernel launch.
 Port of the scalar tier, the batched same-kind dispatch tier (with its
 lane-age firing policy and priority-bucket rings) and the vector
 (subtree) tier of ``hclib_tpu/device/megakernel.py``, with the forasync
-tier's tile bodies and the graph-frontier and branch-and-bound bodies.
+tier's tile bodies, the graph-frontier and branch-and-bound bodies and
+the dynamic-graph UPDATE (splice) and QUERY bodies.
 The TPU runs
 the scheduler as one ``pallas_call`` whose scalar core pops task
 descriptors off an SMEM ready ring and ``lax.switch``-es on ``F_FN`` over
@@ -194,23 +195,30 @@ BODIES = ("fib", "sum", "uts_node", "potrf", "trsmcol", "updrow", "trsm",
           "updrow_batch", "sw_wave_batch", "vfib", "vnqueens", "add_tile",
           "fa_stencil", "fa_map", "fa_stencil_batch", "fa_map_batch",
           "fr_bfs", "fr_sssp", "fr_pagerank", "fr_bfs_batch",
-          "fr_sssp_batch", "fr_pagerank_batch", "bnb_node", "bnb_node_batch")
+          "fr_sssp_batch", "fr_pagerank_batch", "bnb_node", "bnb_node_batch",
+          "dg_update", "dg_update_batch", "dg_query", "dg_query_batch")
 # Kernel name -> the batched body a BatchSpec routes it to.
 BATCH_BODIES = {"fib": "fib_batch", "uts_node": "uts_node_batch",
                 "updrow": "updrow_batch", "sw_wave": "sw_wave_batch",
                 "fa_stencil": "fa_stencil_batch", "fa_map": "fa_map_batch",
                 "fr_bfs": "fr_bfs_batch", "fr_sssp": "fr_sssp_batch",
                 "fr_pagerank": "fr_pagerank_batch",
-                "bnb_node": "bnb_node_batch"}
+                "bnb_node": "bnb_node_batch", "dg_update": "dg_update_batch",
+                "dg_query": "dg_query_batch"}
 # Batched bodies with a drain (the only ones that may take prefetch=True).
 DRAIN_BODIES = ("sw_wave_batch", "fa_stencil_batch", "fa_map_batch",
                 "fr_bfs_batch", "fr_sssp_batch", "fr_pagerank_batch")
 # The graph-frontier EXPAND bodies (csrc/frontier.cuh) and the knapsack
 # NODE bodies: they run only in the scheduler instance with the lane-age
-# and bucket policies (megakernel.cu kMode 4).
+# and bucket policies (megakernel.cu kMode 4, and 5 for dyngraph tables).
 FRONTIER_BODIES = ("fr_bfs", "fr_sssp", "fr_pagerank", "fr_bfs_batch",
                    "fr_sssp_batch", "fr_pagerank_batch")
-POLICY_BODIES = FRONTIER_BODIES + ("bnb_node", "bnb_node_batch")
+# The dynamic-graph UPDATE (splice) and QUERY bodies (csrc/frontier.cuh),
+# which run beside a frontier kind's EXPAND bodies in the same instance.
+DYNGRAPH_BODIES = ("dg_update", "dg_update_batch", "dg_query",
+                   "dg_query_batch")
+POLICY_BODIES = FRONTIER_BODIES + ("bnb_node", "bnb_node_batch") + \
+    DYNGRAPH_BODIES
 # The tile bodies (csrc/forasync.cuh): one slab pipeline, load slabs ->
 # per-family arithmetic -> store slab, whose geometry the table carries
 # as slab words (``slabs=``). Body -> its family's (load slabs, shape
@@ -232,7 +240,13 @@ COUNTED = {b: b for b in ("potrf", "trsmcol", "updrow", "trsm", "sw_tile",
 COUNTED.update({b: "vector" for b in VECTOR_BODIES})
 COUNTED.update({b: "fr_expand_batch" if b.endswith("_batch") else
                 "fr_expand" for b in FRONTIER_BODIES})
-COUNTED.update({"bnb_node": "bnb_node", "bnb_node_batch": "bnb_node"})
+COUNTED.update({"bnb_node": "bnb_node", "bnb_node_batch": "bnb_node",
+                "dg_update": "dg_splice", "dg_update_batch": "dg_splice_batch",
+                "dg_query": "dg_query", "dg_query_batch": "dg_query"})
+# In a table with the dynamic-graph layout (the ``dyn`` parameter) the
+# EXPAND bodies run the clamped, spare-aware form: their dispatches count
+# here instead.
+DYN_EXPAND_COUNTER = "dg_expand"
 # Data families: the bodies that read them and their buffers, in the
 # order the kernel's data pointers take (then optional ones).
 DATA_FAMILIES = {
@@ -244,14 +258,20 @@ DATA_FAMILIES = {
     "fa_stencil": (("fa_stencil", "fa_stencil_batch"), ("gin", "gout"), ()),
     "fa_map": (("fa_map", "fa_map_batch"), ("vin", "vout"), ()),
     "frontier": (FRONTIER_BODIES, ("indices",), ("weights",)),
+    "dyngraph": (DYNGRAPH_BODIES, ("indices",), ("weights",)),
 }
 MAX_DATA = 8
-# Static body parameters, in the order of the kernel's meta words.
+# Static body parameters, in the order of the kernel's meta words. The
+# dynamic-graph layout: ``dyn`` (1 = the EXPAND bodies clamp to the live
+# edges and spawn static then spare blocks), the first spare row
+# ``spare_base``, ``spare`` rows a vertex, and the value-slot bases of the
+# static block counts and of the applied-update flags.
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
           "factor_base", "nt", "nt_j", "chunk", "st_base", "nblocks", "reps",
-          "n", "cap")
+          "n", "cap", "spare_base", "spare", "bcs_base", "flag_base", "dyn")
+MAX_PARAMS = 32
 MAX_BODIES = 32
-META_FN_OF_BODY = 16  # meta[16 + body] = this table's F_FN of body, or -1
+META_FN_OF_BODY = MAX_PARAMS  # meta[.. + body] = F_FN of body, or -1
 META_BODY_OF_FN = META_FN_OF_BODY + MAX_BODIES  # [.. + fn] = body of fn
 MAX_FNS = 32
 META_BATCH = META_BODY_OF_FN + MAX_FNS  # [.. + 4*li ..] = fid, width,
@@ -308,8 +328,10 @@ _LATER_ARGS = {
 #                                      arg >= reps * 2**k
 #   ("linear_desc", word, total, nbk)  ((total - arg) * nbk) // (total+1)
 #                                      in wrapping int32 arithmetic
-PRIORITY_RULES = {"div": 1, "band": 2, "linear_desc": 3}
-_RULE_PARAMS = {"div": 1, "band": 1, "linear_desc": 2}
+#   ("const", word, c)                 c, whatever the arg (a kind pinned
+#                                      to one bucket; the word is unread)
+PRIORITY_RULES = {"div": 1, "band": 2, "linear_desc": 3, "const": 4}
+_RULE_PARAMS = {"div": 1, "band": 1, "linear_desc": 2, "const": 1}
 
 
 def _check_rule(rule) -> tuple:
@@ -337,7 +359,8 @@ def _check_rule(rule) -> tuple:
         raise ValueError(f"priority rule reads arg word {word}; 0..5 exist")
     ok = {"div": p[0] >= 1,
           "band": 1 <= p[0] and p[0] << (BK_MAX - 1) < 1 << 31,
-          "linear_desc": 0 <= p[0] < (1 << 31) - 1 and 1 <= p[-1]}[name]
+          "linear_desc": 0 <= p[0] < (1 << 31) - 1 and 1 <= p[-1],
+          "const": -(1 << 31) <= p[0] < 1 << 31}[name]
     if not ok:
         raise ValueError(f"priority rule {rule!r}: parameter out of range")
     return (name, word, *p)
@@ -356,6 +379,8 @@ def bucket_of(rule, args: Sequence[int], nbk: int) -> int:
         b = x // p[0]
     elif name == "band":
         b = sum(x >= p[0] << k for k in range(1, BK_MAX))
+    elif name == "const":
+        b = p[0]
     else:
         b = _i32(_i32(p[0] - x) * p[1]) // (p[0] + 1)
     return min(max(b, 0), nbk - 1)
@@ -826,6 +851,7 @@ def _plain_bodies() -> Dict[str, object]:
     from .smithwaterman import (sw_tile_body, sw_wave_batch_body,
                                 sw_wave_batch_drain)
     from .bnb import bnb_node_batch_body, bnb_node_body
+    from .dyngraph import plain_dyngraph_bodies
     from .forasync_tier import plain_tile_bodies
     from .frontier import plain_frontier_bodies
     from .workloads import (fib_batch_body, fib_body, sum_body,
@@ -833,6 +859,7 @@ def _plain_bodies() -> Dict[str, object]:
 
     return {
         **plain_tile_bodies(), **plain_frontier_bodies(),
+        **plain_dyngraph_bodies(),
         "bnb_node": bnb_node_body, "bnb_node_batch": bnb_node_batch_body,
         "fib": fib_body, "sum": sum_body, "uts_node": uts_node_body,
         "potrf": potrf_body, "trsmcol": trsmcol_body, "updrow": updrow_body,
@@ -998,6 +1025,12 @@ class Megakernel:
             if p not in self.params:
                 raise ValueError(f"unknown body parameter {p!r}")
             self.params[p] = int(v)
+        if set(self.fn_bodies) & set(DYNGRAPH_BODIES) and \
+                not self.params["dyn"]:
+            raise ValueError(
+                "the dynamic-graph bodies need the dynamic layout (params "
+                "dyn=1, spare_base, spare, bcs_base, flag_base): build the "
+                "table with dyngraph.make_dyngraph_megakernel")
         self.data_specs = dict(data_specs or {})
         self.capacity = capacity
         self.num_values = num_values
@@ -1186,7 +1219,8 @@ class Megakernel:
     def _check_data_family(self) -> None:
         fams = [f for f, (bodies, _, _) in DATA_FAMILIES.items()
                 if set(bodies) & set(self.body_names)]
-        if len(fams) > 1:
+        # The frontier and dynamic-graph bodies share their buffers.
+        if len({DATA_FAMILIES[f][1:] for f in fams}) > 1:
             raise ValueError(f"one table holds bodies of one data family, "
                              f"got {fams}")
         if not fams:
@@ -1297,7 +1331,8 @@ class Megakernel:
         if fr:
             # The EXPAND bodies' edge slabs: a block row and its weight
             # row a slot, one slot or two halves of width slots.
-            spec = self.route.get(self.kernel_names[0])
+            spec = self.route.get(next(n for n in self.kernel_names
+                                       if n in FRONTIER_BODIES))
             slots = 2 * spec.width if isinstance(spec, BatchSpec) else 1
             smem = 4 * EBLOCK * slots * 2
         if self.slab_words:
@@ -1366,7 +1401,8 @@ class Megakernel:
         # and vector code for tables that need none of them; with lane
         # and SW code; with the vector engine too; with lanes and the
         # tile bodies; with lanes, the age and bucket policies and the
-        # frontier and knapsack bodies.
+        # frontier and knapsack bodies; those under the dynamic-graph
+        # layout.
         policy = nbatch and (self.lane_max_age or self.nbk > 1)
         if policy or set(self.body_names) & set(POLICY_BODIES):
             if self.slab_words or self.vector_specs or self.sw_bodies:
@@ -1376,7 +1412,7 @@ class Megakernel:
                     "UTS and Cholesky bodies; this table also holds "
                     f"{self.slab_body or self.sw_bodies or 'vector'} "
                     "bodies (run it on the CPU, or without the policies)")
-            mode = 4
+            mode = 5 if self.params["dyn"] else 4
         else:
             mode = 3 if self.slab_words else 2 if self.vector_specs else \
                 int(bool(nbatch or self.sw_bodies))
@@ -1399,7 +1435,7 @@ class Megakernel:
             tstats.data_ptr() if tstats is not None else None,
             vstack.data_ptr() if vstack is not None else None,
             len(self.kernel_names), nbatch, nrows, self.nbk,
-            self.lane_max_age if mode == 4 else 0, cap, nv,
+            self.lane_max_age if mode >= 4 else 0, cap, nv,
             min(fuel, 0x7FFFFFFF),
             reps, int(bool(stage_all_values)), mode, threads,
             self._smem_bytes(),
@@ -1419,8 +1455,16 @@ class Megakernel:
         if dispatch.device.type == "cuda":
             for b in self.body_names:
                 if b in COUNTED:
-                    _build.LAUNCHES[COUNTED[b]] += out[b]
+                    _build.LAUNCHES[self.counter_of(b)] += out[b]
         return out
+
+    def counter_of(self, body: str) -> str:
+        """The ``_build.LAUNCHES`` counter a dispatch of ``body`` counts
+        in (``COUNTED``; the EXPAND bodies of a dynamic-graph table count
+        as ``DYN_EXPAND_COUNTER``)."""
+        if self.params["dyn"] and body in FRONTIER_BODIES:
+            return DYN_EXPAND_COUNTER
+        return COUNTED[body]
 
     def decode_tier_stats(self, tstats) -> Dict[str, object]:
         """The TS_WORDS counter row as the per-tier stats dict

@@ -36,6 +36,15 @@ REGISTRY = {
         "priority-bucket dispatch tier: bucket rings per batch lane, "
         "popped lowest-nonempty-first (2..8; malformed or out-of-range "
         "text raises)"),
+    "HCLIB_TPU_DYNGRAPH_SPARE_BLOCKS": (
+        "int", "2",
+        "spare edge blocks pre-allocated per vertex for in-kernel edge "
+        "splices (>= 1; malformed or non-positive text raises)"),
+    "HCLIB_TPU_DYNGRAPH_UPDATE_PRIORITY": (
+        "int", "0",
+        "bucket ring the UPDATE kind routes into on priority-bucketed "
+        "dyngraph builds (0 = highest, fires before queries; clipped into "
+        "[0, priority_buckets); malformed text raises)"),
 }
 
 

@@ -2,13 +2,17 @@
 
 Times the two scheduler main-path graphs of the port, fib(24) (capacity
 768) and the UTS tree at max_depth=20, scalar and, where the tree has the
-batch tier, at batch_width=8, on each given checkout of the repo, in
+batch tier, at batch_width=8, and, where it has the graph frontier, the
+static SSSP arms of chip_smoke.py's graph_bench phase (bench.py --graph's
+rmat_edges(9, efactor=8, seed=7), capacity 4096, width 0 and 8, the
+policy instance), on each given checkout of the repo, in
 fresh processes that alternate between the trees (A B B A, ``--rounds``
 times), so that two versions of ``csrc/megakernel.cu`` are compared within
 one call on one card. Each process builds (or reuses) its tree's
 libraries, warms up, and times ``--reps`` launches by CUDA events, the
 graph staged anew outside the timed window. Prints one JSON line per
-process, ``ptxas`` register and stack figures of ``mk_kernel`` per tree,
+process, ``ptxas`` register and stack figures of each ``mk_kernel``
+instance per tree,
 the card's name and power limit, and a summary line of medians per tree.
 
     python3 scripts/ab_sched.py --tree parent=chipcheck/parent --tree change=.
@@ -47,20 +51,40 @@ def worker(root: str, reps: int, only) -> dict:
     # The batched forms, where the tree has the batch tier.
     graphs += [(name + "_b8", lambda make=make: make(batch_width=8), *rest)
                for name, make, *rest in graphs]
-    out = {}
+    staged = []
     for name, make, fn, args, slot, want in graphs:
+        def setup(make=make, fn=fn, args=args, slot=slot):
+            mk = make()
+            b = TaskGraphBuilder()
+            b.add(fn, args=args, **({} if slot is None else {"out": slot}))
+            return mk, b, None, None
+        staged.append((name, setup, want))
+    try:
+        from hclib_tpu_torch.device import frontier as tf
+    except ImportError:
+        tf = None
+    if tf is not None:
+        g9 = tf.Graph(*tw.rmat_edges(9, efactor=8, seed=7))
+        for width in (0, 8):
+            def setup(width=width):
+                mk = tf.make_frontier_megakernel(
+                    tf.sssp_kernel(), g9, width=width, capacity=4096,
+                    device="cuda")
+                b, iv, data = tf.frontier_state("sssp", g9, mk)
+                return mk, b, data, iv
+            staged.append((f"sssp9_w{width}", setup, None))
+    out = {}
+    for name, setup, want in staged:
         if only and name not in only:
             continue
         try:
-            mk = make()
+            mk, b, data, iv = setup()
         except NotImplementedError:
             continue
-        b = TaskGraphBuilder()
-        b.add(fn, args=args, **({} if slot is None else {"out": slot}))
-        mk.launch(mk.state(b))  # warm-up
+        mk.launch(mk.state(b, data=data, ivalues=iv))  # warm-up
         times = []
         for _ in range(reps):
-            st = mk.state(b)
+            st = mk.state(b, data=data, ivalues=iv)
             torch.cuda.synchronize()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -77,7 +101,8 @@ def worker(root: str, reps: int, only) -> dict:
 
 
 def ptxas(root: str) -> dict:
-    """``mk_kernel``'s registers, stack frame and spills from ptxas -v."""
+    """Each ``mk_kernel`` instance's registers, stack frame and spills
+    from ptxas -v, by its kMode."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
@@ -86,13 +111,15 @@ def ptxas(root: str) -> dict:
          "-O3", "-c", "-o", os.devnull, "-Xptxas", "-v", src],
         capture_output=True, text=True)
     lines = r.stderr.splitlines()
+    out = {}
     for i, line in enumerate(lines):
-        if "mk_kernel" in line and "Compiling" in line:
+        m = re.search(r"mk_kernelILi(\d)E", line)
+        if m and "Compiling" in line:
             text = " ".join(lines[i:i + 4])
-            return {k: int(v) for v, k in re.findall(
+            out[m.group(1)] = {k: int(v) for v, k in re.findall(
                 r"(\d+) (bytes stack frame|bytes spill stores|registers)",
                 text)}
-    return {"error": r.stderr[-400:]}
+    return out or {"error": r.stderr[-400:]}
 
 
 def main() -> int:
@@ -103,7 +130,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--graphs", default="",
                     help="comma-separated subset of fib24, uts20, fib24_b8, "
-                    "uts20_b8 (default: all)")
+                    "uts20_b8, sssp9_w0, sssp9_w8 (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ns = ap.parse_args()
     if ns.worker:

@@ -16,6 +16,7 @@ import torch
 
 from hclib_tpu_torch.device import cholesky as tc
 from hclib_tpu_torch.device import bnb as tb
+from hclib_tpu_torch.device import dyngraph as td
 from hclib_tpu_torch.device import forasync_tier as tfa
 from hclib_tpu_torch.device import frontier as tf
 from hclib_tpu_torch.device import megakernel as tmk
@@ -501,3 +502,81 @@ def test_expand_rounds_equal_plain(card, width):
                                                "ivalues")})
     for k in outs[1]:
         assert torch.equal(outs[0][k], outs[1][k]), k
+
+
+# The dynamic-graph tier: the JAX tests' graph and stream, and a stream
+# that fills vertex 0's full block, takes its spare rows and then drops.
+DG_GRAPH = tw.rmat_edges(5, efactor=4, seed=9)
+DG_UPS = [(1, 5, 3), (2, 7, 1), (0, 9, 2), (4, 3, 6)]
+DG_FULL = (8, np.concatenate([np.zeros(128, np.int64), [1]]),
+           np.concatenate([1 + np.arange(128) % 7, [2]]).astype(np.int64))
+DG_SPARE_UPS = [(0, 1 + i % 7, 1 + i % 3) for i in range(132)] + [(1, 3, 1)]
+
+
+def _dg_graph(name):
+    if name == "jax_tests":
+        return td.DynGraph(*DG_GRAPH, spare_blocks=2, upd_cap=16), DG_UPS
+    n, src, dst = DG_FULL
+    spare = 0 if name == "exhaustion" else 1
+    ups = [(0, 7, 1), (1, 3, 1)] if name == "exhaustion" else DG_SPARE_UPS
+    return td.DynGraph(n, src, dst, np.ones(len(src), np.int64),
+                       spare_blocks=spare, upd_cap=160), ups
+
+
+def _dg_raw(name, kind, width, nbk=0, fuel=1 << 22, reps=1):
+    outs = []
+    for d in ("cuda", "cpu"):
+        g, ups = _dg_graph(name)
+        for up in ups:
+            g.add_update(*up)
+        mk = td.make_dyngraph_megakernel(
+            kind, g, width=width, priority_buckets=nbk,
+            capacity=768 if kind == "pagerank" else 512, device=d)
+        b, iv, data = td.dyngraph_state(kind, g, mk, queries=[0, 5, 7],
+                                        m0=4096)
+        outs.append(_raw(mk, b, reps=reps, fuel=fuel, data=data,
+                         ivalues=iv))
+    return outs
+
+
+@pytest.mark.parametrize("name,kind,width,nbk,fuel", [
+    ("jax_tests", "sssp", 0, 0, 1 << 22), ("jax_tests", "bfs", 4, 0, 1 << 22),
+    ("jax_tests", "bfs", 4, 2, 1 << 22), ("jax_tests", "pagerank", 0, 0,
+                                          1 << 22),
+    ("jax_tests", "pagerank", 4, 0, 1 << 22), ("jax_tests", "sssp", 4, 0, 40),
+    ("spares", "sssp", 0, 0, 1 << 22), ("spares", "sssp", 4, 0, 1 << 22),
+    ("spares", "bfs", 4, 2, 1 << 22)])
+def test_dyngraph_equals_plain(card, name, kind, width, nbk, fuel):
+    """The UPDATE, QUERY and clamped EXPAND bodies on the whole state,
+    both edge buffers included."""
+    got, want = _dg_raw(name, kind, width, nbk, fuel)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if name == "spares":
+        assert int(want["ivalues"][td.V_FREE]) == 1
+        assert int(want["ivalues"][td.V_DROPPED]) > 0
+
+
+def test_dyngraph_reps_equal_plain(card):
+    """reps=2 re-stages the state but not the edge buffers (as JAX)."""
+    got, want = _dg_raw("spares", "sssp", 0, reps=2)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_dyngraph_exhaustion_raises_like_plain(card):
+    got, want = _dg_raw("exhaustion", "bfs", 0)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    g, ups = _dg_graph("exhaustion")
+    with pytest.raises(RuntimeError, match="overflow"):
+        td.run_dyngraph("bfs", g, 0, updates=ups, width=0, device="cuda")
+
+
+@pytest.mark.parametrize("width", [0, 8])
+def test_run_dyngraph_equals_host(card, width):
+    g, ups = _dg_graph("jax_tests")
+    r, info = td.run_dyngraph("sssp", g, 0, updates=ups, queries=[5],
+                              width=width, device="cuda")
+    assert np.array_equal(r, td.host_dyngraph("sssp", g, 0))
+    assert info["updates_applied"] == len(ups) and info["dropped"] == 0

@@ -31,6 +31,7 @@ def test_imports_pull_in_no_jax():
             "hclib_tpu_torch.device.forasync_tier",
             "hclib_tpu_torch.device.frontier",
             "hclib_tpu_torch.device.bnb",
+            "hclib_tpu_torch.device.dyngraph",
             "hclib_tpu_torch.runtime.env",
             "hclib_tpu_torch.models.nqueens"} <= set(mods)
     code = (
@@ -110,6 +111,15 @@ ENTRY_POINTS = {
             __import__("hclib_tpu_torch.device.workloads", fromlist=["x"])),
     "run_bnb": lambda: (lambda b: b.run_bnb(b.make_knapsack(4)))(
         __import__("hclib_tpu_torch.device.bnb", fromlist=["x"])),
+    "run_dyngraph": lambda: (lambda d, w: d.run_dyngraph(
+        "bfs", d.DynGraph(*w.rmat_edges(3, efactor=2, seed=1)),
+        updates=[(0, 1)]))(
+            __import__("hclib_tpu_torch.device.dyngraph", fromlist=["x"]),
+            __import__("hclib_tpu_torch.device.workloads", fromlist=["x"])),
+    "make_dyngraph_megakernel": lambda: (lambda d, w: d.make_dyngraph_megakernel(
+        "sssp", d.DynGraph(*w.rmat_edges(3, efactor=2, seed=1))))(
+            __import__("hclib_tpu_torch.device.dyngraph", fromlist=["x"]),
+            __import__("hclib_tpu_torch.device.workloads", fromlist=["x"])),
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),

@@ -400,6 +400,26 @@ def test_knob_validation_and_prebuilt_guards():
         tb.run_bnb(tb.make_knapsack(12, seed=6), mk=bmk, device="cpu")
 
 
+def test_const_rule_plain_and_checks():
+    """The ``const`` rule (dyngraph's UPDATE and QUERY lanes; JAX's
+    ``lambda arg: jnp.int32(c)``): bucket c clipped into [0, nbk), the arg
+    word unread; its parameter checks."""
+    for c in (-3, 0, 1, 5, 9, (1 << 31) - 1, -(1 << 31)):
+        for nbk in (2, 4, tmk.BK_MAX):
+            for args in ([0] * 6, [7, -1, 1 << 20, 3, 2, 9]):
+                want = int(np.clip(c, 0, nbk - 1))
+                assert tmk.bucket_of(("const", 0, c), args, nbk) == want
+                assert tmk.bucket_of(("const", 5, c), args, nbk) == want
+    assert tmk.BatchSpec(4, priority=("const", 0, 1)).priority == (
+        "const", 0, 1)
+    for bad in (("const", 0), ("const", 0, 1, 2), ("const", 0, 1 << 31),
+                ("const", 0, -(1 << 31) - 1), ("const", 6, 1),
+                ("const", 0, 1.5)):
+        with pytest.raises(ValueError):
+            tmk.BatchSpec(4, priority=bad)
+    assert tmk.PRIORITY_RULES["const"] == 4
+
+
 def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A11"):
         tf.run_frontier("bfs", TG, 0, placement=object(), device="cpu")
@@ -410,7 +430,9 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A9"):
         tf.make_frontier_megakernel(tf.bfs_kernel(), TG, checkpoint=True,
                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    # The spare-aware spawner is ported (dyngraph); a user-defined one is
+    # user code on the card.
+    with pytest.raises(NotImplementedError, match="A4"):
         tf.bfs_kernel(spawn=lambda ctx, u, carry: None)
     with pytest.raises(NotImplementedError, match="A4"):
         tmk.BatchSpec(4, priority=("nearest", 2, 1))
