@@ -118,6 +118,27 @@ Phases, one JSON line each:
              against phase 19's converged SSSP labels laid out on the
              DynGraph, at width 8 and 0, equal to host_dyngraph; ms and
              us a splice, re-expansions included.
+23. trace  - the flight recorder (row 1o) on fib(24) (ring 1,024, as
+             bench.py traces it; also with the quiesce poll), UTS depth
+             20 at width 8 (ring 2^17) and bench.py --graph's width-8 BFS
+             (ring 4,096): each build untraced and traced, timed
+             alternately in this process; the records reconcile exactly
+             with the tier counters (one fire a scalar task between the
+             begin and end records; one TR_FIRE_BATCH a batch round whose
+             take and prefetched words sum to the tiers); ms a record.
+24. checkpoint - quiesce at half the tasks, bundle to a temporary
+             directory, restore_megakernel on a fresh build: UTS depth 20
+             scalar and at width 8 (the state at the cut equal to the
+             plain core's, resumed to 498,965), Cholesky n=8192 tile 512
+             (the resumed L equal to phase 5's bit for bit; the bundle
+             holds the whole tile buffers), the scale-16 DynGraph's SSSP
+             at width 8 with phase 22's 32,768 updates (equal to
+             host_dyngraph, none dropped); quiesce entry s, bundle bytes,
+             save and restore s. Then the poll with no quiesce on fib(24)
+             and UTS 20 (checkpoint off, stride 1, stride 64, timed
+             alternately), and the bundle store: publish with and without
+             fsync, a cold load_latest clean and past two corrupt
+             generations.
 
 The ``check`` phase also holds the tile bodies (``tiles``: fa_stencil
 and fa_map at bench.py --forasync's sizes, stencil 64 x 1024 and map
@@ -134,9 +155,16 @@ graph rmat_edges(5, efactor=4, seed=9) with their 4 updates, spare_blocks
 2 buckets, PageRank scalar and at width 4, a width-4 SSSP cut by fuel;
 and a stream that fills a vertex's spare row and drops, scalar and at
 width 4; each with both edge buffers; the spare-exhaustion graph, which
-raises on the card as on the CPU), word for word.
+raises on the card as on the CPU), word for word; and the flight
+recorder and quiesce poll (``tracebuf``) in each of ``mk_kernel``'s
+observed instances 0-5: fib(11), UTS depth 12 at width 8, batched
+Cholesky n=1024, the SW wave at 512^2 (chunk 1, width 2), a fib graph
+routed to vfib(15)/vfib(16), the stencil at 64 x 1024 width 8, SSSP at
+scale 9 with 8 buckets and the scale-7 DynGraph's SSSP at width 8, each
+traced and then quiesced at half its tasks: the decoded ring and its
+header, qstat and the whole output state equal to the plain core's.
 
-Phases 3-22 are the main path: launch counts are zeroed just before each
+Phases 3-24 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -154,6 +182,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -259,11 +288,13 @@ def main() -> int:
     from hclib_tpu_torch.device import forasync_tier as tfa
     from hclib_tpu_torch.device import smithwaterman as tsw
     from hclib_tpu_torch.device import sw_pallas as tsp
+    from hclib_tpu_torch.device import tracebuf as ttb
     from hclib_tpu_torch.device import vector_engine as tv
     from hclib_tpu_torch.device import uts_vec as tuv
     from hclib_tpu_torch.device import workloads as tw
     from hclib_tpu_torch.device import megakernel as tmk
     from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
+    from hclib_tpu_torch.device.state import numpy_of
     from hclib_tpu_torch.device.uts_fused import CARD_LANES, UtsLaunch, uts_fused
     from hclib_tpu_torch.models import uts as tm
     from hclib_tpu_torch.device.sw_vec import sw_score_one
@@ -271,6 +302,7 @@ def main() -> int:
     from hclib_tpu_torch.models.nqueens import count_seq as nq_count
     from hclib_tpu_torch.models.smithwaterman import random_seq, sw_seq
     from hclib_tpu_torch.ops.tiles import split_bf16, unsplit
+    from hclib_tpu_torch.runtime import checkpoint as tck
 
     dev = torch.device("cuda")
 
@@ -310,13 +342,21 @@ def main() -> int:
             mk.fold_dispatches(d)
         return float(agg(times)), st
 
-    def raw_state(mk, b, data=None, fuel=1 << 22, ivalues=None):
-        """Every output of one launch on ``b`` (state, tstats, data)."""
+    def raw_state(mk, b, data=None, fuel=1 << 22, ivalues=None,
+                  quiesce=None):
+        """Every output of one launch on ``b`` (state, tstats, data; an
+        observed build's qstat, ring header and decoded records)."""
         st = mk.state(b, data=data, ivalues=ivalues)
-        mk.launch(st, fuel)
+        mk.launch(st, fuel, quiesce=quiesce)
         out = {k: st[k].cpu() for k in ("tasks", "ready", "counts",
-                                         "ivalues", "tstats") if k in st}
+                                         "ivalues", "tstats", "qstat")
+               if k in st}
         out.update({"data." + k: v.cpu() for k, v in st["data"].items()})
+        if "trace" in st:
+            ring = st["trace"].cpu()
+            out["trace.header"] = ring[:ttb.HDR].clone()
+            out["trace.records"] = torch.from_numpy(
+                ttb.decode_ring(ring.numpy())["records"])
         return out
 
     def ints_equal(got, want, what):
@@ -1073,6 +1113,102 @@ def main() -> int:
     emit({"phase": "check", "kernel": "dyngraph", "graph": "exhaustion",
           "raises_on": ["cuda", "cpu"]})
 
+    # 2. check: the flight recorder and the quiesce poll (row 1o), in each
+    # of mk_kernel's observed instances 0-5: a traced, checkpoint-built
+    # run with every record kept, then one quiesced at half its tasks on
+    # a ring of a quarter of the full run's records (so its cursor wraps),
+    # on the card and on the plain core; the decoded ring and its header,
+    # qstat and the whole output state word for word (Cholesky's f32 tiles
+    # within TOL, as in the batch-tier check)
+    obs_err = 0.0
+    fib16 = TaskGraphBuilder()
+    v0 = fib16.add(tw.FIB, args=[15], out=0)
+    v1 = fib16.add(tw.FIB, args=[16], out=1)
+    fib16.add(tw.SUM, args=[0, 1], deps=[v0, v1], out=2)
+    fib16.reserve_values(3)
+    sw4 = tsw.sw_wave_buffers(random_seq(512, 5), random_seq(512, 6))
+    sw4["htiles"] = np.zeros((4, 4, tsw.T, tsw.T), np.int32)
+    stk, sbounds, stile = tw.stencil_loop(64, 1024)
+    sb, stotal = fa_graph(sbounds, stile)
+    g7c = td.DynGraph(*tw.rmat_edges(7, efactor=8, seed=7), spare_blocks=2,
+                      upd_cap=24)
+    rng7 = np.random.default_rng(11)
+    for u, v, w in zip(rng7.integers(0, g7c.n, 24),
+                       rng7.integers(0, g7c.n, 24), rng7.integers(1, 8, 24)):
+        g7c.add_update(int(u), int(v), int(w))
+
+    def obs(cap):
+        return dict(trace=cap, checkpoint=True)
+
+    def obs_sssp9(d, cap):
+        return tf.make_frontier_megakernel(
+            tf.sssp_kernel(), g9, width=8, capacity=GB["capacity"],
+            priority_buckets=8, device=d, **obs(cap))
+
+    def obs_dg7(d, cap):
+        mk = td.make_dyngraph_megakernel("sssp", g7c, width=8,
+                                         capacity=1024, device=d,
+                                         **obs(cap))
+        td._bind_updates(mk, g7c)
+        return mk
+
+    fb9, fiv9, fdata9 = tf.frontier_state("sssp", g9, obs_sssp9("cpu", 8))
+    db7, div7, ddata7 = td.dyngraph_state("sssp", g7c, obs_dg7("cpu", 8), 0,
+                                          [1, 5, 9, 17])
+    obs_cases = (
+        ("fib11", 0, lambda d, c: tw.make_fib_megakernel(
+            768, device=d, **obs(c)), fib_graph(11)[0], None, None),
+        ("uts12_b8", 1, lambda d, c: tw.make_uts_megakernel(
+            max_depth=12, batch_width=8, device=d, **obs(c)), ub, None,
+         None),
+        ("cholesky_n1024_t256", 1, lambda d, c: tc.make_cholesky_megakernel(
+            4, tile=256, device=d, **obs(c)), tc.build_cholesky_graph(4),
+         {k: numpy_of(v) for k, v in tc.cholesky_buffers(
+             a1, 4, 256, device="cpu").items()}, None),
+        ("sw512_c1_w2", 1, lambda d, c: tsw.make_sw_wave_megakernel(
+            4, 4, chunk=1, width=2, device=d, **obs(c)),
+         tsw.build_sw_wave_graph(4, 4, 1), sw4, None),
+        ("vfib16_routed", 2, lambda d, c: tmk.Megakernel(
+            ["fib", "sum"], route={"fib": tv.fib_spec(18, (8, 128))},
+            capacity=16, num_values=16, succ_capacity=8, device=d,
+            **obs(c)), fib16, None, None),
+        ("stencil_64x1024_w8", 3, lambda d, c: tfa.make_forasync_megakernel(
+            stk, width=8, capacity=stotal + 8, device=d, **obs(c)), sb,
+         dict(zip(stk.data_specs, tw.stencil_data(64, 1024))), None),
+        ("sssp9_w8_b8", 4, obs_sssp9, fb9, fdata9, fiv9),
+        ("dyngraph7_sssp_w8", 5, obs_dg7, db7, ddata7, div7))
+    for name, inst, make, b, data, iv in obs_cases:
+        res = {}
+        for d in ("cuda", "cpu"):
+            full = raw_state(make(d, 4096), b, data, ivalues=iv)
+            written = int(full["trace.header"][0])
+            q = max(1, int(full["counts"][tmk.C_EXECUTED]) // 2)
+            wrap = max(1, written // 4)
+            res[d] = (full, raw_state(make(d, wrap), b, data, ivalues=iv,
+                                      quiesce=q))
+        for i, what in enumerate(("traced", "quiesced")):
+            got, want = res["cuda"][i], res["cpu"][i]
+            obs_err = max(obs_err, ints_equal(got, want,
+                                              f"observed {name} {what}"))
+            if "data.tiles" in want:  # the bf16 splits derive from it
+                r_o, _ = rel(got["data.tiles"], want["data.tiles"])
+                check(r_o < TOL, f"observed {name} {what} tiles: {r_o}")
+        full, cut = res["cpu"]
+        cut_written = int(cut["trace.header"][0])
+        check(int(cut["qstat"][tmk.QS_QUIESCED]) == 1
+              and int(cut["counts"][tmk.C_PENDING]) > 0
+              and int(full["qstat"][tmk.QS_QUIESCED]) == 0,
+              f"observed {name}: no quiesce mid-graph")
+        check(cut_written > len(cut["trace.records"]) == wrap
+              and full["trace.records"].shape[0] == written,
+              f"observed {name}: the quiesced ring did not wrap")
+        emit({"phase": "check", "kernel": "tracebuf", "graph": name,
+              "instance": inst, "equal": True, "records": written,
+              "quiesced_records": cut_written, "wrap_capacity": wrap,
+              "quiesced_at": int(cut["qstat"][tmk.QS_AT]),
+              "polls": int(cut["qstat"][tmk.QS_POLLS])})
+    del res, fdata9, ddata7
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -1091,11 +1227,12 @@ def main() -> int:
     t0 = time.perf_counter()
     check(tw.device_fib(24, capacity=768, device="cpu")[0] == v,
           "plain fib(24) differs")
+    fib_plain_s = time.perf_counter() - t0
     fib_tasks_per_s = info["executed"] / dt
     emit({"phase": "fib", "n": 24, "value": v, "executed": info["executed"],
           "allocated": info["allocated"], "seconds": dt,
           "tasks_per_s": fib_tasks_per_s,
-          "plain_host_seconds": time.perf_counter() - t0,
+          "plain_host_seconds": fib_plain_s,
           "bound_ms": bound(0.0, info["executed"] * 136.0)[0],
           "launches": launches})
 
@@ -1200,6 +1337,7 @@ def main() -> int:
           "seconds": info["seconds"],
           "gflops": (n ** 3 / 3.0) / info["seconds"] / 1e9,
           "launches": path_done("cholesky_unfused")})
+    L5 = L.clone()  # phase 24's restored factor is held to it
     del A, Ld, L, L2
 
     # 8. fib(24) through the batch tier
@@ -2002,7 +2140,296 @@ def main() -> int:
             "bound_ms": arm["bound_ms"], "bound_by": arm["bound_by"],
             "library_ms": None,
         }
-    del g16d, refs16d, mki
+    del mki
+
+    # 23. the flight recorder on the main path. Each arm untraced and
+    # traced, timed alternately in this process (CUDA events, the graph
+    # staged anew outside the window; fib(24) also with the quiesce poll
+    # at stride 1), then the traced run's records reconciled with its
+    # counters: a scalar table records one fire a task between its begin
+    # and end records; a routed one one TR_FIRE_BATCH a batch round
+    # (take and prefetched words summing to the tiers), one
+    # TR_FIRE_SCALAR a scalar task, one TR_FIRE_AGE an age fire
+    _build.reset_launches()
+    tr_arms = {}
+
+    def alternate(mks, b, data=None, iv=None, rounds=2, reps=3):
+        """Median CUDA-event ms of each build in ``mks``, timed in turn
+        (A B .. B A) ``rounds`` times."""
+        times = {k: [] for k in mks}
+        for r in range(rounds):
+            for k in (list(mks) if r % 2 == 0 else list(mks)[::-1]):
+                times[k].append(timed_launch(mks[k], b, data, reps=reps,
+                                             ivalues=iv)[0])
+        return {k: float(np.median(v)) for k, v in times.items()}
+
+    def reconcile(info, what):
+        ring = info["trace"]["rings"][0]
+        recs = ring["records"]
+        check(int(recs[-1, 0]) == ttb.TR_ROUND_END
+              and int(recs[-1, 2]) == info["executed"],
+              f"{what}: the last record is not the closing round_end")
+        if "tiers" not in info:
+            check(ring["written"] == info["executed"] + 2,
+                  f"{what}: {ring['written']} records for "
+                  f"{info['executed']} scalar tasks")
+            return
+        t = info["tiers"]
+        check(ring["dropped"] == 0, f"{what}: the ring wrapped")
+
+        def tag(k):
+            return recs[recs[:, 0] == k]
+        bat = tag(ttb.TR_FIRE_BATCH)
+        check(len(bat) == t["batch_rounds"]
+              and int((bat[:, 2] & 0xFFFF).sum()) == t["batch_tasks"]
+              and int(bat[:, 3].sum()) == t["prefetch_hits"]
+              and len(tag(ttb.TR_FIRE_SCALAR)) == t["scalar_tasks"]
+              and len(tag(ttb.TR_FIRE_AGE)) == t["age_fires"]
+              and int(tag(ttb.TR_SPILL)[:, 3].sum()) == t["spilled"]
+              and len(tag(ttb.TR_ROUND_BEGIN)) == 1,
+              f"{what}: records do not reconcile with the tiers {t}")
+
+    held = []
+
+    def traced_arm(name, make, cap, b, data=None, iv=None, extra=None,
+                   hold="traced"):
+        """Time ``make(None, d)`` against ``make(cap, d)`` (and ``extra``'s
+        builds) on the card, reconcile the traced run's records with its
+        counters, and queue build ``hold`` for ``hold_plain``."""
+        makes = {"untraced": lambda d: make(None, d),
+                 "traced": lambda d: make(cap, d), **(extra or {})}
+        mks = {k: m("cuda") for k, m in makes.items()}
+        ms = alternate(mks, b, data, iv)
+        _, _, info = mks["traced"].run(b, data=data, ivalues=iv)
+        reconcile(info, name)
+        held.append((name, hold, mks[hold], makes[hold]("cpu"), b, data, iv))
+        ring = info["trace"]["rings"][0]
+        over = ms["traced"] - ms["untraced"]
+        tr_arms[name] = {
+            "executed": info["executed"], "capacity": cap,
+            "written": ring["written"], "dropped": ring["dropped"],
+            **{f"{k}_ms": v for k, v in ms.items()},
+            "overhead_ms": over,
+            "overhead_ns_a_record": over * 1e6 / ring["written"],
+            "reconciled": True}
+
+    def hold_plain():
+        """Each queued card build's whole output, its decoded ring and the
+        ring's header included (the wrap of fib(24)'s 1,024-record ring
+        with them), word for word against the same build on the plain
+        core; outside the main path's launch counts. The largest
+        difference."""
+        err = 0.0
+        for name, hold, card, plain, b, data, iv in held:
+            got = raw_state(card, b, data, ivalues=iv)
+            t0 = time.perf_counter()
+            want = raw_state(plain, b, data, ivalues=iv)
+            tr_arms[name]["plain_host_s"] = time.perf_counter() - t0
+            err = max(err, ints_equal(got, want, f"traced {name} ({hold})"))
+            tr_arms[name]["equal_to_plain_core"] = hold
+        return err
+
+    fib24 = fib_graph(24)[0]
+
+    def fib_tc(d):
+        return tw.make_fib_megakernel(768, trace=1024, checkpoint=True,
+                                      device=d)
+    traced_arm(
+        "fib24", lambda c, d: tw.make_fib_megakernel(768, trace=c, device=d),
+        1024, fib24, extra={"traced_checkpoint": fib_tc},
+        hold="traced_checkpoint")
+    uts20 = TaskGraphBuilder()
+    uts20.add(tw.UTS_NODE, args=[1, 0])
+    traced_arm("uts20_b8", lambda c, d: tw.make_uts_megakernel(
+        max_depth=20, batch_width=8, trace=c, device=d), 1 << 17, uts20)
+
+    def bfs9(c, d):
+        return tf.make_frontier_megakernel(
+            tf.bfs_kernel(), g9, width=8, capacity=GB["capacity"], trace=c,
+            device=d)
+    fbb, fbiv, fbdata = tf.frontier_state("bfs", g9, bfs9(None, "cpu"))
+    traced_arm("bfs9_w8", bfs9, 4096, fbb, fbdata, fbiv)
+    launches = path_done("trace")
+    tr_err = hold_plain()
+    # The row's plain time: the plain core's fib(24) traced and polled
+    # less its untraced run, timed alternately (medians of three each).
+    pmk = {"untraced": tw.make_fib_megakernel(768, device="cpu"),
+           "traced_checkpoint": fib_tc("cpu")}
+    ptimes = {k: [] for k in pmk}
+    for r in range(3):
+        for k in (list(pmk) if r % 2 == 0 else list(pmk)[::-1]):
+            ptimes[k].append(plain_ms(lambda: pmk[k].run(fib24))[0])
+    pmed = {k: float(np.median(v)) for k, v in ptimes.items()}
+    tr_plain_ms = pmed["traced_checkpoint"] - pmed["untraced"]
+    f24 = tr_arms["fib24"]
+    f24.update({f"plain_{k}_ms": v for k, v in pmed.items()})
+    polls = f24["executed"] + 1  # a poll a round: a task each, then exit
+    tr_bound = bound(0.0, 16.0 * f24["written"] + 8.0 * polls)
+    kernels["tracebuf"] = {
+        "name": "tracebuf", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/megakernel.cu",
+        "replaces": "hclib_tpu/device/tracebuf.py:336",
+        "max_abs_err": max(obs_err, tr_err),
+        "ms": f24["traced_checkpoint_ms"] - f24["untraced_ms"],
+        "plain_ms": tr_plain_ms,
+        "bound_ms": tr_bound[0], "bound_by": tr_bound[1],
+        "library_ms": None,
+    }
+    emit({"phase": "trace", "arms": tr_arms,
+          "fib24_traced_checkpoint_overhead_ms": kernels["tracebuf"]["ms"],
+          "fib24_plain_overhead_ms": tr_plain_ms,
+          "bound_ms": tr_bound[0], "bound_by": tr_bound[1],
+          "library": "none: no PyTorch call records a scheduler trace",
+          "launches": launches})
+
+    # 24. checkpoint: quiesce at half the tasks, bundle to a temporary
+    # directory, restore_megakernel on a fresh build; then the poll's
+    # cost with no quiesce, and the bundle store
+    _build.reset_launches()
+    ck_dir = tempfile.mkdtemp(prefix="hclib-smoke-ckpt-")
+    ck_arms, bundles = {}, {}
+
+    def ckpt_arm(name, make, b, total, data_fn=lambda: None, iv=None,
+                 exact=True):
+        """Quiesce at total // 2, save, restore on a fresh build; returns
+        (quiesced info, restored (ivalues, data, info)). ``exact``: the
+        resumed run executes the uninterrupted run's task count (a
+        spawn tree or a static DAG; a label-correcting traversal's count
+        follows its pop order, which the cut's spill changes)."""
+        mk = make()
+        t0 = time.perf_counter()
+        _, _, iq = mk.run(b, data=data_fn(), ivalues=iv, quiesce=total // 2)
+        quiesce_s = time.perf_counter() - t0
+        check(iq["quiesced"] and iq["pending"] > 0,
+              f"checkpoint {name}: no quiesce mid-graph")
+        bundle = bundles[name] = tck.snapshot_megakernel(mk, iq)
+        path = os.path.join(ck_dir, name)
+        stats = bundle.save(path)
+        t0 = time.perf_counter()
+        out = tck.restore_megakernel(path, make())
+        restore_s = time.perf_counter() - t0
+        shutil.rmtree(path, ignore_errors=True)
+        check(out[2]["pending"] == 0
+              and (out[2]["executed"] == total or not exact),
+              f"checkpoint {name}: resumed to {out[2]['executed']} of "
+              f"{total}")
+        ck_arms[name] = {
+            "executed": total, "resumed_executed": out[2]["executed"],
+            "checkpoint_at": iq["quiesce"]["executed_at"],
+            "pending_at_cut": iq["pending"], "quiesce_entry_s": quiesce_s,
+            "bundle_bytes": stats["bundle_bytes"], "save_s": stats["save_s"],
+            "restore_s": restore_s}
+        return iq, out
+
+    for width in (0, 8):
+        name = f"uts20_b{width}"
+        iq, (ivr, _, _) = ckpt_arm(
+            name, lambda w=width: tw.make_uts_megakernel(
+                max_depth=20, batch_width=w or None, checkpoint=True,
+                device="cuda"), uts20, 498965)
+        check(int(ivr[0]) == 498965, f"{name}: resumed count {int(ivr[0])}")
+        mkc = tw.make_uts_megakernel(max_depth=20, batch_width=width or None,
+                                     checkpoint=True, device="cpu")
+        ic = mkc.run(uts20, quiesce=498965 // 2)[2]
+        check(ic["quiesce"] == iq["quiesce"] and all(
+            np.array_equal(ic["state"][k], iq["state"][k])
+            for k in ("tasks", "ready", "counts", "ivalues")),
+            f"{name}: the state at the cut differs from the plain core's")
+        ck_arms[name]["state_equal_to_plain_core"] = True
+    _, (_, dr, _) = ckpt_arm(
+        "cholesky_n8192_t512", lambda: tc.make_cholesky_megakernel(
+            nt, tile=ts, fused_only=True, checkpoint=True, device="cuda"),
+        tc.build_cholesky_graph(nt), 151,
+        lambda: tc.cholesky_buffers(a, nt, ts, device="cuda"))
+    check(torch.equal(torch.tril(tc._from_tiles(dr["tiles"], nt, ts))
+                      .view(torch.int32), L5.view(torch.int32)),
+          "cholesky: the resumed L differs from phase 5's")
+    ck_arms["cholesky_n8192_t512"]["L_equal_to_phase5"] = True
+    del dr, L5
+
+    def dg16_mk():
+        mk = td.make_dyngraph_megakernel(
+            "sssp", g16d, width=8, capacity=cap16, num_values=nv16,
+            checkpoint=True, device="cuda")
+        td._bind_updates(mk, g16d)
+        return mk
+
+    db16, div16, ddata16 = td.dyngraph_state("sssp", g16d, dg16_mk(), 0,
+                                             qs16, m0=GB["m0"],
+                                             reps=GB["reps"])
+    _, (ivr, _, _) = ckpt_arm(
+        "dyngraph16_sssp_w8", dg16_mk, db16, arms22["sssp_w8"]["executed"],
+        lambda: ddata16, div16, exact=False)
+    ivr = np.asarray(ivr)
+    flags = ivr[g16d.flag_base:g16d.flag_base + g16d.upd_cap]
+    check(np.array_equal(ivr[g16d.st_base:g16d.st_base + g16d.n],
+                         refs16d["sssp"])
+          and int((flags != 0).sum()) == 1 << 15
+          and int(ivr[td.V_DROPPED]) == 0,
+          "dyngraph scale 16: the resumed run differs from host_dyngraph")
+    ck_arms["dyngraph16_sssp_w8"]["equal_to_host_dyngraph"] = True
+    del g16d, refs16d, ddata16
+    # The poll with no quiesce: fib(24) and UTS 20, checkpoint off and on
+    # at stride 1 and 64.
+    poll_arms = {}
+    for name, make, b in (
+            ("fib24", lambda **kw: tw.make_fib_megakernel(
+                768, device="cuda", **kw), fib24),
+            ("uts20", lambda **kw: tw.make_uts_megakernel(
+                max_depth=20, device="cuda", **kw), uts20)):
+        mks = {"off": make(), "stride1": make(checkpoint=True),
+               "stride64": make(checkpoint=True, quiesce_stride=64)}
+        ms = alternate(mks, b)
+        st = mks["stride1"].state(b)
+        mks["stride1"].launch(st)
+        rounds = int(st["qstat"][tmk.QS_POLLS])
+        poll_arms[name] = {
+            **{f"{k}_ms": v for k, v in ms.items()}, "rounds": rounds,
+            **{f"{k}_overhead": ms[k] / ms["off"] - 1
+               for k in ("stride1", "stride64")},
+            "stride1_ns_a_round": (ms["stride1"] - ms["off"]) * 1e6 / rounds}
+    launches = path_done("checkpoint")
+    # The store: publish with and without fsync, and a cold load_latest
+    # clean and past two corrupt generations, on the UTS bundle.
+    sb = bundles["uts20_b0"]
+
+    def publish(fsync, trials=5):
+        times = []
+        for _ in range(trials):
+            d = tempfile.mkdtemp(dir=ck_dir)
+            t0 = time.perf_counter()
+            tck.BundleStore(d, keep=3, fsync=fsync).save(sb)
+            times.append(time.perf_counter() - t0)
+            shutil.rmtree(d, ignore_errors=True)
+        return float(np.median(times))
+
+    def cold_load(corrupt):
+        d = tempfile.mkdtemp(dir=ck_dir)
+        st = tck.BundleStore(d, keep=3, fsync=False)
+        for _ in range(3):
+            st.save(sb)
+        for g in st.generations()[len(st.generations()) - corrupt:]:
+            npz = os.path.join(st.path_of(g), "state.npz")
+            blob = open(npz, "rb").read()
+            with open(npz, "wb") as f:
+                f.write(blob[:-4] + b"\xff" * 4)
+        reader = tck.BundleStore(d, fsync=False)
+        t0 = time.perf_counter()
+        got = reader.load_latest()
+        dt = time.perf_counter() - t0
+        check(len(reader.faults) == corrupt and got.diff(sb)["equal"],
+              f"store cold load past {corrupt} corrupt generations")
+        shutil.rmtree(d, ignore_errors=True)
+        return dt
+
+    store = {"publish_fsync_s": publish(True),
+             "publish_nofsync_s": publish(False),
+             "cold_load_clean_s": cold_load(0),
+             "cold_load_healing_s": cold_load(2),
+             "bundle_bytes": ck_arms["uts20_b0"]["bundle_bytes"]}
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    emit({"phase": "checkpoint", "arms": ck_arms, "poll": poll_arms,
+          "store": store, "launches": launches})
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

@@ -17,8 +17,9 @@ standalone; ``"fr_expand"`` / ``"fr_expand_batch"`` the frontier's
 scalar and batched EXPAND bodies of the three families, ``"dg_expand"``
 the same bodies run in a dynamic-graph table (clamped, spare-aware),
 ``"dg_splice"`` / ``"dg_splice_batch"`` the UPDATE bodies, ``"dg_query"``
-the QUERY body, scalar and batched, and ``"bnb_node"`` the knapsack NODE
-body, scalar and batched).
+the QUERY body, scalar and batched, ``"bnb_node"`` the knapsack NODE
+body, scalar and batched, and ``"tracebuf"`` the megakernel launches that
+ran an observed instance: the flight recorder or the quiesce poll).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ LAUNCHES: Dict[str, int] = {
     "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
+    "tracebuf": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -39,6 +39,12 @@
 // and, in the policy instances (kMode 4, 5), the lane-age firing policy
 // (megakernel.py :893-909, the starved pass and age clock :1596-1836) and
 // the priority-bucket rings (:910-929, :1196-1215, :1622-1799).
+// The observed instances (kObs) add the flight recorder and the quiesce
+// protocol: hclib_tpu/device/tracebuf.py Tracer.emit (:336), tick (:347),
+// now (:353) and reset (:331) at every emit site of _make_core (:1233,
+// :1456-1462, :1515, :1535, :1705-1760, :1805, :1846-1910), and
+// megakernel.py quiesce_hook (:2019: the qctl poll every quiesce_stride
+// rounds, the qstat words, TR_QUIESCE) with TR_CKPT at exit (:2079).
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -137,6 +143,19 @@ constexpr int TS_BATCH_ROUNDS = 0, TS_BATCH_TASKS = 1, TS_SCALAR_ROUNDS = 2,
               TS_WORDS = 12;
 constexpr int LS_HEAD = 0, LS_TAIL = 1, LS_PF_BASE = 2, LS_PF_N = 3,
               LS_PF_BUF = 4, LS_AGE = 5, LS_WORDS = 8;
+// The flight recorder (tracebuf.py): HDR header words (the write cursor,
+// the round cursor, six zeros), then 4-word [tag, t, a, b] records; the
+// record tags this scheduler emits. The quiesce words (megakernel.py
+// QC_*, QS_*): qctl in, qstat out.
+constexpr int TR_HDR = 8;
+enum {
+  TR_ROUND_BEGIN = 1, TR_ROUND_END = 2, TR_FIRE_SCALAR = 3,
+  TR_FIRE_BATCH = 4, TR_PREFETCH_ISSUE = 5, TR_PREFETCH_DRAIN = 6,
+  TR_SPILL = 7, TR_QUIESCE = 13, TR_CKPT = 14, TR_FIRE_AGE = 17,
+  TR_FIRE_BUCKET = 18
+};
+constexpr int QC_FLAG = 0, QC_AFTER = 1;
+constexpr int QS_QUIESCED = 0, QS_AT = 1, QS_POLLS = 2;
 constexpr int MAX_WIDTH = 8;      // slot rows of a batch round
 constexpr int MAX_SW_SLOTS = 16;  // tile slots of an sw_wave_batch round
 constexpr int MAX_DATA = 8;
@@ -193,8 +212,63 @@ struct Args {
   int32_t* lstate;  // (nrows, LS_WORDS)
   int32_t* tstats;  // (TS_WORDS,) tier counters, or null
   int32_t* vstack;  // the subtree engine's lane stacks, or null
+  // Observed instances only: the trace ring (TR_HDR + 4 tr_cap words, or
+  // null when untraced), the quiesce words (null when not checkpointing)
+  // and the poll stride.
+  int32_t* ring;
+  const int32_t* qctl;
+  int32_t* qstat;
+  int tr_cap, qstride;
   int nfn, nbatch, nrows, nbk, max_age, cap, num_values, fuel, reps,
       stage_all_values;
+};
+
+// The recorder's and the poll's state, thread 0's registers (the
+// scheduler functions it is passed to are inlined): the ring's cursors
+// (written to its header at exit), the qctl words of the last poll and
+// the qstat words. Cursors wrap by compare, not by a division a record.
+struct Obs {
+  int32_t* ring;
+  const int32_t* qctl;
+  int cap, stride;
+  int n, slot, r;     // records written, n % cap, round cursor
+  int left;           // rounds until the next qctl read
+  int qflag, qafter;  // qctl as last read
+  int qs[3];          // QS_QUIESCED, QS_AT, QS_POLLS
+
+  // Tracer.emit: one record at slot n % cap (a traced launch only).
+  __device__ __forceinline__ void emit(int tag, int t, int a, int b) {
+    if (!ring) return;
+    *reinterpret_cast<int4*>(ring + TR_HDR + 4 * slot) =
+        make_int4(tag, t, a, b);
+    ++n;
+    if (++slot == cap) slot = 0;
+  }
+  // Tracer.tick; r is Tracer.now.
+  __device__ __forceinline__ int tick() { return r++; }
+
+  // quiesce_hook: re-read qctl (one 8-byte relaxed load at device scope,
+  // past L1) every `stride` rounds of the launch (every round at stride
+  // 1; round 0 always), count the round, and report a quiesce once
+  // QC_AFTER tasks ran this rep; the first observation records
+  // TR_QUIESCE.
+  __device__ __forceinline__ bool poll(int since) {
+    if (!qctl) return false;
+    ++qs[QS_POLLS];
+    if (--left <= 0) {
+      left = stride;
+      asm volatile("ld.relaxed.gpu.global.v2.s32 {%0, %1}, [%2];"
+                   : "=r"(qflag), "=r"(qafter)
+                   : "l"(qctl + QC_FLAG));
+    }
+    const bool q = qflag != 0 && since >= qafter;
+    if (q && qs[QS_QUIESCED] == 0) {
+      qs[QS_QUIESCED] = 1;
+      qs[QS_AT] = since;
+      emit(TR_QUIESCE, r, since, 0);
+    }
+    return q;
+  }
 };
 
 // The scheduler closures of _make_core over one state (thread 0 only).
@@ -607,9 +681,9 @@ __device__ void vector_body(Sched& S, const Args& a, int idx, int body,
 // ring li % nbk of kind li / nbk): take, base, the prefetch handshake and
 // the nxt announce, and the slot rows the body reads. Bucket rings pop
 // FIFO; a bucketed table has no prefetch lane (the host refuses one).
-template <bool kPolicy>
+template <bool kPolicy, bool kObs>
 __device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
-                              Round& R) {
+                              Round& R, int rt, Obs& O) {
   const int nbk = kPolicy ? a.nbk : 1;
   const int32_t* bm = a.meta + META_BATCH + 4 * (li / nbk);
   const int B = bm[1], prefetch = bm[2], body = bm[3];
@@ -632,6 +706,13 @@ __device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
                   S.counts[C_EXECUTED] - e0 + take < a.fuel
               ? min(avail - take, B)
               : 0;
+  if constexpr (kObs) {
+    // One record a batch round (fid << 16 | take, prefetched), and the
+    // announce of the next batch's prefetch.
+    O.emit(TR_FIRE_BATCH, rt, (bm[0] << 16) | take, R.pre);
+    if (prefetch && R.nxt > 0)
+      O.emit(TR_PREFETCH_ISSUE, rt, bm[0], R.nxt);
+  }
   for (int s = 0; s < take; ++s)
     R.rows[s] = min(max(lane[floor_mod(base + s, a.cap)], 0), a.cap - 1);
   for (int s = 0; s < R.nxt; ++s)
@@ -692,20 +773,28 @@ __device__ void finish_batch(Sched& S, const Args& a, const Round& R,
 }
 
 // Run scheduling rounds until one has a body to run (or the loop ends):
-// the while_loop of sched(), with routing-only rounds done inline.
-__device__ void schedule(Sched& S, const Args& a, int e0, Round& R) {
+// the while_loop of sched(), with routing-only rounds done inline. An
+// observed instance ticks the round cursor and polls the quiesce word at
+// the top of every round; a quiesce ends the loop before the round pops.
+template <bool kObs>
+__device__ void schedule(Sched& S, const Args& a, int e0, Round& R, Obs& O) {
   int32_t* c = S.counts;
   for (;;) {
     if (!(c[C_PENDING] > 0 && c[C_EXECUTED] - e0 < a.fuel)) break;
     const int tail = c[C_TAIL];
     const bool ring_work = c[C_HEAD] < tail;
+    int rt = 0;
+    if constexpr (kObs) {
+      rt = O.tick();
+      if (O.poll(c[C_EXECUTED] - e0)) break;
+    }
     // Ring-drain-first: a lane fires only once the ring is empty; one
     // dispatch a round, the lowest F_FN (lane order) first.
     if (!ring_work) {
       for (int li = 0; li < a.nbatch; ++li) {
         const int32_t* L = a.lstate + li * LS_WORDS;
         if (L[LS_TAIL] - L[LS_HEAD] > 0) {
-          prepare_batch<false>(S, a, li, e0, R);
+          prepare_batch<false, kObs>(S, a, li, e0, R, rt, O);
           return;
         }
       }
@@ -727,6 +816,7 @@ __device__ void schedule(Sched& S, const Args& a, int e0, Round& R) {
       }
     }
     if (routed) continue;
+    if constexpr (kObs) O.emit(TR_FIRE_SCALAR, rt, fn, idx);
     // lax.switch clamps an out-of-range index; so does this.
     const int body = a.meta[META_BODY_OF_FN + min(max(fn, 0), a.nfn - 1)];
     if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
@@ -779,14 +869,25 @@ __device__ void age_clock(const Args& a, int fired) {
 // F_FN), else pops the ring; routing pushes a descriptor into its kind's
 // bucket ring. Every routing pop is one JAX round: the starved check runs
 // before it and the age clock after it (after a batch fire, the clock runs
-// once finish_batch has moved the cursors).
-__device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
+// once finish_batch has moved the cursors). A quiesced round fires and
+// pops nothing, but its age clock still runs, as in JAX.
+template <bool kObs>
+__device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R,
+                                Obs& O) {
   int32_t* c = S.counts;
   const int nbk = a.nbk;
   for (;;) {
     if (!(c[C_PENDING] > 0 && c[C_EXECUTED] - e0 < a.fuel)) break;
     const int tail = c[C_TAIL];
     const bool ring_work = c[C_HEAD] < tail;
+    int rt = 0;
+    if constexpr (kObs) {
+      rt = O.tick();
+      if (O.poll(c[C_EXECUTED] - e0)) {
+        age_clock(a, -1);
+        break;
+      }
+    }
     int row = -1;
     bool starved = false;
     if (a.max_age > 0)
@@ -805,6 +906,17 @@ __device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
         }
     if (row >= 0) {
       const int bk = row % nbk;
+      if constexpr (kObs) {
+        // The fire-reason records, before the round's TR_FIRE_BATCH:
+        // take is prepare_batch's min(avail, width).
+        const int32_t* L = a.lstate + row * LS_WORDS;
+        const int fid = a.meta[META_BATCH + 4 * (row / nbk)];
+        const int take = min(L[LS_TAIL] - L[LS_HEAD],
+                             a.meta[META_BATCH + 4 * (row / nbk) + 1]);
+        if (starved && ring_work)
+          O.emit(TR_FIRE_AGE, rt, (fid << 16) | take, L[LS_AGE]);
+        if (nbk > 1) O.emit(TR_FIRE_BUCKET, rt, (bk << 16) | take, fid);
+      }
       if (starved && ring_work) a.tstats[TS_AGE_FIRES] += 1;
       if (starved && nbk > 1)
         for (int r = 0; r < a.nrows; ++r) {
@@ -815,7 +927,7 @@ __device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
           }
         }
       if (bk > 0) a.tstats[TS_BUCKET_FIRES] += 1;
-      prepare_batch<true>(S, a, row, e0, R);
+      prepare_batch<true, kObs>(S, a, row, e0, R, rt, O);
       return;
     }
     if (!ring_work) break;  // neither ring nor lane work: stuck (or done)
@@ -839,6 +951,7 @@ __device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
     }
     age_clock(a, -1);
     if (routed) continue;
+    if constexpr (kObs) O.emit(TR_FIRE_SCALAR, rt, fn, idx);
     const int body = a.meta[META_BODY_OF_FN + min(max(fn, 0), a.nfn - 1)];
     if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
     if (a.nbatch) a.tstats[TS_SCALAR_ROUNDS] += 1;
@@ -852,12 +965,21 @@ __device__ void schedule_policy(Sched& S, const Args& a, int e0, Round& R) {
 
 // Exit with unrun lane entries: spill them back to the ring HEAD (the
 // cold end), oldest first at head0 - 1 (any prefetch was drained before),
-// row by row.
-__device__ void spill(Sched& S, const Args& a) {
+// row by row. An observed instance records, a row, the prefetch it
+// drained and the entries it spilled, at the round cursor.
+template <bool kObs>
+__device__ void spill(Sched& S, const Args& a, Obs& O) {
   for (int li = 0; li < a.nrows; ++li) {
     int32_t* L = a.lstate + li * LS_WORDS;
     const int32_t* lane = a.lanes + static_cast<size_t>(li) * a.cap;
     const int h = L[LS_HEAD], t = L[LS_TAIL];
+    if constexpr (kObs) {
+      const int32_t* bm = a.meta + META_BATCH + 4 * (li / a.nbk);
+      const int pre = L[LS_PF_BASE] == h + 1 ? L[LS_PF_N] : 0;
+      if (bm[2] && pre > 0)
+        O.emit(TR_PREFETCH_DRAIN, O.r, bm[0], pre);
+      if (t > h) O.emit(TR_SPILL, O.r, bm[0], t - h);
+    }
     const int head0 = S.counts[C_HEAD];
     for (int s = 0; s < t - h; ++s)
       a.ready[floor_mod(head0 - 1 - s, a.cap)] = lane[floor_mod(h + s, a.cap)];
@@ -893,7 +1015,10 @@ __device__ __forceinline__ FrGraph fr_graph(const int32_t* meta, void* idx,
 // spare-aware EXPAND), kept out of 4: with it in, a static scalar EXPAND
 // cost 12% more (SSSP on bench.py --graph's graph at width 0, 22.30 ->
 // 24.97 ms, same-card A/B on an H100, scripts/ab_sched.py).
-template <int kMode>
+// kObs adds the flight recorder and the quiesce poll to any of them: a
+// launch with neither a ring nor qctl runs the kObs = false instance,
+// whose code is what it was before the recorder existed.
+template <int kMode, bool kObs>
 __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
   constexpr bool kLean = kMode == 0, kVector = kMode == 2;
   constexpr bool kSw = kMode == 1 || kMode == 2, kTile = kMode == 3;
@@ -905,6 +1030,10 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
   __shared__ int s_tmax[MAX_SW_SLOTS];
   const int tid = threadIdx.x;
   Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
+  // Thread 0's recorder and poll (qstat zeroed once a launch); unused,
+  // and compiled out, where kObs is false.
+  Obs O{a.ring, a.qctl, a.tr_cap, a.qstride};
+  O.left = 1;
   const int32_t* meta = a.meta;
   const int ts = meta[P_TILE], nt = meta[P_NT];
   const size_t tt = static_cast<size_t>(ts) * ts;
@@ -927,22 +1056,36 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
     if (tid == 0) {
       S.stage(a);
       e0 = s_counts[C_EXECUTED];
+      if constexpr (kObs) {
+        // Tracer.reset each rep, then the entry record.
+        O.n = O.slot = O.r = 0;
+        O.emit(TR_ROUND_BEGIN, O.tick(),
+                    s_counts[C_TAIL] - s_counts[C_HEAD], s_counts[C_PENDING]);
+      }
     }
     for (;;) {
       if (tid == 0) {
         if constexpr (kPolicy) {
-          schedule_policy(S, a, e0, R);
+          schedule_policy<kObs>(S, a, e0, R, O);
         } else if constexpr (!kLean) {
-          schedule(S, a, e0, R);
+          schedule<kObs>(S, a, e0, R, O);
         } else {
           // schedule() with no lane, written out on s_counts: about 6%
           // faster a task than the call (same A/B).
           R.act = ACT_EXIT;
           if (s_counts[C_PENDING] > 0 && s_counts[C_EXECUTED] - e0 < a.fuel) {
             const int tail = s_counts[C_TAIL];
-            if (s_counts[C_HEAD] < tail) {
+            int rt = 0;
+            bool quiesce = false;
+            if constexpr (kObs) {
+              rt = O.tick();
+              quiesce = O.poll(s_counts[C_EXECUTED] - e0);
+            }
+            if (s_counts[C_HEAD] < tail && !quiesce) {
               const int idx = a.ready[floor_mod(tail - 1, a.cap)];
               s_counts[C_TAIL] = tail - 1;
+              if constexpr (kObs)
+                O.emit(TR_FIRE_SCALAR, rt, S.w(idx, F_FN), idx);
               const int fn = min(max(S.w(idx, F_FN), 0), a.nfn - 1);
               const int body = meta[META_BODY_OF_FN + fn];
               if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
@@ -1111,15 +1254,32 @@ __global__ void __launch_bounds__(BT) mk_kernel(Args a) {
       // lane).
       cp_wait_all();
       __syncthreads();
-      if (tid == 0) spill(S, a);
+      if (tid == 0) spill<kObs>(S, a, O);
     }
     if (tid == 0) {
+      if constexpr (kObs)
+        O.emit(TR_ROUND_END, O.tick(), s_counts[C_EXECUTED] - e0,
+                    s_counts[C_PENDING]);
       for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
       total += static_cast<uint32_t>(s_counts[C_EXECUTED]);
     }
     __syncthreads();
   }
-  if (tid == 0) a.counts[C_EXECUTED] = static_cast<int32_t>(total);
+  if (tid == 0) {
+    a.counts[C_EXECUTED] = static_cast<int32_t>(total);
+    if constexpr (kObs) {
+      // The state-export record of a quiesced launch, then the ring's
+      // header (the last rep's cursors) and the qstat row.
+      if (O.qs[QS_QUIESCED])
+        O.emit(TR_CKPT, O.r, s_counts[C_PENDING],
+               s_counts[C_TAIL] - s_counts[C_HEAD]);
+      if (O.ring)
+        for (int i = 0; i < TR_HDR; ++i)
+          O.ring[i] = i == 0 ? O.n : i == 1 ? O.r : 0;
+      if (O.qctl)
+        for (int i = 0; i < 8; ++i) a.qstat[i] = i < 3 ? O.qs[i] : 0;
+    }
+  }
 }
 
 // Standalone entries: one tile body, one block, same device functions.
@@ -1346,18 +1506,22 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
                     const int32_t* meta, int32_t* dispatch,
                     void* const* data, float* work, int32_t* lanes,
                     int32_t* lstate, int32_t* tstats, int32_t* vstack,
-                    int nfn, int nbatch, int nrows, int nbk, int max_age,
-                    int cap, int num_values, int fuel, int reps,
-                    int stage_all_values, int mode, int threads, int smem,
-                    void* stream) {
-  if (mode < 0 || mode > 5 || (mode < 4 && (nbk != 1 || max_age != 0)))
+                    int32_t* ring, const int32_t* qctl, int32_t* qstat,
+                    int tr_cap, int qstride, int nfn, int nbatch, int nrows,
+                    int nbk, int max_age, int cap, int num_values, int fuel,
+                    int reps, int stage_all_values, int mode, int threads,
+                    int smem, void* stream) {
+  if (mode < 0 || mode > 5 || (mode < 4 && (nbk != 1 || max_age != 0)) ||
+      (ring && tr_cap < 1) || (qctl && !qstat))
     return cudaErrorInvalidValue;
-  void (*kernel)(Args) = mode == 0   ? mk_kernel<0>
-                         : mode == 1 ? mk_kernel<1>
-                         : mode == 2 ? mk_kernel<2>
-                         : mode == 3 ? mk_kernel<3>
-                         : mode == 4 ? mk_kernel<4>
-                                     : mk_kernel<5>;
+  using K = void (*)(Args);
+  static const K plain[6] = {mk_kernel<0, false>, mk_kernel<1, false>,
+                             mk_kernel<2, false>, mk_kernel<3, false>,
+                             mk_kernel<4, false>, mk_kernel<5, false>};
+  static const K observed[6] = {mk_kernel<0, true>, mk_kernel<1, true>,
+                                mk_kernel<2, true>, mk_kernel<3, true>,
+                                mk_kernel<4, true>, mk_kernel<5, true>};
+  const K kernel = ring || qctl ? observed[mode] : plain[mode];
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1380,6 +1544,11 @@ int hclib_mk_launch(int32_t* tasks, const int32_t* tasks_in,
   a.lstate = lstate;
   a.tstats = tstats;
   a.vstack = vstack;
+  a.ring = ring;
+  a.qctl = qctl;
+  a.qstat = qstat;
+  a.tr_cap = tr_cap;
+  a.qstride = qstride;
   a.nfn = nfn;
   a.nbatch = nbatch;
   a.nrows = nrows;

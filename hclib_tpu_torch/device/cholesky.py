@@ -310,11 +310,14 @@ def make_cholesky_megakernel(
     fused_only: bool = False,
     batch_updrow: bool = True,
     device="cuda",
+    checkpoint: Optional[bool] = None,
+    trace=None,
     **later,
 ) -> Megakernel:
     """``batch_updrow`` routes the row tasks through the batch tier
     (``UPD_B`` a round); ``False`` restores scalar dispatch. The two
-    factors are bit-identical."""
+    factors are bit-identical. ``checkpoint`` / ``trace`` are the
+    Megakernel's."""
     if factor_base is None:
         factor_base = min(tile, 128)
     _check_base(tile, factor_base)
@@ -339,6 +342,8 @@ def make_cholesky_megakernel(
         params={"tile": tile, "factor_base": factor_base, "nt": nt},
         route={"updrow": BatchSpec(UPD_B)} if batch_updrow else None,
         device=device,
+        checkpoint=checkpoint,
+        trace=trace,
         **later,
     )
 

@@ -43,8 +43,10 @@ What differs from the JAX module:
   re-stages the vertex table and applied flags, so every splice lands
   again on the same lane with the same word.
 - ``placement=`` / ``mesh=`` / ``quantum=`` / ``window=`` /
-  ``hop_order=`` raise naming ROADMAP A11, ``trace=`` naming A9,
-  ``serve_dyngraph`` naming A10 and ``reshard_dyngraph`` naming A11; the
+  ``hop_order=`` raise naming ROADMAP A11, ``serve_dyngraph`` naming A10
+  and ``reshard_dyngraph`` naming A11; ``trace=`` / ``checkpoint=`` go
+  to the Megakernel (the ``_dyngraph`` stamp rides a checkpoint bundle's
+  meta, runtime/checkpoint.py); the
   schedule-independence certificate (``si_claim``) is kept as the
   attribute only (A13).
 """
@@ -664,6 +666,7 @@ def run_dyngraph(
     reps: int = 64,
     capacity: int = 512,
     trace=None,
+    checkpoint: Optional[bool] = None,
     fuel: Optional[int] = None,
     lane_max_age: Optional[int] = None,
     priority_buckets: Optional[int] = None,
@@ -684,7 +687,8 @@ def run_dyngraph(
     ``host_incremental_pagerank`` for pagerank), with ``info`` carrying
     ``edges`` / ``relaxations`` / ``updates_applied`` / ``spare_in_use`` /
     ``dropped`` / ``queries`` and the per-query out values
-    (``query_values``)."""
+    (``query_values``); ``trace`` / ``checkpoint`` build the Megakernel
+    with the flight recorder / the quiesce poll."""
     multi = {"placement": placement, "mesh": mesh, "quantum": quantum,
              "window": window, "hop_order": hop_order}
     given = sorted(k for k, v in multi.items() if v is not None)
@@ -693,18 +697,14 @@ def run_dyngraph(
             f"run_dyngraph({', '.join(given)}=...): the mesh path (update "
             "broadcast, the steal exchange) is ROADMAP A11; the port runs "
             "one device")
-    if trace:
-        raise NotImplementedError(
-            "run_dyngraph(trace=...): single-device observability is "
-            "ROADMAP A9")
     for up in updates or ():
         graph.add_update(*up[:3])
     if mk is None:
         mk = make_dyngraph_megakernel(
-            kind, graph, width=width, capacity=capacity,
-            lane_max_age=lane_max_age, priority_buckets=priority_buckets,
-            delta=delta, update_priority=update_priority, reps=reps,
-            device=device)
+            kind, graph, width=width, capacity=capacity, trace=trace,
+            checkpoint=checkpoint, lane_max_age=lane_max_age,
+            priority_buckets=priority_buckets, delta=delta,
+            update_priority=update_priority, reps=reps, device=device)
     else:
         dg = getattr(mk, "_dyngraph", None)
         if dg is None or dg["n"] != graph.n or dg["kind"] != kind or (

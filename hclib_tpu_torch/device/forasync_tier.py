@@ -334,15 +334,19 @@ def make_forasync_megakernel(
     width: int = 0,
     prefetch: bool = True,
     capacity: int = 256,
+    trace=None,
+    checkpoint: Optional[bool] = None,
+    quiesce_stride: Optional[int] = None,
     device="cuda",
     **later,
 ) -> Megakernel:
     """Build the loop's megakernel. ``width=0`` is the scalar-dispatch
     arm (one tile per round - the bit-identity reference); ``width>0``
     routes the tile kind through the batch lanes, with the
-    double-buffered operand prefetch on by default. ``later``: JAX's
-    ``trace`` / ``checkpoint`` / ``quiesce_stride`` / ``verify``, which
-    the port's ``Megakernel`` refuses (their ROADMAP entries)."""
+    double-buffered operand prefetch on by default. ``trace`` /
+    ``checkpoint`` / ``quiesce_stride`` are the Megakernel's; ``later``
+    takes JAX's ``verify``, which the port's ``Megakernel`` refuses
+    (ROADMAP A13)."""
     route = ({tk.name: BatchSpec(width=width, prefetch=prefetch)}
              if width else None)
     return Megakernel(
@@ -353,6 +357,9 @@ def make_forasync_megakernel(
         capacity=capacity,
         num_values=16,
         succ_capacity=8,
+        trace=trace,
+        checkpoint=checkpoint,
+        quiesce_stride=quiesce_stride,
         device=device,
         **later,
     )
@@ -388,13 +395,8 @@ def run_forasync_device(
 ) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """Run one forasync tile loop on the device tier to completion;
     returns ``(data_out, info)`` (the data buffers as tensors on the
-    run's device). Single device only: ``placement`` / ``mesh`` raise,
-    and so does ``trace``."""
-    if trace:
-        raise NotImplementedError(
-            "run_forasync_device(trace=...): the device flight recorder "
-            "(single-device observability and checkpoint) is ROADMAP A9"
-        )
+    run's device; ``info['trace']`` with ``trace``). Single device only:
+    ``placement`` / ``mesh`` raise."""
     if placement is not None or mesh is not None:
         raise NotImplementedError(
             "forasync placement=/mesh= (place_tiles, MeshPlacement and the "
@@ -421,7 +423,8 @@ def run_forasync_device(
     else:
         kernel = make_forasync_megakernel(
             tk, width=w, prefetch=prefetch,
-            capacity=capacity or max(64, total + 8), device=device,
+            capacity=capacity or max(64, total + 8), trace=trace,
+            device=device,
         )
     b = TaskGraphBuilder()
     seed_tiles(b, bounds, tile)

@@ -33,7 +33,9 @@ What differs from the JAX module:
   ``_eff_cnt`` and the static-then-spare spawn order); any other callable
   raises naming A4. ``placement=`` / ``mesh=`` / ``runner=`` /
   ``quantum=`` / ``window=`` / ``hop_order=`` (the multi-device runners)
-  raise naming A11, ``trace=`` / ``checkpoint=`` naming A9.
+  raise naming A11. ``trace=`` / ``checkpoint=`` go to the Megakernel (a
+  traced run's ``info['tiers']`` carries the partial-age and, bucketed,
+  the bucket-occupancy gauges).
 - ``si_claim`` is kept as the attribute only: the certification
   (hclint) waits for ROADMAP A13.
 """
@@ -680,7 +682,8 @@ def run_frontier(
     info)``: the distance array (bfs/sssp, int32, INF = unreached) or the
     fixed-point rank array (pagerank, int64, ``m0`` mass units per vertex
     seeded). ``info`` gains ``edges`` (TEPS numerator) and
-    ``relaxations``."""
+    ``relaxations``; ``trace`` / ``checkpoint`` build the Megakernel with
+    the flight recorder / the quiesce poll."""
     multi = {"placement": placement, "mesh": mesh, "runner": runner,
              "quantum": quantum, "window": window, "hop_order": hop_order}
     given = sorted(k for k, v in multi.items() if v is not None)
@@ -689,19 +692,14 @@ def run_frontier(
             f"run_frontier({', '.join(given)}=...): the multi-device "
             "runners (placement seeding, the steal exchange) are ROADMAP "
             "A11; the port runs one device")
-    for name, value in (("trace", trace), ("checkpoint", checkpoint)):
-        if value:
-            raise NotImplementedError(
-                f"run_frontier({name}=...): single-device observability "
-                "and checkpoint are ROADMAP A9")
     if kind not in _KINDS:
         raise ValueError(f"unknown frontier kind {kind!r} (bfs|sssp|pagerank)")
     fk = _KINDS[kind](reps=reps) if kind == "pagerank" else _KINDS[kind]()
     if mk is None:
         mk = make_frontier_megakernel(
             fk, graph, width=width, prefetch=prefetch, capacity=capacity,
-            lane_max_age=lane_max_age, priority_buckets=priority_buckets,
-            delta=delta, device=device,
+            trace=trace, checkpoint=checkpoint, lane_max_age=lane_max_age,
+            priority_buckets=priority_buckets, delta=delta, device=device,
         )
     else:
         expect = (fk.name, graph.n, graph.nblocks, graph.st_base)

@@ -51,9 +51,15 @@ What differs from the JAX class:
 
 ``lane_max_age`` and ``priority_buckets`` (and their environment
 variables ``HCLIB_TPU_LANE_MAX_AGE`` / ``HCLIB_TPU_PRIORITY_BUCKETS``)
-act as in JAX. Left out (each raises ``NotImplementedError`` naming its
-ROADMAP entry, also when ``HCLIB_TPU_TRACE`` / ``HCLIB_TPU_CHECKPOINT``
-turn it on): trace, checkpoint / quiesce / ``resume``,
+act as in JAX, and so do the flight recorder (``trace=``,
+``HCLIB_TPU_TRACE``; ``info['trace']``, device/tracebuf.py) and the
+quiesce protocol (``checkpoint=``, ``quiesce_stride=``,
+``HCLIB_TPU_CHECKPOINT`` / ``HCLIB_TPU_QUIESCE_STRIDE``; ``run(quiesce=)``
+returns ``info['state']`` at a round boundary and ``resume(state)``
+continues it, runtime/checkpoint.py bundles it). On the card both run in
+the observed instances of ``mk_kernel`` (``kObs``); a build with neither
+launches the instance without them. Left out (``verify`` raises
+``NotImplementedError`` naming its ROADMAP entry):
 ``install_descriptor`` / ``headroom``, the hclint ``verify`` hook and the
 program cache. On the card, the age and bucket policies run in the
 scheduler instance that holds the frontier, knapsack, fib, UTS and
@@ -65,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -86,13 +93,33 @@ from .descriptor import (
     NO_TASK,
     TaskGraphBuilder,
 )
-from .state import resolve_device, tensor_of
+from .state import numpy_of, resolve_device, tensor_of
+from .tracebuf import (
+    TR_CKPT,
+    TR_FIRE_AGE,
+    TR_FIRE_BATCH,
+    TR_FIRE_BUCKET,
+    TR_FIRE_SCALAR,
+    TR_PREFETCH_DRAIN,
+    TR_PREFETCH_ISSUE,
+    TR_QUIESCE,
+    TR_ROUND_BEGIN,
+    TR_ROUND_END,
+    TR_SPILL,
+    NullTracer,
+    TraceRing,
+    Tracer,
+    bucket_occupancy,
+    lane_partial_age,
+    trace_info,
+)
 from .vector_engine import VECTOR_BODIES, VectorTaskSpec, make_subtree_runner
 
 __all__ = [
     "KernelContext", "BatchContext", "BatchSpec", "Megakernel", "VBLOCK",
     "BODIES", "BATCH_BODIES", "decode_overflow", "fault_mix", "BK_MAX",
-    "PRIORITY_RULES", "bucket_of",
+    "PRIORITY_RULES", "bucket_of", "QC_FLAG", "QC_AFTER", "QS_QUIESCED",
+    "QS_AT", "QS_POLLS",
 ]
 
 
@@ -154,6 +181,14 @@ C_EXECUTED = 5
 C_OVERFLOW = 6
 C_ROUNDS = 7
 C_VBASE = 7
+
+# The quiesce protocol's words (checkpoint builds): qctl, the 8 words the
+# host uploads at entry, and qstat, the 8 the launch writes back.
+QC_FLAG = 0    # nonzero = quiesce requested
+QC_AFTER = 1   # honor the flag only once this many tasks ran this rep
+QS_QUIESCED = 0  # 1 = the round loop observed the quiesce word
+QS_AT = 1        # tasks executed since entry at observation
+QS_POLLS = 2     # scheduling rounds ticked (the quiesce_stride counter)
 
 # Batch-tier statistics (the tstats row a batch-routed megakernel writes,
 # JAX's layout; decoded as info['tiers']). Reset at every stage, so with
@@ -310,12 +345,6 @@ EBLOCK = 128          # a frontier edge block (frontier.py EBLOCK)
 
 # JAX constructor arguments this port leaves out -> ROADMAP entry.
 _LATER_ARGS = {
-    "trace": "single-device observability and checkpoint (ROADMAP A9, "
-             "row 1o: tracebuf)",
-    "checkpoint": "single-device observability and checkpoint (ROADMAP "
-                  "A9, row 1o: quiesce / resume)",
-    "quiesce_stride": "single-device observability and checkpoint "
-                      "(ROADMAP A9, row 1o: quiesce / resume)",
     "verify": "hclint recording hook for CUDA bodies (ROADMAP A13)",
 }
 
@@ -599,7 +628,8 @@ class BatchContext:
 class _PlainCore:
     """The plain version of the CUDA scheduler: the same stage / sched /
     complete over Python lists made from the state tensors (written back
-    at exit), the batch tier included."""
+    at exit), the batch tier, the flight recorder and the quiesce poll
+    included."""
 
     def __init__(self, mk: "Megakernel", st: Dict[str, object]) -> None:
         self.capacity = mk.capacity
@@ -639,10 +669,36 @@ class _PlainCore:
         self.lstate = [[0] * LS_WORDS for _ in range(nrows)]
         self.tstats = [0] * TS_WORDS
         self.scratch: dict = {}
+        # The recorder over the ring row, and the quiesce words.
+        self.ring = st["trace"].tolist() if "trace" in st else None
+        self.tr = Tracer(self.ring, mk.trace.capacity) \
+            if self.ring is not None else NullTracer()
+        self.qctl = st["qctl"].tolist() if "qctl" in st else None
+        self.qstride = mk.quiesce_stride
+        self.qbuf = [0] * 8
+        self.qstat = [0] * 8
+
+    def poll(self, since: int) -> bool:
+        """megakernel.py quiesce_hook: re-read qctl every ``qstride``
+        rounds (round 0 always), count the round, and report a quiesce
+        once QC_AFTER tasks ran this rep; the first observation records
+        TR_QUIESCE."""
+        qs = self.qstat
+        cnt = qs[QS_POLLS]
+        qs[QS_POLLS] = cnt + 1
+        if self.qstride <= 1 or cnt % self.qstride == 0:
+            self.qbuf[:] = self.qctl
+        q = self.qbuf[QC_FLAG] != 0 and since >= self.qbuf[QC_AFTER]
+        if q and qs[QS_QUIESCED] == 0:
+            qs[QS_QUIESCED] = 1
+            qs[QS_AT] = since
+            self.tr.emit(TR_QUIESCE, self.tr.now(), since)
+        return q
 
     def stage(self, stage_all_values: bool) -> None:
         cin, free, cap = self.counts_in, self.free, self.capacity
         free[0] = 0
+        self.tr.reset()
         for row in self.lstate:
             row[:] = [0] * LS_WORDS
         self.tstats[:] = [0] * TS_WORDS
@@ -693,12 +749,13 @@ class _PlainCore:
         self.bodies[fn](KernelContext(self, idx))
         self.complete(idx)
 
-    def batch_round(self, row: int, e0: int, fuel: int) -> None:
+    def batch_round(self, row: int, e0: int, fuel: int, rt: int) -> None:
         """megakernel.py batch_round: fire one batch off lane row ``row``
         (a kind's bucket ring); LIFO pops for non-prefetch specs, FIFO
         for bucket rings and for prefetch specs, with the prefetch
-        handshake for the latter."""
-        _, spec, body_id, body, _ = self.specs[row // self.nbk]
+        handshake for the latter. Records the fire (and the prefetch
+        announce) at round ``rt`` before the body runs."""
+        fid, spec, body_id, body, _ = self.specs[row // self.nbk]
         ls, lane, cap, ts = self.lstate[row], self.lanes[row], \
             self.capacity, self.tstats
         B = spec.width
@@ -713,6 +770,9 @@ class _PlainCore:
         if spec.prefetch and (avail - take) > 0 and (
                 self.counts[C_EXECUTED] - e0 + take < fuel):
             nxt = min(avail - take, B)
+        self.tr.emit(TR_FIRE_BATCH, rt, (fid << 16) | take, pre)
+        if spec.prefetch and nxt > 0:
+            self.tr.emit(TR_PREFETCH_ISSUE, rt, fid, nxt)
         self.dispatch[body_id] += 1
         body(BatchContext(self, row, base, take, B, pre, buf, nxt))
         for s in range(take):
@@ -751,28 +811,41 @@ class _PlainCore:
         return None, False
 
     def sched(self, fuel: int) -> None:
-        c, ready, cap = self.counts, self.ready, self.capacity
+        c, ready, cap, tr = self.counts, self.ready, self.capacity, self.tr
         e0 = c[C_EXECUTED]
         ts, nbk = self.tstats, self.nbk
+        tr.emit(TR_ROUND_BEGIN, tr.tick(), c[C_TAIL] - c[C_HEAD],
+                c[C_PENDING])
         while c[C_PENDING] > 0 and c[C_EXECUTED] - e0 < fuel:
             head, tail = c[C_HEAD], c[C_TAIL]
             ring_work = head < tail
+            # The round index of this round's records; then the quiesce
+            # poll, which stops the round before it fires or pops.
+            rt = tr.tick()
+            qz = self.qctl is not None and self.poll(c[C_EXECUTED] - e0)
             avails = [ls[LS_TAIL] - ls[LS_HEAD] for ls in self.lstate]
             lane_work = any(a > 0 for a in avails)
             # One dispatch a round: a batch off the selected row, or a
             # ring pop.
-            row, starved = self._select(avails, ring_work)
+            row, starved = (None, False) if qz else \
+                self._select(avails, ring_work)
             if row is not None:
                 bk = row % nbk
+                fid, spec = self.specs[row // nbk][:2]
+                take = min(avails[row], spec.width)
                 if starved and ring_work:
+                    tr.emit(TR_FIRE_AGE, rt, (fid << 16) | take,
+                            self.lstate[row][LS_AGE])
                     ts[TS_AGE_FIRES] += 1
                 if starved and nbk > 1 and any(
                         a > 0 and r % nbk < bk for r, a in enumerate(avails)):
                     ts[TS_INVERSIONS] += 1
+                if nbk > 1:
+                    tr.emit(TR_FIRE_BUCKET, rt, (bk << 16) | take, fid)
                 if bk > 0:
                     ts[TS_BUCKET_FIRES] += 1
-                self.batch_round(row, e0, fuel)
-            elif ring_work:
+                self.batch_round(row, e0, fuel, rt)
+            elif ring_work and not qz:
                 idx = ready[(tail - 1) % cap]
                 c[C_TAIL] = tail - 1
                 # Pop-time routing: a routed kind goes to its lane (its
@@ -790,38 +863,44 @@ class _PlainCore:
                         ts[TS_ROUTED] += 1
                         break
                 else:
+                    tr.emit(TR_FIRE_SCALAR, rt, fn, idx)
                     self.step(idx)
                     ts[TS_SCALAR_ROUNDS] += 1
             if self.max_age:
-                # The starved-round clocks, after dispatch: a row that
-                # holds entries and did not fire ages by one, the others
-                # reset.
+                # The starved-round clocks, after dispatch (a quiesced
+                # round's too): a row that holds entries and did not fire
+                # ages by one, the others reset.
                 for i, ls in enumerate(self.lstate):
                     age = 0 if i == row or ls[LS_TAIL] == ls[LS_HEAD] \
                         else ls[LS_AGE] + 1
                     ls[LS_AGE] = age
                     ts[TS_MAX_AGE] = max(ts[TS_MAX_AGE], age)
-            if not (ring_work or lane_work):
+            if qz or not (ring_work or lane_work):
                 break
         # Exit with unrun lane entries: retire an in-flight prefetch,
         # then spill the entries to the ring HEAD (the cold end), row by
-        # row.
+        # row, each recorded at the round cursor.
+        rt_x = tr.now()
         for li in range(len(self.lstate)):
-            _, spec, _, _, drain = self.specs[li // nbk]
+            fid, spec, _, _, drain = self.specs[li // nbk]
             ls, lane = self.lstate[li], self.lanes[li]
             h, t = ls[LS_HEAD], ls[LS_TAIL]
             if spec.prefetch:
                 pre = ls[LS_PF_N] if ls[LS_PF_BASE] == h + 1 else 0
                 if pre > 0:
+                    tr.emit(TR_PREFETCH_DRAIN, rt_x, fid, pre)
                     drain(BatchContext(self, li, h, pre, spec.width, pre,
                                        ls[LS_PF_BUF], 0))
             head0 = c[C_HEAD]
             for s in range(t - h):
                 ready[(head0 - 1 - s) % cap] = lane[(h + s) % cap]
             c[C_HEAD] = head0 - (t - h)
+            if t > h:
+                tr.emit(TR_SPILL, rt_x, fid, t - h)
             ls[LS_HEAD] = t
             ls[LS_PF_BASE] = 0
             ts[TS_SPILLED] += t - h
+        tr.emit(TR_ROUND_END, tr.tick(), c[C_EXECUTED] - e0, c[C_PENDING])
 
     def run(self, fuel: int, reps: int, stage_all_values: bool) -> None:
         total = 0
@@ -830,6 +909,11 @@ class _PlainCore:
             self.sched(fuel)
             total += self.counts[C_EXECUTED]
         self.counts[C_EXECUTED] = _i32(total)
+        c = self.counts
+        if self.qstat[QS_QUIESCED]:
+            # The state-export record of a quiesced launch.
+            self.tr.emit(TR_CKPT, self.tr.now(), c[C_PENDING],
+                         c[C_TAIL] - c[C_HEAD])
         self.write_back()
 
     def write_back(self) -> None:
@@ -842,6 +926,10 @@ class _PlainCore:
         st["ivalues"].copy_(torch.tensor(self.ivalues, dtype=torch.int32))
         if "tstats" in st:
             st["tstats"].copy_(torch.tensor(self.tstats, dtype=torch.int32))
+        if self.ring is not None:
+            st["trace"].copy_(torch.tensor(self.ring, dtype=torch.int32))
+        if self.qctl is not None:
+            st["qstat"].copy_(torch.tensor(self.qstat, dtype=torch.int32))
 
 
 def _plain_bodies() -> Dict[str, object]:
@@ -908,7 +996,11 @@ class Megakernel:
     tile body (``TILE_BODIES``) loads and stores. ``lane_max_age`` and
     ``priority_buckets`` arm the batch tier's age-triggered firing policy
     and its bucket rings as in JAX (unset: ``HCLIB_TPU_LANE_MAX_AGE`` /
-    ``HCLIB_TPU_PRIORITY_BUCKETS``). Runs on ``device`` (default
+    ``HCLIB_TPU_PRIORITY_BUCKETS``). ``trace`` (a record capacity, True
+    for the default, or a ``TraceRing``) adds the flight recorder;
+    ``checkpoint=True`` the quiesce poll, every ``quiesce_stride`` rounds
+    (unset: ``HCLIB_TPU_TRACE``, ``HCLIB_TPU_CHECKPOINT``,
+    ``HCLIB_TPU_QUIESCE_STRIDE``). Runs on ``device`` (default
     ``"cuda"``; ``"cpu"`` runs the plain version).
     """
 
@@ -933,9 +1025,11 @@ class Megakernel:
         verify: Optional[bool] = None,
     ) -> None:
         # The build variables, read where JAX reads them (megakernel.py
-        # :852-929) and with its semantics. Tracing and checkpointing are
-        # not ported: turning either on, by argument or environment,
-        # raises.
+        # :852-929) and with its semantics.
+        if verify:
+            raise NotImplementedError(
+                f"Megakernel(verify=...) is not ported yet: "
+                f"{_LATER_ARGS['verify']} in ROADMAP.md")
         if trace is None:
             env = env_raw("HCLIB_TPU_TRACE", "")
             if env and env != "0":
@@ -943,20 +1037,17 @@ class Megakernel:
                     n = int(env)
                 except ValueError:
                     n = 1
-                trace = n if n > 0 else None
+                if n > 0:
+                    trace = True if n == 1 else n
+        self.trace = TraceRing.of(trace)
         if checkpoint is None:
             checkpoint = env_bool("HCLIB_TPU_CHECKPOINT")
-        for name, value in (("trace", trace), ("checkpoint", checkpoint),
-                            ("quiesce_stride", quiesce_stride),
-                            ("verify", verify)):
-            if value:
-                raise NotImplementedError(
-                    f"Megakernel({name}=...) is not ported yet: "
-                    f"{_LATER_ARGS[name]} in ROADMAP.md"
-                )
+        self.checkpoint = bool(checkpoint)
         # Without checkpointing the stride changes nothing (as in JAX).
-        self.quiesce_stride = max(1, int(env_int(
-            "HCLIB_TPU_QUIESCE_STRIDE", None, malformed=1) or 1))
+        if quiesce_stride is None:
+            quiesce_stride = env_int("HCLIB_TPU_QUIESCE_STRIDE", None,
+                                     malformed=1)
+        self.quiesce_stride = max(1, int(quiesce_stride or 1))
         if lane_max_age is None:
             lane_max_age = env_int("HCLIB_TPU_LANE_MAX_AGE", None)
         lane_max_age = int(lane_max_age or 0)
@@ -1300,25 +1391,68 @@ class Megakernel:
         if self.batch_specs:
             st["tstats"] = torch.zeros(TS_WORDS, dtype=torch.int32,
                                        device=dev)
+        self._observed_rows(st, dev)
         return st
 
+    def _observed_rows(self, st: Dict[str, object], dev) -> None:
+        """Add a traced build's ring row and a checkpoint build's qctl and
+        qstat rows to ``st`` where missing, so that ``launch`` only writes
+        them: the kernel writes the ring's header and qstat whole at exit,
+        and ``st["qctl_host"]`` holds the qctl words last uploaded."""
+        if self.trace is not None and "trace" not in st:
+            st["trace"] = self.trace.row(dev)
+        if self.checkpoint and "qctl" not in st:
+            st["qctl"] = torch.zeros(8, dtype=torch.int32, device=dev)
+            st["qctl_host"] = np.zeros(8, np.int32)
+            st["qstat"] = torch.zeros(8, dtype=torch.int32, device=dev)
+
+    @staticmethod
+    def quiesce_words(quiesce) -> np.ndarray:
+        """A ``quiesce=`` argument as the 8-word qctl row: None/False =
+        off (zeros), True = quiesce at the first round boundary, an int k
+        = quiesce once >= k tasks have executed this rep (a batch round
+        may overshoot by width-1, as fuel does)."""
+        q = np.zeros(8, np.int32)
+        if quiesce is None or quiesce is False:
+            return q
+        q[QC_FLAG] = 1
+        if quiesce is not True:
+            q[QC_AFTER] = int(quiesce)
+        return q
+
     def launch(self, st: Dict[str, object], fuel: int = 1 << 22,
-               reps: int = 1, stage_all_values: bool = False) -> torch.Tensor:
+               reps: int = 1, stage_all_values: bool = False,
+               quiesce=None) -> torch.Tensor:
         """Run the scheduler over state ``st`` IN PLACE (its task table,
         ready ring, counts, value slots, data buffers and, for a routed
         table, ``st["tstats"]`` - added if missing - are the outputs).
         ``reps`` > 1 re-stages the input state and re-runs the graph, with
-        C_EXECUTED accumulated across reps. Returns the per-body dispatch
-        counts (int32[NDISPATCH] by body id, on the state's device; not
-        synced).
+        C_EXECUTED accumulated across reps. A traced build writes its ring
+        to ``st["trace"]``; a checkpoint build uploads ``quiesce``
+        (``quiesce_words``) to ``st["qctl"]`` when it differs from the
+        words there and writes ``st["qstat"]`` (rows ``state`` allocates).
+        Returns the per-body dispatch counts (int32[NDISPATCH] by body id,
+        on the state's device; not synced).
 
         On CUDA tensors this launches the kernel (and raises if the launch
         fails); on CPU tensors it runs the plain version."""
         self._check_data(st["data"])
         tasks = st["tasks"]
+        if quiesce is False:  # falsy boolean plumbing = off
+            quiesce = None
+        if quiesce is not None and not self.checkpoint:
+            raise ValueError(
+                "quiesce= needs Megakernel(checkpoint=True): the quiesce "
+                "word is compiled into the round loop only then")
         if self.batch_specs and "tstats" not in st:
             st["tstats"] = torch.zeros(TS_WORDS, dtype=torch.int32,
                                        device=tasks.device)
+        self._observed_rows(st, tasks.device)
+        if self.checkpoint:
+            words = self.quiesce_words(quiesce)
+            if not np.array_equal(words, st["qctl_host"]):
+                st["qctl"].copy_(torch.from_numpy(words))
+                st["qctl_host"] = words
         if tasks.device.type == "cpu":
             core = _PlainCore(self, st)
             core.run(int(fuel), int(reps), stage_all_values)
@@ -1416,10 +1550,12 @@ class Megakernel:
         else:
             mode = 3 if self.slab_words else 2 if self.vector_specs else \
                 int(bool(nbatch or self.sw_bodies))
+        ring = st.get("trace")
+        qctl, qstat = st.get("qctl"), st.get("qstat")
         lib = _build.library("megakernel")
         fn = lib.hclib_mk_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 13 + [
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 15 + [
             ctypes.c_void_p
         ]
         err = fn(
@@ -1434,6 +1570,11 @@ class Megakernel:
             lanes.data_ptr(), lstate.data_ptr(),
             tstats.data_ptr() if tstats is not None else None,
             vstack.data_ptr() if vstack is not None else None,
+            ring.data_ptr() if ring is not None else None,
+            qctl.data_ptr() if qctl is not None else None,
+            qstat.data_ptr() if qstat is not None else None,
+            self.trace.capacity if ring is not None else 0,
+            self.quiesce_stride,
             len(self.kernel_names), nbatch, nrows, self.nbk,
             self.lane_max_age if mode >= 4 else 0, cap, nv,
             min(fuel, 0x7FFFFFFF),
@@ -1443,6 +1584,9 @@ class Megakernel:
         )
         _build.check(lib, err, "megakernel")
         _build.LAUNCHES["megakernel"] += 1
+        if ring is not None or qctl is not None:
+            # The launch ran an observed instance: the recorder and poll.
+            _build.LAUNCHES["tracebuf"] += 1
         return dispatch
 
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
@@ -1494,11 +1638,52 @@ class Megakernel:
         return dict(self._last_info or {})
 
     def run(self, builder: TaskGraphBuilder, data=None, ivalues=None,
-            fuel: int = 1 << 22):
-        """Execute the task graph to completion; returns
-        (ivalues numpy array, data dict of tensors, info dict)."""
+            fuel: int = 1 << 22, quiesce=None):
+        """Execute the task graph to completion; returns (ivalues numpy
+        array, data dict of tensors, info dict). ``quiesce`` (checkpoint
+        builds; see ``quiesce_words``) stops the scheduler at a round
+        boundary: the run returns ``info['quiesced'] = True`` and
+        ``info['state']`` (numpy copies of the live scheduler state, data
+        included; feed it to ``resume`` or
+        ``runtime.checkpoint.snapshot_megakernel``) instead of raising
+        StallError on the pending remainder."""
         st = self.state(builder, data, ivalues)
-        dispatch = self.launch(st, fuel)
+        return self._execute(st, fuel, quiesce, stage_all_values=False)
+
+    def resume(self, state: Dict[str, object], fuel: int = 1 << 22,
+               quiesce=None):
+        """Re-enter mid-graph from a quiesced run's ``info['state']`` (or a
+        restored ``CheckpointBundle``'s) and continue; a resumed run may
+        be quiesced again. Stages ALL value slots and rebuilds the row
+        free stack from the completion tombstones, into fresh tensors on
+        this megakernel's device."""
+        data = dict(state.get("data") or {})
+        if set(data) != set(self.data_specs):
+            raise ValueError(
+                f"state data buffers {sorted(data)} != declared "
+                f"{sorted(self.data_specs)}")
+        dev = self.device
+        st = {k: tensor_of(np.asarray(state[k], np.int32), dev)
+              for k in ("tasks", "succ", "ready", "counts", "ivalues")}
+        st["data"] = {
+            k: v.to(dev).clone() if isinstance(v, torch.Tensor)
+            else tensor_of(v, dev) for k, v in data.items()}
+        return self._execute(st, fuel, quiesce, stage_all_values=True)
+
+    def _execute(self, st, fuel, quiesce, stage_all_values: bool):
+        dev = st["tasks"].device
+        cuda = dev.type == "cuda"
+        # A traced run's epoch brackets the launch (tracebuf.trace_info):
+        # the host clock before it and after the card has finished it.
+        traced = self.trace is not None
+        if traced and cuda:
+            torch.cuda.synchronize(dev)
+        t0_ns = time.monotonic_ns() if traced else 0
+        dispatch = self.launch(st, fuel, stage_all_values=stage_all_values,
+                               quiesce=quiesce)
+        if traced and cuda:
+            torch.cuda.synchronize(dev)
+        t1_ns = time.monotonic_ns() if traced else 0
         counts_np = st["counts"].cpu().numpy()
         ivalues_np = st["ivalues"].cpu().numpy()
         info = {
@@ -1508,10 +1693,31 @@ class Megakernel:
             "value_alloc": int(counts_np[C_VALLOC]),
             "overflow": bool(counts_np[C_OVERFLOW]),
             "dispatch": self.fold_dispatches(dispatch),
-            "device": str(st["tasks"].device),
+            "device": str(dev),
         }
         if self.batch_specs:
             info["tiers"] = self.decode_tier_stats(st["tstats"].cpu())
+        quiesced = False
+        if self.checkpoint:
+            qstat = st["qstat"].cpu().numpy()
+            quiesced = bool(qstat[QS_QUIESCED])
+            info["quiesced"] = quiesced
+            if quiesced:
+                info["quiesce"] = {"executed_at": int(qstat[QS_AT])}
+        if self.trace is not None:
+            info["trace"] = trace_info([st["trace"].cpu().numpy()], t0_ns,
+                                       t1_ns, self.trace.capacity)
+            if "tiers" in info:
+                info["tiers"].update(self.tier_gauges(info["trace"]))
+        if quiesced:
+            info["state"] = {
+                "tasks": numpy_of(st["tasks"]),
+                "succ": numpy_of(st["succ"]),
+                "ready": numpy_of(st["ready"]),
+                "counts": counts_np.copy(),
+                "ivalues": ivalues_np.copy(),
+                "data": {k: numpy_of(v) for k, v in st["data"].items()},
+            }
         self._last_info = info
         if info["overflow"]:
             raise RuntimeError(
@@ -1520,7 +1726,7 @@ class Megakernel:
                 f"(capacity={self.capacity}, num_values={self.num_values}); "
                 "raise the limits, coarsen tasks, or audit frees"
             )
-        if info["pending"] != 0:
+        if info["pending"] != 0 and not quiesced:
             raise StallError(
                 f"megakernel stalled with {info['pending']} pending tasks "
                 f"after {info['executed']} executed (dependency cycle or fuel "
@@ -1528,6 +1734,20 @@ class Megakernel:
                 stats=info,
             )
         return ivalues_np, st["data"], info
+
+    def tier_gauges(self, trace) -> Dict[str, object]:
+        """The trace-derived tier gauges JAX adds to ``info['tiers']`` of
+        a traced run: the longest partial-fire streak per lane
+        (``lane_partial_ages`` by F_FN, and their max) and, with bucket
+        rings, the per-bucket occupancy."""
+        widths = {fid: spec.width for fid, spec, _ in self.batch_specs}
+        ages = lane_partial_age(trace, widths)
+        out = {"lane_partial_ages": ages,
+               "lane_partial_age": max(ages.values(), default=0)}
+        if self.priority_buckets:
+            out["bucket_occupancy"] = bucket_occupancy(
+                trace, widths, self.priority_buckets)
+        return out
 
 
 def potrf_smem_bytes(factor_base: int) -> int:

@@ -258,7 +258,7 @@ def _data_specs(nt_i: int, nt_j: int, with_h: bool) -> dict:
 
 def _sw_batch_megakernel(nt_i: int, nt_j: int, with_h: bool, chunk: int,
                          width: int, capacity: int, succ_capacity: int,
-                         device) -> Megakernel:
+                         device, checkpoint=None, trace=None) -> Megakernel:
     return Megakernel(
         kernels=["sw_wave"],
         route={"sw_wave": BatchSpec(width, prefetch=True)},
@@ -268,12 +268,15 @@ def _sw_batch_megakernel(nt_i: int, nt_j: int, with_h: bool, chunk: int,
         succ_capacity=succ_capacity,
         params={"nt_j": nt_j, "chunk": chunk},
         device=device,
+        checkpoint=checkpoint,
+        trace=trace,
     )
 
 
 def make_sw_wave_megakernel(nt_i: int, nt_j: int, with_h: bool = True,
                             chunk: int = WAVE_R, width: int = WAVE_B,
-                            device="cuda") -> Megakernel:
+                            device="cuda", checkpoint: Optional[bool] = None,
+                            trace=None) -> Megakernel:
     nwaves = nt_i + nt_j - 1
     chunks = [
         -(-min(w + 1, nt_i, nt_j, nt_i + nt_j - 1 - w) // chunk)
@@ -287,6 +290,7 @@ def make_sw_wave_megakernel(nt_i: int, nt_j: int, with_h: bool = True,
     return _sw_batch_megakernel(
         nt_i, nt_j, with_h, chunk, width, capacity=max(64, sum(chunks)),
         succ_capacity=max(64, csr_words), device=device,
+        checkpoint=checkpoint, trace=trace,
     )
 
 

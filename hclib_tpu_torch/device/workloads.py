@@ -93,8 +93,11 @@ def fib_batch_body(ctx: BatchContext) -> None:
 def make_fib_megakernel(
     capacity: int = 768,
     num_values: Optional[int] = None,
+    trace=None,
     batch_width: Optional[int] = None,
+    checkpoint: Optional[bool] = None,
     device="cuda",
+    quiesce_stride: Optional[int] = None,
 ) -> Megakernel:
     need = VBLOCK * capacity + 16  # 16 host slots for presets/outputs
     if num_values is None:
@@ -111,6 +114,9 @@ def make_fib_megakernel(
         succ_capacity=64,
         uses_row_values=True,
         route=batch_of("fib", batch_width) if batch_width else None,
+        trace=trace,
+        checkpoint=checkpoint,
+        quiesce_stride=quiesce_stride,
         device=device,
     )
 
@@ -201,12 +207,17 @@ def make_uts_megakernel(
     m_children: int = 4,
     max_depth: int = 12,
     capacity: int = 1024,
+    trace=None,
+    checkpoint: Optional[bool] = None,
+    quiesce_stride: Optional[int] = None,
     batch_width: Optional[int] = None,
     device="cuda",
     **later,
 ) -> Megakernel:
     """Seeded unbalanced-tree search (see the JAX docstring); the tree is
-    a pure function of the seed."""
+    a pure function of the seed. ``trace`` / ``checkpoint`` /
+    ``quiesce_stride`` are the Megakernel's (the traversal is what the
+    checkpoint tests quiesce mid-tree)."""
     return Megakernel(
         kernels=["uts_node"],
         capacity=capacity,
@@ -215,6 +226,9 @@ def make_uts_megakernel(
         params={"seed": seed, "q_millis": q_millis,
                 "m_children": m_children, "max_depth": max_depth},
         route=batch_of("uts_node", batch_width) if batch_width else None,
+        trace=trace,
+        checkpoint=checkpoint,
+        quiesce_stride=quiesce_stride,
         device=device,
         **later,
     )

@@ -11,12 +11,25 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["REGISTRY", "env_int", "env_raw", "env_set", "env_bool"]
+__all__ = ["REGISTRY", "env_int", "env_raw", "env_set", "env_bool",
+           "env_str"]
 
 # name -> (kind, default, doc), as the JAX package's registry rows.
 REGISTRY = {
     "HCLIB_TPU_FORASYNC_WIDTH": (
         "int", "8", "default forasync device-tier batch width"),
+    "HCLIB_TPU_CKPT_DIR": (
+        "str", "unset",
+        "BundleStore root directory: default_store() writes generations "
+        "under it"),
+    "HCLIB_TPU_CKPT_KEEP": (
+        "int", "3",
+        "BundleStore retention: generations kept after each publish (>= 1; "
+        "malformed text raises)"),
+    "HCLIB_TPU_CKPT_FSYNC": (
+        "bool", "on",
+        "fsync bundle members and directories at publish (0 = fast mode "
+        "for tests; crash-safety not guaranteed)"),
     "HCLIB_TPU_TRACE": (
         "int", "0 (off)",
         "flight-recorder ring capacity (1 = default capacity; malformed "
@@ -91,3 +104,9 @@ def env_int(name: str, default: Optional[int] = None, *,
         if malformed == "raise":
             raise ValueError(f"{name}={v!r} must be an int") from None
         return malformed
+
+
+def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """The text; unset or empty -> ``default``."""
+    v = _lookup(name)
+    return default if not v else v

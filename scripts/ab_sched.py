@@ -5,7 +5,10 @@ Times the two scheduler main-path graphs of the port, fib(24) (capacity
 batch tier, at batch_width=8, and, where it has the graph frontier, the
 static SSSP arms of chip_smoke.py's graph_bench phase (bench.py --graph's
 rmat_edges(9, efactor=8, seed=7), capacity 4096, width 0 and 8, the
-policy instance), on each given checkout of the repo, in
+policy instance), and, where the tree has the flight recorder and the
+quiesce poll, fib(24) and UTS with the trace ring on (1,024 records) and
+with checkpoint on at stride 1 (``*_trace``, ``*_ckpt``), on each given
+checkout of the repo, in
 fresh processes that alternate between the trees (A B B A, ``--rounds``
 times), so that two versions of ``csrc/megakernel.cu`` are compared within
 one call on one card. Each process builds (or reuses) its tree's
@@ -50,7 +53,12 @@ def worker(root: str, reps: int, only) -> dict:
     ]
     # The batched forms, where the tree has the batch tier.
     graphs += [(name + "_b8", lambda make=make: make(batch_width=8), *rest)
-               for name, make, *rest in graphs]
+               for name, make, *rest in graphs[:2]]
+    # The observed instances, where the tree has them.
+    graphs += [(name + suffix, lambda make=make, kw=kw: make(**kw), *rest)
+               for name, make, *rest in graphs[:2]
+               for suffix, kw in (("_trace", {"trace": 1024}),
+                                  ("_ckpt", {"checkpoint": True}))]
     staged = []
     for name, make, fn, args, slot, want in graphs:
         def setup(make=make, fn=fn, args=args, slot=slot):
@@ -79,8 +87,8 @@ def worker(root: str, reps: int, only) -> dict:
             continue
         try:
             mk, b, data, iv = setup()
-        except NotImplementedError:
-            continue
+        except (NotImplementedError, TypeError):
+            continue  # an arm this tree does not have
         mk.launch(mk.state(b, data=data, ivalues=iv))  # warm-up
         times = []
         for _ in range(reps):
@@ -102,7 +110,7 @@ def worker(root: str, reps: int, only) -> dict:
 
 def ptxas(root: str) -> dict:
     """Each ``mk_kernel`` instance's registers, stack frame and spills
-    from ptxas -v, by its kMode."""
+    from ptxas -v, by its kMode ("+obs": the observed instance)."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
@@ -113,10 +121,11 @@ def ptxas(root: str) -> dict:
     lines = r.stderr.splitlines()
     out = {}
     for i, line in enumerate(lines):
-        m = re.search(r"mk_kernelILi(\d)E", line)
+        m = re.search(r"mk_kernelILi(\d)E(?:Lb(\d)E)?", line)
         if m and "Compiling" in line:
             text = " ".join(lines[i:i + 4])
-            out[m.group(1)] = {k: int(v) for v, k in re.findall(
+            key = m.group(1) + ("+obs" if m.group(2) == "1" else "")
+            out[key] = {k: int(v) for v, k in re.findall(
                 r"(\d+) (bytes stack frame|bytes spill stores|registers)",
                 text)}
     return out or {"error": r.stderr[-400:]}
@@ -130,7 +139,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--graphs", default="",
                     help="comma-separated subset of fib24, uts20, fib24_b8, "
-                    "uts20_b8, sssp9_w0, sssp9_w8 (default: all)")
+                    "uts20_b8, fib24_trace, uts20_trace, fib24_ckpt, "
+                    "uts20_ckpt, sssp9_w0, sssp9_w8 (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ns = ap.parse_args()
     if ns.worker:

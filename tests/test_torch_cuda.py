@@ -22,6 +22,7 @@ from hclib_tpu_torch.device import frontier as tf
 from hclib_tpu_torch.device import megakernel as tmk
 from hclib_tpu_torch.device import smithwaterman as ts
 from hclib_tpu_torch.device import sw_pallas as tsp
+from hclib_tpu_torch.device import tracebuf as ttb
 from hclib_tpu_torch.device import vector_engine as tv
 from hclib_tpu_torch.device import workloads as tw
 from hclib_tpu_torch.device import uts_vec as tuv
@@ -43,13 +44,20 @@ def card():
 
 
 def _raw(mk, b, reps=1, stage_all=False, fuel=1 << 22, data=None,
-         ivalues=None):
+         ivalues=None, quiesce=None):
+    """Every output of one launch: the state, tstats, data and, on an
+    observed build, qstat, the ring's header and its decoded records."""
     st = mk.state(b, data=data, ivalues=ivalues)
-    mk.launch(st, fuel=fuel, reps=reps, stage_all_values=stage_all)
-    keys = ["tasks", "ready", "counts", "ivalues"] + (
-        ["tstats"] if "tstats" in st else [])
-    out = {k: st[k].cpu() for k in keys}
+    mk.launch(st, fuel=fuel, reps=reps, stage_all_values=stage_all,
+              quiesce=quiesce)
+    out = {k: st[k].cpu() for k in ("tasks", "ready", "counts", "ivalues",
+                                     "tstats", "qstat") if k in st}
     out.update({f"data.{k}": v.cpu() for k, v in st["data"].items()})
+    if "trace" in st:
+        ring = st["trace"].cpu()
+        out["trace.header"] = ring[:ttb.HDR]
+        out["trace.records"] = torch.from_numpy(
+            ttb.decode_ring(ring.numpy())["records"])
     return out
 
 
@@ -580,3 +588,98 @@ def test_run_dyngraph_equals_host(card, width):
                               width=width, device="cuda")
     assert np.array_equal(r, td.host_dyngraph("sssp", g, 0))
     assert info["updates_applied"] == len(ups) and info["dropped"] == 0
+
+
+# The flight recorder and the quiesce poll (the observed instances): a
+# traced, checkpoint-built run, then one quiesced at a round boundary on a
+# ring a quarter of the full run's records (its cursor wraps) and resumed,
+# on the card and on the plain core, in each of instances 0-5.
+def _obs_cases():
+    """name -> (make(device, ring capacity), builder, data, ivalues,
+    quiesce)."""
+    def obs(cap):
+        return dict(trace=cap, checkpoint=True)
+    fib = TaskGraphBuilder()
+    fib.add(tw.FIB, args=[11], out=0)
+    uts = TaskGraphBuilder()
+    uts.add(tw.UTS_NODE, args=[1, 0])
+    routed = TaskGraphBuilder()
+    t0 = routed.add(tw.FIB, args=[9], out=0)
+    t1 = routed.add(tw.FIB, args=[10], out=1)
+    routed.add(tw.SUM, args=[0, 1], deps=[t0, t1], out=2)
+    routed.reserve_values(3)
+    a, b = random_seq(512, 5), random_seq(512, 6)
+    sw = ts.sw_wave_buffers(a, b)
+    sw["htiles"] = np.zeros((4, 4, 128, 128), np.int32)
+    (stk, bounds, tile), arrays = FA_LOOPS["stencil"]()
+    stencil = TaskGraphBuilder()
+    ntiles = tfa.seed_tiles(stencil, bounds, tile)
+    g = DG_GRAPH
+    cases = {
+        "fib11_lean": (lambda d, c: tw.make_fib_megakernel(
+            768, quiesce_stride=4, device=d, **obs(c)), fib, None, None, 300),
+        "uts_w8": (lambda d, c: tw.make_uts_megakernel(
+            batch_width=8, device=d, **obs(c)), uts, None, None, 2000),
+        "sw512_w2": (lambda d, c: ts.make_sw_wave_megakernel(
+            4, 4, chunk=1, width=2, device=d, **obs(c)),
+            ts.build_sw_wave_graph(4, 4, chunk=1), sw, None, 7),
+        "vector_routed": (lambda d, c: tmk.Megakernel(
+            ["fib", "sum"], route={"fib": tv.fib_spec(14, (1, 8))},
+            capacity=16, num_values=16, succ_capacity=8, device=d, **obs(c)),
+            routed, None, None, 1),
+        "stencil_w8": (lambda d, c: tfa.make_forasync_megakernel(
+            stk, width=8, capacity=ntiles + 8, device=d, **obs(c)), stencil,
+            dict(zip(stk.data_specs, arrays)), None, 20),
+    }
+    for key, nbk in (("sssp_b8", 8),):
+        def make(d, c=4096, nbk=nbk):
+            return tf.make_frontier_megakernel(
+                tf.sssp_kernel(), FR_GRAPH, width=8, capacity=2048,
+                priority_buckets=nbk, device=d, **obs(c))
+        mk = make("cpu")
+        fb, iv, data = tf.frontier_state("sssp", FR_GRAPH, mk)
+        cases[key] = (make, fb, data, iv, 100)
+    dg = td.DynGraph(*g, spare_blocks=2, upd_cap=16)
+    for up in DG_UPS:
+        dg.add_update(*up)
+
+    def make_dg(d, c=4096):
+        mk = td.make_dyngraph_megakernel("sssp", dg, width=4, capacity=512,
+                                         device=d, **obs(c))
+        td._bind_updates(mk, dg)
+        return mk
+    db, div, ddata = td.dyngraph_state("sssp", dg, make_dg("cpu"),
+                                       queries=[0, 5])
+    cases["dyngraph_w4"] = (make_dg, db, ddata, div, 6)
+    return cases
+
+
+OBS = _obs_cases()
+
+
+@pytest.mark.parametrize("name", sorted(OBS))
+def test_observed_instances_equal_plain(card, name):
+    """The decoded ring and its header, qstat and the whole output state of
+    a traced run and of a quiesced one equal the plain core's; the
+    quiesced state resumes to the same final state on both."""
+    make, b, data, iv, q = OBS[name]
+    res = {}
+    for d in ("cuda", "cpu"):
+        mk = make(d, 4096)
+        full = _raw(mk, b, data=data, ivalues=iv)
+        wrap = max(1, int(full["trace.header"][0]) // 4)
+        cut = _raw(make(d, wrap), b, data=data, ivalues=iv, quiesce=q)
+        ivr, dr, info = mk.resume(
+            mk.run(b, data=data, ivalues=iv, quiesce=q)[2]["state"])
+        res[d] = (full, cut, ivr, {k: v.cpu() for k, v in dr.items()}, info)
+    (fg, cg, ivg, dg_, ig), (fw, cw, ivw, dw, iw) = res["cuda"], res["cpu"]
+    for got, want in ((fg, fw), (cg, cw)):
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    assert int(cw["qstat"][0]) == 1 and int(fw["qstat"][0]) == 0
+    assert int(cw["counts"][3]) > 0  # quiesced mid-graph
+    assert int(cw["trace.header"][0]) > len(cw["trace.records"]) == wrap
+    assert np.array_equal(ivg, ivw) and ig["executed"] == iw["executed"]
+    for k in dw:
+        assert torch.equal(dg_[k], dw[k]), k
+    assert iw["pending"] == 0

@@ -346,10 +346,16 @@ def test_refusals_name_their_roadmap_items():
                {"quantum": 64}, {"window": 16}, {"hop_order": [1]}):
         with pytest.raises(NotImplementedError, match="A11"):
             td.run_dyngraph("bfs", g, 0, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A9"):
-        td.run_dyngraph("bfs", g, 0, trace=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        td.make_dyngraph_megakernel("bfs", g, trace=64, device="cpu")
+    # The recorder is ported (ROADMAP A9): a traced build is JAX's, and
+    # a traced run records the rounds it ran.
+    mt = td.make_dyngraph_megakernel("bfs", g, trace=64, device="cpu")
+    mj = jd.make_dyngraph_megakernel("bfs", _graph(jd), trace=64,
+                                     interpret=True)
+    assert mt.trace.capacity == mj.trace.capacity == 64
+    _, info = td.run_dyngraph("bfs", g, 0, trace=64, device="cpu")
+    ring = info["trace"]["rings"][0]
+    assert ring["written"] == ring["dropped"] + len(ring["records"])
+    assert int(ring["records"][-1, 0]) == tmk.TR_ROUND_END
     with pytest.raises(NotImplementedError, match="A10"):
         td.serve_dyngraph("sssp", g, updates=UPS)
     with pytest.raises(NotImplementedError, match="A11"):

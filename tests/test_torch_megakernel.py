@@ -224,16 +224,32 @@ def test_uts_tree_counts_pinned():
     {"priority_buckets": 2}, {"verify": True},
 ])
 def test_left_out_options_raise(kw):
-    """The options still left out raise naming their ROADMAP item; the
-    lane-age and bucket knobs are ported and taken as JAX takes them
-    (tests/test_torch_priority.py holds them to JAX word for word)."""
+    """The options still left out (verify) raise naming their ROADMAP
+    item; the lane-age and bucket knobs, the recorder and the quiesce
+    poll are ported and taken as JAX takes them (their runs are held to
+    JAX word for word in tests/test_torch_priority.py,
+    test_torch_tracebuf.py and test_torch_checkpoint.py)."""
     (name, value), = kw.items()
-    if name in ("lane_max_age", "priority_buckets"):
-        mk = tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
-        assert getattr(mk, name) == value
+    if name == "verify":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
+    mk = tmk.Megakernel(["fib", "sum"], device="cpu", **kw)
+    mj = jmk.Megakernel(kernels=[("k", lambda ctx: None)], capacity=8,
+                        num_values=8, succ_capacity=8, interpret=True, **kw)
+    if name == "trace":
+        assert mk.trace.capacity == mj.trace.capacity == value
+        assert mk.trace.words == mj.trace.words
+        assert mk.checkpoint is mj.checkpoint is False
+    elif name == "checkpoint":
+        assert mk.checkpoint is mj.checkpoint is True
+        assert mk.trace is mj.trace is None
+        assert mk.quiesce_stride == mj.quiesce_stride == 1
+        for q in (None, False, True, 7):
+            assert np.array_equal(tmk.Megakernel.quiesce_words(q),
+                                  jmk.Megakernel.quiesce_words(q))
+    else:
+        assert getattr(mk, name) == getattr(mj, name) == value
 
 
 def test_kernel_table_names():

@@ -314,24 +314,28 @@ def test_env_variables_honoured_or_refused(monkeypatch):
     bucket knobs take effect (word for word with JAX in the cases above),
     the quiesce stride is parsed as JAX parses it (and, without
     checkpointing, changes nothing), and a trace or checkpoint that the
-    environment turns on raises naming ROADMAP A9."""
+    environment turns on builds the recorder / the poll as JAX's does."""
     def build():
         return tmk.Megakernel(["fib", "sum"], capacity=64,
                               num_values=4 * 64 + 16, device="cpu")
 
-    for v in ("1", "64", "banana"):
+    def jbuild():
+        return jmk.Megakernel(kernels=[("k", lambda ctx: None)], capacity=8,
+                              num_values=8, succ_capacity=8, interpret=True)
+
+    for v, cap in (("1", 2048), ("64", 64), ("banana", 2048)):
         monkeypatch.setenv("HCLIB_TPU_TRACE", v)
-        with pytest.raises(NotImplementedError, match="A9"):
-            build()
+        mk, mj = build(), jbuild()
+        assert mk.trace.capacity == mj.trace.capacity == cap
     for v in ("0", "-3", ""):
         monkeypatch.setenv("HCLIB_TPU_TRACE", v)
-        build()
+        assert build().trace is jbuild().trace is None
     monkeypatch.delenv("HCLIB_TPU_TRACE")
     monkeypatch.setenv("HCLIB_TPU_CHECKPOINT", "1")
-    with pytest.raises(NotImplementedError, match="A9"):
-        build()
+    mk, mj = build(), jbuild()
+    assert mk.checkpoint is mj.checkpoint is True
     monkeypatch.setenv("HCLIB_TPU_CHECKPOINT", "0")
-    build()
+    assert build().checkpoint is jbuild().checkpoint is False
     monkeypatch.delenv("HCLIB_TPU_CHECKPOINT")
     for v, want in (("5", 5), ("banana", 1), ("-2", 1)):
         monkeypatch.setenv("HCLIB_TPU_QUIESCE_STRIDE", v)
@@ -425,11 +429,18 @@ def test_refusals_name_their_roadmap_items():
         tf.run_frontier("bfs", TG, 0, placement=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         tf.run_frontier("bfs", TG, 0, runner="resident", device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tf.run_frontier("bfs", TG, 0, trace=1024, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tf.make_frontier_megakernel(tf.bfs_kernel(), TG, checkpoint=True,
-                                    device="cpu")
+    # The recorder and the poll are ported (ROADMAP A9): a traced run
+    # carries JAX's ring (tests/test_torch_tracebuf.py), and a checkpoint
+    # build is JAX's.
+    _, info = tf.run_frontier("bfs", TG, 0, trace=1024, device="cpu")
+    assert info["trace"]["rings"][0]["capacity"] == 1024
+    assert "lane_partial_age" in info["tiers"]
+    mt = tf.make_frontier_megakernel(tf.bfs_kernel(), TG, checkpoint=True,
+                                     device="cpu")
+    mj = jf.make_frontier_megakernel(jf.bfs_kernel(), JG, checkpoint=True,
+                                     interpret=True)
+    assert mt.checkpoint is mj.checkpoint is True
+    assert mt.quiesce_stride == mj.quiesce_stride
     # The spare-aware spawner is ported (dyngraph); a user-defined one is
     # user code on the card.
     with pytest.raises(NotImplementedError, match="A4"):
@@ -439,7 +450,11 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="A4"):
         tmk.BatchSpec(4, priority=lambda arg: arg(2))
     tk, bounds, tile = tw.map_loop(16)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfa.run_forasync_device(tk, bounds, tile, {
-            "vin": tw.map_data(16)[0], "vout": tw.map_data(16)[1]},
-            trace=64, device="cpu")
+    out, info = tfa.run_forasync_device(tk, bounds, tile, {
+        "vin": tw.map_data(16)[0], "vout": tw.map_data(16)[1]},
+        trace=64, device="cpu")
+    recs = info["trace"]["rings"][0]["records"]
+    assert info["trace"]["rings"][0]["capacity"] == 64
+    assert (recs[0, 0], recs[-1, 0]) == (tmk.TR_ROUND_BEGIN,
+                                         tmk.TR_ROUND_END)
+    assert int(recs[-1, 2]) == info["executed"] == 16
