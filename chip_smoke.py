@@ -164,7 +164,38 @@ scale 9 with 8 buckets and the scale-7 DynGraph's SSSP at width 8, each
 traced and then quiesced at half its tasks: the decoded ring and its
 header, qstat and the whole output state equal to the plain core's.
 
-Phases 3-24 are the main path: launch counts are zeroed just before each
+25. serve  - the streaming front door (row 4, csrc/stream.cuh) at real
+             load. (a) bench.py --serve's three-lane roster (gold, silver,
+             bronze at 4:2:1), egress depth 64, telemetry on, 4,096 SUM
+             requests a lane (12,288) submitted into a running fib(20)
+             tree on make_fib_megakernel's table (capacity 3 x 4,096 +
+             64): every future resolves to its two preset slots' sum,
+             fib(20) = 6,765, and every entry boundary while gold still
+             holds rows shows installs at exactly 4:2:1; requests/s,
+             host-stamped p50/p99 submit to result, the on-device
+             histogram's p50/p99 through the entry epoch bracket, entries
+             and the launch, entry and host pump/drain time an entry.
+             (b) serve_dyngraph("sssp") at scale 16, scalar arm: phase
+             22's graph and its 32,768 updates on the updates lane and 64
+             queries on the queries lane, each lane's ring region holding
+             its whole stream: equal to host_dyngraph, none dropped,
+             query_results == query_values, every future RESULT;
+             updates/s, query latency, entries and the peak allocated
+             rows. Then (outside the launch counts) arm (a) on the plain
+             stream: every entry's echoed block, the final state and the
+             futures equal to the card's.
+
+The ``stream`` lines, before the main path, hold the stream kernel
+(``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
+word on the cases of ``scripts/stream_holds.py``: a fib firehose with
+rows found mid-entry, three lanes with a depth-4 mailbox that parks,
+expiry and quarantine, an abort, a quiesce bundled and restored on a
+fresh stream, serve_dyngraph on bench.py --graph dyngraph's scale-7
+configuration and a static SSSP table streamed on bench.py --graph's
+graph; each traced and untraced: every entry's echoed control block,
+the final state, the futures, the info and the decoded trace records.
+
+Phases 3-25 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -1209,6 +1240,25 @@ def main() -> int:
               "polls": int(cut["qstat"][tmk.QS_POLLS])})
     del res, fdata9, ddata7
 
+    # The stream kernel against the plain stream, word for word ---------
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import stream_holds
+
+    for name in stream_holds.CASES:
+        for trace in (None, 256):
+            t0 = time.perf_counter()
+            got = stream_holds.run_case(name, "cuda", trace)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = stream_holds.run_case(name, "cpu", trace)
+            plain_s = time.perf_counter() - t0
+            err = stream_holds.compare(got, want, f"stream {name}")
+            emit({"phase": "stream", "case": name, "traced": bool(trace),
+                  "equal": True, "max_abs_err": err,
+                  "entries": len(got.get("entries") or []),
+                  "card_s": card_s, "plain_host_s": plain_s})
+    del got, want
+
     # The main path: each phase's launches, zeroed just before it ------
     path_launches = {}
 
@@ -2060,6 +2110,8 @@ def main() -> int:
     # UPDATE rows wait in their lane while the traversal runs).
     cap16 = 1 << 18
     nv16 = g16d.num_value_slots + 64
+    serve16 = {"updates": list(g16d.updates), "queries": qs16,
+               "ref": refs16d["sssp"]}
     arms22 = {}
     for kind, nbk in (("bfs", 0), ("sssp", 0), ("sssp", 8)):
         key = f"{kind}_w8" + (f"_b{nbk}" if nbk else "")
@@ -2430,6 +2482,184 @@ def main() -> int:
     shutil.rmtree(ck_dir, ignore_errors=True)
     emit({"phase": "checkpoint", "arms": ck_arms, "poll": poll_arms,
           "store": store, "launches": launches})
+
+    # 25. the streaming front door at real load: (a) three lanes at
+    # 4:2:1, 4,096 SUM requests a lane into a running fib(20); (b)
+    # serve_dyngraph at scale 16 with phase 22's stream
+    from hclib_tpu_torch.device.egress import EgressSpec
+    from hclib_tpu_torch.device.inject import (EntryBlocks,
+                                               StreamingMegakernel)
+    from hclib_tpu_torch.device.telemetry import TelemetryBlock
+    from hclib_tpu_torch.device.tenants import (TC_INSTALLED, TenantSpec,
+                                                TenantTable)
+
+    _build.reset_launches()
+    PER, lanes_a = 4096, (("gold", 4), ("silver", 2), ("bronze", 1))
+    cap_a = 3 * PER + 64  # bench.py --serve's rule
+    host_a = 64 + 3 * PER  # presets, then one out slot a request
+    nv_a = tw.VBLOCK * cap_a + host_a
+    iv_a = np.zeros(nv_a, np.int32)
+    iv_a[1:9] = np.random.default_rng(0).integers(-1000, 1000, 8)
+
+    def serve_a(device):
+        # Every request is submitted before the run: each lane's host
+        # backlog holds its 4,096 (TenantSpec's default holds 1,024).
+        table = TenantTable([TenantSpec(t, weight=w, queue_capacity=PER)
+                             for t, w in lanes_a],
+                            PER, egress=EgressSpec(depth=64))
+        sm = StreamingMegakernel(
+            tw.make_fib_megakernel(cap_a, num_values=nv_a, device=device),
+            ring_capacity=3 * PER, tenants=table, telemetry=True)
+        sm.entry_log = []
+        futs, want = [], []
+        t0 = time.perf_counter()
+        for lane, (tid, _) in enumerate(lanes_a):
+            for i in range(PER):
+                a_, b_ = 1 + i % 8, 1 + (3 * i + lane) % 8
+                adm = sm.submit(tid, tw.SUM, args=[a_, b_],
+                                out=64 + lane * PER + i)
+                check(bool(adm), f"serve (a): {tid} request {i}: {adm}")
+                futs.append(adm.future)
+                want.append(int(iv_a[a_]) + int(iv_a[b_]))
+        submit_s = time.perf_counter() - t0
+        sm.close()
+        b = TaskGraphBuilder()
+        b.add(tw.FIB, args=[20], out=0)
+        b.reserve_values(host_a)
+        t0 = time.perf_counter()
+        iv, info = sm.run_stream(b, ivalues=iv_a)
+        run_s = time.perf_counter() - t0
+        check(int(iv[0]) == 6765, f"serve (a): fib(20) = {int(iv[0])}")
+        check([f.state for f in futs] == ["RESULT"] * len(futs)
+              and [f.value for f in futs] == want,
+              "serve (a): a future did not resolve to its sum")
+        cons = table.futures.conservation()
+        check(cons["ok"] and cons["resolved"] == 3 * PER, f"serve (a) {cons}")
+        return sm, futs, iv, info, submit_s, run_s
+
+    sm_a, futs_a, iv_a_out, info_a, submit_s, run_s = serve_a("cuda")
+    # WRR shares: in every entry that ended with every lane still holding
+    # rows, the installs are whole rounds of 4:2:1 plus at most one
+    # partial round (the egress credit gate: a 64-row mailbox and park
+    # ring hold 128 results an entry, and the round that fills them is
+    # cut in lane order).
+    shares, prev = [], [0, 0, 0]
+    blocks = EntryBlocks(3, 64, True)
+    for blk in sm_a.entry_log:
+        blocks.arr[:] = blk
+        inst = blocks.v["tctl"][:, TC_INSTALLED].tolist()
+        if max(inst) < PER and min(inst) > 0:
+            shares.append([x - p for x, p in zip(inst, prev)])
+        prev = inst
+    whole = [min(g // 4, s_ // 2, b_) for g, s_, b_ in shares]
+    check(shares and all(
+        0 <= g - 4 * k <= 4 and 0 <= s_ - 2 * k <= 2 and 0 <= b_ - k <= 1
+        for (g, s_, b_), k in zip(shares, whole)),
+        f"serve (a): installs not at 4:2:1 while all lanes held rows: "
+        f"{shares[:4]}")
+    lat = sorted(f.latency_s() for f in futs_a)
+    snap = sm_a.telemetry_snapshot()
+    tb_ = TelemetryBlock(snap["tele"], snap["ns_per_round"])
+    ta = sm_a.timing
+    arm_a = {
+        "requests": 3 * PER, "lanes": dict(lanes_a), "egress_depth": 64,
+        "capacity": cap_a, "executed": info_a["executed"],
+        "submit_s": submit_s, "run_s": run_s,
+        "req_per_s": 3 * PER / (submit_s + run_s),
+        "req_per_s_run": 3 * PER / run_s,
+        "p50_latency_s": lat[len(lat) // 2],
+        "p99_latency_s": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+        "hist_requests": tb_.total(), "hist_rounds": snap["rounds"],
+        "hist_p50_rounds": tb_.quantile(0.5),
+        "hist_p99_rounds": tb_.quantile(0.99),
+        "hist_p50_latency_s": tb_.quantile_s(0.5),
+        "hist_p99_latency_s": tb_.quantile_s(0.99),
+        "ns_per_round": snap["ns_per_round"],
+        "entries": ta["entries"],
+        "launch_us_per_entry": ta["kernel_ms"] * 1e3 / ta["entries"],
+        "entry_us_per_entry": ta["entry_ms"] * 1e3 / ta["entries"],
+        "host_pump_drain_us_per_entry":
+            (run_s * 1e3 - ta["entry_ms"]) * 1e3 / ta["entries"],
+        "kernel_ms": ta["kernel_ms"], "wrr_entries_checked": len(shares),
+        "wrr_installs_first_entries": shares[:3],
+        "installs_4_2_1": True, "futures_resolved": True,
+    }
+    # (b) serve_dyngraph at scale 16, scalar arm, 32,768 updates on the
+    # updates lane and 64 queries on the queries lane.
+    g16s = td.DynGraph(*e16, spare_blocks=2, upd_cap=1 << 15)
+    cap_b = 1 << 19
+    t0 = time.perf_counter()
+    res16, info16 = td.serve_dyngraph(
+        "sssp", g16s, 0, updates=serve16["updates"],
+        queries=serve16["queries"], capacity=cap_b,
+        num_values=g16s.num_value_slots + 64, ring_capacity=2 << 15,
+        egress_depth=64, device="cuda")
+    serve_s = time.perf_counter() - t0
+    check(np.array_equal(res16, serve16["ref"]),
+          "serve (b): scale 16 differs from host_dyngraph")
+    check(info16["dropped"] == 0 and info16["updates_applied"] == 1 << 15,
+          f"serve (b): applied {info16['updates_applied']}, dropped "
+          f"{info16['dropped']}")
+    check(info16["query_results"] == info16["query_values"],
+          "serve (b): query futures differ from the published labels")
+    futs_b = info16["update_futures"] + info16["query_futures"]
+    check(all(f.state == "RESULT" for f in futs_b),
+          "serve (b): a future did not resolve")
+    qlat = sorted(f.latency_s() for f in info16["query_futures"])
+    peak_alloc = info16["allocated"]
+    arm_b = {
+        "graph": "rmat_edges(16, efactor=16, seed=7)", "vertices": g16s.n,
+        "static_edges": g16s.m, "updates": 1 << 15,
+        "queries": len(serve16["queries"]), "capacity": cap_b,
+        "peak_allocated": peak_alloc, "executed": info16["executed"],
+        "entries": info16["entries"], "serve_s": serve_s,
+        "updates_per_s": (1 << 15) / serve_s,
+        "query_p50_latency_s": qlat[len(qlat) // 2],
+        "query_p99_latency_s": qlat[min(len(qlat) - 1,
+                                        int(0.99 * len(qlat)))],
+        "edges": info16["edges"], "relaxations": info16["relaxations"],
+        "spare_in_use": info16["spare_in_use"],
+        "equal_to_host_dyngraph": True, "futures_resolved": True,
+    }
+    del g16s, res16, info16, futs_b
+    launches = path_done("serve")
+    # Outside the counts: arm (a) on the plain stream, every entry's
+    # echoed block, the final state and the futures against the card's.
+    sm_p, futs_p, iv_p, _, _, run_p = serve_a("cpu")
+    a_err = stream_holds.compare(
+        stream_holds.clean({"iv": iv_p, "entries": sm_p.entry_log,
+                             "final": sm_p.final_state, "futs": futs_p}),
+        stream_holds.clean({"iv": iv_a_out, "entries": sm_a.entry_log,
+                             "final": sm_a.final_state, "futs": futs_a}),
+        "serve (a) plain")
+    arm_a["plain_entry_ms"] = sm_p.timing["entry_ms"]
+    arm_a["plain_run_s"] = run_p
+    # The bound: every task executed, the installed requests included,
+    # moves row 1's 136 bytes (its descriptor written once, at install in
+    # place of spawn, and read once at the pop, and one ring push and
+    # pop). Each installed request moves besides: 80 bytes of its ring
+    # row read (20 of its 21 words: all but TEN_DEADLINE_MS); 16 bytes
+    # written at install and fire (its etok word and the admit, install
+    # and fire stamps); 16 bytes at its retirement (the etok word and the
+    # admit and install stamps read, the etok word zeroed); its 32-byte
+    # mailbox row written. The tenant histograms (16 words a lane) and
+    # the body's value words are left out, as row 1 leaves out a body's
+    # data.
+    sb = bound(0.0, 3 * PER * (20 * 4 + 16 + 16 + 32)
+               + info_a["executed"] * 136.0)
+    kernels["stream"] = {
+        "name": "stream", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/stream.cuh",
+        "replaces": "hclib_tpu/device/inject.py:1048",
+        "max_abs_err": a_err, "ms": ta["kernel_ms"],
+        "plain_ms": sm_p.timing["entry_ms"],
+        "bound_ms": sb[0], "bound_by": sb[1], "library_ms": None,
+    }
+    del sm_p, futs_p
+    emit({"phase": "serve", "tenants": arm_a, "dyngraph16": arm_b,
+          "bound_ms": sb[0], "bound_by": sb[1],
+          "library": "none: no PyTorch call runs a streaming scheduler",
+          "launches": launches})
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

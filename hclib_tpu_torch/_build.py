@@ -18,8 +18,11 @@ scalar and batched EXPAND bodies of the three families, ``"dg_expand"``
 the same bodies run in a dynamic-graph table (clamped, spare-aware),
 ``"dg_splice"`` / ``"dg_splice_batch"`` the UPDATE bodies, ``"dg_query"``
 the QUERY body, scalar and batched, ``"bnb_node"`` the knapsack NODE
-body, scalar and batched, and ``"tracebuf"`` the megakernel launches that
-ran an observed instance: the flight recorder or the quiesce poll).
+body, scalar and batched, ``"tracebuf"`` the megakernel launches that
+ran an observed instance: the flight recorder or the quiesce poll, and
+``"stream"`` the entries of the streaming front door's kernel
+(``csrc/stream.cuh``, in the megakernel library), whose body dispatches fold into the body counters
+as the megakernel's do).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ LAUNCHES: Dict[str, int] = {
     "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
-    "tracebuf": 0,
+    "tracebuf": 0, "stream": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

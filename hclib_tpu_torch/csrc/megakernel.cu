@@ -45,6 +45,8 @@
 // :1456-1462, :1515, :1535, :1705-1760, :1805, :1846-1910), and
 // megakernel.py quiesce_hook (:2019: the qctl poll every quiesce_stride
 // rounds, the qstat words, TR_QUIESCE) with TR_CKPT at exit (:2079).
+// stream_kernel (stream.cuh, included below mk_kernel) is the streaming
+// front door's scheduler over the same core, with its own instances.
 //
 // Design. The TPU runs the scheduler on its scalar core inside one
 // pallas_call; here it is ONE block of one launch. Thread 0 runs the serial
@@ -145,14 +147,15 @@ constexpr int LS_HEAD = 0, LS_TAIL = 1, LS_PF_BASE = 2, LS_PF_N = 3,
               LS_PF_BUF = 4, LS_AGE = 5, LS_WORDS = 8;
 // The flight recorder (tracebuf.py): HDR header words (the write cursor,
 // the round cursor, six zeros), then 4-word [tag, t, a, b] records; the
-// record tags this scheduler emits. The quiesce words (megakernel.py
-// QC_*, QS_*): qctl in, qstat out.
+// record tags this scheduler and the stream (stream.cuh) emit. The
+// quiesce words (megakernel.py QC_*, QS_*): qctl in, qstat out.
 constexpr int TR_HDR = 8;
 enum {
   TR_ROUND_BEGIN = 1, TR_ROUND_END = 2, TR_FIRE_SCALAR = 3,
   TR_FIRE_BATCH = 4, TR_PREFETCH_ISSUE = 5, TR_PREFETCH_DRAIN = 6,
-  TR_SPILL = 7, TR_QUIESCE = 13, TR_CKPT = 14, TR_FIRE_AGE = 17,
-  TR_FIRE_BUCKET = 18
+  TR_SPILL = 7, TR_ABORT = 10, TR_INJECT = 12, TR_QUIESCE = 13,
+  TR_CKPT = 14, TR_TENANT = 16, TR_FIRE_AGE = 17, TR_FIRE_BUCKET = 18,
+  TR_EGRESS = 19, TR_LATENCY = 20
 };
 constexpr int QC_FLAG = 0, QC_AFTER = 1;
 constexpr int QS_QUIESCED = 0, QS_AT = 1, QS_POLLS = 2;
@@ -316,6 +319,35 @@ struct Sched {
       counts[C_OVERFLOW] |= OVF_ROWS;
     }
     return a;
+  }
+
+  // _make_core's install_descriptor: adopt one externally produced row
+  // (an injected stream row) through spawn's row path - free stack first,
+  // then the bump cursor, OVF_ROWS when neither has a row - copying its
+  // 16 words from src, counted pending and pushed ready only at F_DEP 0.
+  // Returns the row (clamped to cap - 1 on overflow).
+  __device__ int install_descriptor(const int32_t* src) {
+    const int nf = freestk[0];
+    const bool use_free = nf > 0;
+    const int row_free = freestk[nf > 1 ? nf : 1];
+    const int a = counts[C_ALLOC];
+    const bool ok = use_free || a < cap;
+    const int row = use_free ? row_free : min(a, cap - 1);
+    if (use_free) freestk[0] = nf - 1;
+    if (!use_free && a < cap) counts[C_ALLOC] = a + 1;
+    if (ok) {
+      for (int k = 0; k < DESC; ++k) w(row, k) = src[k];
+      counts[C_PENDING] += 1;
+      if (w(row, F_DEP) == 0) push_ready(row);
+    } else {
+      counts[C_OVERFLOW] |= OVF_ROWS;
+    }
+    return row;
+  }
+
+  // _make_core's headroom: rows free for external rows right now.
+  __device__ int headroom() const {
+    return freestk[0] + (cap - counts[C_ALLOC]);
   }
 
   // KernelContext.flag_overflow: the host raises after the run.
@@ -1491,6 +1523,10 @@ __global__ void __launch_bounds__(BT) fr_entry(FrEntry e) {
 
 }  // namespace
 
+// The streaming front door's stream_kernel instances, over the same Sched,
+// Obs and bodies (their launch entry is hclib_stream_launch below).
+#include "stream.cuh"
+
 extern "C" {
 
 const char* hclib_error_string(int err) {
@@ -1692,6 +1728,67 @@ __global__ void sw_row_copy_ops(const int4* __restrict__ in,
   const int4 h = in[3 * t], b = in[3 * t + 1], s = in[3 * t + 2];
   out[t] = make_int4(h.x ^ b.x ^ s.x, h.y ^ b.y ^ s.y, h.z ^ b.z ^ s.z,
                      h.w ^ b.w);
+}
+
+// One entry of the stream (device/inject.py _launch_cuda). The state
+// pointers are updated in place (tasks_in == tasks and so on: staging
+// copies nothing and rebuilds the free stack). Returns
+// cudaGetLastError() (0 = launched).
+int hclib_stream_launch(int32_t* tasks, const int32_t* succ, int32_t* ready,
+                        int32_t* counts, int32_t* ivalues, int32_t* freestk,
+                        const int32_t* meta, int32_t* dispatch,
+                        void* const* data, int32_t* trace,
+                        const int32_t* ring, const int32_t* ctl_in,
+                        int32_t* ctl_out, int32_t* tctl, int32_t* egr,
+                        int32_t* park, int32_t* ectl, int32_t* etok,
+                        int32_t* tele, int32_t* tlat, int tr_cap, int nfn,
+                        int cap, int num_values, int T, int region,
+                        int depth, int telemetry, int quantum, int max_rounds,
+                        int ckpt, int mode, int threads, int smem,
+                        void* stream) {
+  if ((mode != 0 && mode != 4 && mode != 5) || (trace && tr_cap < 1) ||
+      (telemetry && depth < 1) || (T > 0 && region < 1) || T < 0 ||
+      depth < 0 || quantum < 1)
+    return cudaErrorInvalidValue;
+  using K = void (*)(Args, StreamArgs);
+  static const K plain[6] = {stream_kernel<0, false>, nullptr, nullptr,
+                             nullptr, stream_kernel<4, false>,
+                             stream_kernel<5, false>};
+  static const K observed[6] = {stream_kernel<0, true>, nullptr, nullptr,
+                                nullptr, stream_kernel<4, true>,
+                                stream_kernel<5, true>};
+  const K kernel = trace ? observed[mode] : plain[mode];
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  Args a{};
+  a.tasks = tasks;
+  a.tasks_in = tasks;
+  a.succ = succ;
+  a.ready = ready;
+  a.ready_in = ready;
+  a.counts = counts;
+  a.counts_in = counts;
+  a.ivalues = ivalues;
+  a.ivalues_in = ivalues;
+  a.freestk = freestk;
+  a.meta = meta;
+  a.dispatch = dispatch;
+  for (int i = 0; i < MAX_DATA; ++i) a.data[i] = data[i];
+  a.ring = trace;
+  a.tr_cap = tr_cap;
+  a.qstride = 1;
+  a.nfn = nfn;
+  a.nbk = 1;
+  a.cap = cap;
+  a.num_values = num_values;
+  a.fuel = quantum;
+  a.reps = 1;
+  a.stage_all_values = 1;
+  StreamArgs s{ring, ctl_in, ctl_out, tctl, egr, park, ectl, etok, tele,
+               tlat, T, region, depth, telemetry, quantum, max_rounds, ckpt};
+  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(a, s);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -43,16 +43,18 @@ What differs from the JAX module:
   re-stages the vertex table and applied flags, so every splice lands
   again on the same lane with the same word.
 - ``placement=`` / ``mesh=`` / ``quantum=`` / ``window=`` /
-  ``hop_order=`` raise naming ROADMAP A11, ``serve_dyngraph`` naming A10
-  and ``reshard_dyngraph`` naming A11; ``trace=`` / ``checkpoint=`` go
-  to the Megakernel (the ``_dyngraph`` stamp rides a checkpoint bundle's
-  meta, runtime/checkpoint.py); the
+  ``hop_order=`` raise naming ROADMAP A11 and ``reshard_dyngraph``
+  naming A11; ``serve_dyngraph`` runs the scalar arm on the streaming
+  front door (device/inject.py), its refusal of ``width`` as JAX's;
+  ``trace=`` / ``checkpoint=`` go to the Megakernel (the ``_dyngraph``
+  stamp rides a checkpoint bundle's meta, runtime/checkpoint.py); the
   schedule-independence certificate (``si_claim``) is kept as the
   attribute only (A13).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -734,12 +736,145 @@ def run_dyngraph(
     return result, info
 
 
-def serve_dyngraph(*args, **kwargs):
-    """The streaming front door over one resident adjacency: it needs the
-    port of ``StreamingMegakernel`` (ROADMAP A10)."""
-    raise NotImplementedError(
-        "serve_dyngraph runs on the streaming front door "
-        "(StreamingMegakernel, tenants, egress), which is ROADMAP A10")
+def serve_dyngraph(
+    kind: str,
+    graph: DynGraph,
+    src: int = 0,
+    *,
+    updates: Sequence[Tuple[int, ...]] = (),
+    queries: Sequence[int] = (),
+    update_tenant: str = "updates",
+    query_tenant: str = "queries",
+    width: int = 0,
+    m0: int = 1 << 14,
+    reps: int = 64,
+    capacity: int = 512,
+    num_values: Optional[int] = None,
+    trace=None,
+    checkpoint: Optional[bool] = None,
+    lane_max_age: Optional[int] = None,
+    priority_buckets: Optional[int] = None,
+    delta: Optional[int] = None,
+    update_priority: Optional[int] = None,
+    ring_capacity: int = 64,
+    egress_depth: int = 64,
+    quantum: int = 1 << 10,
+    max_rounds: int = 256,
+    result_timeout_s: float = 30.0,
+    device="cuda",
+    entry_log: Optional[list] = None,
+) -> Tuple[np.ndarray, Dict]:
+    """Serve one resident adjacency to two tenants through the streaming
+    front door (device/inject.py): an ``updates`` lane and a ``queries``
+    lane submit UPDATE / QUERY descriptors against the SAME running
+    traversal, each submission's ``Admission.future`` resolving to its
+    row's out-slot value (a query's label: tentative while the traversal
+    races, exact once it drained). The scalar arm only (``width`` != 0
+    raises, as in JAX: the stream embeds no batch lanes). Returns
+    ``(result, info)`` shaped like ``run_dyngraph`` plus
+    ``info['query_results']`` (future-resolved values),
+    ``info['serve_stats']`` (lane and egress ledgers) and
+    ``info['splice_trace']`` (one host TR_SPLICE record); the port adds
+    ``info['entries']`` (the stream's entry count) and
+    ``info['allocated']`` (the most table rows held). ``num_values``
+    (default ``make_dyngraph_megakernel``'s: 16 slots past the state)
+    bounds the queries, whose out slots follow the state. ``entry_log``
+    (a list) records each entry's echoed control block and puts the
+    final state in ``info['final_state']``
+    (``StreamingMegakernel.entry_log``), so two runs compare word for
+    word."""
+    from .egress import EgressSpec
+    from .inject import StreamingMegakernel
+    from .tenants import TenantSpec, TenantTable
+    from .tracebuf import TR_SPLICE, host_trace_info
+
+    if width:
+        raise ValueError(
+            "serve_dyngraph runs the scalar arm (width=0): the stream "
+            "front door's core embedding carries no batch-lane scratch; "
+            "bucketed/batched service rides the mesh path (ROADMAP A11)")
+    for up in updates or ():
+        graph.add_update(*up)
+    mk = make_dyngraph_megakernel(
+        kind, graph, width=width, capacity=capacity, num_values=num_values,
+        trace=trace, checkpoint=checkpoint, lane_max_age=lane_max_age,
+        priority_buckets=priority_buckets, delta=delta,
+        update_priority=update_priority, reps=reps, device=device)
+    _bind_updates(mk, graph)
+    region = -(-int(ring_capacity) // 16) * 8  # two lanes over the ring
+    # Each lane's host backlog holds its whole stream: every submission
+    # lands before the run (TenantSpec's default 1,024 rows a lane
+    # would reject a longer stream; shorter ones see JAX's lanes).
+    table = TenantTable(
+        [TenantSpec(update_tenant,
+                    queue_capacity=max(1024, len(graph.updates))),
+         TenantSpec(query_tenant, queue_capacity=max(1024, len(queries)))],
+        max(8, region), egress=EgressSpec(depth=egress_depth))
+    sm = StreamingMegakernel(mk, ring_capacity=ring_capacity, tenants=table)
+    sm.entry_log = entry_log
+    st = graph.st_base
+    iv = graph.preset_values(mk.num_values,
+                             INF if kind in ("bfs", "sssp") else 0)
+    if kind in ("bfs", "sssp"):
+        iv[st + int(src)] = 0
+    else:
+        iv[st:st + graph.n] = _pr_seed_rank(graph, m0, reps).astype(np.int32)
+    seed = TaskGraphBuilder()
+    seed.reserve_values(graph.num_value_slots)
+    for args in seed_frontier(None, graph, kind, src=src, m0=m0, reps=reps):
+        seed.add(FR_EXPAND, args=list(args))
+    upd_futs = []
+    for uid, (u, v, w) in enumerate(graph.updates):
+        adm = sm.submit(update_tenant, DG_UPDATE, args=[u, v, w, uid])
+        if not adm.accepted:
+            raise RuntimeError(
+                f"update lane rejected uid {uid}: {adm.reason!r}")
+        upd_futs.append(adm.future)
+    qbase = st + graph.n
+    q_futs = []
+    for qi, v in enumerate(queries):
+        slot = qbase + qi
+        if slot >= mk.num_values:
+            raise ValueError(
+                f"query {qi} wants out slot {slot} >= num_values "
+                f"{mk.num_values}: raise num_values")
+        adm = sm.submit(query_tenant, DG_QUERY, args=[int(v)], out=slot)
+        if not adm.accepted:
+            raise RuntimeError(
+                f"query lane rejected query {qi}: {adm.reason!r}")
+        q_futs.append(adm.future)
+    sm.close()
+    t0 = time.monotonic_ns()
+    iv_o, info = sm.run_stream(seed, ivalues=iv, data=dict(fk_data(graph, mk)),
+                               quantum=quantum, max_rounds=max_rounds)
+    t1 = time.monotonic_ns()
+    rows = np.asarray(iv_o, np.int64)
+    states = rows[st:st + graph.n]
+    result = states.astype(np.int32) if kind in ("bfs", "sssp") else states
+    flags = rows[graph.flag_base:graph.flag_base + graph.upd_cap]
+    info["edges"] = int(rows[V_EDGES])
+    info["relaxations"] = int(rows[V_RELAX])
+    info["updates_applied"] = int((flags != 0).sum())
+    info["spare_in_use"] = int(rows[V_FREE])
+    info["dropped"] = int(rows[V_DROPPED])
+    info["queries"] = int(rows[V_QUERIES])
+    info["query_values"] = [int(rows[qbase + qi])
+                            for qi in range(len(queries))]
+    info["update_futures"] = upd_futs
+    info["query_futures"] = q_futs
+    info["query_results"] = [int(f.result(timeout=result_timeout_s))
+                             for f in q_futs]
+    for f in upd_futs:
+        f.result(timeout=result_timeout_s)
+    info["serve_stats"] = sm.stats_dict()
+    info["entries"] = sm.timing["entries"]
+    applied, dropped = info["updates_applied"], info["dropped"]
+    info["splice_trace"] = host_trace_info(
+        [[TR_SPLICE, 0, (applied << 16) | dropped, info["spare_in_use"]]],
+        t0, max(t1, t0 + 1))
+    if entry_log is not None:
+        info["final_state"] = sm.final_state
+    return result, info
 
 
 def reshard_dyngraph(bundle, ndev_new: int):

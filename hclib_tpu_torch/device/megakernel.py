@@ -58,10 +58,13 @@ quiesce protocol (``checkpoint=``, ``quiesce_stride=``,
 returns ``info['state']`` at a round boundary and ``resume(state)``
 continues it, runtime/checkpoint.py bundles it). On the card both run in
 the observed instances of ``mk_kernel`` (``kObs``); a build with neither
-launches the instance without them. Left out (``verify`` raises
-``NotImplementedError`` naming its ROADMAP entry):
-``install_descriptor`` / ``headroom``, the hclint ``verify`` hook and the
-program cache. On the card, the age and bucket policies run in the
+launches the instance without them. The core's ``install_descriptor`` /
+``headroom`` and its three seams (``complete_hook`` at the top of
+``complete``, ``fire_hook`` at each dispatch site, ``round_hook`` right
+after a round's trace tick) are what the streaming front door
+(device/inject.py) embeds the scheduler with. Left out (``verify`` raises
+``NotImplementedError`` naming its ROADMAP entry): the hclint ``verify``
+hook and the program cache. On the card, the age and bucket policies run in the
 scheduler instance that holds the frontier, knapsack, fib, UTS and
 Cholesky bodies; a table that also holds SW, vector or tile bodies
 refuses them there (the plain core runs every combination).
@@ -677,6 +680,12 @@ class _PlainCore:
         self.qstride = mk.quiesce_stride
         self.qbuf = [0] * 8
         self.qstat = [0] * 8
+        # _make_core's seams (None: unused): complete_hook(idx) at the top
+        # of complete(), fire_hook(idx) at each dispatch site before the
+        # body, round_hook() right after each round's trace tick.
+        self.complete_hook = None
+        self.fire_hook = None
+        self.round_hook = None
 
     def poll(self, since: int) -> bool:
         """megakernel.py quiesce_hook: re-read qctl every ``qstride``
@@ -721,6 +730,8 @@ class _PlainCore:
         self.counts[C_TAIL] = tail + 1
 
     def complete(self, idx: int) -> None:
+        if self.complete_hook is not None:
+            self.complete_hook(idx)
         t, c = self.tasks, self.counts
         r = idx * DESC_WORDS
         for s in (t[r + F_SUCC0], t[r + F_SUCC1]):
@@ -740,6 +751,39 @@ class _PlainCore:
             self.tasks[s * DESC_WORDS + F_DEP] = d
             if d == 0:
                 self.push_ready(s)
+
+    def install_descriptor(self, read_word) -> int:
+        """megakernel.py install_descriptor: adopt one externally produced
+        descriptor row (an injected stream row) through the row path
+        spawns use - free stack first, then the bump cursor, OVF_ROWS
+        when neither has a row - copy its 16 words from ``read_word(w)``,
+        count it pending and push it ready only at F_DEP == 0. Returns
+        the row (clamped to capacity - 1 on overflow)."""
+        c, free, cap = self.counts, self.free, self.capacity
+        nf = free[0]
+        use_free = nf > 0
+        a = c[C_ALLOC]
+        ok = use_free or a < cap
+        row = free[max(nf, 1)] if use_free else min(a, cap - 1)
+        if use_free:
+            free[0] = nf - 1
+        elif a < cap:
+            c[C_ALLOC] = a + 1
+        if ok:
+            r = row * DESC_WORDS
+            for w in range(DESC_WORDS):
+                self.tasks[r + w] = read_word(w)
+            c[C_PENDING] += 1
+            if self.tasks[r + F_DEP] == 0:
+                self.push_ready(row)
+        else:
+            c[C_OVERFLOW] |= OVF_ROWS
+        return row
+
+    def headroom(self) -> int:
+        """Task-table rows free for external rows right now: the free
+        stack plus the unbumped tail of the table."""
+        return self.free[0] + (self.capacity - self.counts[C_ALLOC])
 
     def step(self, idx: int) -> None:
         # lax.switch clamps an out-of-range index; so does the kernel.
@@ -776,6 +820,8 @@ class _PlainCore:
         self.dispatch[body_id] += 1
         body(BatchContext(self, row, base, take, B, pre, buf, nxt))
         for s in range(take):
+            if self.fire_hook is not None:
+                self.fire_hook(lane[(base + s) % cap])
             self.complete(lane[(base + s) % cap])
         if fifo:
             ls[LS_HEAD] = head + take
@@ -822,6 +868,8 @@ class _PlainCore:
             # The round index of this round's records; then the quiesce
             # poll, which stops the round before it fires or pops.
             rt = tr.tick()
+            if self.round_hook is not None:
+                self.round_hook()
             qz = self.qctl is not None and self.poll(c[C_EXECUTED] - e0)
             avails = [ls[LS_TAIL] - ls[LS_HEAD] for ls in self.lstate]
             lane_work = any(a > 0 for a in avails)
@@ -864,6 +912,8 @@ class _PlainCore:
                         break
                 else:
                     tr.emit(TR_FIRE_SCALAR, rt, fn, idx)
+                    if self.fire_hook is not None:
+                        self.fire_hook(idx)
                     self.step(idx)
                     ts[TS_SCALAR_ROUNDS] += 1
             if self.max_age:

@@ -26,15 +26,21 @@ loads in the other:
   retention, and a newest-first ``load_latest`` that quarantines a
   generation that does not validate and falls back to the next.
 
+- **Streams** (``snapshot_stream`` / ``restore_stream``): a quiesced
+  ``StreamingMegakernel.run_stream`` (device/inject.py) bundles with its
+  ring residue, the per-tenant ``tctl`` / ``tstats`` blocks, the egress
+  token table and the telemetry blocks; ``checkpoint_on_preempt`` binds
+  a running stream's quiesce to process preemption.
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
 ``CheckpointBundle.reshard`` and ``snapshot_resident`` /
-``restore_resident`` (the mesh runners, A11), ``snapshot_stream`` /
-``restore_stream`` / ``checkpoint_on_preempt`` (the streaming front door,
-A10) and ``metrics=`` (no metrics registry in the port yet, A13).
+``restore_resident`` (the mesh runners, A11) and ``metrics=`` (no
+metrics registry in the port yet, A13).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import io
 import json
@@ -48,6 +54,7 @@ import numpy as np
 
 from ..device import tracebuf as tb
 from . import env as _env
+from . import resilience
 
 __all__ = [
     "MAGIC",
@@ -625,9 +632,26 @@ def snapshot_megakernel(mk, info: Dict[str, Any],
     )
 
 
-def snapshot_stream(sm, info, meta=None):
-    """Bundle a quiesced streaming run (the streaming front door)."""
-    raise _later("snapshot_stream (StreamingMegakernel)", "A10")
+def snapshot_stream(sm, info: Dict[str, Any],
+                    meta: Optional[Dict[str, Any]] = None
+                    ) -> CheckpointBundle:
+    """Bundle a quiesced ``StreamingMegakernel.run_stream`` return."""
+    state = _require_quiesced(info, "snapshot_stream")
+    m = _kernel_meta(sm.mk)
+    m["ring_capacity"] = int(sm.ring_capacity)
+    m["quiesce_latency_s"] = info.get("quiesce_latency_s")
+    m["quiesce_round"] = info.get("quiesce_observed_round")
+    m.update(meta or {})
+    # After the user meta: the roster is what restore_stream validates.
+    if getattr(sm, "tenants", None) is not None:
+        m["tenants"] = list(sm.tenants.ids)
+    else:
+        m.pop("tenants", None)
+    bf16 = {f"data/{k}" for k, spec in m["data_specs"].items()
+            if spec["dtype"] == "bfloat16"}
+    return CheckpointBundle(
+        "stream", m, CheckpointBundle._flatten_state(state, m, bf16)
+    )
 
 
 def snapshot_resident(rk, info, meta=None):
@@ -659,8 +683,25 @@ def restore_megakernel(bundle_or_path, mk, fuel: int = 1 << 22,
 
 
 def restore_stream(bundle_or_path, sm, **run_stream_kw):
-    """Resume a stream bundle (the streaming front door)."""
-    raise _later("restore_stream (StreamingMegakernel)", "A10")
+    """Validate and resume a stream bundle on ``sm`` (a
+    StreamingMegakernel whose Megakernel matches the manifest). The
+    residue rows re-publish on the fresh ring; the stream starts OPEN -
+    inject()/close() as usual, or close() first to drain and exit."""
+    b = _as_bundle(bundle_or_path)
+    if b.kind != "stream":
+        raise CheckpointError(f"restore_stream got a {b.kind!r} bundle")
+    _check_kernel_meta(sm.mk, b.meta, where=_where(b))
+    # The roster must match exactly (ids AND order): lane state is keyed
+    # by index.
+    want = b.meta.get("tenants")
+    have = None if getattr(sm, "tenants", None) is None else sm.tenants.ids
+    if (want or None) != (have or None):
+        raise CheckpointError(
+            f"tenant roster mismatch: bundle carries {want!r}, the "
+            f"target stream has {have!r} (ids and order must match - "
+            "lane state is keyed by index)"
+        )
+    return sm.run_stream(resume_state=b.state(), **run_stream_kw)
 
 
 def restore_resident(bundle_or_path, rk, **kw):
@@ -669,5 +710,34 @@ def restore_resident(bundle_or_path, rk, **kw):
 
 
 def checkpoint_on_preempt(stream, after_executed: int = 0):
-    """Bind a running stream's quiesce to process preemption."""
-    raise _later("checkpoint_on_preempt (StreamingMegakernel)", "A10")
+    """Bind a running stream's checkpoint trigger to process preemption:
+    SIGTERM (after ``resilience.install_preempt_handler()``) or the
+    ``HCLIB_TPU_PREEMPT`` env quiesce the stream, and the driving
+    run_stream returns ``info['quiesced']=True`` for the caller to save
+    (checkpoint, then stop). A preemption that fired before the binding
+    still checkpoints. Refuses, at once, a stream whose megakernel was
+    not built with ``checkpoint=True`` (its quiesce could never land)::
+
+        with checkpoint_on_preempt(sm):
+            iv, info = sm.run_stream(b, ...)
+        if info.get("quiesced"):
+            snapshot_stream(sm, info).save(path)
+    """
+    if not stream.mk.checkpoint:
+        raise ValueError(
+            "checkpoint_on_preempt needs a stream over "
+            "Megakernel(checkpoint=True): the quiesce word is compiled "
+            "into the round loop only then")
+    return _preempt_binding(stream, after_executed)
+
+
+@contextlib.contextmanager
+def _preempt_binding(stream, after_executed: int):
+    def hook() -> None:
+        stream.quiesce(after_executed)
+
+    resilience.register_preempt_hook(hook)
+    try:
+        yield
+    finally:
+        resilience.unregister_preempt_hook(hook)

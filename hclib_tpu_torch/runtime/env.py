@@ -11,8 +11,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["REGISTRY", "env_int", "env_raw", "env_set", "env_bool",
-           "env_str"]
+__all__ = ["REGISTRY", "env_int", "env_float", "env_raw", "env_set",
+           "env_bool", "env_str"]
 
 # name -> (kind, default, doc), as the JAX package's registry rows.
 REGISTRY = {
@@ -58,6 +58,40 @@ REGISTRY = {
         "bucket ring the UPDATE kind routes into on priority-bucketed "
         "dyngraph builds (0 = highest, fires before queries; clipped into "
         "[0, priority_buckets); malformed text raises)"),
+    "HCLIB_TPU_PREEMPT": (
+        "bool", "off",
+        "wrapper-script preemption request (no-signal spelling)"),
+    "HCLIB_TPU_TENANTS": (
+        "int", "0 (off)", "enable N equal tenant lanes on streaming runs"),
+    "HCLIB_TPU_TENANT_WEIGHTS": (
+        "list", "unset",
+        "per-lane WRR weights, e.g. 4,2,1 (implies lane count)"),
+    "HCLIB_TPU_TENANT_RATE": (
+        "float", "unset", "per-lane token-bucket refill rate, submits/s"),
+    "HCLIB_TPU_TENANT_BURST": (
+        "float", "rate", "per-lane token-bucket capacity"),
+    "HCLIB_TPU_TENANT_INFLIGHT": (
+        "float", "unset",
+        "per-lane in-flight admission budget (whole number)"),
+    "HCLIB_TPU_TENANT_DEADLINE_S": (
+        "float", "unset", "per-lane default admission deadline, seconds"),
+    "HCLIB_TPU_EGRESS_DEPTH": (
+        "int", "0 (off)",
+        "completion-mailbox ring depth, rows; enables submit futures on "
+        "tenant runs (malformed text raises)"),
+    "HCLIB_TPU_EGRESS_BACKOFF_S": (
+        "float", "0.05",
+        "Future.result() bounded-backoff poll cap, seconds (malformed "
+        "text raises)"),
+    "HCLIB_TPU_TELEMETRY": (
+        "bool", "off",
+        "compile the live telemetry plane into egress-enabled streams: "
+        "per-request lifecycle stamps + on-device latency histograms, "
+        "scrapeable mid-run (0 forces off)"),
+    "HCLIB_TPU_TELEMETRY_POLL_S": (
+        "float", "0.05",
+        "TelemetryPoller snapshot interval, seconds (malformed text "
+        "raises)"),
 }
 
 
@@ -90,20 +124,34 @@ def env_bool(name: str, default: bool = False) -> bool:
     return v not in ("", "0")
 
 
+def _parse(name: str, conv, malformed):
+    v = _lookup(name)
+    if not v:
+        return None
+    try:
+        return conv(v)
+    except (TypeError, ValueError):
+        if malformed == "raise":
+            raise ValueError(
+                f"{name}={v!r} must be "
+                f"{'an int' if conv is int else 'a number'}") from None
+        return malformed
+
+
 def env_int(name: str, default: Optional[int] = None, *,
             malformed="raise") -> Optional[int]:
     """Int value; unset/empty -> ``default``. Malformed text raises
     ``ValueError`` naming the variable unless ``malformed=`` supplies a
     fallback."""
-    v = _lookup(name)
-    if not v:
-        return default
-    try:
-        return int(v)
-    except (TypeError, ValueError):
-        if malformed == "raise":
-            raise ValueError(f"{name}={v!r} must be an int") from None
-        return malformed
+    v = _parse(name, int, malformed)
+    return default if v is None else v
+
+
+def env_float(name: str, default: Optional[float] = None, *,
+              malformed="raise") -> Optional[float]:
+    """Float value, with ``env_int``'s rules."""
+    v = _parse(name, float, malformed)
+    return default if v is None else v
 
 
 def env_str(name: str, default: Optional[str] = None) -> Optional[str]:

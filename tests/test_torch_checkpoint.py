@@ -441,17 +441,32 @@ def test_restore_refuses_mismatched_program(tmp_path):
         tc.snapshot_megakernel(wrong_cap, {"executed": 1})
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda b: b.reshard(2), "A11"),
-    (lambda b: tc.snapshot_stream(None, {}), "A10"),
-    (lambda b: tc.restore_stream(b, None), "A10"),
-    (lambda b: tc.checkpoint_on_preempt(None), "A10"),
-    (lambda b: tc.snapshot_resident(None, {}), "A11"),
-    (lambda b: tc.restore_resident(b, None), "A11"),
-    (lambda b: b.save("/nonexistent/never", metrics=object()), "A13"),
+def _nockpt_stream():
+    from hclib_tpu_torch.device.inject import StreamingMegakernel
+
+    return StreamingMegakernel(tw.make_fib_megakernel(device="cpu"))
+
+
+# The stream paths (snapshot_stream, restore_stream, checkpoint_on_preempt)
+# are ported: their cases hold the refusals they now make (a run with no
+# quiesced state, a bundle of another kind, a stream that cannot quiesce);
+# the ids are the ones these cases had when the paths were left out.
+@pytest.mark.parametrize("call,exc,item", [
+    (lambda b: b.reshard(2), NotImplementedError, "A11"),
+    (lambda b: tc.snapshot_stream(None, {}), tc.CheckpointError,
+     "no quiesced state"),
+    (lambda b: tc.restore_stream(b, None), tc.CheckpointError,
+     "restore_stream got a 'megakernel' bundle"),
+    (lambda b: tc.checkpoint_on_preempt(_nockpt_stream()), ValueError,
+     "checkpoint=True"),
+    (lambda b: tc.snapshot_resident(None, {}), NotImplementedError, "A11"),
+    (lambda b: tc.restore_resident(b, None), NotImplementedError, "A11"),
+    (lambda b: b.save("/nonexistent/never", metrics=object()),
+     NotImplementedError, "A13"),
     (lambda b: tc.BundleStore("/nonexistent/never", metrics=object()),
-     "A13"),
-])
-def test_left_out_paths_name_their_items(call, item):
-    with pytest.raises(NotImplementedError, match=item):
+     NotImplementedError, "A13"),
+], ids=["call0-A11", "call1-A10", "call2-A10", "call3-A10", "call4-A11",
+        "call5-A11", "call6-A13", "call7-A13"])
+def test_left_out_paths_name_their_items(call, exc, item):
+    with pytest.raises(exc, match=item):
         call(tc.CheckpointBundle("megakernel", {}, {}))

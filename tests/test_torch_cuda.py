@@ -683,3 +683,42 @@ def test_observed_instances_equal_plain(card, name):
     for k in dw:
         assert torch.equal(dg_[k], dw[k]), k
     assert iw["pending"] == 0
+
+
+# ------------------------------------------------- the streaming front door
+
+STREAM_CASES = ("fib_firehose", "lanes_park", "expiry_quarantine", "abort",
+                "quiesce_restore", "serve7", "frontier9")
+
+
+def _stream_holds():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import stream_holds
+
+    return stream_holds
+
+
+@pytest.mark.parametrize("trace", [None, 256])
+@pytest.mark.parametrize("name", STREAM_CASES)
+def test_stream_equals_plain(card, name, trace):
+    """The stream kernel (csrc/stream.cuh, instances 0, 4 and 5) against
+    the plain stream: every entry's echoed control block, the final
+    state, the futures, the info and the decoded trace records."""
+    h = _stream_holds()
+    assert set(STREAM_CASES) == set(h.CASES)
+    h.compare(h.run_case(name, "cuda", trace), h.run_case(name, "cpu", trace))
+
+
+def test_stream_refuses_tables_without_an_instance(card):
+    from hclib_tpu_torch.device.inject import StreamingMegakernel
+
+    mk = tc.make_cholesky_megakernel(2, tile=64, fused_only=True,
+                                     batch_updrow=False, device="cuda")
+    sm = StreamingMegakernel(mk)
+    sm.close()
+    with pytest.raises(NotImplementedError, match="A14"):
+        sm.run_stream(tc.build_cholesky_graph(2))

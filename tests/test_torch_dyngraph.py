@@ -356,8 +356,10 @@ def test_refusals_name_their_roadmap_items():
     ring = info["trace"]["rings"][0]
     assert ring["written"] == ring["dropped"] + len(ring["records"])
     assert int(ring["records"][-1, 0]) == tmk.TR_ROUND_END
-    with pytest.raises(NotImplementedError, match="A10"):
-        td.serve_dyngraph("sssp", g, updates=UPS)
+    # The streaming front door is ported (its scalar arm); the batched
+    # arm is refused before anything registers, as in JAX.
+    with pytest.raises(ValueError, match="scalar arm"):
+        td.serve_dyngraph("sssp", g, updates=UPS, width=4, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         td.reshard_dyngraph(None, 2)
     assert g.updates == []  # refused before registering anything
