@@ -184,6 +184,30 @@ header, qstat and the whole output state equal to the plain core's.
              rows. Then (outside the launch counts) arm (a) on the plain
              stream: every entry's echoed block, the final state and the
              futures equal to the card's.
+26. multichip - the mesh (rows 1 over a mesh, 5 and 7; csrc/mesh.cuh), a
+             mesh device being one co-resident CTA: FOREST_STEAL_BENCH
+             (8 devices, 160 x fib(12) seeded on device 0, 111,520
+             tasks) through the sharded steal runner (stress.forest_steal)
+             scalar and at width 8, through ICIStealMegakernel at 8
+             devices (the resident steal-only kernel) and at 6 (the
+             ring), each exact; the multi-chip dry run's per-device
+             queues (8 fib trees, no steal); and the whole card: the
+             resident kernel at 128 CTAs on 2,048 x fib(12) (1,427,456
+             tasks, exact). Tasks/s, rounds, devices used, imbalance,
+             kernel and exchange time and exchange volume an arm; then
+             (outside the launch counts) the plain version of every
+             timed arm, word for word (the sharded arms' kernel time is
+             CUDA events around each round's launch call alone).
+
+The ``mesh`` lines, before the main path, hold the mesh kernels (the
+sharded runner's grid launch, the ring and the resident steal kernel)
+to their plain versions word for word on the cases of
+``scripts/mesh_holds.py``: FOREST_STEAL_QUICK's forest through the
+sharded runner with and without steal, at width 8 and with a hop order,
+the ring at 1, 3 and 6 devices (with an abort, and at width 8) and the
+resident kernel at 2, 4 and 8 (with a hop order, an abort, at width 8):
+every device's value slots and counts, the rounds, the tier counters,
+the fault stats and the rows each device exported.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -195,7 +219,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-25 are the main path: launch counts are zeroed just before each
+Phases 3-26 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -1257,6 +1281,24 @@ def main() -> int:
                   "equal": True, "max_abs_err": err,
                   "entries": len(got.get("entries") or []),
                   "card_s": card_s, "plain_host_s": plain_s})
+    del got, want
+
+    # The mesh kernels against their plain versions, word for word ------
+    import mesh_holds
+
+    mesh_hold_err = {}  # kernel: the largest value error of its holds
+    for name in mesh_holds.CASES:
+        got = mesh_holds.run_case(name, "cuda")
+        want = mesh_holds.run_case(name, "cpu")
+        err = mesh_holds.compare(got, want, name)
+        kn = mesh_holds.kernel_of(name)
+        mesh_hold_err[kn] = max(mesh_hold_err.get(kn, 0.0), err)
+        emit({"phase": "mesh", "case": name, "equal": True,
+              "max_abs_err": err, "executed": got["executed"],
+              "rounds": got["rounds"], "rows_exported": got["rows"],
+              "card_kernel_ms": got["kernel_ms"],
+              "card_exchange_ms": got["exchange_ms"],
+              "plain_host_ms": want["kernel_ms"]})
     del got, want
 
     # The main path: each phase's launches, zeroed just before it ------
@@ -2659,6 +2701,156 @@ def main() -> int:
     emit({"phase": "serve", "tenants": arm_a, "dyngraph16": arm_b,
           "bound_ms": sb[0], "bound_by": sb[1],
           "library": "none: no PyTorch call runs a streaming scheduler",
+          "launches": launches})
+
+    # 26. the mesh (bench.py --multichip and the multi-chip dry run's
+    # phases 1-3): a mesh device is one co-resident CTA. FOREST_STEAL_BENCH
+    # (8 devices, 160 x fib(12) on device 0, 111,520 tasks) through the
+    # sharded runner scalar and at width 8, through ICIStealMegakernel at
+    # 8 devices (the resident steal-only kernel) and at 6 (the ring); the
+    # dry run's per-device queues; the whole card: the resident kernel at
+    # 128 CTAs on 2,048 x fib(12). Each forest arm is held to its exact
+    # totals; the plain versions run every forest arm too (outside the
+    # launch counts), and each arm is held to its plain run word for word.
+    from hclib_tpu_torch.device import stress as tst
+    from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel
+    from hclib_tpu_torch.device.sharded import ShardedMegakernel
+    from hclib_tpu_torch.parallel.mesh import CtaMesh
+
+    _build.reset_launches()
+    FB = tst.FOREST_STEAL_BENCH
+    mesh_arms, mesh_out = {}, {}
+
+    def forest_arm(name, info, seconds, ndev):
+        per_dev = np.asarray(info["per_device_counts"])[:, 5]
+        ex = info.get("exchange", {})
+        arm = {
+            "tasks": info["executed"], "seconds": seconds,
+            "tasks_per_s": info["executed"] / seconds,
+            "rounds": info.get("steal_rounds", info.get("rounds")),
+            "devices_used": int((per_dev > 0).sum()),
+            "imbalance": float(per_dev.max() * ndev / max(per_dev.sum(), 1)),
+            "kernel_ms": ex.get("kernel_ms", info.get("kernel_ms")),
+            "exchange_ms": info.get("exchange_ms"),
+            "rows_exported": sum(ex["rows"]) if ex else None,
+            "stat_words": sum(ex["stat_words"]) if ex else None,
+        }
+        if "tiers" in info:
+            occ = [t["batch_occupancy"] for t in info["tiers"]
+                   if t["batch_rounds"]]
+            arm["mean_occupancy"] = sum(occ) / len(occ)
+        mesh_arms[name] = arm
+        emit({"phase": "multichip", "arm": name, **arm})
+
+    for bw in (0, 8):
+        info = tst.forest_steal(**FB, batch_width=bw, device="cuda")
+        forest_arm(f"sharded_b{bw}", info, info["seconds"], FB["ndev"])
+        mesh_out[f"sharded_b{bw}"] = (info["ivalues"], info)
+
+    def ici_forest(ndev, roots, device, warm=True):
+        mk = tst.forest_megakernel(roots, FB["capacity"], 0, device)
+        m = ICIStealMegakernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                               migratable_fns=[tw.FIB], window=8)
+        if warm:
+            m.run(tst.forest_builders(ndev, roots, FB["n"]), quantum=64)
+        t0 = time.perf_counter()
+        iv, _, info = m.run(tst.forest_builders(ndev, roots, FB["n"]),
+                            quantum=64)
+        dt = time.perf_counter() - t0
+        tst.check_forest(iv, info, roots, FB["n"])
+        return iv, info, dt
+
+    for name, ndev in (("resident_8", 8), ("ring_6", 6)):
+        iv, info, dt = ici_forest(ndev, FB["roots"], "cuda")
+        forest_arm(name, info, dt, ndev)
+        mesh_out[name] = (iv, info)
+    # The dry run's phase 1: per-device fib trees, no steal.
+    mk1 = tw.make_fib_megakernel(512, device="cuda")
+    bs1 = [TaskGraphBuilder() for _ in range(8)]
+    for d, b in enumerate(bs1):
+        b.add(tw.FIB, args=[8 + d % 3], out=0)
+    iv1, _, info1 = ShardedMegakernel(mk1, CtaMesh((8,), ("q",))).run(
+        bs1, fuel=1 << 16)
+    check([int(x) for x in iv1[:, 0]] == [{8: 21, 9: 34, 10: 55}[8 + d % 3]
+                                           for d in range(8)],
+          f"per-device queues: {iv1[:, 0].tolist()}")
+    mesh_arms["per_device_queues"] = {"values": iv1[:, 0].tolist(),
+                                      "executed": info1["executed"]}
+    # The whole card: 128 co-resident CTAs.
+    iv, info, dt = ici_forest(128, 2048, "cuda")
+    check(info["executed"] == 1427456, f"128 CTAs: {info['executed']}")
+    forest_arm("resident_128", info, dt, 128)
+    mesh_out["resident_128"] = (iv, info)
+    launches = path_done("multichip")
+    # Outside the counts: the plain version of every timed arm on the same
+    # inputs, word for word: every device's value slots and counts row,
+    # the rounds, the tier counters, the fault stats and the rows and stat
+    # words each device sent.
+
+    def same_words(name, card, plain):
+        (iv_c, ic), (iv_p, ip) = card, plain
+        check(np.array_equal(ic["per_device_counts"],
+                             ip["per_device_counts"]),
+              f"multichip {name}: per_device_counts differ from the plain "
+              "version")
+        for k in ("steal_rounds", "tiers", "fault_stats", "aborted"):
+            check(ic.get(k) == ip.get(k),
+                  f"multichip {name}: {k} differs from the plain version")
+        for k in ("rows", "stat_words"):
+            check(ic.get("exchange", {}).get(k)
+                  == ip.get("exchange", {}).get(k),
+                  f"multichip {name}: exchange {k} differs from the plain "
+                  "version")
+        check(np.array_equal(iv_c, iv_p),
+              f"multichip {name}: ivalues differ from the plain version")
+        return float(np.abs(np.asarray(iv_p, np.int64) - iv_c).max())
+
+    plain, errs = {}, {}
+    for name, ndev, roots in (("resident_8", 8, FB["roots"]),
+                              ("ring_6", 6, FB["roots"]),
+                              ("resident_128", 128, 2048)):
+        iv_p, info_p, _ = ici_forest(ndev, roots, "cpu", warm=False)
+        errs[name] = same_words(name, mesh_out[name], (iv_p, info_p))
+        plain[name] = info_p["exchange"]["kernel_ms"]
+    for bw in (0, 8):
+        name = f"sharded_b{bw}"
+        mk_p = tst.forest_megakernel(FB["roots"], FB["capacity"], bw, "cpu")
+        iv_p, _, info_p = ShardedMegakernel(
+            mk_p, CtaMesh((FB["ndev"],), ("q",), device="cpu"),
+            migratable_fns=[tw.FIB]).run(
+                tst.forest_builders(FB["ndev"], FB["roots"], FB["n"]),
+                steal=True, quantum=256, window=16)
+        errs[name] = same_words(name, mesh_out[name], (iv_p, info_p))
+        plain[name] = info_p["kernel_ms"]
+    emit({"phase": "multichip", "plain_equal": sorted(errs),
+          "max_abs_err": errs, "plain_ms": plain})
+    # Bounds: row 1's 136 bytes a task, and for the steal kernels the
+    # exchange: 4 bytes a stat word sent and 64 bytes a descriptor row
+    # moved, both sums over every round and device of the run.
+    # A kernel's max_abs_err is the largest over its mesh holds and every
+    # forest arm that ran it.
+    for key, arm, others, src, rep_ in (
+            ("mesh_round", "sharded_b0", ("sharded_b8",), "csrc/mesh.cuh",
+             "hclib_tpu/device/megakernel.py:2165"),
+            ("resident_steal", "resident_8", ("resident_128",),
+             "csrc/mesh.cuh", "hclib_tpu/device/resident.py:2222"),
+            ("ici_ring", "ring_6", (), "csrc/mesh.cuh",
+             "hclib_tpu/device/ici_steal.py:765")):
+        a = mesh_arms[arm]
+        nbytes = a["tasks"] * 136.0 + 4.0 * (a["stat_words"] or 0) \
+            + 64.0 * (a["rows_exported"] or 0)
+        kb = bound(0.0, nbytes)
+        kernels[key] = {
+            "name": key, "route": "cuda",
+            "source": "hclib_tpu_torch/" + src, "replaces": rep_,
+            "max_abs_err": max([errs[arm], mesh_hold_err[key]]
+                               + [errs[o] for o in others]),
+            "ms": a["kernel_ms"],
+            "plain_ms": plain[arm], "bound_ms": kb[0], "bound_by": kb[1],
+            "library_ms": None,
+        }
+    emit({"phase": "multichip", "arms": mesh_arms, "plain_ms": plain,
+          "library": "none: no PyTorch call runs a task scheduler",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

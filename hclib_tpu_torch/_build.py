@@ -22,7 +22,10 @@ body, scalar and batched, ``"tracebuf"`` the megakernel launches that
 ran an observed instance: the flight recorder or the quiesce poll, and
 ``"stream"`` the entries of the streaming front door's kernel
 (``csrc/stream.cuh``, in the megakernel library), whose body dispatches fold into the body counters
-as the megakernel's do).
+as the megakernel's do); the mesh kernels of ``csrc/mesh.cuh`` (in the
+megakernel library): ``"mesh_round"`` the sharded runner's grid launches
+(one a steal round), ``"ici_ring"`` and ``"resident_steal"`` the launches
+of the ring and the resident steal kernels (one a run).
 """
 
 from __future__ import annotations
@@ -54,7 +57,8 @@ LAUNCHES: Dict[str, int] = {
     "add_tile": 0, "fa_stencil": 0, "fa_map": 0, "fa_stencil_batch": 0,
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
-    "tracebuf": 0, "stream": 0,
+    "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
+    "resident_steal": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

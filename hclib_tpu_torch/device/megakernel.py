@@ -72,6 +72,7 @@ refuses them there (the plain core runs every combination).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import time
@@ -122,7 +123,8 @@ __all__ = [
     "KernelContext", "BatchContext", "BatchSpec", "Megakernel", "VBLOCK",
     "BODIES", "BATCH_BODIES", "decode_overflow", "fault_mix", "BK_MAX",
     "PRIORITY_RULES", "bucket_of", "QC_FLAG", "QC_AFTER", "QS_QUIESCED",
-    "QS_AT", "QS_POLLS",
+    "QS_AT", "QS_POLLS", "MeshHost", "MeshGrid", "MESH_KINDS", "mesh_slice",
+    "mesh_coresident",
 ]
 
 
@@ -1080,6 +1082,10 @@ class Megakernel:
             raise NotImplementedError(
                 f"Megakernel(verify=...) is not ported yet: "
                 f"{_LATER_ARGS['verify']} in ROADMAP.md")
+        # Tracing or checkpointing that came from the environment is
+        # marked, so a runner that cannot trace or quiesce (the sharded
+        # runner) builds without it instead of failing (as in JAX).
+        self.trace_from_env = False
         if trace is None:
             env = env_raw("HCLIB_TPU_TRACE", "")
             if env and env != "0":
@@ -1089,9 +1095,12 @@ class Megakernel:
                     n = 1
                 if n > 0:
                     trace = True if n == 1 else n
+                    self.trace_from_env = True
         self.trace = TraceRing.of(trace)
+        self.checkpoint_from_env = False
         if checkpoint is None:
             checkpoint = env_bool("HCLIB_TPU_CHECKPOINT")
+            self.checkpoint_from_env = checkpoint
         self.checkpoint = bool(checkpoint)
         # Without checkpointing the stride changes nothing (as in JAX).
         if quiesce_stride is None:
@@ -1639,6 +1648,124 @@ class Megakernel:
             _build.LAUNCHES["tracebuf"] += 1
         return dispatch
 
+    # -- the grid launch over a mesh (csrc/mesh.cuh) --
+
+    def mesh_config(self, steal_kernel: bool = False):
+        """(instance, threads, smem) of a launch over a mesh on the card:
+        ``mk_grid_kernel`` (the sharded runner) runs ``mk_kernel``'s lean
+        or lanes instance a block; the steal kernels (ring, resident) run
+        the thread-0 bodies of those instances (fib, sum, UTS node and
+        their batched forms) on one thread a CTA. Other tables raise: the
+        plain versions run every table."""
+        policy = self.batch_specs and (self.lane_max_age or self.nbk > 1)
+        if (self.vector_specs or self.slab_words or policy
+                or set(self.body_names) & set(POLICY_BODIES)
+                or any(s.prefetch for _, s, _ in self.batch_specs)):
+            raise NotImplementedError(
+                "the mesh launches on the card hold mk_kernel's lean and "
+                "lanes instances (no vector, tile, frontier, knapsack or "
+                "dynamic-graph body, no lane policy, no prefetch): ROADMAP "
+                "A11b/A11c; run this table on the CPU mesh")
+        mode = int(bool(self.batch_specs or self.sw_bodies))
+        if steal_kernel:
+            allowed = {"fib", "sum", "uts_node", "fib_batch",
+                       "uts_node_batch"}
+            other = sorted(set(self.body_names) - allowed)
+            if other:
+                raise NotImplementedError(
+                    f"the steal kernels on the card run the fib, sum and "
+                    f"UTS node bodies (scalar and batched), not {other}: "
+                    "ROADMAP A11b; run this table on the CPU mesh")
+            return mode, 1, 0
+        threads = THREADS if (self.tile_bodies or self.sw_bodies) else 32
+        return mode, threads, self._smem_bytes()
+
+    def mesh_host(self, mst: Dict[str, object], fuel: int,
+                  stage_all_values: bool):
+        """The ``MeshHost`` of stacked state ``mst`` (every tensor with a
+        leading mesh axis, on the card) and the per-device scratch it
+        points at; returns (host, keep), ``keep`` holding the scratch
+        tensors alive for the launch."""
+        tasks = mst["tasks"]
+        ndev, dev = tasks.shape[0], tasks.device
+        cap, nv = self.capacity, self.num_values
+        want = {
+            "tasks": (ndev, cap, DESC_WORDS), "succ": (ndev, self.succ_capacity),
+            "ready": (ndev, cap), "counts": (ndev, 8), "ivalues": (ndev, nv),
+        }
+        if self.batch_specs:
+            want["tstats"] = (ndev, TS_WORDS)
+        for k, shape in want.items():
+            t = mst[k]
+            if (tuple(t.shape) != shape or t.dtype != torch.int32
+                    or t.device != dev or not t.is_contiguous()):
+                raise ValueError(f"mesh state[{k!r}] must be a contiguous "
+                                 f"{shape} int32 tensor on {dev}")
+        nrows = len(self.batch_specs) * self.nbk
+        keep = {
+            "free": torch.empty(ndev, cap + 1, dtype=torch.int32, device=dev),
+            "dispatch": torch.zeros(ndev, NDISPATCH, dtype=torch.int32,
+                                    device=dev),
+            "meta": torch.tensor(self._meta, dtype=torch.int32, device=dev),
+            "lanes": torch.empty(ndev, max(nrows, 1) * cap,
+                                 dtype=torch.int32, device=dev),
+            "lstate": torch.zeros(ndev, max(nrows, 1) * LS_WORDS,
+                                  dtype=torch.int32, device=dev),
+        }
+        if self.tile_bodies:
+            ts = self.params["tile"]
+            keep["work"] = torch.empty(ndev, ts * ts, dtype=torch.float32,
+                                       device=dev)
+        h = MeshHost()
+        for k, src in (("tasks", mst), ("succ", mst), ("ready", mst),
+                       ("counts", mst), ("ivalues", mst), ("tstats", mst),
+                       ("dispatch", keep), ("lanes", keep), ("lstate", keep),
+                       ("work", keep)):
+            t = src.get(k)
+            if t is not None:
+                setattr(h, k, t.data_ptr())
+                setattr(h, "s_" + k, t[0].numel())
+        h.freestk, h.s_freestk = keep["free"].data_ptr(), cap + 1
+        h.meta = keep["meta"].data_ptr()
+        for i, k in enumerate(self.data_specs):
+            t = mst["data"][k]
+            if t.shape[0] != ndev or t.device != dev or not t.is_contiguous():
+                raise ValueError(f"mesh data[{k!r}] must be contiguous on "
+                                 f"{dev} with a leading mesh axis of {ndev}")
+            h.data[i] = t.data_ptr()
+            h.s_data[i] = t[0].numel() * t.element_size()
+        h.nfn, h.nbatch, h.nrows = len(self.kernel_names), len(
+            self.batch_specs), nrows
+        h.cap, h.num_values, h.ndev = cap, nv, ndev
+        h.fuel = min(int(fuel), 0x7FFFFFFF)
+        h.stage_all_values = int(bool(stage_all_values))
+        return h, keep
+
+    def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
+                    threads: int, smem: int, dev) -> None:
+        """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
+        ``"resident_steal"``) over ``host``'s mesh; raises if the launch
+        fails, or if a steal kernel's mesh has more devices than the card
+        holds CTAs at once (``mesh_coresident``)."""
+        k = MESH_KINDS.index(kind)
+        lib = _build.library("megakernel")
+        if k:
+            limit = mesh_coresident(kind, mode)
+            if host.ndev > limit:
+                raise RuntimeError(
+                    f"{kind}: a mesh of {host.ndev} devices needs that many "
+                    f"co-resident CTAs; this card holds {limit} at once "
+                    "(one CTA an SM, cooperative launch): use a mesh of at "
+                    f"most {limit}")
+        fn = lib.hclib_mesh_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        err = fn(ctypes.byref(host), k, mode, threads, smem,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, err, kind)
+        _build.LAUNCHES[kind] += 1
+
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
         """Per-body dispatch counts of a ``launch`` by name (a batched
         body counts one per fired batch). For a launch on the card, each
@@ -1811,3 +1938,107 @@ def sw_smem_bytes(slots: int) -> int:
     ``slots`` tile slots, each slot's a, b, top and left rows (SW_T int32
     each) and the 16-byte chunk that holds its corner."""
     return 2 * slots * (4 * SW_T + 4) * 4
+
+
+MESH_KINDS = ("mesh_round", "ici_ring", "resident_steal")
+MAX_HOPS = 16
+_MESH_FIELDS = (
+    "tasks", "succ", "ready", "counts", "ivalues", "freestk", "dispatch",
+    "lanes", "lstate", "tstats", "work", "meta",
+    "s_tasks", "s_succ", "s_ready", "s_counts", "s_ivalues", "s_freestk",
+    "s_dispatch", "s_lanes", "s_lstate", "s_tstats", "s_work",
+)
+_MESH_TAIL = (
+    "nfn", "nbatch", "nrows", "cap", "num_values", "fuel",
+    "stage_all_values", "ndev", "abort", "ws", "err", "wl", "fstats",
+    "xstats", "quantum", "max_rounds", "window", "scan", "nhops", "port_words",
+    "timeout_ns",
+)
+
+
+class MeshHost(ctypes.Structure):
+    """csrc/mesh.cuh ``MeshHost``: device 0's slice of every stacked state
+    tensor with its per-device stride (in words; data buffers in bytes),
+    the table's sizes and the steal protocol's words. Every field is 64
+    bits (pointers too), so both sides lay it out alike."""
+
+    _fields_ = (
+        [(n, ctypes.c_int64) for n in _MESH_FIELDS]
+        + [("data", ctypes.c_int64 * MAX_DATA),
+           ("s_data", ctypes.c_int64 * MAX_DATA)]
+        + [(n, ctypes.c_int64) for n in _MESH_TAIL]
+        + [("hops", ctypes.c_int64 * MAX_HOPS)]
+    )
+
+
+class MeshGrid:
+    """The scheduler run on every mesh device of stacked state ``mst`` IN
+    PLACE, launch after launch (sharded.py's shard_map entry, once a round
+    in the steal loop): on the card one ``mk_grid_kernel`` launch, block d
+    on device d's slice; on the CPU the plain core device by device. The
+    host struct and the per-device scratch are built once; each launch
+    clears only the lane cursors, which the plain core starts afresh."""
+
+    def __init__(self, mk: "Megakernel", mst: Dict[str, object],
+                 fuel: int = 1 << 22, stage_all_values: bool = False):
+        tasks = mst["tasks"]
+        mk._check_data({k: v[0] for k, v in mst["data"].items()})
+        if mk.batch_specs and "tstats" not in mst:
+            mst["tstats"] = torch.zeros(tasks.shape[0], TS_WORDS,
+                                        dtype=torch.int32,
+                                        device=tasks.device)
+        self.mk, self.mst, self.dev = mk, mst, tasks.device
+        self.fuel, self.stage_all_values = fuel, stage_all_values
+        if self.dev.type == "cpu":
+            self.total = torch.zeros(NDISPATCH, dtype=torch.int32)
+        else:
+            self.config = mk.mesh_config()
+            self.host, self.keep = mk.mesh_host(mst, fuel, stage_all_values)
+
+    def launch(self, span=None) -> None:
+        """One launch; ``span``, a context manager, brackets the launch
+        call alone."""
+        span = span or contextlib.nullcontext()
+        if self.dev.type == "cpu":
+            with span:
+                for d in range(self.mst["tasks"].shape[0]):
+                    self.total += self.mk.launch(
+                        mesh_slice(self.mst, d), self.fuel,
+                        stage_all_values=self.stage_all_values)
+            return
+        self.keep["lstate"].zero_()
+        with span:
+            self.mk.mesh_launch("mesh_round", self.host, *self.config,
+                                self.dev)
+
+    def dispatch(self) -> torch.Tensor:
+        """The dispatch counts summed over the devices and the launches
+        (int32[NDISPATCH])."""
+        if self.dev.type == "cpu":
+            return self.total
+        return self.keep["dispatch"].sum(0, dtype=torch.int32)
+
+
+def mesh_slice(mst: Dict[str, object], d: int) -> Dict[str, object]:
+    """Mesh device ``d``'s state of stacked state ``mst``: views, so the
+    plain core's write-back lands in the stacked tensors."""
+    out = {k: mst[k][d] for k in ("tasks", "succ", "ready", "counts",
+                                  "ivalues", "tstats") if k in mst}
+    out["data"] = {k: v[d] for k, v in mst["data"].items()}
+    return out
+
+
+def mesh_coresident(kind: str, mode: int) -> int:
+    """The most CTAs of steal kernel ``kind`` (instance ``mode``) this
+    card holds at once, one an SM at most (csrc/mesh.cuh
+    ``hclib_mesh_coresident``: the occupancy API's count, capped at the SM
+    count; 0 without cooperative launch)."""
+    lib = _build.library("megakernel")
+    fn = lib.hclib_mesh_coresident
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    out = ctypes.c_int(0)
+    _build.check(lib, fn(MESH_KINDS.index(kind), mode, ctypes.byref(out)),
+                 f"{kind} occupancy")
+    return out.value

@@ -34,8 +34,10 @@ loads in the other:
 
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
 ``CheckpointBundle.reshard`` and ``snapshot_resident`` /
-``restore_resident`` (the mesh runners, A11) and ``metrics=`` (no
-metrics registry in the port yet, A13).
+``restore_resident`` (A11c: the port's mesh runners,
+device/{sharded,ici_steal,resident}.py, run to completion or abort but
+do not quiesce yet) and ``metrics=`` (no metrics registry in the port
+yet, A13).
 """
 
 from __future__ import annotations
@@ -377,7 +379,9 @@ class CheckpointBundle:
 
     def reshard(self, ndev_new: int) -> "CheckpointBundle":
         """Re-home a resident-mesh bundle onto another device count."""
-        raise _later("CheckpointBundle.reshard (the mesh runners)", "A11")
+        raise _later("CheckpointBundle.reshard (re-homing a quiesced "
+                     "mesh; the port's ResidentKernel runs steal-only and "
+                     "does not quiesce yet)", "A11c")
 
     def diff(self, other: "CheckpointBundle") -> Dict[str, Any]:
         """Structural comparison of two bundles: ``{'equal': bool,
@@ -656,7 +660,9 @@ def snapshot_stream(sm, info: Dict[str, Any],
 
 def snapshot_resident(rk, info, meta=None):
     """Bundle a quiesced resident-mesh run."""
-    raise _later("snapshot_resident (the mesh runners)", "A11")
+    raise _later("snapshot_resident (a quiesced mesh; the port's "
+                 "ResidentKernel runs steal-only and does not quiesce "
+                 "yet)", "A11c")
 
 
 # ---------------------------------------------------------------- restore
@@ -706,7 +712,9 @@ def restore_stream(bundle_or_path, sm, **run_stream_kw):
 
 def restore_resident(bundle_or_path, rk, **kw):
     """Relaunch a resident-mesh bundle."""
-    raise _later("restore_resident (the mesh runners)", "A11")
+    raise _later("restore_resident (a quiesced mesh; the port's "
+                 "ResidentKernel runs steal-only and does not quiesce "
+                 "yet)", "A11c")
 
 
 def checkpoint_on_preempt(stream, after_executed: int = 0):

@@ -722,3 +722,70 @@ def test_stream_refuses_tables_without_an_instance(card):
     sm.close()
     with pytest.raises(NotImplementedError, match="A14"):
         sm.run_stream(tc.build_cholesky_graph(2))
+
+
+MESH_CASES = ("sharded_nosteal_8", "sharded_steal_8", "sharded_steal_8_b8",
+              "sharded_hop_4", "ring_3", "ring_6", "ring_6_abort",
+              "ring_3_b8", "ring_1", "resident_2", "resident_4",
+              "resident_8_hops", "resident_8_abort", "resident_8_b8")
+
+
+def _mesh_holds():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import mesh_holds
+
+    return mesh_holds
+
+
+@pytest.mark.parametrize("name", MESH_CASES)
+def test_mesh_equals_plain(card, name):
+    """The mesh kernels (csrc/mesh.cuh: the sharded runner's grid launch,
+    the ring, the resident steal kernel) against their plain versions:
+    every device's value slots and counts row, the rounds, the tier
+    counters, the fault stats and the rows each device exported."""
+    h = _mesh_holds()
+    assert set(MESH_CASES) == set(h.CASES)
+    h.compare(h.run_case(name, "cuda"), h.run_case(name, "cpu"), name)
+
+
+@pytest.mark.parametrize("kind", ["ici_ring", "resident_steal"])
+def test_mesh_refuses_more_ctas_than_the_card_holds(card, kind):
+    """A steal kernel's CTAs spin on each other: a mesh larger than the
+    co-resident CTA count is refused before any launch."""
+    from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    limit = tmk.mesh_coresident(kind, 0)
+    assert 1 <= limit <= torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    ndev = limit + 1
+    if kind == "resident_steal":
+        ndev = 1 << limit.bit_length()  # a power of two above the limit
+    elif ndev & (ndev - 1) == 0:
+        ndev += 1  # the ring runs on meshes that are not powers of two
+    mk = tw.make_fib_megakernel(64, device="cuda")
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(tw.FIB, args=[5], out=0)
+    m = ICIStealMegakernel(mk, cuda_mesh(ndev), migratable_fns=[tw.FIB])
+    with pytest.raises(RuntimeError, match=f"holds {limit} at once"):
+        m.run(bs)
+
+
+def test_mesh_spin_timeout_raises(card):
+    """A wait past its deadline stops the mesh and raises with the
+    device, round, hop and wait (a zero deadline: the first wait that is
+    not met at once)."""
+    h = _mesh_holds()
+    from hclib_tpu_torch.device import stress
+    from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    m = ICIStealMegakernel(stress.forest_megakernel(h.ROOTS, h.CAP),
+                           cuda_mesh(2), migratable_fns=[tw.FIB])
+    m.timeout_s = 0.0
+    with pytest.raises(RuntimeError, match="timed out"):
+        m.run(h.builders(2, False), quantum=64)

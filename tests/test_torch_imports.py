@@ -33,7 +33,13 @@ def test_imports_pull_in_no_jax():
             "hclib_tpu_torch.device.bnb",
             "hclib_tpu_torch.device.dyngraph",
             "hclib_tpu_torch.runtime.env",
-            "hclib_tpu_torch.models.nqueens"} <= set(mods)
+            "hclib_tpu_torch.models.nqueens",
+            "hclib_tpu_torch.models.fib",
+            "hclib_tpu_torch.parallel.mesh",
+            "hclib_tpu_torch.device.sharded",
+            "hclib_tpu_torch.device.ici_steal",
+            "hclib_tpu_torch.device.resident",
+            "hclib_tpu_torch.device.stress"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -123,6 +129,14 @@ ENTRY_POINTS = {
     "Megakernel": lambda: __import__(
         "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
             ["fib", "sum"]),
+    "cuda_mesh": lambda: __import__(
+        "hclib_tpu_torch.parallel.mesh", fromlist=["x"]).cuda_mesh(8),
+    "CtaMesh": lambda: __import__(
+        "hclib_tpu_torch.parallel.mesh", fromlist=["x"]).CtaMesh(
+            (4, 2), ("x", "y")),
+    "forest_steal": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).forest_steal(
+            ndev=2, roots=2, n=3, capacity=64),
 }
 
 

@@ -1,0 +1,393 @@
+"""The port's mesh runners (hclib_tpu_torch/device/{sharded,ici_steal,
+resident,stress}.py, a mesh device being one CTA on the card) held to the
+JAX package's on the same seeded fib forests, word for word: the value
+slots of every device, every device's counts row, the rounds, the tier
+counters and the fault stats.
+
+The port runs its plain versions (``cpu_mesh``); JAX runs its sharded
+runner over ``make_fib_megakernel(interpret=True)`` on the suite's
+virtual CPU devices, and its in-kernel runners in Mosaic's interpret
+mode - one run each (the 3-device ring, the 4-device resident steal in a
+hop order that sends a row on over two hops), shared through module
+fixtures and kept to a few tasks, because the interpreter costs seconds
+a task. The rest is held to exact totals and to
+the plain versions' own invariants: the abort word's lockstep exit, the
+one-device self-exchange, a 4x2 mesh, the batch-routed ring, and the
+refusals of what this slice does not run yet.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from hclib_tpu.device import workloads as jw
+from hclib_tpu.device.descriptor import TaskGraphBuilder as JBuilder
+from hclib_tpu.device.ici_steal import ICIStealMegakernel as JIci
+from hclib_tpu.device.resident import ResidentKernel as JResident
+from hclib_tpu.device.sharded import ShardedMegakernel as JSharded
+from hclib_tpu.parallel.mesh import cpu_mesh as jax_mesh
+from hclib_tpu_torch.device import megakernel as tmk
+from hclib_tpu_torch.device import stress as tstress
+from hclib_tpu_torch.device import workloads as tw
+from hclib_tpu_torch.device.descriptor import TaskGraphBuilder as TBuilder
+from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel as TIci
+from hclib_tpu_torch.device.resident import ResidentKernel
+from hclib_tpu_torch.device.sharded import ShardedMegakernel as TSharded
+from hclib_tpu_torch.device.sharded import abort_words
+from hclib_tpu_torch.models.fib import fib_seq, task_count
+from hclib_tpu_torch.parallel.mesh import CtaMesh, cpu_mesh
+
+FIB = 0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_without_hclint():
+    """The JAX megakernels are built without their build-time verifier
+    (hclint, a host analysis that cannot change the compiled program)."""
+    old = os.environ.get("HCLIB_TPU_VERIFY")
+    os.environ["HCLIB_TPU_VERIFY"] = "0"
+    yield
+    if old is None:
+        os.environ.pop("HCLIB_TPU_VERIFY", None)
+    else:
+        os.environ["HCLIB_TPU_VERIFY"] = old
+
+
+def forest(B, ndev, sizes, devices=None):
+    """A fib forest: root r is FIB(sizes[r]) with out slot r, on device
+    devices[r] (default 0); the root slots are reserved everywhere."""
+    bs = [B() for _ in range(ndev)]
+    for r, n in enumerate(sizes):
+        bs[devices[r] if devices else 0].add(FIB, args=[n], out=r)
+    for b in bs:
+        b.reserve_values(len(sizes))
+    return bs
+
+
+def seeded_sizes(seed, roots, lo, hi):
+    return [int(x) for x in np.random.default_rng(seed).integers(lo, hi + 1,
+                                                                roots)]
+
+
+def makers(cap, roots, batch_width=0):
+    nv = tw.VBLOCK * cap + max(64, roots)
+    return (
+        lambda: jw.make_fib_megakernel(capacity=cap, interpret=True,
+                                       num_values=nv,
+                                       batch_width=batch_width or None),
+        lambda: tw.make_fib_megakernel(capacity=cap, num_values=nv,
+                                       batch_width=batch_width or None,
+                                       device="cpu"),
+    )
+
+
+def expected(sizes):
+    tasks = sum(task_count(n) + (task_count(n) - 1) // 2 for n in sizes)
+    return tasks, sum(fib_seq(n) for n in sizes)
+
+
+def assert_same(jout, tout, keys):
+    jiv, _, ji = jout
+    tiv, _, ti = tout
+    np.testing.assert_array_equal(np.asarray(jiv), tiv)
+    np.testing.assert_array_equal(np.asarray(ji["per_device_counts"]),
+                                  ti["per_device_counts"])
+    for k in keys:
+        assert ji.get(k) == ti.get(k), (k, ji.get(k), ti.get(k))
+
+
+# ------------------------------------------------ the sharded runner vs JAX
+
+SHARDED = {
+    # name: (ndev, roots' sizes, devices, capacity, batch width, run kw)
+    "nosteal_4": (4, seeded_sizes(1, 12, 4, 8), [r % 4 for r in range(12)],
+                  64, 0, {}),
+    "steal_8_skewed": (8, seeded_sizes(2, 24, 5, 8), None, 64, 0,
+                       dict(steal=True, quantum=16, window=8)),
+    "hop_order_4": (4, seeded_sizes(3, 12, 4, 7), None, 64, 0,
+                    dict(steal=True, quantum=16, window=8,
+                         hop_order=[2, 1])),
+    "batch8_8": (8, seeded_sizes(4, 24, 5, 8), None, 256, 8,
+                 dict(steal=True, quantum=16, window=8)),
+    "forest_quick": (tstress.FOREST_STEAL_QUICK["ndev"],
+                     [tstress.FOREST_STEAL_QUICK["n"]]
+                     * tstress.FOREST_STEAL_QUICK["roots"], None,
+                     tstress.FOREST_STEAL_QUICK["capacity"], 0,
+                     dict(steal=True, quantum=256, window=16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARDED))
+def test_sharded_equals_jax(name):
+    ndev, sizes, devices, cap, bw, kw = SHARDED[name]
+    jmk, tmk_ = makers(cap, len(sizes), bw)
+    jout = JSharded(jmk(), jax_mesh(ndev, axis_name="q"),
+                    migratable_fns=[FIB]).run(
+        forest(JBuilder, ndev, sizes, devices), **kw)
+    tout = TSharded(tmk_(), cpu_mesh(ndev, axis_name="q"),
+                    migratable_fns=[FIB]).run(
+        forest(TBuilder, ndev, sizes, devices), **kw)
+    assert_same(jout, tout, ("executed", "pending", "overflow",
+                             "steal_rounds", "tiers"))
+    tasks, total = expected(sizes)
+    assert tout[2]["executed"] == tasks
+    assert int(tout[0][:, :len(sizes)].sum()) == total
+    if kw.get("steal"):
+        assert int((tout[2]["per_device_counts"][:, 5] > 0).sum()) >= 3
+
+
+# ------------------------- the in-kernel runners vs JAX's Mosaic interpreter
+
+# Two FIB(2) roots on device 0 and a quantum of one root's subtree (4
+# tasks): round 0 runs one root and moves the other, round 1 runs it on
+# the thief, which spawns its subtree there. On the ring (3 devices) the
+# root moves once; on the resident kernel (4 devices, hop order [2, 1])
+# it moves twice in round 0: to device 2 on the first hop, then, imported
+# there, on to device 3 on the second, after the stat fold of both hops.
+MOSAIC_SIZES, MOSAIC_QUANTUM, MOSAIC_CAP = [2, 2], 4, 16
+RESIDENT_HOPS = [2, 1]
+
+
+def _mosaic_pair(ndev, hop_order=None):
+    jmk, tmk_ = makers(MOSAIC_CAP, len(MOSAIC_SIZES))
+    kw = dict(quantum=MOSAIC_QUANTUM)
+    if hop_order is None:  # the ICI runner: the ring on 3 devices
+        jm = JIci(jmk(), jax_mesh(ndev, axis_name="q"),
+                  migratable_fns=[FIB], window=8)
+        tm = TIci(tmk_(), cpu_mesh(ndev, axis_name="q"),
+                  migratable_fns=[FIB], window=8)
+    else:
+        kw["hop_order"] = hop_order
+        jm = JResident(jmk(), jax_mesh(ndev, axis_name="q"),
+                       migratable_fns=[FIB], homed=False, window=8)
+        tm = ResidentKernel(tmk_(), cpu_mesh(ndev, axis_name="q"),
+                            migratable_fns=[FIB], homed=False, window=8)
+    return (jm.run(forest(JBuilder, ndev, MOSAIC_SIZES), **kw),
+            tm.run(forest(TBuilder, ndev, MOSAIC_SIZES), **kw))
+
+
+@pytest.fixture(scope="module")
+def ring3():
+    return _mosaic_pair(3)
+
+
+@pytest.fixture(scope="module")
+def resident4():
+    return _mosaic_pair(4, RESIDENT_HOPS)
+
+
+def test_ring_equals_jax_at_3_devices(ring3):
+    jout, tout = ring3
+    assert_same(jout, tout, ("executed", "pending", "overflow",
+                             "steal_rounds", "aborted"))
+    per_dev = tout[2]["per_device_counts"][:, 5]
+    assert per_dev[1] > 0 and tout[2]["steal_rounds"] >= 2
+
+
+def test_resident_steal_equals_jax_at_4_devices(resident4):
+    """Two XOR hops in hop order [2, 1]: the root exported on the first
+    hop is exported again on the second, and runs on device 3."""
+    jout, tout = resident4
+    assert_same(jout, tout, ("executed", "pending", "overflow", "rounds",
+                             "aborted", "fault_stats"))
+    assert tout[2]["per_device_counts"][:, 5].tolist() == [4, 0, 0, 4]
+
+
+# ------------------------- exact totals and the plain versions' invariants
+
+
+def _fib_mk(cap=256, roots=64, batch_width=0):
+    return makers(cap, roots, batch_width)[1]()
+
+
+@pytest.mark.parametrize("ndev", [3, 4])
+def test_abort_exits_the_mesh_in_lockstep(ndev):
+    """An abort word set on one device exits every device after the round
+    that folds it: one round, quantum tasks on the seeded device, the
+    fault stats' abort round 0 on every device (resident)."""
+    sizes = [10] * 4
+    m = TIci(_fib_mk(), cpu_mesh(ndev), migratable_fns=[FIB])
+    flags = [0] * ndev
+    flags[-1] = 1
+    _, _, info = m.run(forest(TBuilder, ndev, sizes), quantum=8,
+                       abort=flags)
+    assert info["aborted"] and info["steal_rounds"] == 1
+    assert info["executed"] == 8 and info["pending"] > 0
+    if ndev == 4:  # power of two: the resident kernel
+        assert [f["abort_round"] for f in info["fault_stats"]] == [0] * 4
+    assert abort_words(True, ndev)[:, 0].tolist() == [1] * ndev
+    with pytest.raises(ValueError, match="per-device flags"):
+        abort_words([1], ndev)
+
+
+def test_one_device_ring_self_exchange():
+    """A one-device ring exchanges with itself (hop distance 0): nothing
+    moves, the run completes, one round a quantum."""
+    sizes = [7, 6]
+    _, total = expected(sizes)
+    m = TIci(_fib_mk(), cpu_mesh(1), migratable_fns=[FIB])
+    iv, _, info = m._run_ring(forest(TBuilder, 1, sizes), quantum=16)
+    tasks, _ = expected(sizes)
+    assert info["executed"] == tasks and int(iv[0, :2].sum()) == total
+    assert info["steal_rounds"] == -(-tasks // 16)
+
+
+def test_4x2_mesh_is_the_8_device_hypercube():
+    """A 4x2 mesh numbers its devices row-major, so its XOR hops (minor
+    axis first) are the 8-device 1D mesh's: the same result word for
+    word, exact totals."""
+    sizes = seeded_sizes(5, 16, 6, 9)
+    runs = []
+    for mesh in (CtaMesh((4, 2), ("x", "y"), device="cpu"), cpu_mesh(8)):
+        rk = ResidentKernel(_fib_mk(), mesh, migratable_fns=[FIB],
+                            homed=False)
+        runs.append(rk.run(forest(TBuilder, 8, sizes), quantum=16))
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][2]["per_device_counts"],
+                                  runs[1][2]["per_device_counts"])
+    tasks, total = expected(sizes)
+    assert runs[0][2]["executed"] == tasks
+    assert int(runs[0][0][:, :16].sum()) == total
+    assert int((runs[0][2]["per_device_counts"][:, 5] > 0).sum()) == 8
+    hop = ResidentKernel(_fib_mk(), cpu_mesh(8), migratable_fns=[FIB],
+                         homed=False).run(forest(TBuilder, 8, sizes),
+                                          quantum=16, hop_order=[4, 1, 2])
+    assert hop[2]["executed"] == tasks
+    assert int(hop[0][:, :16].sum()) == total
+
+
+def test_batch_routed_ring_exact():
+    """The ring with FIB batch-routed at width 8: lanes spill before every
+    exchange, totals exact, the tier counters reconcile with executed."""
+    sizes = seeded_sizes(6, 12, 6, 9)
+    m = TIci(_fib_mk(cap=512, batch_width=8), cpu_mesh(3),
+             migratable_fns=[FIB])
+    iv, _, info = m.run(forest(TBuilder, 3, sizes), quantum=16)
+    tasks, total = expected(sizes)
+    assert info["executed"] == tasks and int(iv[:, :12].sum()) == total
+    tiers = info["tiers"]
+    assert sum(t["batch_tasks"] + t["scalar_tasks"] for t in tiers) == tasks
+    assert sum(t["spilled"] for t in tiers) > 0
+    assert all(t["batch_rounds"] > 0 for t, n in
+               zip(tiers, info["per_device_counts"][:, 5]) if n > 0)
+
+
+def test_forest_steal_quick_exact():
+    """stress.forest_steal on FOREST_STEAL_QUICK, scalar and at width 8:
+    exact totals, every device used by the scalar arm, the info keys."""
+    q = tstress.FOREST_STEAL_QUICK
+    info = tstress.forest_steal(**q, device="cpu")
+    assert info["tasks"] == 3912 and info["devices_used"] == q["ndev"]
+    for k in ("seconds", "tasks_per_sec", "rounds", "imbalance",
+              "per_device_counts", "timer"):
+        assert k in info
+    b = tstress.forest_steal(**q, batch_width=8, device="cpu")
+    assert b["tasks"] == 3912 and b["batch_tasks"] > 0
+    assert 0 < b["mean_occupancy"] <= 1
+
+
+# --------------------------------------------------------------- refusals
+
+
+class _Plan:
+    def enabled(self):
+        return True
+
+
+REFUSED_INIT = {
+    "homed": dict(migratable_fns=[FIB], homed=True),
+    "value_args": dict(migratable_fns={FIB: (0,)}, homed=False),
+    "channels": dict(channels={"c": ("x", 1)}),
+    "inject": dict(inject=True),
+    "tenants": dict(tenants=2),
+    "fault_plan": dict(fault_plan=_Plan()),
+    "pgas_only": dict(steal=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_INIT))
+def test_resident_refuses_what_is_not_ported(name):
+    with pytest.raises(NotImplementedError, match="A11"):
+        ResidentKernel(_fib_mk(), cpu_mesh(2), **REFUSED_INIT[name])
+
+
+REFUSED_RUN = {
+    "waits": dict(waits=[[(0, 1, 0)], []]),
+    "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []]),
+    "quiesce": dict(quiesce=True),
+    "resume_state": dict(resume_state={"tasks": None}),
+    "tenant_table": dict(tenant_table=object()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_RUN))
+def test_resident_run_refuses_what_is_not_ported(name):
+    rk = ResidentKernel(_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
+                        homed=False)
+    with pytest.raises(NotImplementedError, match="A11"):
+        rk.run(forest(TBuilder, 2, [3]), **REFUSED_RUN[name])
+
+
+@pytest.mark.parametrize("option", ["trace", "checkpoint"])
+def test_mesh_refuses_observed_builds(option):
+    mk = tw.make_fib_megakernel(256, device="cpu", **{option: True})
+    with pytest.raises(NotImplementedError, match="A11"):
+        ResidentKernel(mk, cpu_mesh(2), migratable_fns=[FIB], homed=False)
+    with pytest.raises(NotImplementedError, match="A11"):
+        TIci(mk, cpu_mesh(3), migratable_fns=[FIB])
+    with pytest.raises(ValueError, match=option.replace("trace",
+                                                        "trace ring")):
+        TSharded(mk, cpu_mesh(2))
+
+
+def test_sharded_builds_untraced_under_env(monkeypatch):
+    """HCLIB_TPU_TRACE from the environment: the sharded runner runs
+    untraced (its own launches) and the Megakernel keeps its ring."""
+    monkeypatch.setenv("HCLIB_TPU_TRACE", "1")
+    mk = tw.make_fib_megakernel(256, device="cpu")
+    assert mk.trace is not None and mk.trace_from_env
+    iv, _, info = TSharded(mk, cpu_mesh(2), migratable_fns=[FIB]).run(
+        forest(TBuilder, 2, [6, 5]), steal=True, quantum=8)
+    assert info["executed"] == expected([6, 5])[0]
+    assert mk.trace is not None
+
+
+def test_mesh_shape_and_argument_errors():
+    with pytest.raises(ValueError, match="power-of-two"):
+        ResidentKernel(_fib_mk(), cpu_mesh(3), homed=False)
+    with pytest.raises(ValueError, match="power-of-two device counts"):
+        TIci(_fib_mk(), CtaMesh((3, 2), ("a", "b"), device="cpu"))
+    with pytest.raises(ValueError, match="permutation"):
+        ResidentKernel(_fib_mk(), cpu_mesh(4), migratable_fns=[FIB],
+                       homed=False).run(forest(TBuilder, 4, [3]),
+                                        hop_order=[1, 1])
+    with pytest.raises(ValueError, match="1D mesh"):
+        TSharded(_fib_mk(), CtaMesh((2, 2), ("a", "b"), device="cpu"))
+    with pytest.raises(ValueError, match="hop_order"):
+        TSharded(_fib_mk(), cpu_mesh(4), migratable_fns=[FIB]).run(
+            forest(TBuilder, 4, [3]), steal=True, hop_order=[4])
+    with pytest.raises(ValueError, match="outside the kernel table"):
+        TSharded(_fib_mk(), cpu_mesh(2), migratable_fns=[5])
+    with pytest.raises(ValueError, match="non-pof2 ring"):
+        TIci(_fib_mk(), cpu_mesh(3), fault_plan=_Plan())
+    with pytest.raises(ValueError, match="1 to 3"):
+        CtaMesh((2, 2, 2, 2), ("a", "b", "c", "d"), device="cpu")
+
+
+def test_unified_load_raises_naming_the_roadmap():
+    with pytest.raises(NotImplementedError, match="A11b"):
+        tstress.unified_load()
+
+
+def test_mesh_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cuda_mesh(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tstress.forest_steal(**tstress.FOREST_STEAL_QUICK)
+    assert tmk.MESH_KINDS == ("mesh_round", "ici_ring", "resident_steal")
