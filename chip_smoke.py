@@ -198,16 +198,49 @@ header, qstat and the whole output state equal to the plain core's.
              (outside the launch counts) the plain version of every
              timed arm, word for word (the sharded arms' kernel time is
              CUDA events around each round's launch call alone).
+27. pgas     - user bodies and the resident kernel's PGAS configuration
+             (csrc/user.cuh, csrc/mesh.cuh): first the user library's
+             scheduler at full size, fib(24) written as user bodies
+             (225,073 tasks, one device, Megakernel.run and timed
+             launches: mk_user's ms) and 2,048 such fib(12) roots dealt
+             over 128 CTAs through the sharded runner's grid launch
+             (1,427,456 tasks); then the multi-chip dry run's
+             phases 2, 3 and 4 literally at 8 devices (64 user-body
+             BUMPs through the sharded steal at quantum 4, window 8 -
+             the user library's scheduler - and through the ICI steal at
+             window 32, quantum 16 - the resident kernel steal-only; the
+             dry run's put / consume table through PGASMegakernel with
+             waits), each held to the dry run's assertions; then the
+             PGAS exchange across the whole card: 128 co-resident CTAs,
+             every device first reads the landing words its consumer
+             will read (so its SM may cache them) and AMs its left
+             neighbour a SEND; each SEND AMs a BUMP at every device
+             (16,384 messages, am_window 8) and puts its 16 source rows
+             (512 B each) into its ring neighbour's heap, whose consumer
+             waits on (c0, 16) and sums the landed words: a stale
+             cached read would differ (stress.check_pgas: exact).
+             Tasks/s, rounds, AMs and puts a second, rows and stat words
+             exchanged, the kernel's ms; then (outside the launch counts)
+             the plain version of every arm, word for word, data
+             buffers included.
 
-The ``mesh`` lines, before the main path, hold the mesh kernels (the
-sharded runner's grid launch, the ring and the resident steal kernel)
-to their plain versions word for word on the cases of
-``scripts/mesh_holds.py``: FOREST_STEAL_QUICK's forest through the
-sharded runner with and without steal, at width 8 and with a hop order,
-the ring at 1, 3 and 6 devices (with an abort, and at width 8) and the
-resident kernel at 2, 4 and 8 (with a hop order, an abort, at width 8):
+The ``user`` lines, before the main path, hold the user-body
+scheduler on one device to the plain core (``scripts/mesh_holds.py``
+USER_CASES, one table of user bodies: the alloc/free chain, the
+built-in fib beside a user BUMP, fib written as user bodies), the whole
+state word for word. The ``mesh`` lines hold the mesh
+kernels (the sharded runner's grid launch, the ring, the resident
+kernel steal-only and its PGAS configuration, the user library's
+scheduler and resident kernel) to their plain versions word for word
+on the cases of ``scripts/mesh_holds.py``: FOREST_STEAL_QUICK's forest
+through the sharded runner with and without steal, at width 8 and with
+a hop order, the ring at 1, 3 and 6 devices (with an abort, and at
+width 8) and the resident kernel at 2, 4 and 8 (with a hop order, an
+abort, at width 8):
 every device's value slots and counts, the rounds, the tier counters,
-the fault stats and the rows each device exported.
+the fault stats and the rows each device exported; and the dry run's
+phases 2 and 3 and the PGAS exchange at 2, 4 and 8 devices (with steal
+beside it at 8), data buffers and messages and puts sent included.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -219,7 +252,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-26 are the main path: launch counts are zeroed just before each
+Phases 3-27 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -433,12 +466,23 @@ def main() -> int:
 
     # 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    per_source = _build.build_all()
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import mesh_holds
+
+    # Every library at once, one nvcc each, but USER_TABLE's user
+    # library, built alone after them: one user library's own build time.
+    alone = mesh_holds.user_megakernel(16, "cpu").user_source()
+    per_source = _build.build_all(user_sources=[
+        src for src in mesh_holds.user_sources() if src != alone])
     _build.library("megakernel")
     _build.library("uts")
     _build.library("sw_scores")
+    t1 = time.perf_counter()
+    alone_s = {k: v for k, v in _build.build_all(
+        user_sources=[alone]).items() if k.startswith("user-") and v}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": per_source})
+          "nvcc_seconds": per_source, "user_library_alone": alone_s,
+          "user_library_alone_wall_s": time.perf_counter() - t1})
 
     kernels = {}
 
@@ -1283,9 +1327,21 @@ def main() -> int:
                   "card_s": card_s, "plain_host_s": plain_s})
     del got, want
 
-    # The mesh kernels against their plain versions, word for word ------
-    import mesh_holds
+    # The user-body scheduler on one device against the plain core ------
+    user_err = 0.0  # the largest value-slot difference of the holds
+    for name in mesh_holds.USER_CASES:
+        got = mesh_holds.run_user_case(name, "cuda")
+        want = mesh_holds.run_user_case(name, "cpu")
+        for k, v in want.items():
+            check(np.array_equal(got[k], v),
+                  f"user table {name}: {k} differs from the plain core")
+        err = float(np.abs(got["ivalues"].astype(np.int64)
+                           - want["ivalues"].astype(np.int64)).max())
+        user_err = max(user_err, err)
+        emit({"phase": "user", "case": name, "equal": True,
+              "max_abs_err": err, "counts": got["counts"].tolist()})
 
+    # The mesh kernels against their plain versions, word for word ------
     mesh_hold_err = {}  # kernel: the largest value error of its holds
     for name in mesh_holds.CASES:
         got = mesh_holds.run_case(name, "cuda")
@@ -2851,6 +2907,207 @@ def main() -> int:
         }
     emit({"phase": "multichip", "arms": mesh_arms, "plain_ms": plain,
           "library": "none: no PyTorch call runs a task scheduler",
+          "launches": launches})
+
+    # 27. user bodies and the resident kernel's PGAS configuration: the
+    # user library's scheduler at full size (below); the
+    # multi-chip dry run's phases 2, 3 and 4 literally at 8 devices (its
+    # user-body tables through the sharded steal, the ICI steal - the
+    # resident kernel steal-only - and PGASMegakernel), then the PGAS
+    # exchange across the whole card, 128 co-resident CTAs: every device
+    # reads its landing words, then starts its left neighbour's SEND,
+    # which AMs a BUMP at every device (16,384 messages, am_window 8) and
+    # puts its 16 source rows into its ring neighbour's heap, whose
+    # consumer waits on (c0, 16) and reads the landed words. Each is
+    # held to its
+    # assertions; outside the launch counts each runs on the plain
+    # version too, word for word (value slots, counts, rounds, aborted,
+    # fault stats, exchange volume, data buffers).
+    from hclib_tpu_torch.device.pgas_kernel import PGASMegakernel
+
+    _build.reset_launches()
+    pgas_arms, pgas_out = {}, {}
+    # The user library's scheduler at full size: fib(24) written as user
+    # bodies (mesh_holds.USER_TABLE's UFIB / USUM, 225,073 tasks) on one
+    # device through Megakernel.run, then timed launch by launch; and a
+    # forest of 2,048 UFIB(12) roots dealt over 128 CTAs (1,427,456
+    # tasks) through the sharded runner's grid launch.
+    umk = mesh_holds.user_megakernel(768, "cuda")
+    ub = mesh_holds.user_builder("ufib", 24)
+    t0 = time.perf_counter()
+    iv, _, info = umk.run(ub)
+    dt = time.perf_counter() - t0
+    check(int(iv[0]) == 46368 and info["executed"] == 225073,
+          f"user fib(24): {int(iv[0])}, executed {info['executed']}")
+    ufib_ms, ust = timed_launch(umk, ub)
+    pgas_arms["user_fib_24"] = {
+        "executed": info["executed"], "seconds": dt, "kernel_ms": ufib_ms,
+        "tasks_per_s": info["executed"] / (ufib_ms * 1e-3)}
+    emit({"phase": "pgas", "arm": "user_fib_24",
+          **pgas_arms["user_fib_24"]})
+    t0 = time.perf_counter()
+    fiv, finfo = mesh_holds.user_forest(128, 2048, 12, "cuda")
+    dt = time.perf_counter() - t0
+    pgas_arms["user_forest_128"] = {
+        "executed": finfo["executed"], "seconds": dt,
+        "kernel_ms": finfo["kernel_ms"],
+        "tasks_per_s": finfo["executed"] / (finfo["kernel_ms"] * 1e-3)}
+    emit({"phase": "pgas", "arm": "user_forest_128",
+          **pgas_arms["user_forest_128"]})
+
+    def dryrun(phase, device):
+        mesh = CtaMesh((8,), ("queues",), device=device)
+        if phase == 2:
+            return ShardedMegakernel(
+                tst.bump_megakernel(device), mesh, migratable_fns=[0]).run(
+                    tst.dryrun_builders(2, 8), steal=True, quantum=4,
+                    window=8)
+        if phase == 3:
+            return ICIStealMegakernel(
+                tst.bump_megakernel(device), mesh, migratable_fns=[0],
+                window=32).run(tst.dryrun_builders(3, 8), quantum=16)
+        bs, waits, heap4 = tst.dryrun_builders(4, 8)
+        return PGASMegakernel(tst.put_consume_megakernel(device), mesh,
+                              channels={"c0": ("heap", 1)}).run(
+            bs, data={"heap": heap4}, waits=waits)
+
+    for phase in (2, 3, 4):
+        t0 = time.perf_counter()
+        iv, data, info = dryrun(phase, "cuda")
+        dt = time.perf_counter() - t0
+        check(info["pending"] == 0, f"dry run phase {phase}: pending")
+        if phase < 4:
+            check(int(iv[:, 0].sum()) == 64 * 65 // 2,
+                  f"dry run phase {phase}: total {int(iv[:, 0].sum())}")
+        else:
+            check(all(int(iv[d, 0]) >= 1 for d in range(8)),
+                  f"dry run phase 4: {iv[:, 0].tolist()}")
+        pgas_out[f"dryrun_{phase}"] = (iv, data, info)
+        ex = info.get("exchange", {})
+        pgas_arms[f"dryrun_{phase}"] = {
+            "seconds": dt, "executed": info["executed"],
+            "rounds": info.get("steal_rounds", info.get("rounds")),
+            "devices_used": int((np.asarray(info["per_device_counts"])[:, 5]
+                                 > 0).sum()),
+            "kernel_ms": ex.get("kernel_ms", info.get("kernel_ms")),
+            "rows_exported": sum(ex.get("rows", [])) if ex else None,
+            "stat_words": sum(ex.get("stat_words", [])) if ex else None}
+        emit({"phase": "pgas", "arm": f"dryrun_{phase}",
+              **pgas_arms[f"dryrun_{phase}"]})
+
+    def pgas_card(device, warm=False):
+        mk = tst.pgas_megakernel(capacity=1024, device=device)
+        pg = PGASMegakernel(mk, CtaMesh((128,), ("q",), device=device),
+                            channels={"c0": ("heap", 1)}, am_window=8,
+                            outbox=256)
+        if warm:
+            bs, waits, heap = tst.pgas_builders(128, True)
+            pg.run(bs, data={"heap": heap}, waits=waits)
+        bs, waits, heap = tst.pgas_builders(128, True)
+        t0 = time.perf_counter()
+        iv, data, info = pg.run(bs, data={"heap": heap}, waits=waits)
+        dt = time.perf_counter() - t0
+        tst.check_pgas(iv, data["heap"].cpu().numpy(), info, 128, True)
+        return iv, data, info, dt
+
+    iv, data, info, dt = pgas_card("cuda", warm=True)
+    ex = info["exchange"]
+    kms = ex["kernel_ms"]
+    pgas_out["pgas_128"] = (iv, data, info)
+    pgas_arms["pgas_128"] = {
+        "tasks": info["executed"], "seconds": dt, "kernel_ms": kms,
+        "tasks_per_s": info["executed"] / (kms / 1e3),
+        "rounds": info["rounds"], "ams": sum(ex["ams"]),
+        "puts": sum(ex["puts"]),
+        "ams_per_s": sum(ex["ams"]) / (kms / 1e3),
+        "puts_per_s": sum(ex["puts"]) / (kms / 1e3),
+        "rows_exported": sum(ex["rows"]), "stat_words": sum(ex["stat_words"]),
+    }
+    emit({"phase": "pgas", "arm": "pgas_128", **pgas_arms["pgas_128"]})
+    launches = path_done("pgas")
+    # Outside the counts: the plain version of every arm, word for word.
+
+    def same_pgas(name, card, plain):
+        (iv_c, d_c, ic), (iv_p, d_p, ip) = card, plain
+        check(np.array_equal(iv_c, iv_p),
+              f"pgas {name}: ivalues differ from the plain version")
+        check(np.array_equal(ic["per_device_counts"], ip["per_device_counts"]),
+              f"pgas {name}: per_device_counts differ from the plain version")
+        for k in ("steal_rounds", "rounds", "fault_stats", "aborted"):
+            check(ic.get(k) == ip.get(k),
+                  f"pgas {name}: {k} differs from the plain version")
+        for k in ("rows", "stat_words", "ams", "puts"):
+            check(ic.get("exchange", {}).get(k)
+                  == ip.get("exchange", {}).get(k),
+                  f"pgas {name}: exchange {k} differs from the plain version")
+        for k in d_p:
+            check(torch.equal(d_c[k].cpu(), d_p[k].cpu()),
+                  f"pgas {name}: data {k} differs from the plain version")
+        return float(np.abs(np.asarray(iv_p, np.int64) - iv_c).max())
+
+    pgas_plain, pgas_err = {}, {}
+    pmk = mesh_holds.user_megakernel(768, "cpu")
+    pst = pmk.state(ub)
+    pgas_plain["user_fib_24"], _ = plain_ms(lambda: pmk.launch(pst))
+    for k in ("tasks", "ready", "counts", "ivalues"):
+        check(torch.equal(ust[k].cpu(), pst[k]),
+              f"user fib(24): {k} differs from the plain core")
+    pgas_err["user_fib_24"] = float(
+        (ust["ivalues"].cpu().long() - pst["ivalues"].long()).abs().max())
+    fiv_p, finfo_p = mesh_holds.user_forest(128, 2048, 12, "cpu")
+    check(np.array_equal(fiv, fiv_p) and np.array_equal(
+        finfo["per_device_counts"], finfo_p["per_device_counts"]),
+        "user forest: differs from the plain version")
+    pgas_err["user_forest_128"] = float(np.abs(
+        np.asarray(fiv, np.int64) - fiv_p).max())
+    pgas_plain["user_forest_128"] = finfo_p["kernel_ms"]
+    for phase in (2, 3, 4):
+        name = f"dryrun_{phase}"
+        out_p = dryrun(phase, "cpu")
+        pgas_err[name] = same_pgas(name, pgas_out[name], out_p)
+        pgas_plain[name] = out_p[2].get("exchange", {}).get(
+            "kernel_ms", out_p[2].get("kernel_ms"))
+    iv_p, data_p, info_p, _ = pgas_card("cpu")
+    pgas_err["pgas_128"] = same_pgas("pgas_128", pgas_out["pgas_128"],
+                                     (iv_p, data_p, info_p))
+    pgas_plain["pgas_128"] = info_p["exchange"]["kernel_ms"]
+    emit({"phase": "pgas", "plain_equal": sorted(pgas_err),
+          "max_abs_err": pgas_err, "plain_ms": pgas_plain})
+    # Bounds (bytes): 136 B a task; 64 B an active message's descriptor
+    # row moved (written into the inbox once, read once: 16 words each
+    # way counted as the row), 4 B a stat word sent, and each put's rows
+    # x cols x 4 B read once and written once. The user scheduler's
+    # one-device run (user fib(24)): 136 B a task.
+    a = pgas_arms["pgas_128"]
+    put_bytes = tst.PGAS_COLS * 4
+    kb = bound(0.0, a["tasks"] * 136.0 + 64.0 * a["ams"]
+               + 4.0 * a["stat_words"] + 2.0 * put_bytes * a["puts"])
+    kernels["resident_pgas"] = {
+        "name": "resident_pgas", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/resident.py:2222",
+        "max_abs_err": max([pgas_err["pgas_128"], pgas_err["dryrun_4"],
+                            mesh_hold_err["resident_pgas"]]),
+        "ms": kms, "plain_ms": pgas_plain["pgas_128"],
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None,
+    }
+    a2 = pgas_arms["user_fib_24"]
+    kb = bound(0.0, a2["executed"] * 136.0)
+    kernels["mk_user"] = {
+        "name": "mk_user", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/user.cuh",
+        "replaces": "hclib_tpu/device/megakernel.py:2165",
+        "max_abs_err": max([pgas_err["dryrun_2"], mesh_hold_err["mk_user"],
+                            user_err, pgas_err["user_fib_24"],
+                            pgas_err["user_forest_128"]]),
+        "ms": a2["kernel_ms"], "plain_ms": pgas_plain["user_fib_24"],
+        "bound_ms": kb[0], "bound_by": kb[1], "library_ms": None,
+    }
+    kernels["resident_steal"]["max_abs_err"] = max(
+        kernels["resident_steal"]["max_abs_err"], pgas_err["dryrun_3"])
+    emit({"phase": "pgas", "arms": pgas_arms, "plain_ms": pgas_plain,
+          "library": "none: no PyTorch call runs a task scheduler or its "
+                     "one-sided messages",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

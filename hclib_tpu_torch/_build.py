@@ -25,7 +25,17 @@ ran an observed instance: the flight recorder or the quiesce poll, and
 as the megakernel's do); the mesh kernels of ``csrc/mesh.cuh`` (in the
 megakernel library): ``"mesh_round"`` the sharded runner's grid launches
 (one a steal round), ``"ici_ring"`` and ``"resident_steal"`` the launches
-of the ring and the resident steal kernels (one a run).
+of the ring and the resident kernel's steal-only configuration (one a
+run), ``"resident_pgas"`` its PGAS configurations (channels, with or
+without steal); ``"mk_user"`` the launches of a user-body library's
+scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a user table on one
+device, or a grid launch of the sharded runner). A user table's launches
+of the ring and the resident kernel count as those kernels'.
+
+A table with user-defined bodies (``Megakernel(kernels=[(name, fn,
+cuda)])``) builds its own small library from a generated source,
+``user_library``: ``csrc/user.cuh`` and the bodies' CUDA statements,
+keyed by a hash of that text and of the headers it includes.
 """
 
 from __future__ import annotations
@@ -35,12 +45,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict
 
 __all__ = ["LAUNCHES", "reset_launches", "build_all", "library", "lib_path",
-           "check"]
+           "check", "user_library", "user_lib_path", "user_key"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("_build")
@@ -58,7 +69,7 @@ LAUNCHES: Dict[str, int] = {
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
     "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
-    "resident_steal": 0,
+    "resident_steal": 0, "resident_pgas": 0, "mk_user": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -90,35 +101,100 @@ def lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every ``csrc/*.cu`` that has no current library, all at
-    once; returns {source name: seconds} (0.0 for one already built)."""
-    BUILD.mkdir(exist_ok=True)
+# The headers a user-body library includes (csrc/user.cuh and what it
+# includes): part of its key.
+USER_HEADERS = ("layout.cuh", "sched.cuh", "mesh.cuh", "user.cuh")
+
+
+def user_key(source: str) -> str:
+    """The key of a user-body library: a hash of the flags, its generated
+    source (the user bodies' text) and the headers it includes."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(source.encode())
+    for name in USER_HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def user_lib_path(source: str) -> Path:
+    """Where the user-body library of generated ``source`` is built."""
+    return BUILD / f"libuser-{user_key(source)}.so"
+
+
+def _compile(jobs) -> Dict[str, float]:
+    """Run nvcc on every (name, source, library) job at once, one process
+    each; {name: seconds from the start to the end of its own process}.
+    Raises with nvcc's stderr if any fails."""
     nvcc = _nvcc()
-    procs = {}
-    times: Dict[str, float] = {}
+    BUILD.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    for src in sorted(CSRC.glob("*.cu")):
-        out = lib_path(src.stem)
-        if out.exists():
-            times[src.stem] = 0.0
-            continue
+    procs = {}
+    for name, src, out in jobs:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        ), tmp, out)
-    errors = []
-    for name, (p, tmp, out) in procs.items():
-        _, err = p.communicate()
-        times[name] = time.perf_counter() - t0
-        if p.returncode != 0:
-            errors.append(f"nvcc failed on {name}.cu:\n{err}")
-        else:
-            os.replace(tmp, out)
+        # stderr to a file: a pipe nobody drains while polling could fill.
+        err = tempfile.TemporaryFile(mode="w+")
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.DEVNULL, stderr=err, text=True
+        ), err, tmp, out)
+    times, errors = {}, []
+    while len(times) < len(procs):
+        for name, (p, err, tmp, out) in procs.items():
+            if name in times or p.poll() is None:
+                continue
+            times[name] = time.perf_counter() - t0
+            if p.returncode != 0:
+                err.seek(0)
+                errors.append(f"nvcc failed on {name}.cu:\n{err.read()}")
+            else:
+                os.replace(tmp, out)
+            err.close()
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return times
+
+
+def _user_job(source: str):
+    """The build job of a user-body library: its source written under
+    _build/, and its library path."""
+    key = "user-" + user_key(source)
+    BUILD.mkdir(exist_ok=True)
+    cu = BUILD / f"{key}.cu"
+    cu.write_text(source)
+    return key, cu, user_lib_path(source)
+
+
+def build_all(user_sources=()) -> Dict[str, float]:
+    """Compile every ``csrc/*.cu``, and the user-body library of each
+    generated source in ``user_sources``, that has no current library,
+    all at once (one nvcc each); returns {name: seconds} (0.0 for one
+    already built; ``user-<key>`` for a user library). A failed build
+    raises with nvcc's stderr."""
+    jobs = [(src.stem, src, lib_path(src.stem))
+            for src in sorted(CSRC.glob("*.cu"))]
+    jobs += [_user_job(src) for src in user_sources]
+    todo = {name: job for name, *job in jobs if not job[1].exists()}
+    times = {name: 0.0 for name, *_ in jobs}
+    times.update(_compile([(n, *j) for n, j in todo.items()]))
+    return times
+
+
+def user_library(source: str) -> ctypes.CDLL:
+    """The loaded user-body library of generated ``source`` (built on
+    first use, by itself: megakernel.cu's library is not rebuilt)."""
+    key = "user-" + user_key(source)
+    lib = _LIBS.get(key)
+    if lib is None:
+        path = user_lib_path(source)
+        if not path.exists():
+            _compile([_user_job(source)])
+        lib = ctypes.CDLL(str(path))
+        lib.hclib_error_string.restype = ctypes.c_char_p
+        lib.hclib_error_string.argtypes = [ctypes.c_int]
+        _LIBS[key] = lib
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:

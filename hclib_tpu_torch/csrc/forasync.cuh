@@ -57,10 +57,12 @@
 
 #include <stdint.h>
 
+#include "layout.cuh"
+
 namespace hc {
 
-// megakernel.py META_SLAB / SLAB_HDR / SLAB_WORDS / SL_*.
-constexpr int META_SLAB = 480, SLAB_HDR = 4, SLAB_WORDS = 12;
+// megakernel.py SLAB_HDR / SLAB_WORDS / SL_* (META_SLAB: layout.cuh).
+constexpr int SLAB_HDR = 4, SLAB_WORDS = 12;
 enum { SL_BUF, SL_LD, SL_ROWS, SL_COLS, SL_PITCH, SL_SOFF, SL_C0, SL_K = 10 };
 enum { TILE_ADD, TILE_STENCIL, TILE_MAP };
 // hclib_tpu/device/workloads.py MAP_MUL, MAP_ADD.

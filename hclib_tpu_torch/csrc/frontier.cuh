@@ -79,6 +79,8 @@
 
 #include <stdint.h>
 
+#include "layout.cuh"  // floor_div
+
 namespace hc {
 
 // hclib_tpu_torch/device/frontier.py EBLOCK, V_*, VT_BASE, PR_*;
@@ -92,12 +94,6 @@ constexpr int V_BEST = 0, V_PRUNED = 1, V_LEAVES = 2, BB_TAB = 8;
 constexpr int V_UPDATES = 2, V_FREE = 3, V_DROPPED = 4, V_QUERIES = 5;
 constexpr int FR_DESC = 16, FR_A0 = 6, FR_OUT = 12;
 enum { FR_BFS, FR_SSSP, FR_PAGERANK };
-
-// jnp's // on int32 (floor), b > 0.
-__device__ __forceinline__ int floor_div(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));

@@ -2,35 +2,36 @@
 // CTAs of a mesh are co-resident on one card.
 //
 // Replaces:
-//   mk_grid_kernel   <- hclib_tpu/device/sharded.py: the megakernel (row 1,
-//                       megakernel.py _build_raw :2114) run once per mesh
-//                       device under shard_map, one entry without steal
-//                       (:313) or one a steal round (:372)
 //   ici_ring_kernel  <- hclib_tpu/device/ici_steal.py ICIStealMegakernel.
 //                       _kernel (:278, pallas_call at :765) with the
 //                       export / import closures of _make_xfer (:180): the
 //                       ring allreduce of (pending, backlog, abort) in
 //                       ndev - 1 credited hops, then one exchange at
 //                       distance 2^(r mod nh) mod ndev
-//   resident_steal_kernel <- hclib_tpu/device/resident.py ResidentKernel.
-//                       _kernel (:626, pallas_call at :2222) in its
-//                       steal-only configuration (steal=True, homed=False):
-//                       stage_resident (:945), install_fixed (:993),
-//                       elig_of (:1041), export (:1069), import_rows
-//                       (:1178), fold_and_steal (:1562) and the round loop
-//                       (:1890-2099)
+//   resident_kernel  <- hclib_tpu/device/resident.py ResidentKernel.
+//                       _kernel (:626, pallas_call at :2222) with
+//                       homed=False, in three configurations: steal-only
+//                       (kSteal: stage_resident :945, install_fixed :993,
+//                       elig_of :1041, export :1069, import_rows :1178,
+//                       fold_and_steal :1562, the round loop :1890-2099),
+//                       PGAS-only (kPgas: op_put :834, op_wait_until :862,
+//                       op_count :878, op_am :801, drain_outbox :1189,
+//                       handle_am :1231 for user kinds, drain_receives
+//                       :1322, scan_waits :1381, the stat vector's XOR
+//                       all-to-all section :497-536) and both at once
+// csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
+// mk_kernel's body a block) and instantiates these with the built-in
+// thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
+// with its own bodies, the PGAS configurations only there (only a user
+// body puts, sends an active message or waits on a channel).
 //
-// Design. mk_grid_kernel is mk_kernel's body (mk_body.cuh) with block b on
-// mesh device b's slice of the stacked state: the CTAs do not talk, so an
-// ordinary launch serves, and the bulk-synchronous exchange between its
-// launches is torch ops (device/sharded.py). The two steal kernels keep
-// the whole run in one launch: each CTA's thread 0 runs the serial
-// scheduler of mk_kernel (Sched's stage, pop, spawn, complete; the lane
-// tier's schedule, finish_batch and spill) for a quantum a round, then the
-// exchange. Their CTAs wait on each other, so they are launched
-// cooperatively (cudaLaunchCooperativeKernel), never more CTAs than the
-// card holds at once: a spinning CTA whose partner is not resident would
-// wait forever.
+// Design. The steal kernels keep the whole run in one launch: each CTA's
+// thread 0 runs the serial scheduler of mk_kernel (Sched's stage, pop,
+// spawn, complete; the lane tier's schedule, finish_batch and spill) for a
+// quantum a round, then the exchange. Their CTAs wait on each other, so
+// they are launched cooperatively (cudaLaunchCooperativeKernel), never
+// more CTAs than the card holds at once: a spinning CTA whose partner is
+// not resident would wait forever.
 //
 // A remote DMA with its semaphores becomes: thread 0 stores the rows into
 // the partner's inbox slab (global memory), fences, and adds one to the
@@ -45,18 +46,41 @@
 // schedule on its own data, so the card's task tables, counts, values and
 // tier counters equal the plain versions' word for word.
 //
+// PGAS. A put is stores of the channel's rows into the partner's slice of
+// the stacked data buffer, a fence, and a release add on the partner's
+// per-(source, channel) arrival counter; an active message is a 16-word
+// row stored into the target's per-(source) inbox ring of am_window rows
+// and a release add on its per-source arrival counter. Senders count what
+// they sent per (target, channel) and per target; the fold routes those
+// counts with the XOR all-to-all, so each device learns how many puts and
+// messages each source sent it, waits (acquire) until its arrival counters
+// reach those counts, and only then adds them to chan_tot (what count()
+// and wait_until see) and installs the messages. chan_tot grows only
+// there, never when a store lands, so waits release in the round JAX's do.
+// A put may land while the target's thread 0 runs bodies, as JAX's remote
+// DMA does; no barrier is added. A body reads landed rows after the
+// acquire in drain_receives (an acquire load invalidates the SM's L1).
+// At most am_window / 2 messages leave for one target a round, the capped
+// head waiting in the FIFO outbox (OVF_OUTBOX when it is full), so a slot
+// is never rewritten before its target drained it (pgas_kernel.py's
+// argument: the fold of round r + 1 orders after every drain of round r).
+//
 // Every wait is bounded: past its deadline (the global timer, in
 // nanoseconds: the SM clock that clock64 counts slows under a power cap)
 // the CTA claims the error row, writes (device, round, hop, wait) into it
 // and raises the stop word; every other CTA polls the stop word in its
 // waits and leaves too, and the host raises with those words. A protocol
+// fault (a put on an undeclared channel or outside the buffer, a message
+// to a device outside the mesh) stops the mesh the same way. A protocol
 // fault shows as an error, never as a hung launch.
 //
 // What bounds it: as mk_kernel, a chain of dependent loads and stores by
 // one thread a CTA, now on ndev SMs at once; an exchange hop adds the
-// round trip of two flag handshakes through L2.
+// round trip of two flag handshakes through L2, and a put its row bytes.
 
 #pragma once
+
+#include "sched.cuh"
 
 namespace {
 
@@ -66,27 +90,50 @@ constexpr int F_HOME = 13, F_VMASK = 15;  // descriptor.py
 constexpr int MAX_HOPS = 16;
 constexpr int MESH_MAX_FNS = 32;
 constexpr int MAX_SCAN = 1024;
+constexpr int MAX_CHANS = 8;
+constexpr int NUM_ARGS = 6;
 // A port: the slabs and counters one (device, hop) pair of the exchange
 // owns (the ring uses one port a device). Counters first, each on its own
 // 32-byte sector; then the stat slab; then the (W + 1, 16) row inbox
-// whose row W word 0 is the row count.
+// whose row W word 0 is the row count. The steal-only kernel sends the
+// seven sums and the backlog (STAT_WORDS) and keeps its inbox at
+// P_INBOX; the PGAS configurations send the whole stat vector of
+// MeshArgs::stat_words and keep the inbox at MeshArgs::p_inbox.
 constexpr int P_SARR = 0, P_SCRED = 8, P_RARR = 16, P_RCRED = 24;
 constexpr int P_STAT = 32, STAT_WORDS = 8, P_INBOX = 64;
 // Resident stat words (resident.py SF_*): the sums of [0, SX_AM), then
-// the sender's ready backlog (S_BL). With no active messages, channels,
-// injection or faults, the XOR all-to-all section is all zeros and is not
-// sent.
-constexpr int SF_PEND = 0, SF_ABORT = 5, SX_AM = 7, S_BL = 7;
-// The error row: the stop word, the claim, then what timed out.
+// the XOR all-to-all section (the PGAS configurations), then the sender's
+// ready backlog. With no active messages, channels, injection or faults,
+// the all-to-all section is all zeros and the steal-only kernel does not
+// send it (S_BL is 7 there).
+constexpr int SF_PEND = 0, SF_RECV = 1, SF_OUTB = 2, SF_SENT = 3,
+              SF_ABORT = 5, SX_AM = 7, S_BL = 7;
+// The error row: the stop word, the claim, then what timed out (or the
+// protocol fault).
 constexpr int ER_STOP = 0, ER_CLAIM = 1, ER_DEV = 2, ER_ROUND = 3,
               ER_HOP = 4, ER_WAIT = 5;
-enum { W_STAT_CREDIT = 1, W_STAT_ARRIVAL, W_ROW_CREDIT, W_ROW_ARRIVAL };
+enum {
+  W_STAT_CREDIT = 1, W_STAT_ARRIVAL, W_ROW_CREDIT, W_ROW_ARRIVAL,
+  W_PUT_ARRIVAL, W_AM_ARRIVAL, F_BAD_CHANNEL, F_BAD_ROWS, F_BAD_TARGET
+};
 // resident.py FS_*: the fault/abort stats row a device writes at exit.
 constexpr int FS_DEAD_ROUND = 4, FS_ABORT_ROUND = 7, FS_QUIESCE_ROUND = 10,
               FS_WORDS = 16;
 // The exchange's volume a device (both steal kernels): rows it exported,
-// stat words it sent.
-constexpr int XS_ROWS = 0, XS_STAT_WORDS = 1, XS_WORDS = 4;
+// stat words it sent; and what the PGAS configurations sent: active
+// messages and puts.
+constexpr int XS_ROWS = 0, XS_STAT_WORDS = 1, XS_AMS = 2, XS_PUTS = 3,
+              XS_WORDS = 4;
+// resident.py pstate words, and C_OVERFLOW's bits of the PGAS ops.
+constexpr int PS_RECV = 0, PS_NWAIT = 1, PS_SENT = 2;
+constexpr int OVF_OUTBOX = 8, OVF_WAITS = 16, OVF_VALUES = 2;
+// The sections of one device's PGAS workspace; the host lays them out
+// (device/resident.py pgas_layout) and passes each one's word offset.
+enum {
+  PG_OBCTL, PG_PSTATE, PG_AM_SENT, PG_AM_RECV, PG_SENT_ROUND, PG_DATA_SENT,
+  PG_CHAN_RECV, PG_CHAN_TOT, PG_OUTQ_TGT, PG_OUTQ_DESC, PG_WAITS,
+  PG_STATACC, PG_AM_ARR, PG_CHAN_ARR, PG_INBOX, PG_SECTIONS
+};
 
 struct MeshArgs {
   Args a;  // device 0's slice; the table words are shared
@@ -104,6 +151,17 @@ struct MeshArgs {
   int quantum, max_rounds, window, scan, nhops, port_words;
   int hops[MAX_HOPS];  // resident: the hop bits in scan order
   long long timeout_ns;
+  // The user-body libraries: each device's value-block free stack.
+  int32_t* vfree;
+  long long s_vfree;
+  // The PGAS configurations: each device's workspace (zeroed, its wait
+  // table and PS_NWAIT set by the host), the channels and the sizes.
+  int32_t* pg;
+  long long s_pg;
+  int nchan, amw, outq, maxw, stat_words, p_inbox;
+  int chan_buf[MAX_CHANS], chan_rows[MAX_CHANS], chan_nrows[MAX_CHANS];
+  long long chan_row_bytes[MAX_CHANS];
+  int pg_off[PG_SECTIONS];
 };
 
 // Device d's slice of the stacked state (in place: tasks_in == tasks).
@@ -127,15 +185,6 @@ __device__ __forceinline__ Args mesh_slice(const MeshArgs& m, int d) {
   for (int i = 0; i < MAX_DATA; ++i)
     if (a.data[i]) a.data[i] = static_cast<char*>(a.data[i]) + d * m.s_data[i];
   return a;
-}
-
-// sharded.py's per-device entry: block b runs mk_kernel's body on mesh
-// device b's slice (no recorder, no quiesce poll).
-template <int kMode>
-__global__ void __launch_bounds__(BT) mk_grid_kernel(MeshArgs mesh) {
-  constexpr bool kObs = false;
-  const Args a = mesh_slice(mesh, blockIdx.x);
-#include "mk_body.cuh"
 }
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -183,6 +232,21 @@ struct Mesh {
     return m.ws + static_cast<size_t>(dev * nports + k) * m.port_words;
   }
 
+  // Stop the mesh naming (round, hop, what): a timed-out wait or a
+  // protocol fault. The first CTA to claim the error row writes it.
+  __device__ void fail(int r, int hop, int which) const {
+    if (atomicCAS(m.err + ER_CLAIM, 0, 1) == 0) {
+      m.err[ER_DEV] = me;
+      m.err[ER_ROUND] = r;
+      m.err[ER_HOP] = hop;
+      m.err[ER_WAIT] = which;
+      __threadfence();
+    }
+    atomicExch(m.err + ER_STOP, 1);
+  }
+
+  __device__ bool stopped() const { return ld_relaxed(m.err + ER_STOP) != 0; }
+
   // Spin until *ctr >= want. False when the mesh was stopped or this wait
   // passed its deadline (then it stops the mesh, naming itself).
   __device__ bool wait(const int32_t* ctr, int want, int r, int hop,
@@ -192,14 +256,7 @@ struct Mesh {
       if (ld_acquire(ctr) >= want) return true;
       if (ld_relaxed(m.err + ER_STOP) != 0) return false;
       if (now_ns() > deadline) {
-        if (atomicCAS(m.err + ER_CLAIM, 0, 1) == 0) {
-          m.err[ER_DEV] = me;
-          m.err[ER_ROUND] = r;
-          m.err[ER_HOP] = hop;
-          m.err[ER_WAIT] = which;
-          __threadfence();
-        }
-        atomicExch(m.err + ER_STOP, 1);
+        fail(r, hop, which);
         return false;
       }
     }
@@ -274,39 +331,278 @@ struct Mesh {
   }
 };
 
+// One device's PGAS state (resident.py's scratch: the outbox, the AM and
+// put counts, chan_tot, pstate, the wait table, the stat accumulator) in
+// its slice of the workspace, and the ops a body calls (ctx.pgas): put,
+// am, wait_until, count; plus the round's drains.
+struct Pgas {
+  const MeshArgs& m;
+  const Mesh& X;
+  int me;
+  int r;  // the current round (for a fault's error row)
+
+  __device__ int32_t* at(int dev, int sec) const {
+    return m.pg + dev * m.s_pg + m.pg_off[sec];
+  }
+  __device__ int32_t* mine(int sec) const { return at(me, sec); }
+
+  // op_put: copy channel `chan`'s rows from my slice of its buffer, rows
+  // [src_row, src_row + rows), into device dev's slice at dst_row, then
+  // publish them on dev's (me, chan) arrival counter.
+  __device__ void put(int dev, int chan, int dst_row, int src_row) const {
+    if (chan < 0 || chan >= m.nchan) return X.fail(r, -1, F_BAD_CHANNEL);
+    if (dev < 0 || dev >= m.ndev) return X.fail(r, -1, F_BAD_TARGET);
+    const int rows = m.chan_rows[chan], nrows = m.chan_nrows[chan];
+    if (src_row < 0 || dst_row < 0 || src_row + rows > nrows ||
+        dst_row + rows > nrows)
+      return X.fail(r, -1, F_BAD_ROWS);
+    const int b = m.chan_buf[chan];
+    const long long rb = m.chan_row_bytes[chan];
+    const char* src = static_cast<const char*>(m.a.data[b]) +
+                      me * m.s_data[b] + src_row * rb;
+    char* dst = static_cast<char*>(m.a.data[b]) + dev * m.s_data[b] +
+                dst_row * rb;
+    const long long n = rows * rb;
+    if (n % 16 == 0) {
+      for (long long i = 0; i < n; i += 16)
+        *reinterpret_cast<int4*>(dst + i) =
+            *reinterpret_cast<const int4*>(src + i);
+    } else {
+      for (long long i = 0; i < n; ++i) dst[i] = src[i];
+    }
+    publish(at(dev, PG_CHAN_ARR) + me * m.nchan + chan);
+    mine(PG_DATA_SENT)[dev * m.nchan + chan] += 1;
+    mine(PG_PSTATE)[PS_SENT] += 1;
+  }
+
+  // op_am: queue a user-kind descriptor for device dev's scheduler; the
+  // round's drain_outbox sends it under the inbox window.
+  __device__ void am(Sched& S, int dev, int fn, const int* args, int nargs,
+                     int out) const {
+    if (dev < 0 || dev >= m.ndev || fn < 0)
+      return X.fail(r, -1, F_BAD_TARGET);
+    int32_t* ob = mine(PG_OBCTL);
+    const int h = ob[1];
+    if (h - ob[0] >= m.outq) {
+      S.counts[C_OVERFLOW] |= OVF_OUTBOX;
+      return;
+    }
+    const int slot = h % m.outq;
+    mine(PG_OUTQ_TGT)[slot] = dev;
+    int32_t* d = mine(PG_OUTQ_DESC) + slot * DESC;
+    d[F_FN] = fn;
+    d[F_DEP] = 0;
+    d[F_SUCC0] = NO_TASK;
+    d[F_SUCC1] = NO_TASK;
+    d[F_CSR_OFF] = 0;
+    d[F_CSR_N] = 0;
+    for (int i = 0; i < NUM_ARGS; ++i) d[F_A0 + i] = i < nargs ? args[i] : 0;
+    d[F_OUT] = out;
+    d[F_HOME] = NO_TASK;
+    d[F_HOME + 1] = 0;  // F_HROW
+    d[F_VMASK] = 0;
+    ob[1] = h + 1;
+  }
+
+  // op_wait_until: park row until chan_tot[chan] >= need (scan_waits).
+  __device__ void wait_until(Sched& S, int chan, int need, int row) const {
+    int32_t* ps = mine(PG_PSTATE);
+    const int n = ps[PS_NWAIT];
+    if (n >= m.maxw) {
+      S.counts[C_OVERFLOW] |= OVF_WAITS;
+      return;
+    }
+    int32_t* w = mine(PG_WAITS) + 3 * n;
+    w[0] = chan;
+    w[1] = need;
+    w[2] = row;
+    ps[PS_NWAIT] = n + 1;
+  }
+
+  // op_count: the arrivals the fold announced on chan so far.
+  __device__ int count(int chan) const {
+    return chan >= 0 && chan < m.nchan ? mine(PG_CHAN_TOT)[chan] : 0;
+  }
+
+  // drain_outbox: send queued messages FIFO, at most amw / 2 a target a
+  // round (a capped head stalls the rest until the next round).
+  __device__ void drain_outbox() const {
+    int32_t* sr = mine(PG_SENT_ROUND);
+    int32_t* sent = mine(PG_AM_SENT);
+    int32_t* ob = mine(PG_OBCTL);
+    const int32_t* tgt = mine(PG_OUTQ_TGT);
+    const int32_t* q = mine(PG_OUTQ_DESC);
+    for (int i = 0; i < m.ndev; ++i) sr[i] = 0;
+    int h = ob[0];
+    const int tail = ob[1];
+    while (h < tail) {
+      const int slot_q = h % m.outq, t = tgt[slot_q];
+      if (sr[t] >= m.amw / 2) break;
+      const int slot = sent[t] % m.amw;
+      int32_t* dst = at(t, PG_INBOX) + (me * m.amw + slot) * DESC;
+      for (int w = 0; w < DESC; ++w) dst[w] = q[slot_q * DESC + w];
+      publish(at(t, PG_AM_ARR) + me);
+      sent[t] += 1;
+      sr[t] += 1;
+      mine(PG_PSTATE)[PS_SENT] += 1;
+      ++h;
+    }
+    ob[0] = h;
+  }
+
+  // The fold's starting words of the all-to-all section: slot p holds
+  // what I sent to me ^ p (messages, then puts a channel).
+  __device__ void stat_init(int32_t* acc) const {
+    int32_t* st = mine(PG_STATACC);
+    const int32_t* sent = mine(PG_AM_SENT);
+    const int32_t* ds = mine(PG_DATA_SENT);
+    const int32_t* ps = mine(PG_PSTATE);
+    acc[SF_RECV] = ps[PS_RECV];
+    acc[SF_OUTB] = mine(PG_OBCTL)[1] - mine(PG_OBCTL)[0];
+    acc[SF_SENT] = ps[PS_SENT];
+    const int sx_data = SX_AM + m.ndev;
+    for (int p = 0; p < m.ndev; ++p) {
+      st[SX_AM + p] = sent[me ^ p];
+      for (int c = 0; c < m.nchan; ++c)
+        st[sx_data + p * m.nchan + c] = ds[(me ^ p) * m.nchan + c];
+    }
+  }
+
+  // One hop's send of the all-to-all section into the partner's slab.
+  __device__ void stat_send(int32_t* slab) const {
+    const int32_t* st = mine(PG_STATACC);
+    for (int i = SX_AM; i < m.stat_words - 1; ++i) slab[i] = st[i];
+  }
+
+  // One hop's merge (hop bit k): slot p takes the partner's word where
+  // bit k of p is set.
+  __device__ void stat_merge(const int32_t* slab, int k) const {
+    int32_t* st = mine(PG_STATACC);
+    const int sx_data = SX_AM + m.ndev;
+    for (int p = 0; p < m.ndev; ++p) {
+      if (((p >> k) & 1) == 0) continue;
+      st[SX_AM + p] = __ldcg(slab + SX_AM + p);
+      for (int c = 0; c < m.nchan; ++c)
+        st[sx_data + p * m.nchan + c] =
+            __ldcg(slab + sx_data + p * m.nchan + c);
+    }
+  }
+
+  // drain_receives: take exactly the puts and messages the fold
+  // announced from each source (waiting, bounded, until they landed),
+  // channels first, then the messages, sources in me ^ p order; a user
+  // kind's message installs like a stolen row (handle_am, install_fixed).
+  __device__ bool drain_receives(Sched& S) const {
+    const int32_t* st = mine(PG_STATACC);
+    int32_t* ps = mine(PG_PSTATE);
+    const int sx_data = SX_AM + m.ndev;
+    for (int c = 0; c < m.nchan; ++c) {
+      int32_t* recv = mine(PG_CHAN_RECV);
+      for (int p = 0; p < m.ndev; ++p) {
+        const int src = me ^ p;
+        const int expected = st[sx_data + p * m.nchan + c];
+        const int delta = expected - recv[src * m.nchan + c];
+        if (delta <= 0) continue;
+        if (!X.wait(mine(PG_CHAN_ARR) + src * m.nchan + c, expected, r, src,
+                    W_PUT_ARRIVAL))
+          return false;
+        recv[src * m.nchan + c] = expected;
+        mine(PG_CHAN_TOT)[c] += delta;
+        ps[PS_RECV] += delta;
+      }
+    }
+    int32_t* arecv = mine(PG_AM_RECV);
+    const int32_t* inbox = mine(PG_INBOX);
+    for (int p = 0; p < m.ndev; ++p) {
+      const int src = me ^ p;
+      const int expected = st[SX_AM + p], base = arecv[src];
+      const int delta = expected - base;
+      if (delta <= 0) continue;
+      if (!X.wait(mine(PG_AM_ARR) + src, expected, r, src, W_AM_ARRIVAL))
+        return false;
+      for (int i = 0; i < delta; ++i) {
+        const int32_t* row =
+            inbox + (src * m.amw + (base + i) % m.amw) * DESC;
+        int32_t d[DESC];
+        for (int w = 0; w < DESC; ++w) d[w] = __ldcg(row + w);
+        S.install_descriptor(d);
+      }
+      arecv[src] = expected;
+      ps[PS_RECV] += delta;
+    }
+    return true;
+  }
+
+  // scan_waits: release every parked row whose channel reached its need
+  // (a dependency decrement), compacting the rest in order.
+  __device__ void scan_waits(Sched& S) const {
+    int32_t* ps = mine(PG_PSTATE);
+    int32_t* wt = mine(PG_WAITS);
+    const int32_t* tot = mine(PG_CHAN_TOT);
+    const int n = ps[PS_NWAIT];
+    int kept = 0;
+    for (int i = 0; i < n; ++i) {
+      const int ch = wt[3 * i], need = wt[3 * i + 1], row = wt[3 * i + 2];
+      if (tot[ch] >= need) {
+        S.dec(row);
+      } else {
+        wt[3 * kept] = ch;
+        wt[3 * kept + 1] = need;
+        wt[3 * kept + 2] = row;
+        ++kept;
+      }
+    }
+    ps[PS_NWAIT] = kept;
+  }
+};
+
+// The thread-0 bodies of mk_kernel's lean and lanes instances (fib, sum,
+// UTS node; their batch_of forms): the body table of the steal kernels in
+// megakernel.cu's library. A user-body library passes its own (user.cuh).
+struct BuiltinBodies {
+  __device__ BuiltinBodies(const MeshArgs&, const Args&, Pgas*) {}
+
+  __device__ void scalar(Sched& S, const Args& a, int body, int idx) const {
+    switch (body) {
+      case B_FIB:
+        fib_body(S, a.meta, idx);
+        break;
+      case B_SUM:
+        sum_body(S, idx);
+        break;
+      case B_UTS:
+        uts_body(S, a.meta, idx);
+        break;
+      default:  // the host refuses tables with other bodies
+        break;
+    }
+  }
+
+  __device__ void batch(Sched& S, const Args& a, const Round& R) const {
+    for (int s = 0; s < R.take; ++s) {
+      if (R.body == B_FIB_BATCH)
+        fib_body(S, a.meta, R.rows[s]);
+      else if (R.body == B_UTS_BATCH)
+        uts_body(S, a.meta, R.rows[s]);
+    }
+  }
+};
+
 // One sched(quantum) of a steal kernel's CTA, on thread 0: mk_kernel's
 // rounds (schedule(), which pops the ring alone for a table with no lanes)
-// with the thread-0 bodies of the lean and lanes instances (fib, sum, UTS
-// node; their batch_of forms), spilling the lanes at exit.
-template <bool kLanes>
-__device__ void mesh_sched(Sched& S, const Args& a, Round& R, Obs& O) {
+// with the body table B, spilling the lanes at exit.
+template <bool kLanes, class B>
+__device__ void mesh_sched(Sched& S, const Args& a, Round& R, Obs& O,
+                           const B& bodies) {
   const int e0 = S.counts[C_EXECUTED];
-  const int32_t* meta = a.meta;
   for (;;) {
     schedule<false>(S, a, e0, R, O);
     if (R.act == ACT_EXIT) break;
     if (R.act == ACT_SCALAR) {
-      switch (R.body) {
-        case B_FIB:
-          fib_body(S, meta, R.idx);
-          break;
-        case B_SUM:
-          sum_body(S, R.idx);
-          break;
-        case B_UTS:
-          uts_body(S, meta, R.idx);
-          break;
-        default:  // the host refuses tables with other bodies
-          break;
-      }
+      bodies.scalar(S, a, R.body, R.idx);
       S.complete(R.idx);
     } else if constexpr (kLanes) {
-      for (int s = 0; s < R.take; ++s) {
-        if (R.body == B_FIB_BATCH)
-          fib_body(S, meta, R.rows[s]);
-        else if (R.body == B_UTS_BATCH)
-          uts_body(S, meta, R.rows[s]);
-      }
+      bodies.batch(S, a, R);
       finish_batch<false>(S, a, R, nullptr);
     }
   }
@@ -318,7 +614,7 @@ __device__ void mesh_sched(Sched& S, const Args& a, Round& R, Obs& O) {
 // neighbour, each credited by it; unless done, one exchange at distance
 // d = 2^(r mod nh) mod ndev (onto this CTA's own inbox on a one-device
 // ring), its credit to the device that targets this inbox next round.
-template <bool kLanes>
+template <bool kLanes, class B>
 __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   __shared__ int32_t s_counts[8];
   __shared__ Round R;
@@ -330,6 +626,7 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   Obs O{};
   const Mesh X{m, me, 1, s_cand};
+  const B bodies(m, a, nullptr);
   const int nh = ndev > 1 ? 32 - __clz(ndev - 1) : 1;
   const int right = (me + 1) % ndev, left = (me + ndev - 1) % ndev;
   int32_t* mine = X.port(me, 0);
@@ -338,7 +635,7 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   int r = 0;
   bool done = false, ok = true;
   while (!done && r < m.max_rounds) {
-    mesh_sched<kLanes>(S, a, R, O);
+    mesh_sched<kLanes>(S, a, R, O, bodies);
     int cur_p = s_counts[C_PENDING], cur_b = s_counts[C_TAIL] - s_counts[C_HEAD];
     int cur_a = ld_relaxed(m.abort + 8 * me) != 0;
     int tot_p = cur_p, tot_b = cur_b, tot_a = cur_a;
@@ -389,18 +686,21 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   for (int i = 0; i < XS_WORDS; ++i) m.xstats[me * XS_WORDS + i] = xs[i];
 }
 
-// resident.py _kernel, steal-only: the abort word; sched(quantum); the
-// fold over the XOR hops in hop order, each hop a credited stat exchange
-// with me ^ (1 << k) (recursive-doubling sums of [0, SX_AM), the
-// partner's backlog raw), then the demand-driven steal: rows go only to a
+// resident.py _kernel (homed=False): the abort word; sched(quantum);
+// (kPgas) drain_outbox; the fold over the XOR hops in hop order, each hop
+// a credited stat exchange with me ^ (1 << k) (recursive-doubling sums of
+// [0, SX_AM), the all-to-all section routed under kPgas, the partner's
+// backlog raw), then (kSteal) the demand-driven steal: rows go only to a
 // partner whose backlog is under min(quantum, W), clip((mine - theirs +
-// 1) // 2, 0, W) of them, into that hop's inbox with its credit; exit in
-// lockstep once the folded pending is 0 or an abort was folded.
-template <bool kLanes>
-__global__ void __launch_bounds__(1) resident_steal_kernel(MeshArgs m) {
+// 1) // 2, 0, W) of them, into that hop's inbox with its credit; the exit
+// test (the folded pending is 0 and, under kPgas, every outbox is empty
+// and sent equals received; or an abort was folded); then (kPgas)
+// drain_receives and scan_waits. The mesh exits in lockstep.
+template <bool kLanes, bool kSteal, bool kPgas, class B>
+__global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   __shared__ int32_t s_counts[8];
   __shared__ Round R;
-  __shared__ int32_t s_cand[MAX_SCAN];
+  __shared__ int32_t s_cand[kSteal ? MAX_SCAN : 1];
   const int me = blockIdx.x, W = m.window;
   Args a = mesh_slice(m, me);
   a.fuel = m.quantum;
@@ -408,15 +708,27 @@ __global__ void __launch_bounds__(1) resident_steal_kernel(MeshArgs m) {
   Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   Obs O{};
   const Mesh X{m, me, max(m.nhops, 1), s_cand};
+  Pgas P{m, X, me, 0};
+  Pgas* pp = nullptr;
+  if constexpr (kPgas) pp = &P;
+  const B bodies(m, a, pp);
   const int starve_below = min(m.quantum, W);
+  const int sbl = kPgas ? m.stat_words - 1 : S_BL;
+  const int p_inbox = kPgas ? m.p_inbox : P_INBOX;
   int xs[XS_WORDS] = {0, 0, 0, 0};
   S.stage(a);
   int r = 0, abort_round = -1;
   bool done = false, ok = true;
   while (!done && r < m.max_rounds) {
     const int local_abort = ld_relaxed(m.abort + 8 * me) != 0;
-    mesh_sched<kLanes>(S, a, R, O);
+    if constexpr (kPgas) P.r = r;
+    mesh_sched<kLanes>(S, a, R, O, bodies);
+    if constexpr (kPgas) {
+      if (X.stopped()) break;  // a body's protocol fault
+      P.drain_outbox();
+    }
     int acc[SX_AM] = {s_counts[C_PENDING], 0, 0, 0, 0, local_abort, 0};
+    if constexpr (kPgas) P.stat_init(acc);
     for (int h = 0; h < m.nhops && ok; ++h) {
       const int k = m.hops[h], partner = me ^ (1 << k);
       int32_t* mine = X.port(me, k);
@@ -424,41 +736,60 @@ __global__ void __launch_bounds__(1) resident_steal_kernel(MeshArgs m) {
       ok = r == 0 || X.wait(mine + P_SCRED, r, r, k, W_STAT_CREDIT);
       if (!ok) break;
       for (int i = 0; i < SX_AM; ++i) theirs[P_STAT + i] = acc[i];
-      theirs[P_STAT + S_BL] = s_counts[C_TAIL] - s_counts[C_HEAD];
-      xs[XS_STAT_WORDS] += STAT_WORDS;
+      if constexpr (kPgas) P.stat_send(theirs + P_STAT);
+      theirs[P_STAT + sbl] = s_counts[C_TAIL] - s_counts[C_HEAD];
+      xs[XS_STAT_WORDS] += kPgas ? m.stat_words : STAT_WORDS;
       publish(theirs + P_SARR);
       ok = X.wait(mine + P_SARR, r + 1, r, k, W_STAT_ARRIVAL);
       if (!ok) break;
       for (int i = 0; i < SX_AM; ++i)
         acc[i] = wrap_add(acc[i], __ldcg(mine + P_STAT + i));
-      const int peer_b = __ldcg(mine + P_STAT + S_BL);
+      if constexpr (kPgas) P.stat_merge(mine + P_STAT, k);
+      const int peer_b = __ldcg(mine + P_STAT + sbl);
       publish(theirs + P_SCRED);
-      const int myb = s_counts[C_TAIL] - s_counts[C_HEAD];
-      const int quota =
-          peer_b < starve_below
-              ? min(max(floor_div(myb - peer_b + 1, 2), 0), W)
-              : 0;
-      ok = r == 0 || X.wait(mine + P_RCRED, r, r, k, W_ROW_CREDIT);
-      if (!ok) break;
-      int32_t* box = theirs + P_INBOX;
-      const int nsend =
-          quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
-      box[W * DESC] = nsend;
-      xs[XS_ROWS] += nsend;
-      publish(theirs + P_RARR);
-      ok = X.wait(mine + P_RARR, r + 1, r, k, W_ROW_ARRIVAL);
-      if (!ok) break;
-      X.import_rows(S, mine + P_INBOX);
-      publish(theirs + P_RCRED);
+      if constexpr (kSteal) {
+        const int myb = s_counts[C_TAIL] - s_counts[C_HEAD];
+        const int quota =
+            peer_b < starve_below
+                ? min(max(floor_div(myb - peer_b + 1, 2), 0), W)
+                : 0;
+        ok = r == 0 || X.wait(mine + P_RCRED, r, r, k, W_ROW_CREDIT);
+        if (!ok) break;
+        int32_t* box = theirs + p_inbox;
+        const int nsend =
+            quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
+        box[W * DESC] = nsend;
+        xs[XS_ROWS] += nsend;
+        publish(theirs + P_RARR);
+        ok = X.wait(mine + P_RARR, r + 1, r, k, W_ROW_ARRIVAL);
+        if (!ok) break;
+        X.import_rows(S, mine + p_inbox);
+        publish(theirs + P_RCRED);
+      }
     }
     if (!ok) break;
     const bool aborted = acc[SF_ABORT] > 0;
     if (aborted && abort_round < 0) abort_round = r;
     done = acc[SF_PEND] == 0 || aborted;
+    if constexpr (kPgas) {
+      done = (acc[SF_PEND] == 0 && acc[SF_OUTB] == 0 &&
+              acc[SF_SENT] == acc[SF_RECV]) ||
+             aborted;
+      if (!P.drain_receives(S)) break;
+      P.scan_waits(S);
+    }
     ++r;
   }
   s_counts[C_VBASE] = r;  // C_ROUNDS
   for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
+  if constexpr (kPgas) {
+    const int32_t* sent = P.mine(PG_AM_SENT);
+    const int32_t* ds = P.mine(PG_DATA_SENT);
+    for (int d = 0; d < m.ndev; ++d) {
+      xs[XS_AMS] += sent[d];
+      for (int c = 0; c < m.nchan; ++c) xs[XS_PUTS] += ds[d * m.nchan + c];
+    }
+  }
   for (int i = 0; i < XS_WORDS; ++i) m.xstats[me * XS_WORDS + i] = xs[i];
   int32_t* fs = m.fstats + me * FS_WORDS;
   for (int i = 0; i < FS_WORDS; ++i)
@@ -485,52 +816,19 @@ struct MeshHost {
   long long quantum, max_rounds, window, scan, nhops, port_words,
       timeout_ns;
   long long hops[MAX_HOPS];
+  long long vfree, s_vfree, pg, s_pg, nchan, amw, outq, maxw, stat_words,
+      p_inbox;
+  long long chan_buf[MAX_CHANS], chan_rows[MAX_CHANS],
+      chan_nrows[MAX_CHANS], chan_row_bytes[MAX_CHANS];
+  long long pg_off[PG_SECTIONS];
 };
 
-static void* mesh_kernel_of(int kind, int mode) {
-  switch (kind) {
-    case 0:
-      return mode ? reinterpret_cast<void*>(mk_grid_kernel<1>)
-                  : reinterpret_cast<void*>(mk_grid_kernel<0>);
-    case 1:
-      return mode ? reinterpret_cast<void*>(ici_ring_kernel<true>)
-                  : reinterpret_cast<void*>(ici_ring_kernel<false>);
-    default:
-      return mode ? reinterpret_cast<void*>(resident_steal_kernel<true>)
-                  : reinterpret_cast<void*>(resident_steal_kernel<false>);
-  }
-}
+}  // extern "C"
 
-// The most CTAs of a steal kernel (kind 1 ring, 2 resident; mode 0 lean,
-// 1 lanes) the card holds at once, at one CTA an SM at most: the
-// occupancy API's blocks an SM times the SMs, capped at the SM count.
-// Returns a CUDA error, the count in *out.
-int hclib_mesh_coresident(int kind, int mode, int* out) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mesh_kernel_of(kind, mode), 1, 0);
-  if (e != cudaSuccess) return e;
-  *out = !coop ? 0 : per_sm >= 1 ? sms : 0;
-  return cudaSuccess;
-}
+namespace {
 
-// kind 0: mk_grid_kernel (an ordinary launch of ndev blocks of `threads`);
-// 1: ici_ring_kernel, 2: resident_steal_kernel (cooperative launches of
-// ndev one-thread CTAs, refused past hclib_mesh_coresident). mode: 0 lean,
-// 1 lanes. Returns cudaGetLastError() (0 = launched).
-int hclib_mesh_launch(const MeshHost* h, int kind, int mode, int threads,
-                      int smem, void* stream) {
-  if (kind < 0 || kind > 2 || mode < 0 || mode > 1 || h->ndev < 1 ||
-      (kind > 0 && (h->nhops > MAX_HOPS || h->scan > MAX_SCAN ||
-                    h->scan < 0 || h->window < 1 || !h->ws || !h->err ||
-                    !h->xstats || (kind == 2 && !h->fstats))))
-    return cudaErrorInvalidValue;
+// The kernel arguments of host struct h.
+MeshArgs mesh_args(const MeshHost* h) {
   MeshArgs m{};
   Args& a = m.a;
   a.tasks = reinterpret_cast<int32_t*>(h->tasks);
@@ -585,21 +883,56 @@ int hclib_mesh_launch(const MeshHost* h, int kind, int mode, int threads,
   m.port_words = static_cast<int>(h->port_words);
   for (int i = 0; i < MAX_HOPS; ++i) m.hops[i] = static_cast<int>(h->hops[i]);
   m.timeout_ns = h->timeout_ns;
-  const auto st = static_cast<cudaStream_t>(stream);
-  void* kernel = mesh_kernel_of(kind, mode);
-  if (kind == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    if (mode)
-      mk_grid_kernel<1><<<m.ndev, threads, smem, st>>>(m);
-    else
-      mk_grid_kernel<0><<<m.ndev, threads, smem, st>>>(m);
-    return cudaGetLastError();
+  m.vfree = reinterpret_cast<int32_t*>(h->vfree);
+  m.s_vfree = h->s_vfree;
+  m.pg = reinterpret_cast<int32_t*>(h->pg);
+  m.s_pg = h->s_pg;
+  m.nchan = static_cast<int>(h->nchan);
+  m.amw = static_cast<int>(h->amw);
+  m.outq = static_cast<int>(h->outq);
+  m.maxw = static_cast<int>(h->maxw);
+  m.stat_words = static_cast<int>(h->stat_words);
+  m.p_inbox = static_cast<int>(h->p_inbox);
+  for (int i = 0; i < MAX_CHANS; ++i) {
+    m.chan_buf[i] = static_cast<int>(h->chan_buf[i]);
+    m.chan_rows[i] = static_cast<int>(h->chan_rows[i]);
+    m.chan_nrows[i] = static_cast<int>(h->chan_nrows[i]);
+    m.chan_row_bytes[i] = h->chan_row_bytes[i];
   }
+  for (int i = 0; i < PG_SECTIONS; ++i)
+    m.pg_off[i] = static_cast<int>(h->pg_off[i]);
+  return m;
+}
+
+// The checks every steal-kernel launch makes on its host struct.
+bool steal_args_ok(const MeshHost* h) {
+  return h->nhops <= MAX_HOPS && h->scan <= MAX_SCAN && h->scan >= 0 &&
+         h->window >= 1 && h->ws && h->err && h->xstats && h->fstats &&
+         h->nchan >= 0 && h->nchan <= MAX_CHANS;
+}
+
+// How many CTAs of `kernel` (one thread each) the card holds at once, at
+// one an SM at most: the occupancy API's blocks an SM times the SMs,
+// capped at the SM count; 0 without cooperative launch.
+cudaError_t coresident(void* kernel, int* out) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 1, 0);
+  if (e != cudaSuccess) return e;
+  *out = !coop ? 0 : per_sm >= 1 ? sms : 0;
+  return cudaSuccess;
+}
+
+// A cooperative launch of ndev one-thread CTAs of a steal kernel, refused
+// past what the card holds at once.
+cudaError_t launch_steal(void* kernel, MeshArgs& m, cudaStream_t st) {
   int limit = 0;
-  cudaError_t e = static_cast<cudaError_t>(
-      hclib_mesh_coresident(kind, mode, &limit));
+  cudaError_t e = coresident(kernel, &limit);
   if (e != cudaSuccess) return e;
   if (m.ndev > limit) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&m};
@@ -608,4 +941,4 @@ int hclib_mesh_launch(const MeshHost* h, int kind, int mode, int threads,
   return cudaGetLastError();
 }
 
-}  // extern "C"
+}  // namespace

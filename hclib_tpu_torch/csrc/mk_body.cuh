@@ -74,7 +74,7 @@
                 O.emit(TR_FIRE_SCALAR, rt, S.w(idx, F_FN), idx);
               const int fn = min(max(S.w(idx, F_FN), 0), a.nfn - 1);
               const int body = meta[META_BODY_OF_FN + fn];
-              if (body >= 0 && body < NBODY) a.dispatch[body] += 1;
+              if (body >= 0 && body < NDISPATCH) a.dispatch[body] += 1;
               R.idx = idx;
               R.body = body;
               R.act = ACT_SCALAR;

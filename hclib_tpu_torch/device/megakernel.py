@@ -19,10 +19,15 @@ use the whole block between two barriers.
 
 What differs from the JAX class:
 
-- The kernel table is fixed. CUDA cannot take Python closures, so
-  ``Megakernel(kernels=[...])`` takes NAMES from the table compiled into
-  the ``.cu`` (``BODIES``); a task's ``F_FN`` still indexes the instance's
-  own list, so graphs and task tables are the JAX package's. Each body's
+- CUDA cannot take Python closures, so ``Megakernel(kernels=[...])``
+  takes NAMES from the table compiled into the ``.cu`` (``BODIES``) and
+  user-defined bodies as ``(name, fn, cuda)``: ``fn`` is the Python body
+  the plain core runs (JAX's ``(name, fn)``), ``cuda`` the CUDA
+  statements a card-bound table compiles into a small library of its own
+  (``csrc/user.cuh``, ``user_library``; body ids after the built-in
+  ones, ``MAX_BODIES`` in all), with ``alloc_values`` / ``free_values``
+  on both; a task's ``F_FN`` still indexes the instance's own list, so
+  graphs and task tables are the JAX package's. Each body's
   static parameters (UTS seed/q_millis/m_children/max_depth, Cholesky
   tile/factor_base/nt, Smith-Waterman nt_j/chunk) go in as kernel
   arguments (``params=``).
@@ -75,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import re
 import time
 from typing import Dict, Optional, Sequence
 
@@ -272,6 +278,10 @@ TILE_BODIES = {
 }
 # Kinds with no scalar body (JAX's _batch_stub): they run only routed.
 ROUTED_ONLY = ("sw_wave",)
+# The built-in bodies a user-body library (csrc/user.cuh) runs beside the
+# user bodies: the thread-0 bodies of mk_kernel's lean and lanes instances.
+USER_LIB_BUILTINS = ("fib", "sum", "uts_node", "fib_batch",
+                     "uts_node_batch")
 # Bodies whose dispatches are kernel launches, and the _build.LAUNCHES
 # counter each is folded into (the two vector families share the engine's).
 COUNTED = {b: b for b in ("potrf", "trsmcol", "updrow", "trsm", "sw_tile",
@@ -309,17 +319,20 @@ MAX_DATA = 8
 PARAMS = ("seed", "q_millis", "m_children", "max_depth", "tile",
           "factor_base", "nt", "nt_j", "chunk", "st_base", "nblocks", "reps",
           "n", "cap", "spare_base", "spare", "bcs_base", "flag_base", "dyn")
+# The meta layout (csrc/layout.cuh, the same names): one body count,
+# MAX_BODIES, fixes where every section starts. Body ids: the built-in
+# bodies take [0, len(BODIES)), a table's user bodies the ids after them.
 MAX_PARAMS = 32
-MAX_BODIES = 32
+MAX_BODIES = 64
+MAX_FNS = 32
 META_FN_OF_BODY = MAX_PARAMS  # meta[.. + body] = F_FN of body, or -1
 META_BODY_OF_FN = META_FN_OF_BODY + MAX_BODIES  # [.. + fn] = body of fn
-MAX_FNS = 32
 META_BATCH = META_BODY_OF_FN + MAX_FNS  # [.. + 4*li ..] = fid, width,
                                         # prefetch, body
 # meta[META_VEC + VEC_WORDS*fn ..] = a vector F_FN's rows, cols, stack
 # depth, min_idle_div and family parameter.
-META_VEC = META_BATCH + 4 * MAX_FNS
 VEC_WORDS = 8
+META_VEC = META_BATCH + 4 * MAX_FNS
 # meta[META_SLAB ..] = the tile body's slab words: a header (load slabs,
 # store slabs, int32 words of one slot's load slabs in shared memory),
 # then per slab, loads first: its buffer (data_specs index), the
@@ -340,7 +353,7 @@ PRIO_WORDS = 4
 # Dynamic shared memory a tile table may take: the 232,448 bytes a block
 # can use less 16 KB kept for mk_kernel's static shared memory.
 TILE_SMEM_LIMIT = 232448 - 16384
-NDISPATCH = MAX_BODIES  # per-body dispatch counters
+NDISPATCH = MAX_BODIES  # per-body dispatch counters, user bodies too
 MAX_WIDTH = 8         # slot rows of a batch round
 SW_T = 128            # Smith-Waterman tile edge
 MAX_SW_SLOTS = 16     # tile slots of one sw_wave_batch round (width*chunk)
@@ -493,6 +506,67 @@ class KernelContext:
     def row_values(self, idx: int) -> int:
         return self._c.counts[C_VBASE] + idx * VBLOCK
 
+    def alloc_values(self, k: int) -> int:
+        """Reserve k consecutive value slots; the base slot (JAX's
+        ``KernelContext.alloc_values``). k <= VBLOCK takes one VBLOCK-word
+        block, a recycled one (``free_values``) first, else the bump
+        cursor; a larger k bumps exactly k slots and is never recycled.
+        Exhaustion sets OVF_VALUES and returns a clamped base (the host
+        raises after the run). The block stack is emptied at every stage,
+        so a re-entered launch (a sharded steal round) reuses no block
+        freed before it; the bump cursor keeps its high-water mark."""
+        c = self._c
+        if c.uses_row_values:
+            raise ValueError(
+                "alloc_values cannot be mixed with row_values "
+                "(uses_row_values=True): the bump region overlaps the "
+                "row-owned blocks")
+        cnt, nv, vfree = c.counts, c.num_values, c.vfree
+        if k > VBLOCK:
+            base = cnt[C_VALLOC]
+            if base + k <= nv:
+                cnt[C_VALLOC] = base + k
+                return base
+            cnt[C_OVERFLOW] |= OVF_VALUES
+            return max(nv - k, 0)
+        nfree = vfree[0]
+        b_new = cnt[C_VALLOC]
+        if nfree > 0:
+            vfree[0] = nfree - 1
+            return vfree[nfree]
+        if b_new + VBLOCK <= nv:
+            cnt[C_VALLOC] = b_new + VBLOCK
+            return b_new
+        cnt[C_OVERFLOW] |= OVF_VALUES
+        return max(nv - VBLOCK, 0)
+
+    def free_values(self, base: int) -> None:
+        """Return the VBLOCK-word block at ``base`` to the free stack
+        (JAX's ``KernelContext.free_values``); more frees than blocks
+        exist clamp inside the stack and set OVF_VALUES."""
+        c = self._c
+        vcap = c.num_values // VBLOCK
+        nf = c.vfree[0] + 1
+        nfc = min(nf, vcap)
+        c.vfree[0] = nfc
+        if nf <= vcap:
+            c.vfree[nfc] = base
+        else:
+            c.counts[C_OVERFLOW] |= OVF_VALUES
+
+    @property
+    def pgas(self):
+        """The resident kernel's PGAS operations (``put``, ``am``,
+        ``wait_until``, ``count``, ``me``, ``ndev``, ``nchan``; JAX's
+        ``ctx.pgas``), under a ResidentKernel or PGASMegakernel run with
+        channels only."""
+        if self._c.pgas is None:
+            raise AttributeError(
+                "ctx.pgas exists only under the resident kernel's PGAS "
+                "configuration (ResidentKernel(channels=...) or "
+                "PGASMegakernel)")
+        return self._c.pgas
+
     def push_ready(self, t: int) -> None:
         self._c.push_ready(t)
 
@@ -642,10 +716,10 @@ class _PlainCore:
         self.params = mk.params
         self.fn_of = mk.fn_of
         self.bodies = mk._fn_plain
-        self.body_ids = [BODIES.index(n) for n in mk.fn_bodies]
+        self.body_ids = [mk.body_id(n) for n in mk.fn_bodies]
         # (fid, spec, batched body id, plain body, plain drain)
         self.specs = [
-            (fid, spec, BODIES.index(b), mk._plain[b],
+            (fid, spec, mk.body_id(b), mk._plain[b],
              mk._plain.get(b + "_drain"))
             for fid, spec, b in mk.batch_specs
         ]
@@ -665,6 +739,12 @@ class _PlainCore:
         self.slab_words = mk.slab_words
         self.buffers = [st["data"][k] for k in mk.data_specs]
         self.free = [0] * (self.capacity + 1)
+        # The value-block free stack (alloc_values / free_values): [0]
+        # the count, then the block bases; emptied at every stage.
+        self.vfree = [0] * (self.num_values // VBLOCK + 1)
+        self.uses_row_values = mk.uses_row_values
+        # The resident kernel's PGAS ops (KernelContext.pgas), or None.
+        self.pgas = None
         self.dispatch = [0] * NDISPATCH
         # Lane rows: nbk bucket rings per routed kind (row kind*nbk + bk).
         self.nbk = mk.nbk
@@ -709,6 +789,7 @@ class _PlainCore:
     def stage(self, stage_all_values: bool) -> None:
         cin, free, cap = self.counts_in, self.free, self.capacity
         free[0] = 0
+        self.vfree[0] = 0
         self.tr.reset()
         for row in self.lstate:
             row[:] = [0] * LS_WORDS
@@ -1038,8 +1119,10 @@ def _vector_body(spec: VectorTaskSpec):
 class Megakernel:
     """Builds and runs the single-block scheduler kernel over a task DAG.
 
-    ``kernels`` is the ordered kernel table: names from ``BODIES``, or
-    ``(name, VectorTaskSpec)`` entries of the vector tier; a task's F_FN
+    ``kernels`` is the ordered kernel table: names from ``BODIES``,
+    ``(name, VectorTaskSpec)`` entries of the vector tier, or user bodies
+    ``(name, fn[, cuda])`` (a card-bound table needs ``cuda`` for each:
+    its statements over ``ctx``, csrc/user.cuh's ``Ctx``); a task's F_FN
     indexes it. ``route`` (alias ``auto_route``) maps kernel names to
     ``BatchSpec``s (the batch tier) or ``VectorTaskSpec``s (the vector
     tier). ``data_specs`` maps buffer names to ``(shape,
@@ -1122,7 +1205,7 @@ class Megakernel:
                 f"priority_buckets must be 0 (off) or 2..{BK_MAX} "
                 f"(the static bucket-ring set), got {priority_buckets}")
         self.priority_buckets = priority_buckets
-        names, table_specs = [], {}
+        names, table_specs, user = [], {}, []
         scalar = tuple(b for b in BODIES if b not in BATCH_BODIES.values()
                        and b not in VECTOR_BODIES)
         for k in kernels:
@@ -1130,21 +1213,40 @@ class Megakernel:
                 if k not in scalar:
                     raise ValueError(
                         f"unknown kernel {k!r}: the table compiled into "
-                        f"csrc/megakernel.cu holds {scalar}, and the vector "
+                        f"csrc/megakernel.cu holds {scalar}, the vector "
                         f"families {VECTOR_BODIES} as (name, VectorTaskSpec)"
+                        ", and user bodies as (name, fn[, cuda])"
                     )
                 names.append(k)
+            elif len(k) == 2 and isinstance(k[1], VectorTaskSpec):
+                table_specs[k[0]] = k[1]
+                names.append(k[0])
+            elif len(k) in (2, 3) and callable(k[1]):
+                cuda = k[2] if len(k) == 3 else None
+                if cuda is not None and not isinstance(cuda, str):
+                    raise ValueError(f"kernel {k[0]!r}: the CUDA source of a "
+                                     "user body is a string")
+                user.append((k[0], k[1], cuda))
+                names.append(k[0])
             else:
-                name, spec = k
-                if not isinstance(spec, VectorTaskSpec):
-                    raise ValueError(f"kernel {name!r}: a table entry is a "
-                                     "name or (name, VectorTaskSpec)")
-                table_specs[name] = spec
-                names.append(name)
+                raise ValueError(
+                    f"kernel {k!r}: a table entry is a name, (name, "
+                    "VectorTaskSpec) or a user body (name, fn[, cuda])")
         if not names:
             raise ValueError("empty kernel table")
         if len(names) > MAX_FNS:
             raise ValueError(f"at most {MAX_FNS} kernels, got {len(names)}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"kernel names repeat in the table: {names}")
+        if len(user) > MAX_BODIES - len(BODIES):
+            raise ValueError(
+                f"at most {MAX_BODIES - len(BODIES)} user bodies (body ids "
+                f"{len(BODIES)}..{MAX_BODIES - 1}), got {len(user)}")
+        # User bodies: (name, plain callable, CUDA statements or None),
+        # body id len(BODIES) + their index here.
+        self.user_bodies = user
+        self._user_ids = {n: len(BODIES) + i for i, (n, _, _) in
+                          enumerate(user)}
         self.kernel_names = names
         self.fn_of = {n: i for i, n in enumerate(names)}
         self.route = dict(route or {})
@@ -1186,6 +1288,8 @@ class Megakernel:
         self.num_values = num_values
         self.succ_capacity = succ_capacity
         self.uses_row_values = uses_row_values
+        if self.user_bodies and torch.device(device).type == "cuda":
+            self._check_user_card(slabs)
         self.device = resolve_device(device)
         # Every body this table can dispatch: the kernels' bodies, then the
         # batched bodies of the routed kinds.
@@ -1215,10 +1319,14 @@ class Megakernel:
                       META_BATCH + 4 * len(self.batch_specs))
         for i, p in enumerate(PARAMS):
             meta[i] = self.params[p]
+        meta[META_FN_OF_BODY:META_FN_OF_BODY + MAX_BODIES] = [-1] * MAX_BODIES
         for b, n in enumerate(BODIES):
-            meta[META_FN_OF_BODY + b] = self.fn_of.get(n, -1)
+            if n not in self._user_ids:
+                meta[META_FN_OF_BODY + b] = self.fn_of.get(n, -1)
+        for n, b in self._user_ids.items():
+            meta[META_FN_OF_BODY + b] = self.fn_of[n]
         for fn, n in enumerate(self.fn_bodies):
-            meta[META_BODY_OF_FN + fn] = BODIES.index(n)
+            meta[META_BODY_OF_FN + fn] = self.body_id(n)
         for li, (fid, spec, b) in enumerate(self.batch_specs):
             meta[META_BATCH + 4 * li:META_BATCH + 4 * li + 4] = [
                 fid, spec.width, int(spec.prefetch), BODIES.index(b)]
@@ -1235,11 +1343,86 @@ class Megakernel:
                     meta[o:o + 2 + len(p)] = [PRIORITY_RULES[name], word, *p]
         self._meta = meta
         self._plain = _plain_bodies()
+        user_fn = {n: fn for n, fn, _ in self.user_bodies}
         self._fn_plain = [
             _vector_body(self.vector_specs[f]) if f in self.vector_specs
+            else user_fn[n] if n in user_fn
             else self._plain[n] for f, n in enumerate(names)
         ]
+        self._user_libs: Dict[bool, object] = {}
         self._last_info: Optional[dict] = None
+
+    def body_id(self, name: str) -> int:
+        """The body id of ``name`` in this table: a user body's (after
+        the built-in ones), else its index in ``BODIES``."""
+        uid = self._user_ids.get(name)
+        return uid if uid is not None else BODIES.index(name)
+
+    def _check_user_card(self, slabs) -> None:
+        """A card-bound table with user bodies: every user body brings its
+        CUDA source (no Python body runs on the host), and the table holds
+        only what a user-body library runs (csrc/user.cuh): user bodies
+        and the built-in thread-0 bodies fib, sum and uts_node, scalar or
+        batch-routed."""
+        no_cuda = [n for n, _, cuda in self.user_bodies if cuda is None]
+        if no_cuda:
+            raise ValueError(
+                f"user bodies {no_cuda} have no CUDA source: a card-bound "
+                "table runs each user body's CUDA statements (kernels="
+                "[(name, fn, cuda)]); pass device='cpu' to run the Python "
+                "bodies on the plain core")
+        other = sorted(set(self.fn_bodies) - set(self._user_ids)
+                       - set(USER_LIB_BUILTINS))
+        if (other or self.vector_specs or slabs is not None
+                or self.lane_max_age or self.priority_buckets
+                or self.trace is not None or self.checkpoint
+                or any(s.prefetch for _, s, _ in self.batch_specs)):
+            raise NotImplementedError(
+                "a card-bound table with user bodies holds user bodies and "
+                f"the built-in bodies {USER_LIB_BUILTINS} (scalar or "
+                "batch-routed), with no vector, tile, SW or graph body, "
+                "lane policy, prefetch, recorder or quiesce poll"
+                + (f" (this one holds {other})" if other else "")
+                + ": those user-body uses are ROADMAP A4; run it with "
+                "device='cpu'")
+
+    def user_source(self, pgas: Optional[bool] = None) -> str:
+        """The CUDA source of this table's user-body library
+        (csrc/user.cuh, then each user body's statements as
+        ``user_body_<k>(Ctx& ctx)`` and the switch over them). ``pgas``
+        picks the variant (the resident kernel's PGAS configurations, or
+        the scheduler, the ring and the resident kernel steal-only);
+        None: the PGAS variant iff a body names ``ctx.pgas``."""
+        if pgas is None:
+            pgas = self.uses_pgas_text()
+        lines = [f"#define HCLIB_USER_LANES {int(bool(self.batch_specs))}",
+                 f"#define HCLIB_USER_PGAS {int(bool(pgas))}",
+                 '#include "user.cuh"', "", "namespace {", ""]
+        for k, (name, _, cuda) in enumerate(self.user_bodies):
+            lines += [f"// {name}",
+                      f"__device__ void user_body_{k}(Ctx& ctx) {{", cuda,
+                      "}", ""]
+        lines += ["__device__ void user_body(int k, Ctx& ctx) {",
+                  "  switch (k) {"]
+        lines += [f"    case {k}:\n      user_body_{k}(ctx);\n      break;"
+                  for k in range(len(self.user_bodies))]
+        lines += ["    default:\n      break;", "  }", "}", "",
+                  "}  // namespace", ""]
+        return "\n".join(lines)
+
+    def user_library(self, pgas: bool = False):
+        """This table's user-body library of variant ``pgas``, built on
+        first use (``_build.user_library``)."""
+        pgas = bool(pgas)
+        if pgas not in self._user_libs:
+            self._user_libs[pgas] = _build.user_library(
+                self.user_source(pgas))
+        return self._user_libs[pgas]
+
+    def uses_pgas_text(self) -> bool:
+        """Whether a user body's CUDA source names ``ctx.pgas``."""
+        return any(cuda and re.search(r"\bctx\s*\.\s*pgas\b", cuda)
+                   for _, _, cuda in self.user_bodies)
 
     def _check_route(self) -> None:
         unknown = set(self.route) - set(self.kernel_names)
@@ -1254,6 +1437,12 @@ class Megakernel:
                 f"route values must be VectorTaskSpecs or BatchSpecs; "
                 f"{sorted(not_specs)} are not"
             )
+        routed_user = sorted(set(self.route) & set(self._user_ids))
+        if routed_user:
+            raise NotImplementedError(
+                f"route= on user bodies {routed_user}: batch and vector "
+                "routes of user bodies are ROADMAP A4 (their scalar "
+                "dispatch runs)")
         batched = {n: s for n, s in self.route.items()
                    if isinstance(s, BatchSpec)}
         no_batch = [n for n in batched if n not in BATCH_BODIES]
@@ -1536,7 +1725,24 @@ class Megakernel:
             smem = max(smem, sw_smem_bytes(self.sw_slots))
         return smem
 
+    def _launch_user(self, st, fuel, reps, stage_all_values) -> torch.Tensor:
+        """A table with user bodies on the card: its library's scheduler
+        (``mk_user_kernel``) on the state as a one-device mesh."""
+        if reps != 1:
+            raise ValueError("a table with user bodies runs one rep a "
+                             "launch on the card (reps=1)")
+        mst = {k: st[k].unsqueeze(0) for k in ("tasks", "succ", "ready",
+                                                "counts", "ivalues",
+                                                "tstats") if k in st}
+        mst["data"] = {k: v.unsqueeze(0) for k, v in st["data"].items()}
+        h, keep = self.mesh_host(mst, fuel, stage_all_values)
+        self.mesh_launch("mesh_round", h, *self.mesh_config(),
+                         st["tasks"].device)
+        return keep["dispatch"][0]
+
     def _launch_cuda(self, st, fuel, reps, stage_all_values) -> torch.Tensor:
+        if self.user_bodies:
+            return self._launch_user(st, fuel, reps, stage_all_values)
         dev = st["tasks"].device
         cap, nv = self.capacity, self.num_values
         want = {
@@ -1657,6 +1863,11 @@ class Megakernel:
         the thread-0 bodies of those instances (fib, sum, UTS node and
         their batched forms) on one thread a CTA. Other tables raise: the
         plain versions run every table."""
+        if self.user_bodies:
+            # A user-body library: its scheduler and steal kernels run on
+            # thread 0 of one-thread CTAs (the table was checked at
+            # construction).
+            return int(bool(self.batch_specs)), 1, 0
         policy = self.batch_specs and (self.lane_max_age or self.nbk > 1)
         if (self.vector_specs or self.slab_words or policy
                 or set(self.body_names) & set(POLICY_BODIES)
@@ -1716,6 +1927,9 @@ class Megakernel:
             ts = self.params["tile"]
             keep["work"] = torch.empty(ndev, ts * ts, dtype=torch.float32,
                                        device=dev)
+        if self.user_bodies:
+            keep["vfree"] = torch.zeros(ndev, nv // VBLOCK + 1,
+                                        dtype=torch.int32, device=dev)
         h = MeshHost()
         for k, src in (("tasks", mst), ("succ", mst), ("ready", mst),
                        ("counts", mst), ("ivalues", mst), ("tstats", mst),
@@ -1727,6 +1941,8 @@ class Megakernel:
                 setattr(h, "s_" + k, t[0].numel())
         h.freestk, h.s_freestk = keep["free"].data_ptr(), cap + 1
         h.meta = keep["meta"].data_ptr()
+        if self.user_bodies:
+            h.vfree, h.s_vfree = keep["vfree"].data_ptr(), nv // VBLOCK + 1
         for i, k in enumerate(self.data_specs):
             t = mst["data"][k]
             if t.shape[0] != ndev or t.device != dev or not t.is_contiguous():
@@ -1742,29 +1958,68 @@ class Megakernel:
         return h, keep
 
     def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
-                    threads: int, smem: int, dev) -> None:
+                    threads: int, smem: int, dev, pgas: bool = False,
+                    steal: bool = True) -> None:
         """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
-        ``"resident_steal"``) over ``host``'s mesh; raises if the launch
-        fails, or if a steal kernel's mesh has more devices than the card
-        holds CTAs at once (``mesh_coresident``)."""
+        ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
+        configuration, with ``steal`` or without) over ``host``'s mesh;
+        raises if the launch fails, or if a steal kernel's mesh has more
+        devices than the card holds CTAs at once (``mesh_coresident``). A
+        table with user bodies launches its own library's kernels."""
         k = MESH_KINDS.index(kind)
-        lib = _build.library("megakernel")
         if k:
-            limit = mesh_coresident(kind, mode)
+            limit = self.coresident(kind, mode, pgas, steal)
             if host.ndev > limit:
                 raise RuntimeError(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
                     f"co-resident CTAs; this card holds {limit} at once "
                     "(one CTA an SM, cooperative launch): use a mesh of at "
                     f"most {limit}")
-        fn = lib.hclib_mesh_launch
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if self.user_bodies:
+            if self.uses_pgas_text() and not pgas:
+                raise ValueError(
+                    "a user body names ctx.pgas, which exists only under "
+                    "the resident kernel's PGAS configuration "
+                    "(ResidentKernel(channels=...) or PGASMegakernel)")
+            lib = self.user_library(pgas)
+            fn = lib.hclib_user_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            err = fn(ctypes.byref(host), k, mode, int(steal), int(pgas),
+                     stream)
+        else:
+            if pgas:
+                raise ValueError("the PGAS configuration runs user bodies "
+                                 "(a table with (name, fn, cuda) entries)")
+            lib = _build.library("megakernel")
+            fn = lib.hclib_mesh_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            err = fn(ctypes.byref(host), k, mode, threads, smem, stream)
+        counter = ("resident_pgas" if pgas else
+                   "mk_user" if self.user_bodies and k == 0 else kind)
+        _build.check(lib, err, counter)
+        _build.LAUNCHES[counter] += 1
+
+    def coresident(self, kind: str, mode: int, pgas: bool = False,
+                   steal: bool = True) -> int:
+        """The most CTAs of steal kernel ``kind`` (instance ``mode``; the
+        resident kernel's PGAS configuration with ``pgas``) this card
+        holds at once, from this table's library."""
+        if not self.user_bodies:
+            return mesh_coresident(kind, mode)
+        lib = self.user_library(pgas)
+        fn = lib.hclib_user_coresident
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        err = fn(ctypes.byref(host), k, mode, threads, smem,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, err, kind)
-        _build.LAUNCHES[kind] += 1
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        out = ctypes.c_int(0)
+        _build.check(lib,
+                     fn(MESH_KINDS.index(kind), mode, int(steal), int(pgas),
+                        ctypes.byref(out)), f"{kind} occupancy")
+        return out.value
 
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
         """Per-body dispatch counts of a ``launch`` by name (a batched
@@ -1772,10 +2027,10 @@ class Megakernel:
         tile, SW, batched or vector body's dispatches are its launches
         inside the megakernel and are added to ``_build.LAUNCHES``."""
         n = dispatch.tolist()
-        out = {b: n[BODIES.index(b)] for b in self.body_names}
+        out = {b: n[self.body_id(b)] for b in self.body_names}
         if dispatch.device.type == "cuda":
             for b in self.body_names:
-                if b in COUNTED:
+                if b in COUNTED and b not in self._user_ids:
                     _build.LAUNCHES[self.counter_of(b)] += out[b]
         return out
 
@@ -1954,13 +2209,19 @@ _MESH_TAIL = (
     "xstats", "quantum", "max_rounds", "window", "scan", "nhops", "port_words",
     "timeout_ns",
 )
+MAX_CHANS = 8  # csrc/mesh.cuh: channels of a PGAS configuration
+PG_SECTIONS = 15  # csrc/mesh.cuh PG_*: the sections of a PGAS workspace
+_PGAS_FIELDS = ("vfree", "s_vfree", "pg", "s_pg", "nchan", "amw", "outq",
+                "maxw", "stat_words", "p_inbox")
 
 
 class MeshHost(ctypes.Structure):
     """csrc/mesh.cuh ``MeshHost``: device 0's slice of every stacked state
     tensor with its per-device stride (in words; data buffers in bytes),
-    the table's sizes and the steal protocol's words. Every field is 64
-    bits (pointers too), so both sides lay it out alike."""
+    the table's sizes, the steal protocol's words, and (user-body
+    libraries) the value-block stacks and the PGAS configuration's
+    workspace and channels. Every field is 64 bits (pointers too), so
+    both sides lay it out alike."""
 
     _fields_ = (
         [(n, ctypes.c_int64) for n in _MESH_FIELDS]
@@ -1968,6 +2229,10 @@ class MeshHost(ctypes.Structure):
            ("s_data", ctypes.c_int64 * MAX_DATA)]
         + [(n, ctypes.c_int64) for n in _MESH_TAIL]
         + [("hops", ctypes.c_int64 * MAX_HOPS)]
+        + [(n, ctypes.c_int64) for n in _PGAS_FIELDS]
+        + [(n, ctypes.c_int64 * MAX_CHANS) for n in
+           ("chan_buf", "chan_rows", "chan_nrows", "chan_row_bytes")]
+        + [("pg_off", ctypes.c_int64 * PG_SECTIONS)]
     )
 
 

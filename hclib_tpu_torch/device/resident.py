@@ -1,34 +1,51 @@
-"""The resident multi-device kernel on one card, steal-only configuration:
-one CTA a mesh device runs the scheduler and the XOR-hop steal exchange in
-one launch.
+"""The resident multi-device kernel on one card: one CTA a mesh device
+runs the scheduler and the XOR-hop exchange in one launch.
 
 Port of ``hclib_tpu/device/resident.py`` ``ResidentKernel`` (:322) with
-``steal=True, homed=False`` - the configuration ``ICIStealMegakernel``
-delegates to on power-of-two meshes - and ``decode_fault_stats`` (:268).
-The kernel (``csrc/mesh.cuh`` ``resident_steal_kernel``, replacing
-``_kernel`` :626) runs, a round: the abort word; ``sched(quantum)``; the
-fold over the XOR hops in ``hop_order`` (each hop a credited exchange of
-the stat vector with ``me ^ (1 << k)``: the recursive-doubling sums of
-pending and abort, the partner's backlog raw) and, at each hop, the
-demand-driven steal: ``clip((mine - theirs + 1) // 2, 0, W)`` link-free
-whitelisted ready rows to a partner whose backlog is under ``min(quantum,
-W)``, into that hop's inbox; the mesh exits in lockstep once the folded
-pending is 0 or an abort was folded. A mesh device is one co-resident
-CTA (``parallel.mesh.CtaMesh``); the plain version
-(``_plain_resident``: the same rounds over the plain cores device by
-device) is what the CPU tests hold against JAX and the card against.
+``homed=False`` and ``decode_fault_stats`` (:268), in three
+configurations of one kernel (``csrc/mesh.cuh`` ``resident_kernel``,
+replacing ``_kernel`` :626):
 
-Stat words: with no active messages, channels, injection or faults, the
-stat vector's XOR all-to-all section is all zeros, so the kernel sends
-the seven sums and the backlog only (8 words a hop).
+- steal-only (``steal=True``, no channels; what ``ICIStealMegakernel``
+  delegates to on power-of-two meshes): a round runs the abort word;
+  ``sched(quantum)``; the fold over the XOR hops in ``hop_order`` (each
+  hop a credited exchange of the stat vector with ``me ^ (1 << k)``: the
+  recursive-doubling sums of pending and abort, the partner's backlog
+  raw) and, at each hop, the demand-driven steal: ``clip((mine - theirs
+  + 1) // 2, 0, W)`` link-free whitelisted ready rows to a partner whose
+  backlog is under ``min(quantum, W)``, into that hop's inbox. With no
+  active messages or channels the stat vector's XOR all-to-all section is
+  all zeros, so this configuration sends the seven sums and the backlog
+  only (8 words a hop).
+- PGAS-only (``steal=False``; what a power-of-two ``PGASMegakernel``
+  delegates to): the bodies' one-sided puts, active messages and
+  wait-untils (``ctx.pgas``: ``put``, ``am``, ``wait_until``, ``count``,
+  ``me``, ``ndev``, ``nchan``; op_put :834, op_am :801, op_wait_until
+  :862, op_count :878), the outbox drain (:1189: at most ``am_window //
+  2`` messages a target a round, FIFO, OVF_OUTBOX when the outbox is
+  full), the whole stat vector with its XOR all-to-all section (sent and
+  received counts a source: ``SX_AM`` ndev words, ``SX_DATA`` ndev x
+  nchan), the exit once the folded pending is 0, every outbox is empty
+  and sent equals received, then ``drain_receives`` (:1322: the announced
+  puts added to ``chan_tot``, the announced messages installed) and
+  ``scan_waits`` (:1381); host-declared ``run(waits=...)`` as in JAX
+  (each parked row one extra dependency, off the ready ring).
+- both (``steal=True`` with ``channels``): the two on the same hops.
 
-Not ported yet, each raising naming ROADMAP A11: homed migration
-(``homed=True`` with migratable kinds; value-arg rehydration), the PGAS
-channels, active messages, atomics and locks (``channels``), the
-injection ring and tenancy (``inject``, ``tenants``, ``inject_rows``,
-``tenant_table``), fault injection (``fault_plan``), wait-sets
-(``waits``), quiesce and resume (``quiesce``, ``resume_state``), the PGAS-only configuration
-(``steal=False``) and a traced or checkpoint-built Megakernel.
+The mesh exits in lockstep. A mesh device is one co-resident CTA
+(``parallel.mesh.CtaMesh``); the plain version (``_plain_resident``: the
+same rounds over the plain cores device by device) is what the CPU tests
+hold against JAX and the card against. The PGAS configurations run user
+bodies (``Megakernel(kernels=[(name, fn, cuda)])``), so on the card they
+run from the table's user-body library (``csrc/user.cuh``).
+
+Not ported yet, each raising naming ROADMAP A11b: homed migration
+(``homed=True`` with migratable kinds; value-arg rehydration), remote
+atomics and locks (``ctx.pgas.fadd``, ``fadd_get``, ``cswap``, ``lock``,
+``unlock``; active messages of builtin kinds), the injection ring and
+tenancy (``inject``, ``tenants``, ``inject_rows``, ``tenant_table``),
+fault injection (``fault_plan``), quiesce and resume (``quiesce``,
+``resume_state``) and a traced or checkpoint-built Megakernel.
 """
 
 from __future__ import annotations
@@ -42,10 +59,13 @@ import torch
 from ..runtime.resilience import StallError
 from .descriptor import (
     DESC_WORDS,
+    F_A0,
     F_CSR_N,
+    F_CSR_OFF,
     F_DEP,
     F_FN,
     F_HOME,
+    F_HROW,
     F_OUT,
     F_SUCC0,
     F_SUCC1,
@@ -61,7 +81,11 @@ from .megakernel import (
     C_TAIL,
     C_VALLOC,
     C_VBASE,
+    MAX_CHANS,
     MAX_HOPS,
+    OVF_OUTBOX,
+    OVF_WAITS,
+    PG_SECTIONS,
     VBLOCK,
     Megakernel,
     _PlainCore,
@@ -73,7 +97,7 @@ from .sharded import abort_words, mesh_info, mesh_state
 __all__ = ["ResidentKernel", "decode_fault_stats", "FS_WORDS",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
            "export_rows", "import_rows", "run_mesh_kernel",
-           "exchange_info"]
+           "exchange_info", "pgas_layout", "stat_words"]
 
 # Per-device fault/abort stats row (resident.py FS_*).
 FS_DROPPED = 0
@@ -90,18 +114,27 @@ FS_QUIESCE_ROUND = 10
 FS_TEN_EXPIRED = 11
 FS_WORDS = 16
 
-SF_PEND, SF_ABORT, SX_AM = 0, 5, 7  # the stat sums the fold keeps
-STAT_WORDS = 8  # the stat words a hop sends: the sums and the backlog
+# The stat vector (resident.py SF_* / SX_*): the sums the fold keeps, then
+# (PGAS configurations) the XOR all-to-all section, then the backlog.
+SF_PEND, SF_RECV, SF_OUTB, SF_SENT, SF_ABORT, SX_AM = 0, 1, 2, 3, 5, 7
+STAT_WORDS = 8  # steal-only: the stat words a hop sends (sums, backlog)
 # The exchange's volume a device (csrc/mesh.cuh XS_*): rows it exported,
-# stat words it sent.
-XS_ROWS, XS_STAT_WORDS, XS_WORDS = 0, 1, 4
+# stat words it sent, and the active messages and puts it sent.
+XS_ROWS, XS_STAT_WORDS, XS_AMS, XS_PUTS, XS_WORDS = 0, 1, 2, 3, 4
 # A spin of the steal kernels that waits longer than this raises: the
 # card's protocol never stalls a CTA for seconds on a healthy mesh.
 SPIN_TIMEOUT_S = 30.0
 MESH_MAX_SCAN = 1024  # csrc/mesh.cuh MAX_SCAN
-P_INBOX = 64  # csrc/mesh.cuh: the words of a port before its row inbox
+P_STAT = 32  # csrc/mesh.cuh: the word of a port where its stat slab starts
+P_INBOX = 64  # csrc/mesh.cuh: steal-only, the words before the row inbox
+PS_RECV, PS_NWAIT, PS_SENT = 0, 1, 2  # csrc/mesh.cuh pstate words
+# What stopped a mesh (csrc/mesh.cuh W_* and the protocol faults).
 _WAITS = {1: "stat credit", 2: "stat arrival", 3: "row credit",
-          4: "row arrival"}
+          4: "row arrival", 5: "put arrival", 6: "active-message arrival"}
+_FAULTS = {7: "a put on an undeclared channel",
+           8: "a put outside its channel's buffer rows",
+           9: "an active message to a device outside the mesh (or of a "
+              "builtin kind, ROADMAP A11b)"}
 
 
 def decode_fault_stats(row) -> Dict[str, Any]:
@@ -130,9 +163,16 @@ def decode_fault_stats(row) -> Dict[str, Any]:
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP A11b (the unified resident "
-        "kernel's homed migration, PGAS channels, active messages, "
-        "injection, faults and quiesce); the port runs the steal-only "
-        "configuration (steal=True, homed=False)")
+        "kernel's homed migration, remote atomics and locks, injection, "
+        "faults and quiesce); the port runs the steal-only, PGAS-only and "
+        "steal-with-channels configurations with homed=False")
+
+
+def stat_words(ndev: int, nchan: int) -> int:
+    """Words of the stat vector a PGAS configuration sends a hop (JAX's
+    ``S``): the seven sums, ndev message counts, ndev x nchan put counts
+    and the backlog."""
+    return SX_AM + ndev + ndev * nchan + 1
 
 
 # ---- the exchange pieces shared by the plain ring and resident runners
@@ -193,26 +233,54 @@ def import_rows(core: _PlainCore, rows: List[List[int]]) -> None:
         core.install_descriptor(lambda w, row=row: row[w])
 
 
-def mesh_workspace(ndev: int, nports: int, window: int, dev) -> tuple:
+def mesh_workspace(ndev: int, nports: int, window: int, dev,
+                   p_inbox: int = P_INBOX) -> tuple:
     """The steal kernels' ports (zeroed: counters, stat slabs, inboxes)
-    and error row, and the words of one port."""
-    port_words = P_INBOX + (window + 1) * DESC_WORDS
+    and error row, and the words of one port (a row inbox after
+    ``p_inbox`` words when ``window``, none when 0)."""
+    port_words = p_inbox + ((window + 1) * DESC_WORDS if window else 0)
     ws = torch.zeros(ndev * nports * port_words, dtype=torch.int32,
                      device=dev)
     err = torch.zeros(8, dtype=torch.int32, device=dev)
     return ws, err, port_words
 
 
+def pgas_layout(ndev: int, nchan: int, amw: int, outq: int, maxw: int
+                ) -> Tuple[List[int], int]:
+    """The word offset of each section of one device's PGAS workspace
+    (csrc/mesh.cuh PG_*, in that order) and the words of a device's
+    slice: the outbox cursors, pstate, the message counts sent and
+    received and sent this round a target, the put counts sent and
+    received a (device, channel), chan_tot, the outbox, the wait table,
+    the stat accumulator, the arrival counters a source (messages, then
+    puts a channel) and the inbox rings a source. Each section starts on
+    a 32-byte boundary."""
+    sizes = [8, 8, ndev, ndev, ndev, ndev * nchan, ndev * nchan, nchan,
+             outq, outq * DESC_WORDS, maxw * 3, stat_words(ndev, nchan),
+             ndev, ndev * nchan, ndev * amw * DESC_WORDS]
+    assert len(sizes) == PG_SECTIONS
+    off, o = [], 0
+    for n in sizes:
+        off.append(o)
+        o += -(-n // 8) * 8
+    return off, o
+
+
 def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                     wl, abort_arr: np.ndarray, quantum: int,
                     max_rounds: int, window: int, scan: int,
                     hops: Sequence[int], nports: int,
-                    timeout_s: float) -> Dict[str, Any]:
+                    timeout_s: float, pgas: Optional[dict] = None,
+                    steal: bool = True) -> Dict[str, Any]:
     """Launch steal kernel ``kind`` (``"ici_ring"`` or
-    ``"resident_steal"``) over stacked state ``st`` on the card, wait for
-    it, and raise if a spin timed out. Returns the fault-stats rows
-    (``fstats``), the exchange volume rows (``xstats``) and the launch's
-    CUDA-event time (``kernel_ms``)."""
+    ``"resident_steal"``; with ``pgas``, the resident kernel's PGAS
+    configuration, ``steal`` or not) over stacked state ``st`` on the
+    card, wait for it, and raise if a spin timed out or a body broke the
+    protocol. ``pgas`` holds the channels (``chans``: buffer index, rows,
+    the buffer's rows, row bytes), ``nchan``, ``amw``, ``outq``, ``maxw``
+    and each device's host waits (``waits``). Returns the fault-stats
+    rows (``fstats``), the exchange volume rows (``xstats``) and the
+    launch's CUDA-event time (``kernel_ms``)."""
     ndev = st["tasks"].shape[0]
     dev = st["tasks"].device
     if not 0 <= scan <= MESH_MAX_SCAN:
@@ -221,7 +289,31 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
         raise ValueError(f"window must be >= 1, got {window}")
     mode, threads, smem = mk.mesh_config(steal_kernel=True)
     h, keep = mk.mesh_host(st, quantum, True)
-    ws, err, port_words = mesh_workspace(ndev, nports, window, dev)
+    p_inbox = P_INBOX
+    if pgas is not None:
+        nchan = pgas["nchan"]
+        S = stat_words(ndev, nchan)
+        p_inbox = P_STAT + -(-S // 8) * 8
+        off, words = pgas_layout(ndev, nchan, pgas["amw"], pgas["outq"],
+                                 pgas["maxw"])
+        pg = np.zeros((ndev, words), np.int32)
+        for d, wlist in enumerate(pgas["waits"]):
+            pg[d, off[1] + PS_NWAIT] = len(wlist)
+            for i, w in enumerate(wlist):
+                pg[d, off[10] + 3 * i:off[10] + 3 * i + 3] = w
+        pg_t = torch.from_numpy(pg).to(dev)
+        keep["pg"] = pg_t
+        h.pg, h.s_pg = pg_t.data_ptr(), words
+        h.nchan, h.amw, h.outq, h.maxw = (nchan, pgas["amw"], pgas["outq"],
+                                          pgas["maxw"])
+        h.stat_words, h.p_inbox = S, p_inbox
+        for c, (b, rows, nrows, rb) in enumerate(pgas["chans"]):
+            h.chan_buf[c], h.chan_rows[c] = b, rows
+            h.chan_nrows[c], h.chan_row_bytes[c] = nrows, rb
+        for i, o in enumerate(off):
+            h.pg_off[i] = o
+    ws, err, port_words = mesh_workspace(
+        ndev, nports, window if steal else 0, dev, p_inbox)
     wl_t = torch.zeros(32, dtype=torch.int32, device=dev)
     for f in wl:
         wl_t[f] = 1
@@ -242,11 +334,16 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    mk.mesh_launch(kind, h, mode, threads, smem, dev)
+    mk.mesh_launch(kind, h, mode, threads, smem, dev, pgas=pgas is not None,
+                   steal=steal)
     t1.record()
     t1.synchronize()
     e = err.cpu().tolist()
     if e[0]:
+        if e[5] in _FAULTS:
+            raise RuntimeError(
+                f"{kind}: device {e[2]} stopped the mesh at round {e[3]}: "
+                f"{_FAULTS[e[5]]}")
         raise RuntimeError(
             f"{kind}: device {e[2]} timed out after {timeout_s} s waiting "
             f"for a {_WAITS.get(e[5], e[5])} at round {e[3]}, hop {e[4]}; "
@@ -257,26 +354,172 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
 
 
 def exchange_info(out: Dict[str, Any]) -> Dict[str, Any]:
-    """A steal kernel's exchange volume (rows exported and stat words
-    sent, per device) and its time: the launch's CUDA-event time on the
-    card, the plain version's wall time on the CPU."""
+    """A steal kernel's exchange volume (rows exported, stat words sent,
+    and the active messages and puts sent, per device) and its time: the
+    launch's CUDA-event time on the card, the plain version's wall time
+    on the CPU."""
     xs = np.asarray(out["xstats"])
     return {"rows": xs[:, XS_ROWS].tolist(),
             "stat_words": xs[:, XS_STAT_WORDS].tolist(),
+            "ams": xs[:, XS_AMS].tolist(),
+            "puts": xs[:, XS_PUTS].tolist(),
             "kernel_ms": float(out["kernel_ms"])}
 
 
-def _plain_resident(mk: Megakernel, st, wl, abort_arr, quantum: int,
-                    max_rounds: int, window: int, scan: int,
-                    hop_bits: Sequence[int]) -> Dict[str, Any]:
-    """The plain version of resident_steal_kernel: every device's round
-    in lockstep over the plain cores. Returns the FS and XS rows and the
-    wall time (``kernel_ms``)."""
+class _PlainPgas:
+    """One device's PGAS state and operations over its plain core
+    (resident.py's outbox, message and put counts, chan_tot, pstate and
+    wait table; op_put, op_am, op_wait_until, op_count and the round's
+    drains): what ``ctx.pgas`` is on the CPU."""
+
+    def __init__(self, rk: "ResidentKernel", core: _PlainCore, me: int,
+                 data: Dict[str, torch.Tensor], waits, peers: list):
+        ndev, nc = rk.ndev, rk.nchan
+        self.rk, self.core, self.data, self.peers = rk, core, data, peers
+        self.me, self.ndev, self.nchan = me, ndev, len(rk.channels)
+        self.outq: List[Tuple[int, List[int]]] = []  # the live outbox
+        self.am_sent = [0] * ndev
+        self.am_recv = [0] * ndev
+        self.data_sent = [[0] * nc for _ in range(ndev)]
+        self.chan_recv = [[0] * nc for _ in range(ndev)]
+        self.chan_tot = [0] * nc
+        self.recv = self.sent = 0
+        self.waits = [list(w) for w in waits]
+        # inbox[src][slot]: the rows source src sent here, am_window slots.
+        self.inbox = [[None] * rk.am_window for _ in range(ndev)]
+
+    def put(self, dev: int, chan: int, dst_row: int, src_row: int) -> None:
+        """One-sided write of channel ``chan``'s rows from my buffer's
+        ``src_row`` into device ``dev``'s at ``dst_row``; the target sees
+        it (``count``, ``wait_until``) once the fold announced it."""
+        if not 0 <= chan < len(self.rk.channels):
+            raise ValueError(
+                f"channel id {chan} not configured (have "
+                f"{len(self.rk.channels)}): a kernel using ctx.pgas.put "
+                "needs its channel declared in ResidentKernel(channels=)")
+        if not 0 <= dev < self.ndev:
+            raise ValueError(f"put to device {dev} outside the mesh")
+        bname, rows = self.rk.channels[chan]
+        buf = self.data[bname]
+        if not (0 <= src_row and 0 <= dst_row
+                and max(src_row, dst_row) + rows <= buf.shape[1]):
+            raise ValueError(f"put of rows [{src_row}, +{rows}) -> "
+                             f"[{dst_row}, +{rows}) outside {bname!r}")
+        buf[dev, dst_row:dst_row + rows] = buf[self.me,
+                                               src_row:src_row + rows]
+        self.data_sent[dev][chan] += 1
+        self.sent += 1
+
+    def am(self, dev: int, fn: int, args: Sequence[int] = (),
+           out: int = 0) -> None:
+        """Queue a task descriptor for device ``dev``'s scheduler (sent by
+        the round's drain_outbox); OVF_OUTBOX when the outbox is full."""
+        if len(args) > 6:
+            raise ValueError("at most 6 args per AM")
+        if fn < 0:
+            raise _later("active messages of builtin kinds (fn < 0)")
+        if not 0 <= dev < self.ndev:
+            raise ValueError(f"active message to device {dev} outside the "
+                             "mesh")
+        if len(self.outq) >= self.rk.outbox:
+            self.core.counts[C_OVERFLOW] |= OVF_OUTBOX
+            return
+        row = [0] * DESC_WORDS
+        row[F_FN] = fn
+        row[F_SUCC0] = row[F_SUCC1] = NO_TASK
+        for i, a in enumerate(args):
+            row[F_A0 + i] = int(a)
+        row[F_OUT] = out
+        row[F_HOME] = NO_TASK
+        row[F_HROW] = row[F_CSR_OFF] = row[F_VMASK] = 0
+        self.outq.append((dev, row))
+
+    def wait_until(self, chan: int, need: int, row: int) -> None:
+        """Park row ``row`` (spawned with one extra dependency) until
+        ``need`` puts have been announced on channel ``chan``."""
+        if len(self.waits) < self.rk.max_waits:
+            self.waits.append([chan, need, row])
+        else:
+            self.core.counts[C_OVERFLOW] |= OVF_WAITS
+
+    def count(self, chan: int) -> int:
+        """The puts announced on channel ``chan`` so far."""
+        return self.chan_tot[chan]
+
+    def _refused(self, *_a, **_k):
+        raise _later("remote atomics and locks (ctx.pgas.fadd, fadd_get, "
+                     "cswap, lock, unlock)")
+
+    fadd = fadd_get = cswap = lock = unlock = _refused
+
+    def drain_outbox(self) -> None:
+        """Send the outbox FIFO, at most am_window // 2 a target this
+        round; a capped head waits for the next round with what follows."""
+        amw = self.rk.am_window
+        sent_round = [0] * self.ndev
+        n = 0
+        for t, row in self.outq:
+            if sent_round[t] >= amw // 2:
+                break
+            self.peers[t].inbox[self.me][self.am_sent[t] % amw] = row
+            self.am_sent[t] += 1
+            sent_round[t] += 1
+            self.sent += 1
+            n += 1
+        del self.outq[:n]
+
+    def drain_receives(self, am_exp: List[int], put_exp) -> None:
+        """Take exactly what the fold announced from each source: puts
+        into chan_tot, then the messages (user kinds install as ready
+        rows), sources in me ^ p order."""
+        for c in range(self.rk.nchan):
+            for p in range(self.ndev):
+                src = self.me ^ p
+                delta = put_exp[src][c] - self.chan_recv[src][c]
+                self.chan_recv[src][c] = put_exp[src][c]
+                self.chan_tot[c] += delta
+                self.recv += delta
+        amw = self.rk.am_window
+        for p in range(self.ndev):
+            src = self.me ^ p
+            base = self.am_recv[src]
+            for i in range(am_exp[src] - base):
+                row = self.inbox[src][(base + i) % amw]
+                self.core.install_descriptor(lambda w, row=row: row[w])
+            self.recv += am_exp[src] - base
+            self.am_recv[src] = am_exp[src]
+
+    def scan_waits(self) -> None:
+        """Release each parked row whose channel reached its need; keep
+        the rest in order."""
+        kept = []
+        for ch, need, row in self.waits:
+            if self.chan_tot[ch] >= need:
+                self.core._dec(row)
+            else:
+                kept.append([ch, need, row])
+        self.waits = kept
+
+
+def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
+                    max_rounds: int, hop_bits: Sequence[int],
+                    waits) -> Dict[str, Any]:
+    """The plain version of the resident kernel: every device's round in
+    lockstep over the plain cores (the PGAS state of each on its core's
+    ``pgas`` under a PGAS configuration). Returns the FS and XS rows and
+    the wall time (``kernel_ms``)."""
     t0 = time.perf_counter()
+    mk, window, scan = rk.mk, rk.window, rk.scan
     ndev = st["tasks"].shape[0]
     cores = [_PlainCore(mk, mesh_slice(st, d)) for d in range(ndev)]
     for c in cores:
         c.stage(True)
+    pgs: List[_PlainPgas] = []
+    if rk.pgas:
+        for d, c in enumerate(cores):
+            c.pgas = _PlainPgas(rk, c, d, st["data"], waits[d], pgs)
+            pgs.append(c.pgas)
+    nsw = stat_words(ndev, rk.nchan) if rk.pgas else STAT_WORDS
     fs = np.zeros((ndev, FS_WORDS), np.int32)
     fs[:, FS_DEAD_ROUND] = -1
     fs[:, FS_ABORT_ROUND] = -1
@@ -292,43 +535,70 @@ def _plain_resident(mk: Megakernel, st, wl, abort_arr, quantum: int,
         local_abort = [int(abort_arr[d, 0] != 0) for d in range(ndev)]
         for c in cores:
             c.sched(quantum)
-        acc = [[c.counts[C_PENDING], 0, 0, 0, 0, local_abort[d], 0]
-               for d, c in enumerate(cores)]
+        for pg in pgs:
+            pg.drain_outbox()
+        # The fold's sums (every device ends with the same ones), and
+        # what each source announced to each target this round.
+        tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0, 0,
+               sum(local_abort), 0]
+        if pgs:
+            tot[SF_RECV] = sum(pg.recv for pg in pgs)
+            tot[SF_OUTB] = sum(len(pg.outq) for pg in pgs)
+            tot[SF_SENT] = sum(pg.sent for pg in pgs)
+            am_exp = [[pgs[s].am_sent[v] for s in range(ndev)]
+                      for v in range(ndev)]
+            put_exp = [[list(pgs[s].data_sent[v]) for s in range(ndev)]
+                       for v in range(ndev)]
         for k in hop_bits:
-            snd = [acc[d] + [backlog(c)] for d, c in enumerate(cores)]
-            xs[:, XS_STAT_WORDS] += STAT_WORDS
+            xs[:, XS_STAT_WORDS] += nsw
+            if not rk.steal:
+                continue
+            snd = [backlog(c) for c in cores]
             boxes = []
             for d, c in enumerate(cores):
-                rcv = snd[d ^ (1 << k)]
-                acc[d] = [a + b for a, b in zip(acc[d], rcv[:SX_AM])]
-                peer_b, myb = rcv[SX_AM], backlog(c)
+                peer_b, myb = snd[d ^ (1 << k)], backlog(c)
                 quota = (min(max((myb - peer_b + 1) // 2, 0), window)
                          if peer_b < starve_below else 0)
                 boxes.append(export_rows(c, quota, scan, wl, True, xs[d])
                              if quota > 0 else [])
             for d, c in enumerate(cores):
                 import_rows(c, boxes[d ^ (1 << k)])
+        aborted = tot[SF_ABORT] > 0
         for d in range(ndev):
-            if acc[d][SF_ABORT] > 0 and fs[d, FS_ABORT_ROUND] < 0:
+            if aborted and fs[d, FS_ABORT_ROUND] < 0:
                 fs[d, FS_ABORT_ROUND] = r
-        done = acc[0][SF_PEND] == 0 or acc[0][SF_ABORT] > 0
+        done = tot[SF_PEND] == 0 or aborted
+        if pgs:
+            done = (tot[SF_PEND] == 0 and tot[SF_OUTB] == 0
+                    and tot[SF_SENT] == tot[SF_RECV]) or aborted
+            for v, pg in enumerate(pgs):
+                pg.drain_receives(am_exp[v], put_exp[v])
+                pg.scan_waits()
         r += 1
-    for c in cores:
+    for d, c in enumerate(cores):
         c.counts[C_ROUNDS] = r
         c.write_back()
+        if pgs:
+            xs[d, XS_AMS] = sum(pgs[d].am_sent)
+            xs[d, XS_PUTS] = sum(map(sum, pgs[d].data_sent))
     return {"fstats": fs, "xstats": xs,
             "kernel_ms": (time.perf_counter() - t0) * 1e3}
 
 
 class ResidentKernel:
     """One resident scheduler per device of a 1D/2D/3D mesh with
-    power-of-two axes (``parallel.mesh.CtaMesh``), in the steal-only
-    configuration: ``steal=True, homed=False``, ``migratable_fns`` a
-    sequence of kernel-table ids whose link-free ready rows migrate whole.
-    Devices are numbered by row-major flattening; the XOR hop bits of a
-    multi-axis mesh flip the minor axis first, as in JAX. ``window``
-    bounds rows a hop, ``scan`` how far past the ring head the export
-    looks (default 2 * window)."""
+    power-of-two axes (``parallel.mesh.CtaMesh``), with ``homed=False``:
+    ``steal=True`` moves link-free ready rows of ``migratable_fns`` (a
+    sequence of kernel-table ids) whole; ``channels`` (``{name:
+    (data_buffer, rows)}``, as PGASMegakernel) or ``steal=False`` give the
+    bodies ``ctx.pgas``: one-sided puts of ``rows`` rows of a channel's
+    buffer, active messages under a per-(source, target) inbox of
+    ``am_window`` rows and an ``outbox`` of queued messages, and
+    wait-untils in a table of ``max_waits`` entries. Devices are
+    numbered by row-major flattening; the XOR hop bits of a multi-axis
+    mesh flip the minor axis first, as in JAX. ``window`` bounds rows a
+    hop, ``scan`` how far past the ring head the export looks (default
+    2 * window)."""
 
     def __init__(
         self,
@@ -398,14 +668,10 @@ class ResidentKernel:
                     "(arriving rows rehydrate into their own row block)"
                 )
         # What this slice does not run yet.
-        if not self.steal:
-            raise _later("steal=False (the PGAS-only configuration)")
-        if self.homed and self.migratable:
+        if self.steal and self.homed and self.migratable:
             raise _later("homed=True migration (home-link proxies)")
         if any(self.migratable.values()):
             raise _later("migratable_fns value args (rehydration)")
-        if channels:
-            raise _later("channels= (one-sided put, AMs, atomics, locks)")
         if inject:
             raise _later("inject=True (the resident injection ring)")
         if tenants is not None and tenants is not False:
@@ -415,8 +681,29 @@ class ResidentKernel:
         if mk.trace is not None or mk.checkpoint:
             raise _later("a traced or checkpoint-built Megakernel on the "
                          "mesh (the resident flight recorder and quiesce)")
+        self.channels: List[Tuple[str, int]] = []
+        self.chan_id: Dict[str, int] = {}
+        for cname, (bname, rows) in (channels or {}).items():
+            if bname not in mk.data_specs:
+                raise ValueError(
+                    f"channel {cname!r}: no data buffer {bname!r}"
+                )
+            if rows < 1 or rows > mk.data_specs[bname][0][0]:
+                raise ValueError(f"channel {cname!r}: bad row count {rows}")
+            self.chan_id[cname] = len(self.channels)
+            self.channels.append((bname, int(rows)))
+        if len(self.channels) > MAX_CHANS:
+            raise ValueError(f"at most {MAX_CHANS} channels, got "
+                             f"{len(self.channels)}")
+        self.nchan = max(1, len(self.channels))
+        # The PGAS configurations: ctx.pgas, the outbox and receive
+        # drains, the stat vector's all-to-all section and the wait table.
+        self.pgas = not self.steal or bool(self.channels)
         self.window = int(window)
         self.scan = int(scan) if scan is not None else 2 * self.window
+        self.am_window = int(am_window)
+        self.outbox = int(outbox)
+        self.max_waits = int(max_waits)
         self.timeout_s = SPIN_TIMEOUT_S
 
     def _hop_bits(self, hop_order) -> Tuple[int, ...]:
@@ -433,6 +720,25 @@ class ResidentKernel:
                 f"dimension exactly once), got {deltas}"
             )
         return tuple(d.bit_length() - 1 for d in deltas)
+
+    def _waits(self, waits, builders) -> List[List[Tuple[int, int, int]]]:
+        """Host-declared wait-sets per device (chan_id, need, task index),
+        checked as JAX checks them."""
+        waits = [list(w) for w in (waits or [])]
+        waits += [[] for _ in range(self.ndev - len(waits))]
+        if any(waits) and not self.pgas:
+            raise ValueError("waits= needs the PGAS configuration "
+                             "(channels=, or steal=False)")
+        for d, wlist in enumerate(waits):
+            if len(wlist) > self.max_waits:
+                raise ValueError(f"device {d}: too many waits")
+            for ch, need, row in wlist:
+                if not 0 <= ch < len(self.channels):
+                    raise ValueError(f"bad channel id {ch}")
+                if not 0 <= row < builders[d].num_tasks:
+                    raise ValueError(
+                        f"device {d}: wait names task {row} out of range")
+        return [[(int(c), int(n), int(t)) for c, n, t in w] for w in waits]
 
     def run(
         self,
@@ -452,11 +758,14 @@ class ResidentKernel:
         """Execute all partitions in one launch; returns (ivalues[ndev, V]
         numpy, data dict of stacked tensors, info) with ``rounds``,
         ``fault_stats`` (per device, ``decode_fault_stats``), ``aborted``,
-        ``per_device_counts`` and, batch-routed, per-device ``tiers``.
-        ``abort`` (truthy, or per-device flags) is folded into the
-        termination sums: the mesh exits in lockstep with
+        ``per_device_counts``, ``exchange`` and, batch-routed, per-device
+        ``tiers``. ``waits[d]`` (the PGAS configurations): host-declared
+        wait-sets (chan_id, need, task_index) of device d - the named task
+        gains one extra dependency, satisfied once ``need`` puts landed on
+        the channel. ``abort`` (truthy, or per-device flags) is folded into
+        the termination sums: the mesh exits in lockstep with
         ``info['aborted']`` instead of running the workload out."""
-        for name, v in (("waits=", waits), ("inject_rows=", inject_rows),
+        for name, v in (("inject_rows=", inject_rows),
                         ("quiesce=", quiesce),
                         ("resume_state=", resume_state),
                         ("tenant_table=", tenant_table)):
@@ -469,26 +778,50 @@ class ResidentKernel:
         if len(hop_bits) > MAX_HOPS:
             raise ValueError(f"at most {MAX_HOPS} hop bits")
         abort_arr = abort_words(abort, ndev)
+        waits = self._waits(waits, builders)
 
-        def symmetric_heap(tasks, succ, ring, counts):
-            # Host value slots occupy the SAME range on every device, so a
-            # migrated task's host-slot F_OUT means the same address
-            # everywhere (resident.py bump_waits).
+        def bump_waits(tasks, succ, ring, counts):
+            # Symmetric-heap layout: host value slots occupy the SAME range
+            # on every device, so a migrated task's host-slot F_OUT means
+            # the same address everywhere (resident.py bump_waits); each
+            # parked row owes one extra dependency and leaves the ring.
             va = max(int(counts[d][C_VALLOC]) for d in range(ndev))
             for d in range(ndev):
                 counts[d][C_VALLOC] = va
+            for d, wlist in enumerate(waits):
+                for (_, _, row) in wlist:
+                    tasks[d, row, F_DEP] += 1
+                bumped = {row for (_, _, row) in wlist}
+                if not bumped:
+                    continue
+                old_n = counts[d][C_TAIL]
+                keep = [x for x in ring[d][:old_n] if x not in bumped]
+                ring[d][:len(keep)] = keep
+                counts[d][C_TAIL] = len(keep)
 
         st = mesh_state(mk, ndev, self.mesh.device, builders, data, ivalues,
-                        mutate=symmetric_heap)
-        wl = frozenset(self.migratable)
+                        mutate=bump_waits)
+        wl = frozenset(self.migratable) if self.steal else frozenset()
         if st["tasks"].device.type == "cpu":
-            out = _plain_resident(mk, st, wl, abort_arr, quantum, max_rounds,
-                                  self.window, self.scan, hop_bits)
+            out = _plain_resident(self, st, wl, abort_arr, quantum,
+                                  max_rounds, hop_bits, waits)
         else:
+            pgas = None
+            if self.pgas:
+                names = list(mk.data_specs)
+                chans = []
+                for bname, rows in self.channels:
+                    t = st["data"][bname]
+                    chans.append((names.index(bname), rows, t.shape[1],
+                                  t[0, 0].numel() * t.element_size()))
+                pgas = {"nchan": self.nchan, "amw": self.am_window,
+                        "outq": self.outbox, "maxw": self.max_waits,
+                        "chans": chans, "waits": waits}
             out = run_mesh_kernel(
                 "resident_steal", mk, st, wl, abort_arr, quantum,
                 max_rounds, self.window, self.scan, hop_bits,
-                max(len(hop_bits), 1), self.timeout_s)
+                max(len(hop_bits), 1), self.timeout_s, pgas=pgas,
+                steal=self.steal)
         fs = out["fstats"]
         info = mesh_info(st)
         info["rounds"] = int(info["per_device_counts"][0][C_ROUNDS])
@@ -507,8 +840,8 @@ class ResidentKernel:
                 agg |= m
             raise RuntimeError(
                 f"resident kernel overflow: {decode_overflow(agg)} "
-                f"exhausted (per-device masks {masks}); raise capacity or "
-                "shrink the steal window"
+                f"exhausted (per-device masks {masks}); raise capacity, "
+                "the outbox or the wait table, or shrink the steal window"
             )
         if info["pending"] != 0 and not (
             bool(abort_arr[:, 0].any()) or info["aborted"]
@@ -516,7 +849,7 @@ class ResidentKernel:
             raise StallError(
                 f"resident kernel stalled: {info['pending']} pending after "
                 f"{info['executed']} executed ({info['rounds']} rounds) - "
-                "max_rounds too small.",
+                "a wait whose puts never arrive, or max_rounds too small.",
                 stats=info,
             )
         return st["ivalues"].cpu().numpy(), st["data"], info

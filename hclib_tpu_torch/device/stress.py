@@ -14,8 +14,21 @@ thief's value buffer).
 On the card a mesh device is one CTA (``parallel.mesh.cuda_mesh``); the
 run is timed by the host's wall clock around a run that ends with the
 copy of the results to the host (which waits for the card), after a
-warm-up run. ``unified_load`` (:149) needs homed migration and the PGAS
-channels of the unified resident kernel: it raises naming ROADMAP A11b.
+warm-up run. ``unified_load`` (:149) needs homed migration and the
+remote atomics of the unified resident kernel: it raises naming ROADMAP
+A11b.
+
+Beside them, the user-body workloads of the mesh (no JAX counterpart
+module; JAX writes these bodies in its tests and its multi-chip dry run):
+``bump_megakernel`` and ``put_consume_megakernel``, the dry run's
+tables of its phases 2-3 and 4 (``dryrun_builders``), and the PGAS
+exchange ``pgas_megakernel`` / ``pgas_builders`` / ``check_pgas``: every
+device first reads the words of its landing rows that its consumer will
+read (PEEK, so a stale copy of them could sit in its cache), then sends
+its left neighbour the active message that starts that neighbour's SEND:
+an active message BUMP to every device and ``PGAS_ROWS`` puts of its
+source rows into its ring neighbour's landing rows, whose consumer waits
+on (channel 0, ``PGAS_ROWS``) and reads the landed rows' words.
 """
 
 from __future__ import annotations
@@ -26,7 +39,9 @@ from typing import Dict
 import numpy as np
 
 __all__ = ["forest_steal", "unified_load",
-           "FOREST_STEAL_BENCH", "FOREST_STEAL_QUICK"]
+           "FOREST_STEAL_BENCH", "FOREST_STEAL_QUICK", "bump_megakernel",
+           "pgas_megakernel", "pgas_builders", "check_pgas", "PGAS_ROWS",
+           "PGAS_COLS", "put_consume_megakernel", "dryrun_builders"]
 
 # The benchmark-of-record forest-steal configuration (bench.py
 # --multichip's headline), scalar and batched arms alike.
@@ -153,3 +168,222 @@ def unified_load(*args, **kwargs) -> Dict:
         "unified_load needs the unified resident kernel's homed migration "
         "and PGAS channels (remote fetch-adds): ROADMAP A11b; the port "
         "runs its steal-only configuration")
+
+
+# ---- user-body workloads: the dry run's bump table and the PGAS exchange
+
+def _bump0(ctx):
+    ctx.set_value(0, ctx.value(0) + ctx.arg(0))
+
+
+BUMP0_CUDA = "ctx.set_value(0, ctx.value(0) + ctx.arg(0));"
+
+
+def bump_megakernel(device="cuda"):
+    """The multi-chip dry run's phases 2 and 3 table (__graft_entry__.py
+    :162): one user body, BUMP (F_FN 0), adding arg 0 into value slot 0;
+    capacity 256, 4 value slots."""
+    from .megakernel import Megakernel
+
+    return Megakernel([("bump", _bump0, BUMP0_CUDA)], capacity=256,
+                      num_values=4, succ_capacity=8, device=device)
+
+
+# The heap a device: PGAS_ROWS source rows, then PGAS_ROWS rows the left
+# neighbour's puts land in (disjoint, so no put reads a row another
+# writes: the SHMEM contract JAX's put keeps).
+def _put_k(ctx):
+    ctx.pgas.put(ctx.arg(0), 0, 0, 0)
+    ctx.pgas.am(ctx.arg(0), 1, args=[1])
+
+
+def _consume_k(ctx):
+    ctx.set_value(ctx.arg(0), ctx.pgas.count(0))
+
+
+def put_consume_megakernel(device="cuda"):
+    """The multi-chip dry run's phase 4 table (__graft_entry__.py :192):
+    PUT (F_FN 0: put my heap row 0 into device arg0's row 0 on channel 0,
+    then AM a CONSUME [1] there) and CONSUME (slot arg0 = channel 0's
+    count); a (4, 128) int32 heap, capacity 64, 8 value slots."""
+    import torch
+
+    from .megakernel import Megakernel
+
+    return Megakernel(
+        [("put", _put_k, "ctx.pgas.put(ctx.arg(0), 0, 0, 0);\n"
+          "  const int a = 1;\n  ctx.pgas.am(ctx.arg(0), 1, &a, 1);"),
+         ("consume", _consume_k,
+          "ctx.set_value(ctx.arg(0), ctx.pgas.count(0));")],
+        data_specs={"heap": ((4, 128), torch.int32)}, capacity=64,
+        num_values=8, succ_capacity=8, device=device)
+
+
+def dryrun_builders(phase: int, ndev: int):
+    """The dry run's builders of phase 2 or 3 (8 * ndev BUMPs 1, 2, ...
+    on device 0; returns the builders) or 4 (every device a PUT at its
+    right neighbour and a CONSUME [0] parked on (channel 0, 1); returns
+    the builders, the waits and the zero heap)."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    if phase in (2, 3):
+        for i in range(8 * ndev):
+            bs[0].add(0, args=[i + 1])
+        return bs
+    waits = []
+    for d, b in enumerate(bs):
+        b.add(0, args=[(d + 1) % ndev])
+        waits.append([(0, 1, b.add(1, args=[0]))])
+    return bs, waits, np.zeros((ndev, 4, 128), np.int32)
+
+
+PGAS_ROWS, PGAS_COLS = 16, 128
+SEND, PBUMP, CONSUME, BURST, PEEK = 0, 1, 2, 3, 4
+
+
+def _send(ctx):
+    p = ctx.pgas
+    for d in range(p.ndev):
+        p.am(d, PBUMP, args=[0, 1 + p.me])
+    for r in range(PGAS_ROWS):
+        p.put((p.me + 1) % p.ndev, 0, PGAS_ROWS + r, r)
+
+
+def _pbump(ctx):
+    ctx.set_value(ctx.arg(0), ctx.value(ctx.arg(0)) + ctx.arg(1))
+
+
+def _landed_sum(ctx) -> int:
+    h = ctx.data["heap"]
+    return sum(int(h[PGAS_ROWS + r, r]) for r in range(PGAS_ROWS))
+
+
+def _consume(ctx):
+    ctx.set_value(1, ctx.pgas.count(0))
+    ctx.set_value(2, _landed_sum(ctx))
+
+
+def _peek(ctx):
+    ctx.set_value(5, _landed_sum(ctx))
+    ctx.pgas.am((ctx.pgas.me - 1) % ctx.pgas.ndev, SEND)
+
+
+def _burst(ctx):
+    for i in range(6):
+        ctx.pgas.am(ctx.arg(0), PBUMP, args=[3, 1 + i])
+
+
+PGAS_TABLE = (
+    ("send", _send, f"""
+  for (int d = 0; d < ctx.pgas.ndev; ++d) {{
+    const int a[2] = {{0, 1 + ctx.pgas.me}};
+    ctx.pgas.am(d, {PBUMP}, a, 2);
+  }}
+  const int right = (ctx.pgas.me + 1) % ctx.pgas.ndev;
+  for (int r = 0; r < {PGAS_ROWS}; ++r)
+    ctx.pgas.put(right, 0, {PGAS_ROWS} + r, r);"""),
+    ("bump", _pbump,
+     "ctx.set_value(ctx.arg(0), ctx.value(ctx.arg(0)) + ctx.arg(1));"),
+    ("consume", _consume, f"""
+  const int* h = ctx.data(0);
+  int s = 0;
+  for (int r = 0; r < {PGAS_ROWS}; ++r)
+    s += h[({PGAS_ROWS} + r) * {PGAS_COLS} + r];
+  ctx.set_value(1, ctx.pgas.count(0));
+  ctx.set_value(2, s);"""),
+    ("burst", _burst, f"""
+  for (int i = 0; i < 6; ++i) {{
+    const int a[2] = {{3, 1 + i}};
+    ctx.pgas.am(ctx.arg(0), {PBUMP}, a, 2);
+  }}"""),
+    ("peek", _peek, f"""
+  const int* h = ctx.data(0);
+  int s = 0;
+  for (int r = 0; r < {PGAS_ROWS}; ++r)
+    s += h[({PGAS_ROWS} + r) * {PGAS_COLS} + r];
+  ctx.set_value(5, s);
+  const int n = ctx.pgas.ndev;
+  ctx.pgas.am((ctx.pgas.me + n - 1) % n, {SEND});"""),
+)
+
+
+def pgas_megakernel(capacity: int = 512, device="cuda"):
+    """The PGAS exchange's table: SEND (an active message BUMP [0, 1 +
+    me] to every device, then PGAS_ROWS one-row puts of my rows r ->
+    my ring neighbour's row PGAS_ROWS + r on channel 0), BUMP (slot arg0
+    += arg1), CONSUME (slot 1 = channel 0's count, slot 2 = the sum of
+    word r of each landed row PGAS_ROWS + r), BURST (six BUMPs of slot 3
+    at device arg0) and PEEK (slot 5 = the sum CONSUME reads, taken
+    before any put lands, then an active message SEND to my left
+    neighbour, the device whose puts land here); a (2 PGAS_ROWS,
+    PGAS_COLS) int32 heap a device. On the card PEEK's plain loads leave
+    the landing rows' lines in its SM's cache, so CONSUME's sum shows
+    whether the receive drain's acquire makes the landed words visible."""
+    import torch
+
+    from .megakernel import Megakernel
+
+    return Megakernel(list(PGAS_TABLE),
+                      data_specs={"heap": ((2 * PGAS_ROWS, PGAS_COLS),
+                                           torch.int32)},
+                      capacity=capacity, num_values=8, succ_capacity=8,
+                      device=device)
+
+
+def pgas_builders(ndev: int, burst: bool = False, bumps: int = 0):
+    """Every device: PEEK, and CONSUME parked on (channel 0, PGAS_ROWS)
+    (the host waits, returned beside the builders); with ``burst``, a
+    BURST at the last device on device 0; with ``bumps``, that many
+    BUMPs of slot 4 (1, 2, ...) on device 0 (a load to steal). Also the
+    heap: device d's row r holds 1000 * d + r."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    waits = []
+    for d, b in enumerate(bs):
+        b.add(PEEK)
+        waits.append([(0, PGAS_ROWS, b.add(CONSUME))])
+        b.reserve_values(6)
+    if burst:
+        bs[0].add(BURST, args=[ndev - 1])
+    for i in range(bumps):
+        bs[0].add(PBUMP, args=[4, i + 1])
+    heap = (1000 * np.arange(ndev, dtype=np.int32)[:, None, None]
+            + np.arange(2 * PGAS_ROWS, dtype=np.int32)[None, :, None]
+            + np.zeros((1, 1, PGAS_COLS), np.int32))
+    return bs, waits, heap
+
+
+def check_pgas(iv, heap_out, info, ndev: int, burst: bool = False,
+               bumps: int = 0) -> None:
+    """Raise unless the PGAS exchange is exact: every device's slot 0 the
+    sum of every sender's 1 + me, its consumer's count PGAS_ROWS and its
+    sum that of its left neighbour's rows, its PEEK's sum that of its
+    own landing rows before the puts, its landing rows the neighbour's
+    source rows and its own rows untouched, the burst's and the bumps'
+    totals, and the message and put counts."""
+    iv = np.asarray(iv)
+    want0 = ndev * (ndev + 1) // 2
+    for d in range(ndev):
+        src = (d - 1) % ndev
+        tri = PGAS_ROWS * (PGAS_ROWS - 1) // 2
+        if iv[d, 0] != want0 or iv[d, 1] != PGAS_ROWS or iv[d, 2] != (
+                PGAS_ROWS * 1000 * src + tri) or iv[d, 5] != (
+                PGAS_ROWS * (1000 * d + PGAS_ROWS) + tri):
+            raise AssertionError(f"pgas device {d}: slots {iv[d, :6]}")
+        rows = np.arange(PGAS_ROWS)[:, None]
+        if not ((heap_out[d, PGAS_ROWS:] == 1000 * src + rows).all()
+                and (heap_out[d, :PGAS_ROWS] == 1000 * d + rows).all()):
+            raise AssertionError(f"pgas device {d}: heap not its "
+                                 "neighbour's rows")
+    if burst and iv[ndev - 1, 3] != 21:
+        raise AssertionError(f"pgas burst: {iv[ndev - 1, 3]}")
+    if int(iv[:, 4].sum()) != bumps * (bumps + 1) // 2:
+        raise AssertionError(f"pgas bumps: {iv[:, 4].tolist()}")
+    ex = info["exchange"]
+    if sum(ex["ams"]) != ndev * ndev + ndev + 6 * burst or sum(
+            ex["puts"]) != ndev * PGAS_ROWS:
+        raise AssertionError(f"pgas messages {ex['ams']}, puts {ex['puts']}")
+    if info["pending"] != 0:
+        raise AssertionError(f"pgas pending {info['pending']}")

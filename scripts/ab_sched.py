@@ -17,6 +17,10 @@ graph staged anew outside the timed window. Prints one JSON line per
 process, ``ptxas`` register and stack figures of each ``mk_kernel``
 instance per tree,
 the card's name and power limit, and a summary line of medians per tree.
+Beside the scheduler, the resident kernel's steal-only configuration
+(ICIStealMegakernel on FOREST_STEAL_BENCH at 8 CTAs and on 2,048 x
+fib(12) at 128 CTAs, ``resident8`` and ``resident128``: each launch's
+CUDA-event time), with the ptxas figures of every mesh kernel instance.
 
     python3 scripts/ab_sched.py --tree parent=chipcheck/parent --tree change=.
 
@@ -82,6 +86,29 @@ def worker(root: str, reps: int, only) -> dict:
                 return mk, b, data, iv
             staged.append((f"sssp9_w{width}", setup, None))
     out = {}
+    # The steal kernels (the resident kernel steal-only, ICIStealMegakernel
+    # on a power-of-two mesh): FOREST_STEAL_BENCH at 8 CTAs and 2,048 x
+    # fib(12) at 128 CTAs, each launch's CUDA-event time.
+    from hclib_tpu_torch.device import stress
+    from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel
+    from hclib_tpu_torch.parallel.mesh import CtaMesh
+
+    fb = stress.FOREST_STEAL_BENCH
+    for name, ndev, roots in (("resident8", 8, fb["roots"]),
+                              ("resident128", 128, 2048)):
+        if only and name not in only:
+            continue
+        m = ICIStealMegakernel(
+            stress.forest_megakernel(roots, fb["capacity"], 0, "cuda"),
+            CtaMesh((ndev,), ("q",)), migratable_fns=[tw.FIB], window=8)
+        m.run(stress.forest_builders(ndev, roots, fb["n"]), quantum=64)
+        times = []
+        for _ in range(reps):
+            iv, _, info = m.run(stress.forest_builders(ndev, roots, fb["n"]),
+                                quantum=64)
+            stress.check_forest(iv, info, roots, fb["n"])
+            times.append(info["exchange"]["kernel_ms"])
+        out[name] = {"ms": times, "executed": info["executed"]}
     for name, setup, want in staged:
         if only and name not in only:
             continue
@@ -110,7 +137,9 @@ def worker(root: str, reps: int, only) -> dict:
 
 def ptxas(root: str) -> dict:
     """Each ``mk_kernel`` instance's registers, stack frame and spills
-    from ptxas -v, by its kMode ("+obs": the observed instance)."""
+    from ptxas -v, by its kMode ("+obs": the observed instance), and each
+    instance of the mesh kernels (the grid launch, the ring, the resident
+    kernel) by its name and template flags."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
@@ -121,13 +150,22 @@ def ptxas(root: str) -> dict:
     lines = r.stderr.splitlines()
     out = {}
     for i, line in enumerate(lines):
+        if "Compiling" not in line:
+            continue
         m = re.search(r"mk_kernelILi(\d)E(?:Lb(\d)E)?", line)
-        if m and "Compiling" in line:
-            text = " ".join(lines[i:i + 4])
+        if m:
             key = m.group(1) + ("+obs" if m.group(2) == "1" else "")
-            out[key] = {k: int(v) for v, k in re.findall(
-                r"(\d+) (bytes stack frame|bytes spill stores|registers)",
-                text)}
+        else:
+            m = re.search(r"\d((?:mk_grid|ici_ring|resident_steal|resident)"
+                          r"_kernel)I((?:L[bi]\d+E)+)", line)
+            if not m:
+                continue
+            key = m.group(1) + "<" + ",".join(
+                re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
+        text = " ".join(lines[i:i + 4])
+        out[key] = {k: int(v) for v, k in re.findall(
+            r"(\d+) (bytes stack frame|bytes spill stores|registers)",
+            text)}
     return out or {"error": r.stderr[-400:]}
 
 
@@ -140,7 +178,8 @@ def main() -> int:
     ap.add_argument("--graphs", default="",
                     help="comma-separated subset of fib24, uts20, fib24_b8, "
                     "uts20_b8, fib24_trace, uts20_trace, fib24_ckpt, "
-                    "uts20_ckpt, sssp9_w0, sssp9_w8 (default: all)")
+                    "uts20_ckpt, sssp9_w0, sssp9_w8, resident8, "
+                    "resident128 (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ns = ap.parse_args()
     if ns.worker:

@@ -28,6 +28,30 @@ CUDA-event time on the card, the plain version's wall time on the CPU;
   ``resident_8_hops``: 8 devices, ``hop_order=[4, 1, 2]``;
   ``resident_8_abort``: device 3's abort word set; ``resident_8_b8``:
   width 8.
+- ``user_sharded_8``, ``user_resident_8``: the multi-chip dry run's
+  phases 2 and 3 (64 user-body BUMPs on device 0, through the sharded
+  steal at quantum 4, window 8, and through the ICI steal at window 32,
+  quantum 16: the user library's ``mk_user_kernel`` and its resident
+  kernel steal-only).
+- ``pgas_2``, ``pgas_4``, ``pgas_8``: the resident kernel's PGAS
+  configuration (``PGASMegakernel``) on ``stress.pgas_builders``' exchange
+  (every device reads its landing words, then starts its left
+  neighbour's SEND, which AMs a BUMP at every device and puts 16 rows
+  into its ring neighbour's heap, whose consumer waits for them and
+  reads their words),
+  at am_window 2, 2 and 8, the last two with a 6-message burst at one
+  target; ``pgas_steal_8``: the same with 32 BUMPs on device 0 stolen
+  over the same hops (steal with channels, window 4, quantum 4). These
+  also return the heap and the messages and puts sent.
+
+``USER_CASES`` hold the user library's scheduler (``mk_user_kernel``) on
+one device (``run_user_case``), each on ``USER_TABLE`` (the built-in fib
+and sum, a user BUMP, the alloc/free chain, fib as user bodies: one
+library): tests/test_device.py's alloc/free chain of 200 tasks through a
+16-slot value buffer (``chain_free``), the built-in fib beside user
+BUMPs (``mixed``: fib(16) and 32 BUMPs) and the user-written fib
+(``ufib``: UFIB(14)). They return the whole state after one launch.
+``user_forest`` runs a UFIB forest through the sharded runner.
 """
 
 from __future__ import annotations
@@ -43,6 +67,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from hclib_tpu_torch.device import stress  # noqa: E402
 from hclib_tpu_torch.device.descriptor import TaskGraphBuilder  # noqa: E402
 from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel  # noqa
+from hclib_tpu_torch.device.pgas_kernel import PGASMegakernel  # noqa: E402
+from hclib_tpu_torch.device.resident import ResidentKernel  # noqa: E402
 from hclib_tpu_torch.device.sharded import ShardedMegakernel  # noqa: E402
 from hclib_tpu_torch.device.workloads import FIB  # noqa: E402
 from hclib_tpu_torch.parallel.mesh import CtaMesh  # noqa: E402
@@ -73,6 +99,13 @@ CASES = {
     "resident_8_abort": ("ici", 8, 0, False,
                          dict(quantum=64, abort=[0, 0, 0, 1, 0, 0, 0, 0])),
     "resident_8_b8": ("ici", 8, 8, False, dict(quantum=64)),
+    "user_sharded_8": ("user_sharded", 8, 0, False,
+                       dict(steal=True, quantum=4, window=8)),
+    "user_resident_8": ("user_ici", 8, 0, False, dict(quantum=16)),
+    "pgas_2": ("pgas", 2, 0, False, dict(am_window=2)),
+    "pgas_4": ("pgas", 4, 0, True, dict(am_window=2)),
+    "pgas_8": ("pgas", 8, 0, True, dict(am_window=8)),
+    "pgas_steal_8": ("pgas_steal", 8, 0, True, dict(am_window=8)),
 }
 
 
@@ -84,7 +117,9 @@ def kernel_of(name: str) -> str:
     if kind == "ici":
         kind = "resident" if ndev & (ndev - 1) == 0 else "ring"
     return {"sharded": "mesh_round", "ring": "ici_ring",
-            "resident": "resident_steal"}[kind]
+            "resident": "resident_steal", "user_sharded": "mk_user",
+            "user_ici": "resident_steal", "pgas": "resident_pgas",
+            "pgas_steal": "resident_pgas"}[kind]
 
 
 def builders(ndev: int, dealt: bool):
@@ -96,9 +131,61 @@ def builders(ndev: int, dealt: bool):
     return bs
 
 
+def _user_case(kind, ndev, burst, kw, device):
+    """A user-body case: the dry run's BUMP load, or the PGAS exchange."""
+    mesh = CtaMesh((ndev,), ("q",), device=device)
+    if kind.startswith("user"):
+        mk = stress.bump_megakernel(device)
+        bs = stress.dryrun_builders(2, ndev)
+        if kind == "user_sharded":
+            iv, data, info = ShardedMegakernel(
+                mk, mesh, migratable_fns=[0]).run(bs, **kw)
+        else:
+            iv, data, info = ICIStealMegakernel(
+                mk, mesh, migratable_fns=[0], window=32).run(bs, **kw)
+        want = 8 * ndev * (8 * ndev + 1) // 2
+        if int(np.asarray(iv)[:, 0].sum()) != want:
+            raise AssertionError(f"{kind}: bump total {iv[:, 0].sum()}")
+        return iv, data, info
+    bumps = 32 if kind == "pgas_steal" else 0
+    mk = stress.pgas_megakernel(device=device)
+    bs, waits, heap = stress.pgas_builders(ndev, burst, bumps)
+    if kind == "pgas":
+        runner = PGASMegakernel(mk, mesh, channels={"c0": ("heap", 1)},
+                                **kw)
+        iv, data, info = runner.run(bs, data={"heap": heap}, waits=waits)
+    else:
+        runner = ResidentKernel(mk, mesh, migratable_fns=[stress.PBUMP],
+                                homed=False, channels={"c0": ("heap", 1)},
+                                window=4, **kw)
+        iv, data, info = runner.run(bs, data={"heap": heap}, waits=waits,
+                                    quantum=4)
+    stress.check_pgas(iv, data["heap"].cpu().numpy(), info, ndev, burst,
+                      bumps)
+    return iv, data, info
+
+
 def run_case(name: str, device: str) -> dict:
     """One case on ``device``; returns what it is compared on."""
     kind, ndev, bw, dealt, kw = CASES[name]
+    if kind.startswith(("user", "pgas")):
+        iv, data, info = _user_case(kind, ndev, dealt, kw, device)
+        ex = info.get("exchange", {})
+        return {
+            "iv": np.asarray(iv),
+            "counts": np.asarray(info["per_device_counts"]),
+            "rounds": info.get("steal_rounds", info.get("rounds")),
+            "fault_stats": info.get("fault_stats"),
+            "aborted": info.get("aborted"),
+            "rows": ex.get("rows"),
+            "stat_words": ex.get("stat_words"),
+            "ams": ex.get("ams"),
+            "puts": ex.get("puts"),
+            "data": {k: v.cpu().numpy() for k, v in data.items()},
+            "executed": info["executed"],
+            "kernel_ms": ex.get("kernel_ms", info.get("kernel_ms")),
+            "exchange_ms": info.get("exchange_ms"),
+        }
     mk = stress.forest_megakernel(ROOTS, CAP, bw, device)
     mesh = CtaMesh((ndev,), ("q",), device=device)
     if kind == "sharded":
@@ -142,10 +229,172 @@ def compare(got: dict, want: dict, what: str = "") -> float:
         if k in TIMES:
             continue
         a, b = got[k], want[k]
-        same = (np.array_equal(a, b) if isinstance(b, np.ndarray)
-                else a == b)
+        if isinstance(b, dict) and k == "data":
+            same = all(np.array_equal(a[n], b[n]) for n in b)
+        else:
+            same = (np.array_equal(a, b) if isinstance(b, np.ndarray)
+                    else a == b)
         if not same:
             raise AssertionError(f"mesh {what}: {k} differs from the plain "
                                  f"version: {a!r} vs {b!r}")
     return float(np.abs(got["iv"].astype(np.int64)
                         - want["iv"].astype(np.int64)).max())
+
+
+# The one-device user tables share one table of bodies (so one library):
+# the built-in fib and sum, a user BUMP, tests/test_device.py's alloc/free
+# chain, and fib written as user bodies (UFIB, its continuation USUM: the
+# built-in fib's spawn order, through ctx).
+BUILTIN_FIB, BUILTIN_SUM, BUMP, CHAIN, UFIB, USUM = range(6)
+
+
+def _bump1(ctx):
+    ctx.set_value(1, ctx.value(1) + ctx.arg(0))
+
+
+def _chain_free(ctx):
+    base = ctx.alloc_values(2)
+    ctx.set_value(base, ctx.arg(0))
+    ctx.free_values(base)
+    if ctx.arg(0) > 0:
+        ctx.spawn(CHAIN, [ctx.arg(0) - 1])
+
+
+CHAIN_FREE_CUDA = f"""
+  const int base = ctx.alloc_values(2);
+  ctx.set_value(base, ctx.arg(0));
+  ctx.free_values(base);
+  if (ctx.arg(0) > 0) {{
+    const int a = ctx.arg(0) - 1;
+    ctx.spawn({CHAIN}, &a, 1);
+  }}"""
+
+
+def _ufib(ctx):
+    n = ctx.arg(0)
+    if n < 2:
+        ctx.set_out(n)
+        return
+    s = ctx.spawn(USUM, dep_count=2, out=ctx.out_slot)
+    ctx.take_continuation(s)
+    base = ctx.row_values(s)
+    ctx.set_arg(s, 0, base)
+    ctx.set_arg(s, 1, base + 1)
+    ctx.spawn(UFIB, [n - 1], succ0=s, out=base)
+    ctx.spawn(UFIB, [n - 2], succ0=s, out=base + 1)
+
+
+UFIB_CUDA = f"""
+  const int n = ctx.arg(0);
+  if (n < 2) {{
+    ctx.set_out(n);
+    return;
+  }}
+  const int s = ctx.spawn({USUM}, nullptr, 0, 2, NO_TASK, NO_TASK,
+                          ctx.out_slot());
+  ctx.take_continuation(s);
+  const int base = ctx.row_values(s);
+  ctx.set_arg(s, 0, base);
+  ctx.set_arg(s, 1, base + 1);
+  int a = n - 1;
+  ctx.spawn({UFIB}, &a, 1, 0, s, NO_TASK, base);
+  a = n - 2;
+  ctx.spawn({UFIB}, &a, 1, 0, s, NO_TASK, base + 1);"""
+
+
+def _usum(ctx):
+    ctx.set_out(ctx.value(ctx.arg(0)) + ctx.value(ctx.arg(1)))
+
+
+USER_TABLE = [
+    "fib", "sum",
+    ("bump", _bump1, "ctx.set_value(1, ctx.value(1) + ctx.arg(0));"),
+    ("chain", _chain_free, CHAIN_FREE_CUDA),
+    ("ufib", _ufib, UFIB_CUDA),
+    ("usum", _usum,
+     "ctx.set_out(ctx.value(ctx.arg(0)) + ctx.value(ctx.arg(1)));"),
+]
+
+
+def user_megakernel(capacity: int, device, num_values=None):
+    """USER_TABLE with every row's value block (fib and UFIB write their
+    children's values there) plus 16 host slots."""
+    from hclib_tpu_torch.device.megakernel import VBLOCK, Megakernel
+
+    return Megakernel(
+        USER_TABLE, capacity=capacity,
+        num_values=num_values or VBLOCK * capacity + 16, succ_capacity=8,
+        uses_row_values=True, device=device)
+
+
+def _user_tables(device):
+    from hclib_tpu_torch.device.megakernel import Megakernel
+
+    return {"chain_free": Megakernel(USER_TABLE, capacity=16, num_values=16,
+                                     succ_capacity=8, device=device),
+            "mixed": user_megakernel(1024, device),
+            "ufib": user_megakernel(256, device)}
+
+
+def user_sources():
+    """The generated sources of every user library these holds and
+    ``chip_smoke.py`` build: USER_TABLE's, the dry run's two tables and
+    the PGAS exchange's."""
+    return [user_megakernel(16, "cpu").user_source(),
+            stress.bump_megakernel("cpu").user_source(),
+            stress.pgas_megakernel(device="cpu").user_source(),
+            stress.put_consume_megakernel("cpu").user_source()]
+
+
+USER_CASES = ("chain_free", "mixed", "ufib")
+
+
+def user_builder(name: str, n: int = 14) -> TaskGraphBuilder:
+    """The graph of user case ``name`` (``ufib``: UFIB(n) into slot 0)."""
+    b = TaskGraphBuilder()
+    if name == "chain_free":
+        b.add(CHAIN, args=[200])
+    elif name == "mixed":
+        b.add(BUILTIN_FIB, args=[16], out=0)
+        for i in range(32):
+            b.add(BUMP, args=[i + 1])
+        b.reserve_values(2)
+    else:
+        b.add(UFIB, args=[n], out=0)
+        b.reserve_values(1)
+    return b
+
+
+def run_user_case(name: str, device: str) -> dict:
+    """One single-device user table on ``device``: the state after one
+    launch (task table, ready ring, counts, value slots)."""
+    mk = _user_tables(device)[name]
+    st = mk.state(user_builder(name))
+    mk.fold_dispatches(mk.launch(st))
+    return {k: st[k].cpu().numpy() for k in ("tasks", "ready", "counts",
+                                             "ivalues")}
+
+
+def user_forest(ndev: int, roots: int, n: int, device: str):
+    """``roots`` UFIB(n) roots dealt round-robin over ``ndev`` devices
+    through the sharded runner without steal (one grid launch of the
+    user library's scheduler); raises unless the totals are exact.
+    Returns (ivalues, info)."""
+    from hclib_tpu_torch.device.megakernel import VBLOCK
+    from hclib_tpu_torch.models.fib import fib_seq, task_count
+
+    cap = 64 + 4 * n + roots // ndev
+    mk = user_megakernel(cap, device, VBLOCK * cap + roots)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for r in range(roots):
+        bs[r % ndev].add(UFIB, args=[n], out=r)
+    for b in bs:
+        b.reserve_values(roots)
+    iv, _, info = ShardedMegakernel(
+        mk, CtaMesh((ndev,), ("q",), device=device)).run(bs)
+    per_root = task_count(n) + (task_count(n) - 1) // 2
+    got = int(np.asarray(iv)[:, :roots].sum(dtype=np.int64))
+    if info["executed"] != roots * per_root or got != roots * fib_seq(n):
+        raise AssertionError(f"user forest: executed {info['executed']}, "
+                             f"sum {got}")
+    return iv, info

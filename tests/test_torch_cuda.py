@@ -10,6 +10,8 @@ the machine with the card does not have). ``chip_smoke.py`` holds the
 same kernels to their plain versions at full size.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -727,7 +729,9 @@ def test_stream_refuses_tables_without_an_instance(card):
 MESH_CASES = ("sharded_nosteal_8", "sharded_steal_8", "sharded_steal_8_b8",
               "sharded_hop_4", "ring_3", "ring_6", "ring_6_abort",
               "ring_3_b8", "ring_1", "resident_2", "resident_4",
-              "resident_8_hops", "resident_8_abort", "resident_8_b8")
+              "resident_8_hops", "resident_8_abort", "resident_8_b8",
+              "user_sharded_8", "user_resident_8", "pgas_2", "pgas_4",
+              "pgas_8", "pgas_steal_8")
 
 
 def _mesh_holds():
@@ -744,9 +748,11 @@ def _mesh_holds():
 @pytest.mark.parametrize("name", MESH_CASES)
 def test_mesh_equals_plain(card, name):
     """The mesh kernels (csrc/mesh.cuh: the sharded runner's grid launch,
-    the ring, the resident steal kernel) against their plain versions:
-    every device's value slots and counts row, the rounds, the tier
-    counters, the fault stats and the rows each device exported."""
+    the ring, the resident kernel steal-only and its PGAS configuration;
+    csrc/user.cuh's scheduler for user tables) against their plain
+    versions: every device's value slots and counts row, the rounds, the
+    tier counters, the fault stats, the rows each device exported, the
+    messages and puts it sent and the data buffers."""
     h = _mesh_holds()
     assert set(MESH_CASES) == set(h.CASES)
     h.compare(h.run_case(name, "cuda"), h.run_case(name, "cpu"), name)
@@ -789,3 +795,84 @@ def test_mesh_spin_timeout_raises(card):
     m.timeout_s = 0.0
     with pytest.raises(RuntimeError, match="timed out"):
         m.run(h.builders(2, False), quantum=64)
+
+
+@pytest.mark.parametrize("name", ["chain_free", "mixed", "ufib"])
+def test_user_table_equals_plain(card, name):
+    """A user-body table on one device (csrc/user.cuh mk_user_kernel:
+    the alloc/free chain, fib and sum beside a user BUMP, fib written as
+    user bodies) against the plain core: the task table, ready ring,
+    counts and value slots."""
+    h = _mesh_holds()
+    assert set(h.USER_CASES) == {"chain_free", "mixed", "ufib"}
+    got, want = h.run_user_case(name, "cuda"), h.run_user_case(name, "cpu")
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_user_forest_equals_plain(card):
+    """A forest of user-written fib roots through the sharded runner's
+    grid launch of the user library's scheduler, one CTA a device: every
+    device's value slots and counts row as the plain version's."""
+    h = _mesh_holds()
+    (iv_c, ic), (iv_p, ip) = (h.user_forest(16, 128, 9, d)
+                              for d in ("cuda", "cpu"))
+    np.testing.assert_array_equal(iv_c, iv_p)
+    np.testing.assert_array_equal(ic["per_device_counts"],
+                                  ip["per_device_counts"])
+
+
+def test_user_library_holds_one_variant(card):
+    """A table's library holds the instances of one variant: a table
+    without ctx.pgas launched under the PGAS configuration builds and
+    runs the PGAS variant, and the non-PGAS variant refuses a PGAS
+    launch."""
+    from hclib_tpu_torch.device.pgas_kernel import PGASMegakernel
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    mk = tmk.Megakernel(
+        [("b", lambda ctx: ctx.set_value(0, ctx.value(0) + 1),
+          "ctx.set_value(0, ctx.value(0) + 1);")],
+        data_specs={"heap": ((4, 128), torch.int32)}, capacity=8,
+        num_values=8, succ_capacity=8)
+    bs = [TaskGraphBuilder() for _ in range(2)]
+    bs[1].add(0)
+    pg = PGASMegakernel(mk, cuda_mesh(2), channels={"c0": ("heap", 1)})
+    iv, _, info = pg.run(bs, data={"heap": np.zeros((2, 4, 128), np.int32)})
+    assert iv[:, 0].tolist() == [0, 1] and info["pending"] == 0
+    out = ctypes.c_int(0)
+    lib = mk.user_library(False)
+    fn = lib.hclib_user_coresident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    assert fn(2, 0, 0, 1, ctypes.byref(out)) != 0  # no PGAS instance
+    assert fn(2, 0, 1, 0, ctypes.byref(out)) == 0 and out.value >= 1
+
+
+def test_user_library_that_does_not_build_raises(card):
+    """nvcc's refusal of a user body comes back as the error, with its
+    stderr; nothing runs the Python body instead."""
+    mk = tmk.Megakernel([("bad", lambda ctx: None, "this is not C++;")],
+                        capacity=8, num_values=8, succ_capacity=8)
+    b = TaskGraphBuilder()
+    b.add(0)
+    with pytest.raises(RuntimeError, match="nvcc failed") as e:
+        mk.run(b)
+    assert "error" in str(e.value)
+
+
+def test_pgas_protocol_fault_stops_the_mesh(card):
+    """A put on an undeclared channel stops the mesh and raises naming
+    it, on the card as the plain version raises."""
+    from hclib_tpu_torch.device.pgas_kernel import PGASMegakernel
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    mk = tmk.Megakernel(
+        [("p", lambda ctx: ctx.pgas.put(1, 3, 0, 0),
+          "ctx.pgas.put(1, 3, 0, 0);")],
+        data_specs={"heap": ((4, 128), torch.int32)}, capacity=8,
+        num_values=8, succ_capacity=8)
+    bs = [TaskGraphBuilder() for _ in range(2)]
+    bs[0].add(0)
+    pg = PGASMegakernel(mk, cuda_mesh(2), channels={"c0": ("heap", 1)})
+    with pytest.raises(RuntimeError, match="undeclared channel"):
+        pg.run(bs, data={"heap": np.zeros((2, 4, 128), np.int32)})

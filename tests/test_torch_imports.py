@@ -39,6 +39,7 @@ def test_imports_pull_in_no_jax():
             "hclib_tpu_torch.device.sharded",
             "hclib_tpu_torch.device.ici_steal",
             "hclib_tpu_torch.device.resident",
+            "hclib_tpu_torch.device.pgas_kernel",
             "hclib_tpu_torch.device.stress"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
@@ -134,6 +135,17 @@ ENTRY_POINTS = {
     "CtaMesh": lambda: __import__(
         "hclib_tpu_torch.parallel.mesh", fromlist=["x"]).CtaMesh(
             (4, 2), ("x", "y")),
+    "Megakernel_user_bodies": lambda: __import__(
+        "hclib_tpu_torch.device.megakernel", fromlist=["x"]).Megakernel(
+            ["fib", "sum", ("bump", lambda ctx: None,
+                            "ctx.set_value(0, ctx.value(0) + ctx.arg(0));")]),
+    "PGASMegakernel": lambda: __import__(
+        "hclib_tpu_torch.device.pgas_kernel", fromlist=["x"]).PGASMegakernel(
+            __import__("hclib_tpu_torch.device.megakernel",
+                       fromlist=["x"]).Megakernel(
+                [("nop", lambda ctx: None, "")], device="cpu"),
+            __import__("hclib_tpu_torch.parallel.mesh",
+                       fromlist=["x"]).CtaMesh((2,), ("q",))),
     "forest_steal": lambda: __import__(
         "hclib_tpu_torch.device.stress", fromlist=["x"]).forest_steal(
             ndev=2, roots=2, n=3, capacity=64),

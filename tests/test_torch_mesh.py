@@ -299,11 +299,13 @@ class _Plan:
 REFUSED_INIT = {
     "homed": dict(migratable_fns=[FIB], homed=True),
     "value_args": dict(migratable_fns={FIB: (0,)}, homed=False),
-    "channels": dict(channels={"c": ("x", 1)}),
+    # Channels run (tests/test_torch_pgas.py); with homed migration beside
+    # them they still refuse, and the PGAS configuration with injection.
+    "channels_homed": dict(channels={"c": ("x", 1)}, migratable_fns=[FIB]),
     "inject": dict(inject=True),
     "tenants": dict(tenants=2),
     "fault_plan": dict(fault_plan=_Plan()),
-    "pgas_only": dict(steal=False),
+    "pgas_inject": dict(steal=False, channels={"c": ("x", 1)}, inject=True),
 }
 
 
@@ -314,7 +316,9 @@ def test_resident_refuses_what_is_not_ported(name):
 
 
 REFUSED_RUN = {
-    "waits": dict(waits=[[(0, 1, 0)], []]),
+    # waits= runs (tests/test_torch_pgas.py); a body's remote atomic on
+    # the PGAS configuration still refuses (ROADMAP A11b.2).
+    "pgas_atomics": None,
     "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []]),
     "quiesce": dict(quiesce=True),
     "resume_state": dict(resume_state={"tasks": None}),
@@ -324,6 +328,18 @@ REFUSED_RUN = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED_RUN))
 def test_resident_run_refuses_what_is_not_ported(name):
+    if REFUSED_RUN[name] is None:
+        mk = tmk.Megakernel([("fadd", lambda ctx: ctx.pgas.fadd(1, 2, 3))],
+                            data_specs={"x": ((2, 4), torch.int32)},
+                            capacity=16, num_values=8, succ_capacity=8,
+                            device="cpu")
+        rk = ResidentKernel(mk, cpu_mesh(2), steal=False,
+                            channels={"c": ("x", 1)})
+        bs = [TBuilder() for _ in range(2)]
+        bs[0].add(0)
+        with pytest.raises(NotImplementedError, match="A11b"):
+            rk.run(bs, data={"x": np.zeros((2, 2, 4), np.int32)})
+        return
     rk = ResidentKernel(_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
                         homed=False)
     with pytest.raises(NotImplementedError, match="A11"):
