@@ -223,6 +223,20 @@ header, qstat and the whole output state equal to the plain core's.
              exchanged, the kernel's ms; then (outside the launch counts)
              the plain version of every arm, word for word, data
              buffers included.
+28. homed    - homed migration, value-arg rehydration and the remote
+             atomics and locks (the resident kernel's migrating
+             configuration, csrc/mesh.cuh resident_kernel<.., kHome>,
+             and its built-in active messages): the dry run's phase 0
+             at 8 CTAs (fib(9) home in slot 3, FADD 7 at its owner);
+             stress.unified_load at 8 devices (fib(10) and 32 remote
+             fetch-adds), scalar and width 8; the whole card, 128 CTAs:
+             fib(24) on device 0 and 2,048 fetch-adds (slot 3 = 46,368,
+             slot 2 = 2,098,176, 227,121 tasks); the lock workload on
+             128 CTAs (X = Y = 128, the tripwire's TEAR 0, the lock
+             released). The kernel's ms, rounds, the built-in messages
+             by kind, the proxies' peak and the bound an arm; then
+             (outside the launch counts) every arm's plain run, word
+             for word.
 
 The ``user`` lines, before the main path, hold the user-body
 scheduler on one device to the plain core (``scripts/mesh_holds.py``
@@ -240,7 +254,10 @@ abort, at width 8):
 every device's value slots and counts, the rounds, the tier counters,
 the fault stats and the rows each device exported; and the dry run's
 phases 2 and 3 and the PGAS exchange at 2, 4 and 8 devices (with steal
-beside it at 8), data buffers and messages and puts sent included.
+beside it at 8), data buffers and messages and puts sent included; and
+the migrating configuration on JAX's homed fib tests (2 and 8 devices,
+a 2x2x2 mesh, width 8 at 8) and the lock workload at 4 devices, their
+proxies and built-in messages included.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -252,7 +269,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-27 are the main path: launch counts are zeroed just before each
+Phases 3-28 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -3108,6 +3125,123 @@ def main() -> int:
     emit({"phase": "pgas", "arms": pgas_arms, "plain_ms": pgas_plain,
           "library": "none: no PyTorch call runs a task scheduler or its "
                      "one-sided messages",
+          "launches": launches})
+
+    # 28. homed migration, value-arg rehydration and the remote atomics
+    # and locks (the resident kernel's migrating configuration,
+    # resident_homed, and the built-in active messages): the dry run's
+    # phase 0 literally at 8 CTAs; mc-unified-resident as
+    # tools/perf_regression.py runs it (stress.unified_load: 8 devices,
+    # fib(10), 32 fetch-adds, capacity 1024, quantum 32, window 8), scalar
+    # and width 8; the whole card, 128 CTAs: fib(24) on device 0 (225,073
+    # tasks) and 2,048 fetch-adds, 16 a device, into device 0's slot 2;
+    # and the lock workload on 128 CTAs (a LOCKER a device on device 0's
+    # lock, qcap 128; each critical section's compare-swap tripwire, two
+    # fetch-adds, the release; a fetch-add and a compare-swap with their
+    # replies), through the PGAS configuration. Each arm is held to JAX's
+    # exact totals, and outside the counts to its plain run word for word
+    # (value slots, counts rows, rounds, fault stats, exchange volume,
+    # proxies and their peak, the built-in messages each device applied).
+    from hclib_tpu_torch.device.resident import ResidentKernel
+
+    _build.reset_launches()
+    homed_arms, homed_out = {}, {}
+
+    def homed_run(name, device):
+        """Arm ``name`` on ``device``: (ivalues, info, host seconds)."""
+        t0 = time.perf_counter()
+        if name == "dryrun_0":
+            iv, info = tst.dryrun0(8, device)
+        elif name.startswith("unified"):
+            size = (dict(ndev=128, n=24, fadds=2048) if name ==
+                    "unified_128" else {})
+            info = tst.unified_load(batch_width=8 if name.endswith("b8")
+                                    else 0, device=device, **size)
+            iv = info["ivalues"]
+        else:
+            def locks():
+                bs, iv0 = tst.lock_builders(128)
+                rk = ResidentKernel(tst.lock_megakernel(device=device),
+                                    CtaMesh((128,), ("q",), device=device),
+                                    steal=False)
+                return rk.run(bs, ivalues=iv0, quantum=8)
+            if device == "cuda":
+                locks()  # warm-up: the first launch of its library
+                t0 = time.perf_counter()
+            iv, _, info = locks()
+            tst.check_locks(iv, info, 128)
+        return np.asarray(iv), info, time.perf_counter() - t0
+
+    HOMED = ("dryrun_0", "unified_8", "unified_8_b8", "unified_128",
+             "locks_128")
+    for name in HOMED:
+        iv, info, dt = homed_run(name, "cuda")
+        ex = info["exchange"]
+        arm = {"seconds": dt, "kernel_ms": ex["kernel_ms"],
+               "tasks": info["executed"], "rounds": info["rounds"],
+               "devices_used": int((np.asarray(
+                   info["per_device_counts"])[:, 5] > 0).sum()),
+               "rows_exported": sum(ex["rows"]),
+               "stat_words": sum(ex["stat_words"]), "ams": sum(ex["ams"]),
+               "builtin_ams": {k: sum(v)
+                               for k, v in info["builtin_ams"].items()},
+               "proxies_peak": max(info["proxies_peak"])}
+        arm["bound_ms"] = bound(0.0, 136.0 * arm["tasks"] + 64.0 * (
+            arm["ams"] + arm["rows_exported"]) + 4.0 * arm["stat_words"])[0]
+        homed_arms[name] = arm
+        homed_out[name] = (iv, info)
+        emit({"phase": "homed", "arm": name, **arm})
+    iv, info = homed_out["unified_128"]
+    check(int(iv[0, 3]) == 46368 and int(iv[0, 2]) == 2098176
+          and info["executed"] == 225073 + 2048
+          and homed_arms["unified_128"]["devices_used"] > 1,
+          f"unified_128: slot 3 {int(iv[0, 3])}, slot 2 {int(iv[0, 2])}, "
+          f"executed {info['executed']}")
+    launches = path_done("homed")
+
+    def same_homed(name, card, plain):
+        (iv_c, ic), (iv_p, ip) = card, plain
+        check(np.array_equal(iv_c, iv_p),
+              f"homed {name}: ivalues differ from the plain version")
+        check(np.array_equal(ic["per_device_counts"],
+                             ip["per_device_counts"]),
+              f"homed {name}: per_device_counts differ from the plain "
+              "version")
+        for k in ("rounds", "fault_stats", "aborted", "tiers", "proxies",
+                  "proxies_peak", "builtin_ams"):
+            check(ic.get(k) == ip.get(k),
+                  f"homed {name}: {k} differs from the plain version")
+        for k in ("rows", "stat_words", "ams", "puts"):
+            check(ic["exchange"][k] == ip["exchange"][k],
+                  f"homed {name}: exchange {k} differs from the plain "
+                  "version")
+        return float(np.abs(np.asarray(iv_p, np.int64) - iv_c).max())
+
+    # Outside the counts: every arm's plain run, word for word.
+    homed_plain, homed_err = {}, {}
+    for name in HOMED:
+        iv_p, info_p, dt = homed_run(name, "cpu")
+        homed_err[name] = same_homed(name, homed_out[name], (iv_p, info_p))
+        homed_plain[name] = info_p["exchange"]["kernel_ms"]
+    emit({"phase": "homed", "plain_equal": sorted(homed_err),
+          "max_abs_err": homed_err, "plain_ms": homed_plain})
+    # The bound (bytes): 136 B a task, 64 B an active message or a
+    # descriptor row moved, 4 B a stat word sent, over the memory rate.
+    a = homed_arms["unified_128"]
+    kernels["resident_homed"] = {
+        "name": "resident_homed", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/resident.py:2222",
+        "max_abs_err": max([homed_err[n] for n in HOMED if n != "locks_128"]
+                           + [mesh_hold_err["resident_homed"]]),
+        "ms": a["kernel_ms"], "plain_ms": homed_plain["unified_128"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+    kernels["resident_pgas"]["max_abs_err"] = max(
+        kernels["resident_pgas"]["max_abs_err"], homed_err["locks_128"])
+    emit({"phase": "homed", "arms": homed_arms, "plain_ms": homed_plain,
+          "library": "none: no PyTorch call runs a task scheduler, its "
+                     "migration protocol or its remote atomics",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

@@ -27,7 +27,8 @@ megakernel library): ``"mesh_round"`` the sharded runner's grid launches
 (one a steal round), ``"ici_ring"`` and ``"resident_steal"`` the launches
 of the ring and the resident kernel's steal-only configuration (one a
 run), ``"resident_pgas"`` its PGAS configurations (channels, with or
-without steal); ``"mk_user"`` the launches of a user-body library's
+without steal), ``"resident_homed"`` its migrating configuration (homed
+copies with their completions, value args); ``"mk_user"`` the launches of a user-body library's
 scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a user table on one
 device, or a grid launch of the sharded runner). A user table's launches
 of the ring and the resident kernel count as those kernels'.
@@ -69,7 +70,8 @@ LAUNCHES: Dict[str, int] = {
     "fa_map_batch": 0, "fr_expand": 0, "fr_expand_batch": 0, "bnb_node": 0,
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
     "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
-    "resident_steal": 0, "resident_pgas": 0, "mk_user": 0,
+    "resident_steal": 0, "resident_pgas": 0, "resident_homed": 0,
+    "mk_user": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

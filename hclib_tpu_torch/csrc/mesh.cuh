@@ -9,21 +9,25 @@
 //                       ndev - 1 credited hops, then one exchange at
 //                       distance 2^(r mod nh) mod ndev
 //   resident_kernel  <- hclib_tpu/device/resident.py ResidentKernel.
-//                       _kernel (:626, pallas_call at :2222) with
-//                       homed=False, in three configurations: steal-only
-//                       (kSteal: stage_resident :945, install_fixed :993,
-//                       elig_of :1041, export :1069, import_rows :1178,
-//                       fold_and_steal :1562, the round loop :1890-2099),
-//                       PGAS-only (kPgas: op_put :834, op_wait_until :862,
-//                       op_count :878, op_am :801, drain_outbox :1189,
-//                       handle_am :1231 for user kinds, drain_receives
-//                       :1322, scan_waits :1381, the stat vector's XOR
-//                       all-to-all section :497-536) and both at once
+//                       _kernel (:626, pallas_call at :2222), in four
+//                       configurations: steal-only (kSteal, homed=False:
+//                       stage_resident :945, elig_of :1041, export :1069,
+//                       import_rows :1178, fold_and_steal :1562, the
+//                       round loop :1890-2099), PGAS-only (kPgas: op_put
+//                       :834, op_wait_until :862, op_count :878, op_am
+//                       :801, the atomics and locks :881-907,
+//                       drain_outbox :1189, handle_am :1231-1320 with the
+//                       built-in kinds, drain_receives :1322, scan_waits
+//                       :1381, the stat vector's XOR all-to-all section
+//                       :497-536), both at once, and migrating (kHome:
+//                       homed_elig_of :1025, the proxy budget, export's
+//                       homed copies and value args, install_fixed :993,
+//                       complete_hook :914 in HomeSched)
 // csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
 // mk_kernel's body a block) and instantiates these with the built-in
 // thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
-// with its own bodies, the PGAS configurations only there (only a user
-// body puts, sends an active message or waits on a channel).
+// with its own bodies, the PGAS and migrating configurations only there
+// (a table of built-in bodies alone builds one with no user body).
 //
 // Design. The steal kernels keep the whole run in one launch: each CTA's
 // thread 0 runs the serial scheduler of mk_kernel (Sched's stage, pop,
@@ -86,7 +90,7 @@ namespace {
 
 using namespace hc;
 
-constexpr int F_HOME = 13, F_VMASK = 15;  // descriptor.py
+constexpr int F_VMASK = 15;  // descriptor.py
 constexpr int MAX_HOPS = 16;
 constexpr int MESH_MAX_FNS = 32;
 constexpr int MAX_SCAN = 1024;
@@ -124,9 +128,23 @@ constexpr int FS_DEAD_ROUND = 4, FS_ABORT_ROUND = 7, FS_QUIESCE_ROUND = 10,
 // messages and puts.
 constexpr int XS_ROWS = 0, XS_STAT_WORDS = 1, XS_AMS = 2, XS_PUTS = 3,
               XS_WORDS = 4;
-// resident.py pstate words, and C_OVERFLOW's bits of the PGAS ops.
-constexpr int PS_RECV = 0, PS_NWAIT = 1, PS_SENT = 2;
-constexpr int OVF_OUTBOX = 8, OVF_WAITS = 16, OVF_VALUES = 2;
+// resident.py pstate words (RECV, NWAIT, SENT, PROXIES), then the port's:
+// the proxies' peak, the built-in messages applied (kind k at PS_AMS - 2 -
+// k), and the words the host writes before a launch (device/resident.py
+// ResidentKernel.pstate_words): the proxy budget, homed, rbase, whether
+// spawn keeps home links, whether a kind declares value args.
+constexpr int PS_RECV = 0, PS_NWAIT = 1, PS_SENT = 2, PS_PROXIES = 3,
+              PS_PEAK = 7, PS_AMS = 8, PS_CAP = 16, PS_HOMED = 17,
+              PS_RBASE = 18, PS_TRACK = 19, PS_VARGS = 20;
+// C_OVERFLOW's bits of the PGAS ops and the lock FIFO.
+constexpr int OVF_OUTBOX = 8, OVF_WAITS = 16, OVF_VALUES = 2, OVF_LOCKQ = 32;
+// The built-in active-message kinds (resident.py RC_*): negative F_FN
+// values the receiving scheduler applies in drain_receives.
+enum {
+  RC_GRANT = -9, RC_UNLOCK, RC_LOCK, RC_REPLY, RC_CSWAP, RC_FADD_R, RC_FADD,
+  RC_COMPLETE
+};
+static_assert(RC_COMPLETE == -2, "built-in kinds");
 // The sections of one device's PGAS workspace; the host lays them out
 // (device/resident.py pgas_layout) and passes each one's word offset.
 enum {
@@ -319,6 +337,84 @@ struct Mesh {
     return nsend;
   }
 
+  // resident.py homed_elig_of: the row carries links or writes a
+  // dynamic value slot (valid only at home), so it leaves as a homed copy.
+  __device__ static bool links(Sched& S, int cand) {
+    return S.w(cand, F_SUCC0) != NO_TASK || S.w(cand, F_SUCC1) != NO_TASK ||
+           S.w(cand, F_CSR_N) > 0 || S.w(cand, F_OUT) >= S.counts[C_VBASE];
+  }
+
+  // resident.py elig_of, the migrating configuration: a migratable kind,
+  // migrate-once, and link-free unless homed with the proxy budget open
+  // (`allow`, read once a scan).
+  __device__ bool elig_home(Sched& S, int cand, bool homed,
+                            bool allow) const {
+    const int fn = S.w(cand, F_FN);
+    if (!(fn >= 0 && fn < MESH_MAX_FNS && m.wl[fn] != 0) ||
+        S.w(cand, F_HOME) >= 0)
+      return false;
+    return !links(S, cand) || (homed && allow);
+  }
+
+  // resident.py export, the migrating configuration: a row with links
+  // (homed) ships a copy naming its proxy - F_HOME me, F_HROW the row,
+  // links cleared on the wire - and stays pending at home off the ring;
+  // a link-free row moves whole (tombstoned, freed, its pending handed
+  // over). The kind's value args (bits 1.. of its whitelist word) are
+  // dereferenced into the wire, F_VMASK naming them. ps: my pstate.
+  __device__ int export_home(Sched& S, const Args& a, int quota,
+                             int32_t* box, int32_t* ps) const {
+    int32_t* c = S.counts;
+    const int head = c[C_HEAD];
+    const int n = min(c[C_TAIL] - head, m.scan);
+    const bool homed = ps[PS_HOMED] != 0;
+    const bool allow = ps[PS_PROXIES] < ps[PS_CAP];
+    int nelig = 0;
+    for (int j = 0; j < n; ++j) {
+      cand[j] = a.ready[floor_mod(head + j, a.cap)];
+      nelig += elig_home(S, cand[j], homed, allow);
+    }
+    const int nsend = min(quota, nelig);
+    int se = 0, kp = 0, nwhole = 0;
+    for (int j = 0; j < n; ++j) {
+      const int row = cand[j];
+      if (se < nsend && elig_home(S, row, homed, allow)) {
+        int32_t* dst = box + se * DESC;
+        for (int w = 0; w < DESC; ++w) dst[w] = S.w(row, w);
+        dst[F_VMASK] = 0;  // export owns the wire's value mask
+        if (homed && links(S, row)) {
+          dst[F_SUCC0] = NO_TASK;
+          dst[F_SUCC1] = NO_TASK;
+          dst[F_CSR_OFF] = 0;
+          dst[F_CSR_N] = 0;
+          dst[F_HOME] = me;
+          dst[F_HROW] = row;
+          ps[PS_PROXIES] += 1;
+          ps[PS_PEAK] = max(ps[PS_PEAK], ps[PS_PROXIES]);
+        } else {
+          S.w(row, F_DEP) = -1;
+          const int nf = S.freestk[0] + 1;
+          S.freestk[0] = nf;
+          S.freestk[nf] = row;
+          ++nwhole;
+        }
+        const int vm = m.wl[S.w(row, F_FN)] >> 1;
+        if (vm) {
+          for (int i = 0; i < NUM_ARGS; ++i)
+            if ((vm >> i) & 1) dst[F_A0 + i] = S.iv[S.w(row, F_A0 + i)];
+          dst[F_VMASK] = vm;
+        }
+        ++se;
+      } else {
+        a.ready[floor_mod(head + nsend + kp, a.cap)] = row;
+        ++kp;
+      }
+    }
+    c[C_HEAD] = head + nsend;
+    c[C_PENDING] -= nwhole;
+    return nsend;
+  }
+
   // import_rows / install_fixed: adopt the inbox's rows through the
   // core's install_descriptor (the stolen rows were ready: F_DEP 0).
   __device__ void import_rows(Sched& S, const int32_t* box) const {
@@ -376,11 +472,18 @@ struct Pgas {
   }
 
   // op_am: queue a user-kind descriptor for device dev's scheduler; the
-  // round's drain_outbox sends it under the inbox window.
+  // round's drain_outbox sends it under the inbox window. The built-in
+  // kinds (fn < 0) are sent only by the atomics and locks below.
   __device__ void am(Sched& S, int dev, int fn, const int* args, int nargs,
                      int out) const {
     if (dev < 0 || dev >= m.ndev || fn < 0)
       return X.fail(r, -1, F_BAD_TARGET);
+    send(S, dev, fn, args, nargs, out);
+  }
+
+  // The row into the outbox, any kind (OVF_OUTBOX when it is full).
+  __device__ void send(Sched& S, int dev, int fn, const int* args, int nargs,
+                       int out = 0) const {
     int32_t* ob = mine(PG_OBCTL);
     const int h = ob[1];
     if (h - ob[0] >= m.outq) {
@@ -399,9 +502,159 @@ struct Pgas {
     for (int i = 0; i < NUM_ARGS; ++i) d[F_A0 + i] = i < nargs ? args[i] : 0;
     d[F_OUT] = out;
     d[F_HOME] = NO_TASK;
-    d[F_HOME + 1] = 0;  // F_HROW
+    d[F_HROW] = 0;
     d[F_VMASK] = 0;
     ob[1] = h + 1;
+  }
+
+  // The atomics and locks (op_fadd, op_fadd_get, op_cswap, op_lock,
+  // op_unlock): a built-in message to the owner, whose serial scheduler
+  // applies it in drain_receives (that order is the atomicity) and
+  // replies to (me, row, rslot) where the op has a reply.
+  __device__ bool to_mesh(int dev) const {
+    if (dev >= 0 && dev < m.ndev) return true;
+    X.fail(r, -1, F_BAD_TARGET);
+    return false;
+  }
+  __device__ void fadd(Sched& S, int dev, int slot, int delta) const {
+    const int w[2] = {slot, delta};
+    if (to_mesh(dev)) send(S, dev, RC_FADD, w, 2);
+  }
+  __device__ void fadd_get(Sched& S, int dev, int slot, int delta, int row,
+                           int rslot) const {
+    const int w[5] = {slot, delta, me, row, rslot};
+    if (to_mesh(dev)) send(S, dev, RC_FADD_R, w, 5);
+  }
+  __device__ void cswap(Sched& S, int dev, int slot, int expected, int nv,
+                        int row, int rslot) const {
+    const int w[6] = {slot, expected, nv, me, row, rslot};
+    if (to_mesh(dev)) send(S, dev, RC_CSWAP, w, 6);
+  }
+  __device__ void lock(Sched& S, int dev, int lbase, int row,
+                       int qcap) const {
+    const int w[4] = {lbase, me, row, qcap};
+    if (to_mesh(dev)) send(S, dev, RC_LOCK, w, 4);
+  }
+  __device__ void unlock(Sched& S, int dev, int lbase, int qcap) const {
+    const int w[2] = {lbase, qcap};
+    if (to_mesh(dev)) send(S, dev, RC_UNLOCK, w, 2);
+  }
+
+  // install_fixed: adopt a row from the wire; a homed copy writes its
+  // result into its reserved slot rbase + row, and (when a kind declares
+  // value args) the dereferenced args rehydrate into the row's own value
+  // block, F_VMASK cleared (the wire is its only writer).
+  __device__ void install_fixed(Sched& S, const int32_t* src) const {
+    const int32_t* ps = mine(PG_PSTATE);
+    const int row = S.install_descriptor(src);
+    if (S.w(row, F_HOME) >= 0) S.w(row, F_OUT) = ps[PS_RBASE] + row;
+    if (ps[PS_VARGS]) {
+      const int mask = S.w(row, F_VMASK);
+      const int base = S.counts[C_VBASE] + row * VBLOCK;
+      int jj = 0;
+      for (int i = 0; i < NUM_ARGS; ++i) {
+        if ((mask >> i) & 1) {
+          S.iv[base + jj] = S.w(row, F_A0 + i);
+          S.w(row, F_A0 + i) = base + jj;
+          ++jj;
+        }
+      }
+      S.w(row, F_VMASK) = 0;
+    }
+  }
+
+  // import_rows of the migrating configuration: each inbox row through
+  // install_fixed.
+  __device__ void import_fixed(Sched& S, const int32_t* box) const {
+    const int n = __ldcg(box + m.window * DESC);
+    for (int i = 0; i < n; ++i) {
+      int32_t row[DESC];
+      for (int w = 0; w < DESC; ++w) row[w] = __ldcg(box + i * DESC + w);
+      install_fixed(S, row);
+    }
+  }
+
+  // resident.py dep_dec: one dependency of a parked row satisfied.
+  __device__ static void dep_dec(Sched& S, int row) {
+    const int d = S.w(row, F_DEP) - 1;
+    S.w(row, F_DEP) = d;
+    if (d == 0) S.push_ready(row);
+  }
+
+  // handle_am: a user kind installs; a built-in kind is applied here.
+  template <class SS>
+  __device__ void handle_am(SS& S, const int32_t* d) const {
+    const int fn = d[F_FN];
+    if (fn >= 0) return install_fixed(S, d);
+    int32_t* ps = mine(PG_PSTATE);
+    if (fn >= RC_GRANT) ps[PS_AMS - 2 - fn] += 1;
+    const int* a = d + F_A0;
+    int32_t* iv = S.iv;
+    switch (fn) {
+      case RC_COMPLETE:
+        iv[S.w(a[0], F_OUT)] = a[1];
+        S.complete(a[0]);
+        S.counts[C_EXECUTED] -= 1;  // the execution was counted remotely
+        ps[PS_PROXIES] -= 1;
+        break;
+      case RC_FADD:
+        iv[a[0]] = wrap_add(iv[a[0]], a[1]);
+        break;
+      case RC_FADD_R: {
+        const int old = iv[a[0]];
+        iv[a[0]] = wrap_add(old, a[1]);
+        const int w[3] = {a[3], old, a[4]};
+        send(S, a[2], RC_REPLY, w, 3);
+        break;
+      }
+      case RC_CSWAP: {
+        const int old = iv[a[0]];
+        iv[a[0]] = old == a[1] ? a[2] : old;
+        const int w[3] = {a[4], old, a[5]};
+        send(S, a[3], RC_REPLY, w, 3);
+        break;
+      }
+      case RC_REPLY:
+        iv[a[2]] = a[1];
+        dep_dec(S, a[0]);
+        break;
+      case RC_LOCK: {
+        const int lbase = a[0], qcap = a[3];
+        if (iv[lbase] == 0) {
+          iv[lbase] = 1;
+          send(S, a[1], RC_GRANT, a + 2, 1);
+        } else {
+          const int qlen = iv[lbase + 1], hq = iv[lbase + 2];
+          if (qlen < qcap) {
+            const int pos = lbase + 3 + 2 * floor_mod(hq + qlen, qcap);
+            iv[pos] = a[1];
+            iv[pos + 1] = a[2];
+            iv[lbase + 1] = qlen + 1;
+          } else {
+            S.counts[C_OVERFLOW] |= OVF_LOCKQ;
+          }
+        }
+        break;
+      }
+      case RC_UNLOCK: {
+        const int lbase = a[0], qcap = a[1], qlen = iv[lbase + 1];
+        if (qlen == 0) {
+          iv[lbase] = 0;
+        } else if (qlen > 0) {
+          const int hq = iv[lbase + 2];
+          const int pos = lbase + 3 + 2 * floor_mod(hq, qcap);
+          iv[lbase + 2] = floor_mod(hq + 1, qcap);
+          iv[lbase + 1] = qlen - 1;
+          send(S, iv[pos], RC_GRANT, iv + pos + 1, 1);  // still held
+        }
+        break;
+      }
+      case RC_GRANT:
+        dep_dec(S, a[0]);
+        break;
+      default:
+        break;
+    }
   }
 
   // op_wait_until: park row until chan_tot[chan] >= need (scan_waits).
@@ -490,9 +743,10 @@ struct Pgas {
 
   // drain_receives: take exactly the puts and messages the fold
   // announced from each source (waiting, bounded, until they landed),
-  // channels first, then the messages, sources in me ^ p order; a user
-  // kind's message installs like a stolen row (handle_am, install_fixed).
-  __device__ bool drain_receives(Sched& S) const {
+  // channels first, then the messages, sources in me ^ p order, each
+  // through handle_am.
+  template <class SS>
+  __device__ bool drain_receives(SS& S) const {
     const int32_t* st = mine(PG_STATACC);
     int32_t* ps = mine(PG_PSTATE);
     const int sx_data = SX_AM + m.ndev;
@@ -525,7 +779,7 @@ struct Pgas {
             inbox + (src * m.amw + (base + i) % m.amw) * DESC;
         int32_t d[DESC];
         for (int w = 0; w < DESC; ++w) d[w] = __ldcg(row + w);
-        S.install_descriptor(d);
+        handle_am(S, d);
       }
       arecv[src] = expected;
       ps[PS_RECV] += delta;
@@ -544,7 +798,7 @@ struct Pgas {
     for (int i = 0; i < n; ++i) {
       const int ch = wt[3 * i], need = wt[3 * i + 1], row = wt[3 * i + 2];
       if (tot[ch] >= need) {
-        S.dec(row);
+        dep_dec(S, row);
       } else {
         wt[3 * kept] = ch;
         wt[3 * kept + 1] = need;
@@ -556,13 +810,53 @@ struct Pgas {
   }
 };
 
+// The scheduler of the resident kernel's homed configuration (JAX's
+// _make_core with tracks_home and complete_hook): spawn and
+// take_continuation keep the home links (when `track`), and a completing
+// row that carries one (a migrated chain's last task) first forwards its
+// result to the home proxy in an RC_COMPLETE message. Bodies and the
+// batch tier reach these through their SS template parameter.
+struct HomeSched : Sched {
+  const Pgas* pg;
+  bool track;
+
+  __device__ int spawn(int fn, const int* args, int nargs, int ndecl, int dep,
+                       int s0, int s1, int out) {
+    return spawn_t<true>(fn, args, nargs, ndecl, dep, s0, s1, out, track);
+  }
+  __device__ void take_continuation(int idx, int nidx) {
+    take_continuation_t<true>(idx, nidx, track);
+  }
+  __device__ void complete(int idx) {
+    if (w(idx, F_HOME) >= 0) {
+      const int v[2] = {w(idx, F_HROW), iv[w(idx, F_OUT)]};
+      pg->send(*this, w(idx, F_HOME), RC_COMPLETE, v, 2);
+    }
+    Sched::complete(idx);
+  }
+};
+
+// The scheduler a resident kernel instance runs: its plain one, or
+// (kHome) a HomeSched over the same state.
+template <bool kHome>
+struct SchedOf {
+  __device__ static Sched& of(Sched& s, const Pgas&, bool) { return s; }
+};
+template <>
+struct SchedOf<true> {
+  __device__ static HomeSched of(Sched& s, const Pgas& p, bool track) {
+    return HomeSched{s, &p, track};
+  }
+};
+
 // The thread-0 bodies of mk_kernel's lean and lanes instances (fib, sum,
 // UTS node; their batch_of forms): the body table of the steal kernels in
 // megakernel.cu's library. A user-body library passes its own (user.cuh).
 struct BuiltinBodies {
   __device__ BuiltinBodies(const MeshArgs&, const Args&, Pgas*) {}
 
-  __device__ void scalar(Sched& S, const Args& a, int body, int idx) const {
+  template <class SS>
+  __device__ void scalar(SS& S, const Args& a, int body, int idx) const {
     switch (body) {
       case B_FIB:
         fib_body(S, a.meta, idx);
@@ -578,7 +872,8 @@ struct BuiltinBodies {
     }
   }
 
-  __device__ void batch(Sched& S, const Args& a, const Round& R) const {
+  template <class SS>
+  __device__ void batch(SS& S, const Args& a, const Round& R) const {
     for (int s = 0; s < R.take; ++s) {
       if (R.body == B_FIB_BATCH)
         fib_body(S, a.meta, R.rows[s]);
@@ -591,8 +886,8 @@ struct BuiltinBodies {
 // One sched(quantum) of a steal kernel's CTA, on thread 0: mk_kernel's
 // rounds (schedule(), which pops the ring alone for a table with no lanes)
 // with the body table B, spilling the lanes at exit.
-template <bool kLanes, class B>
-__device__ void mesh_sched(Sched& S, const Args& a, Round& R, Obs& O,
+template <bool kLanes, class B, class SS>
+__device__ void mesh_sched(SS& S, const Args& a, Round& R, Obs& O,
                            const B& bodies) {
   const int e0 = S.counts[C_EXECUTED];
   for (;;) {
@@ -696,8 +991,13 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
 // test (the folded pending is 0 and, under kPgas, every outbox is empty
 // and sent equals received; or an abort was folded); then (kPgas)
 // drain_receives and scan_waits. The mesh exits in lockstep.
-template <bool kLanes, bool kSteal, bool kPgas, class B>
+// kHome (with kSteal and kPgas): the migrating configuration - the export
+// and install of homed copies and of value args, HomeSched's home links
+// and completion messages (resident.py with migratable kinds and homed,
+// or value args).
+template <bool kLanes, bool kSteal, bool kPgas, class B, bool kHome = false>
 __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
+  static_assert(!kHome || (kSteal && kPgas), "the migrating configuration");
   __shared__ int32_t s_counts[8];
   __shared__ Round R;
   __shared__ int32_t s_cand[kSteal ? MAX_SCAN : 1];
@@ -705,10 +1005,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   Args a = mesh_slice(m, me);
   a.fuel = m.quantum;
   a.stage_all_values = 1;
-  Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
+  Sched S0{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   Obs O{};
   const Mesh X{m, me, max(m.nhops, 1), s_cand};
   Pgas P{m, X, me, 0};
+  auto&& S = SchedOf<kHome>::of(
+      S0, P, kHome && P.mine(PG_PSTATE)[PS_TRACK] != 0);
   Pgas* pp = nullptr;
   if constexpr (kPgas) pp = &P;
   const B bodies(m, a, pp);
@@ -756,14 +1058,22 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
         ok = r == 0 || X.wait(mine + P_RCRED, r, r, k, W_ROW_CREDIT);
         if (!ok) break;
         int32_t* box = theirs + p_inbox;
-        const int nsend =
-            quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
+        int nsend = 0;
+        if constexpr (kHome)
+          nsend = quota > 0 ? X.export_home(S, a, quota, box,
+                                            P.mine(PG_PSTATE))
+                            : 0;
+        else
+          nsend = quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
         box[W * DESC] = nsend;
         xs[XS_ROWS] += nsend;
         publish(theirs + P_RARR);
         ok = X.wait(mine + P_RARR, r + 1, r, k, W_ROW_ARRIVAL);
         if (!ok) break;
-        X.import_rows(S, mine + p_inbox);
+        if constexpr (kHome)
+          P.import_fixed(S, mine + p_inbox);
+        else
+          X.import_rows(S, mine + p_inbox);
         publish(theirs + P_RCRED);
       }
     }

@@ -21,7 +21,7 @@ using namespace hc;
 
 constexpr int DESC = 16;
 constexpr int F_FN = 0, F_DEP = 1, F_SUCC0 = 2, F_SUCC1 = 3, F_CSR_OFF = 4,
-              F_CSR_N = 5, F_A0 = 6, F_OUT = 12;
+              F_CSR_N = 5, F_A0 = 6, F_OUT = 12, F_HOME = 13, F_HROW = 14;
 constexpr int NO_TASK = -1;
 constexpr int C_HEAD = 0, C_TAIL = 1, C_ALLOC = 2, C_PENDING = 3,
               C_VALLOC = 4, C_EXECUTED = 5, C_OVERFLOW = 6, C_VBASE = 7;
@@ -212,6 +212,17 @@ struct Sched {
   // KernelContext.spawn: args[0..nargs) then zeros up to ndecl words.
   __device__ int spawn(int fn, const int* args, int nargs, int ndecl, int dep,
                        int s0, int s1, int out) {
+    return spawn_t<false>(fn, args, nargs, ndecl, dep, s0, s1, out, false);
+  }
+
+  // spawn's row path. kHome: an instance that hosts migrated rows (the
+  // resident kernel's homed configuration, csrc/mesh.cuh HomeSched),
+  // where `track` (JAX's tracks_home) clears a fresh row's home link: a
+  // recycled row may carry a migrated occupant's. Every other instance
+  // compiles without these writes.
+  template <bool kHome>
+  __device__ int spawn_t(int fn, const int* args, int nargs, int ndecl,
+                         int dep, int s0, int s1, int out, bool track) {
     const int nfree = freestk[0];
     const bool use_free = nfree > 0;
     const int a_free = freestk[nfree > 1 ? nfree : 1];
@@ -229,6 +240,9 @@ struct Sched {
       w(a, F_CSR_N) = 0;
       for (int i = 0; i < ndecl; ++i) w(a, F_A0 + i) = i < nargs ? args[i] : 0;
       w(a, F_OUT) = out;
+      if constexpr (kHome) {
+        if (track) w(a, F_HOME) = NO_TASK;
+      }
       if (dep == 0) push_ready(a);
     } else {
       counts[C_OVERFLOW] |= OVF_ROWS;
@@ -269,6 +283,13 @@ struct Sched {
   __device__ void flag_overflow() { counts[C_OVERFLOW] |= OVF_ENGINE; }
 
   __device__ void take_continuation(int idx, int nidx) {
+    take_continuation_t<false>(idx, nidx, false);
+  }
+
+  // kHome with `track`: the continuation also inherits the home link,
+  // so whoever ends a migrated chain forwards its result home.
+  template <bool kHome>
+  __device__ void take_continuation_t(int idx, int nidx, bool track) {
     w(nidx, F_SUCC0) = w(idx, F_SUCC0);
     w(nidx, F_SUCC1) = w(idx, F_SUCC1);
     w(nidx, F_CSR_OFF) = w(idx, F_CSR_OFF);
@@ -276,6 +297,13 @@ struct Sched {
     w(idx, F_SUCC0) = NO_TASK;
     w(idx, F_SUCC1) = NO_TASK;
     w(idx, F_CSR_N) = 0;
+    if constexpr (kHome) {
+      if (track) {
+        w(nidx, F_HOME) = w(idx, F_HOME);
+        w(nidx, F_HROW) = w(idx, F_HROW);
+        w(idx, F_HOME) = NO_TASK;
+      }
+    }
   }
 
   __device__ void dec(int s) {
@@ -332,8 +360,11 @@ struct Sched {
 
 // workloads.py _fib_kernel: spawn SUM (the continuation), hand it our
 // successors, point its args at its own row's value block, then spawn
-// FIB(n-1) and FIB(n-2) into that block.
-__device__ void fib_body(Sched& S, const int32_t* meta, int idx) {
+// FIB(n-1) and FIB(n-2) into that block. SS is Sched, or the homed
+// configuration's HomeSched (its spawn and take_continuation keep the
+// home links).
+template <class SS>
+__device__ void fib_body(SS& S, const int32_t* meta, int idx) {
   const int n = S.w(idx, F_A0);
   if (n < 2) {
     S.iv[S.w(idx, F_OUT)] = n;
@@ -360,7 +391,8 @@ __device__ void sum_body(Sched& S, int idx) {
 
 // make_uts_megakernel.node: count into slot 0, spawn child c iff
 // fault_mix(seed, c, node, 0, depth) < q_millis (all children at the root).
-__device__ void uts_body(Sched& S, const int32_t* meta, int idx) {
+template <class SS>
+__device__ void uts_body(SS& S, const int32_t* meta, int idx) {
   S.iv[0] = wrap_add(S.iv[0], 1);
   const int node = S.w(idx, F_A0);
   const int depth = S.w(idx, F_A0 + 1);
@@ -453,10 +485,11 @@ __device__ void prepare_batch(Sched& S, const Args& a, int li, int e0,
   if (body >= 0 && body < NDISPATCH) a.dispatch[body] += 1;
 }
 
-// batch_round's completion side: per-slot complete in slot order, the lane
-// cursors and the prefetch words, the tstats updates.
-template <bool kPolicy>
-__device__ void finish_batch(Sched& S, const Args& a, const Round& R,
+// batch_round's completion side: per-slot complete in slot order (SS's
+// complete: HomeSched's forwards a migrated chain's result home first),
+// the lane cursors and the prefetch words, the tstats updates.
+template <bool kPolicy, class SS>
+__device__ void finish_batch(SS& S, const Args& a, const Round& R,
                              const int* s_tmax) {
   const int nbk = kPolicy ? a.nbk : 1;
   if (R.body == B_SW_WAVE_BATCH) {

@@ -26,10 +26,17 @@
 //                     and the sharded runner's grid launch),
 //                     ici_ring_kernel and resident_kernel steal-only;
 //                     1: resident_kernel's PGAS configurations (ctx.pgas:
-//                     put, am, wait_until, count, me, ndev, nchan),
-//                     without steal and with it.
-// A table whose bodies name ctx.pgas runs only under the second; another
-// table builds the second variant only if it is run there.
+//                     put, am, wait_until, count, the atomics fadd,
+//                     fadd_get, cswap and the locks lock, unlock, me,
+//                     ndev, nchan), without steal and with it;
+//                     2: resident_kernel's migrating configuration
+//                     (homed copies and their completions, value args;
+//                     the PGAS ops too), its bodies spawning through
+//                     HomeSched.
+// A table whose bodies name ctx.pgas runs only under the last two; a
+// table builds a variant only when it is run there. A table of built-in
+// bodies alone (fib and sum, say) builds a library with no user body for
+// the last two.
 // A table may mix user bodies with the built-in thread-0 bodies fib, sum
 // and uts_node (and their batch_of forms); their body ids are the
 // built-in ones, a user body's is NBODY + its index in the table's user
@@ -42,15 +49,32 @@
 
 #include "mesh.cuh"
 
+#ifndef HCLIB_USER_LANES
+#define HCLIB_USER_LANES 0
+#endif
+#ifndef HCLIB_USER_PGAS
+#define HCLIB_USER_PGAS 0
+#endif
+
 namespace {
 
 // What a CUDA user body sees (the plain KernelContext's operations).
 struct Ctx;
 __device__ void user_body(int k, Ctx& ctx);
 
+// The scheduler a body spawns through: the homed variant's keeps the
+// home links (mesh.cuh HomeSched).
+#if HCLIB_USER_PGAS == 2
+using USched = HomeSched;
+#else
+using USched = Sched;
+#endif
+
 // ctx.pgas: the resident kernel's PGAS ops on this device (the plain
-// KernelContext.pgas namespace). Under another runner p is null, and the
-// host refuses a table whose bodies name ctx.pgas before the launch.
+// KernelContext.pgas namespace): put, am, wait_until, count, and the
+// atomics and locks fadd, fadd_get, cswap, lock, unlock. Under another
+// runner p is null, and the host refuses a table whose bodies name
+// ctx.pgas before the launch.
 struct PgasOps {
   Pgas* p;
   Sched& S;
@@ -67,10 +91,27 @@ struct PgasOps {
     if (p) p->wait_until(S, chan, need, row);
   }
   __device__ int count(int chan) const { return p ? p->count(chan) : 0; }
+  __device__ void fadd(int dev, int slot, int delta) const {
+    if (p) p->fadd(S, dev, slot, delta);
+  }
+  __device__ void fadd_get(int dev, int slot, int delta, int row,
+                           int rslot) const {
+    if (p) p->fadd_get(S, dev, slot, delta, row, rslot);
+  }
+  __device__ void cswap(int dev, int slot, int expected, int nv, int row,
+                        int rslot) const {
+    if (p) p->cswap(S, dev, slot, expected, nv, row, rslot);
+  }
+  __device__ void lock(int dev, int lbase, int row, int qcap) const {
+    if (p) p->lock(S, dev, lbase, row, qcap);
+  }
+  __device__ void unlock(int dev, int lbase, int qcap) const {
+    if (p) p->unlock(S, dev, lbase, qcap);
+  }
 };
 
 struct Ctx {
-  Sched& S;
+  USched& S;
   const Args& a;
   int idx;          // this task's row
   int32_t* vfree;   // the value-block free stack: [0] count, then bases
@@ -158,7 +199,7 @@ struct UserBodies : BuiltinBodies {
         ndev(m.ndev),
         nchan(m.nchan) {}
 
-  __device__ void scalar(Sched& S, const Args& a, int body, int idx) const {
+  __device__ void scalar(USched& S, const Args& a, int body, int idx) const {
     if (body < NBODY) {
       BuiltinBodies::scalar(S, a, body, idx);
     } else if (body < MAX_BODIES) {
@@ -168,12 +209,6 @@ struct UserBodies : BuiltinBodies {
   }
 };
 
-#ifndef HCLIB_USER_LANES
-#define HCLIB_USER_LANES 0
-#endif
-#ifndef HCLIB_USER_PGAS
-#define HCLIB_USER_PGAS 0
-#endif
 constexpr bool kUserLanes = HCLIB_USER_LANES;
 
 // The scheduler of a user table: block b runs mesh device b's slice to
@@ -197,7 +232,11 @@ __global__ void __launch_bounds__(1) mk_user_kernel(MeshArgs m) {
 // The instance of (kind, lanes, steal, pgas) this library holds, or null.
 void* user_kernel_of(int kind, int lanes, int steal, int pgas) {
   if (lanes != int(kUserLanes) || pgas != HCLIB_USER_PGAS) return nullptr;
-#if HCLIB_USER_PGAS
+#if HCLIB_USER_PGAS == 2
+  if (kind == 2 && steal)
+    return reinterpret_cast<void*>(
+        resident_kernel<kUserLanes, true, true, UserBodies, true>);
+#elif HCLIB_USER_PGAS
   if (kind == 2)
     return steal ? reinterpret_cast<void*>(
                        resident_kernel<kUserLanes, true, true, UserBodies>)
@@ -232,10 +271,10 @@ int hclib_user_coresident(int kind, int lanes, int steal, int pgas,
 }
 
 // kind 0: mk_user_kernel, an ordinary launch of ndev one-thread blocks;
-// 1: ici_ring_kernel; 2: resident_kernel with steal and / or pgas
-// (cooperative launches of ndev one-thread CTAs). An instance this
-// library's variant does not hold is invalid. Returns cudaGetLastError()
-// (0 = launched).
+// 1: ici_ring_kernel; 2: resident_kernel with steal and / or pgas (pgas
+// 2: the migrating configuration) (cooperative launches of ndev one-thread
+// CTAs). An instance this library's variant does not hold is invalid.
+// Returns cudaGetLastError() (0 = launched).
 int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
                       int pgas, void* stream) {
   void* kernel = user_kernel_of(kind, lanes, steal, pgas);

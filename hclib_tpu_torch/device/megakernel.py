@@ -97,6 +97,8 @@ from .descriptor import (
     F_CSR_OFF,
     F_DEP,
     F_FN,
+    F_HOME,
+    F_HROW,
     F_OUT,
     F_SUCC0,
     F_SUCC1,
@@ -521,7 +523,7 @@ class KernelContext:
                 "alloc_values cannot be mixed with row_values "
                 "(uses_row_values=True): the bump region overlaps the "
                 "row-owned blocks")
-        cnt, nv, vfree = c.counts, c.num_values, c.vfree
+        cnt, nv, vfree = c.counts, c.value_limit, c.vfree
         if k > VBLOCK:
             base = cnt[C_VALLOC]
             if base + k <= nv:
@@ -545,7 +547,7 @@ class KernelContext:
         (JAX's ``KernelContext.free_values``); more frees than blocks
         exist clamp inside the stack and set OVF_VALUES."""
         c = self._c
-        vcap = c.num_values // VBLOCK
+        vcap = c.value_limit // VBLOCK
         nf = c.vfree[0] + 1
         nfc = min(nf, vcap)
         c.vfree[0] = nfc
@@ -591,6 +593,13 @@ class KernelContext:
         t[b + F_SUCC0] = NO_TASK
         t[b + F_SUCC1] = NO_TASK
         t[b + F_CSR_N] = 0
+        if self._c.tracks_home:
+            # A migrated copy's continuation inherits the home link:
+            # whoever ends the chain forwards the result to the home proxy
+            # (device/resident.py's remote-completion protocol).
+            t[a + F_HOME] = t[b + F_HOME]
+            t[a + F_HROW] = t[b + F_HROW]
+            t[b + F_HOME] = NO_TASK
 
     def spawn(self, fn: int, args: Sequence[int] = (), dep_count: int = 0,
               succ0: int = NO_TASK, succ1: int = NO_TASK, out: int = 0,
@@ -625,6 +634,10 @@ class KernelContext:
             for i in range(nargs):
                 t[r + F_A0 + i] = _i32(args[i]) if i < len(args) else 0
             t[r + F_OUT] = out
+            if c.tracks_home:
+                # A recycled row may carry a stale home link from a
+                # migrated occupant; a fresh spawn is a local task.
+                t[r + F_HOME] = NO_TASK
             if dep_count == 0:
                 c.push_ready(a)
         else:
@@ -743,6 +756,12 @@ class _PlainCore:
         # the count, then the block bases; emptied at every stage.
         self.vfree = [0] * (self.num_values // VBLOCK + 1)
         self.uses_row_values = mk.uses_row_values
+        # The resident kernel's home-link tracking (spawn and
+        # take_continuation keep F_HOME / F_HROW) and the value limit
+        # alloc_values / free_values stay below (the resident kernel
+        # reserves the top of the value buffer for migrated results).
+        self.tracks_home = mk.tracks_home
+        self.value_limit = self.num_values
         # The resident kernel's PGAS ops (KernelContext.pgas), or None.
         self.pgas = None
         self.dispatch = [0] * NDISPATCH
@@ -1288,6 +1307,12 @@ class Megakernel:
         self.num_values = num_values
         self.succ_capacity = succ_capacity
         self.uses_row_values = uses_row_values
+        # Set by a ResidentKernel with homed migration (JAX's
+        # Megakernel.tracks_home): the plain core's spawn and
+        # take_continuation then keep the descriptor's home-link words.
+        # On the card only the resident kernel's homed configuration
+        # keeps them (csrc/mesh.cuh HomeSched).
+        self.tracks_home = False
         if self.user_bodies and torch.device(device).type == "cuda":
             self._check_user_card(slabs)
         self.device = resolve_device(device)
@@ -1349,7 +1374,7 @@ class Megakernel:
             else user_fn[n] if n in user_fn
             else self._plain[n] for f, n in enumerate(names)
         ]
-        self._user_libs: Dict[bool, object] = {}
+        self._user_libs: Dict[int, object] = {}
         self._last_info: Optional[dict] = None
 
     def body_id(self, name: str) -> int:
@@ -1386,17 +1411,20 @@ class Megakernel:
                 + ": those user-body uses are ROADMAP A4; run it with "
                 "device='cpu'")
 
-    def user_source(self, pgas: Optional[bool] = None) -> str:
+    def user_source(self, pgas: Optional[bool] = None,
+                    home: bool = False) -> str:
         """The CUDA source of this table's user-body library
         (csrc/user.cuh, then each user body's statements as
-        ``user_body_<k>(Ctx& ctx)`` and the switch over them). ``pgas``
-        picks the variant (the resident kernel's PGAS configurations, or
-        the scheduler, the ring and the resident kernel steal-only);
-        None: the PGAS variant iff a body names ``ctx.pgas``."""
+        ``user_body_<k>(Ctx& ctx)`` and the switch over them; none for a
+        table of built-in bodies alone). ``pgas`` picks the variant (the
+        resident kernel's PGAS configurations, or the scheduler, the ring
+        and the resident kernel steal-only); None: the PGAS variant iff a
+        body names ``ctx.pgas``. ``home``: the resident kernel's
+        migrating configuration (``HCLIB_USER_PGAS 2``)."""
         if pgas is None:
             pgas = self.uses_pgas_text()
         lines = [f"#define HCLIB_USER_LANES {int(bool(self.batch_specs))}",
-                 f"#define HCLIB_USER_PGAS {int(bool(pgas))}",
+                 f"#define HCLIB_USER_PGAS {_user_variant(pgas, home)}",
                  '#include "user.cuh"', "", "namespace {", ""]
         for k, (name, _, cuda) in enumerate(self.user_bodies):
             lines += [f"// {name}",
@@ -1410,14 +1438,14 @@ class Megakernel:
                   "}  // namespace", ""]
         return "\n".join(lines)
 
-    def user_library(self, pgas: bool = False):
-        """This table's user-body library of variant ``pgas``, built on
-        first use (``_build.user_library``)."""
-        pgas = bool(pgas)
-        if pgas not in self._user_libs:
-            self._user_libs[pgas] = _build.user_library(
-                self.user_source(pgas))
-        return self._user_libs[pgas]
+    def user_library(self, pgas: bool = False, home: bool = False):
+        """This table's user-body library of variant ``pgas`` (or
+        ``home``), built on first use (``_build.user_library``)."""
+        variant = _user_variant(pgas, home)
+        if variant not in self._user_libs:
+            self._user_libs[variant] = _build.user_library(
+                self.user_source(bool(pgas), home))
+        return self._user_libs[variant]
 
     def uses_pgas_text(self) -> bool:
         """Whether a user body's CUDA source names ``ctx.pgas``."""
@@ -1927,9 +1955,11 @@ class Megakernel:
             ts = self.params["tile"]
             keep["work"] = torch.empty(ndev, ts * ts, dtype=torch.float32,
                                        device=dev)
-        if self.user_bodies:
-            keep["vfree"] = torch.zeros(ndev, nv // VBLOCK + 1,
-                                        dtype=torch.int32, device=dev)
+        # The value-block stacks of a user library's kernels (a table of
+        # built-in bodies alone runs the PGAS and migrating
+        # configurations from one too).
+        keep["vfree"] = torch.zeros(ndev, nv // VBLOCK + 1,
+                                    dtype=torch.int32, device=dev)
         h = MeshHost()
         for k, src in (("tasks", mst), ("succ", mst), ("ready", mst),
                        ("counts", mst), ("ivalues", mst), ("tstats", mst),
@@ -1941,8 +1971,7 @@ class Megakernel:
                 setattr(h, "s_" + k, t[0].numel())
         h.freestk, h.s_freestk = keep["free"].data_ptr(), cap + 1
         h.meta = keep["meta"].data_ptr()
-        if self.user_bodies:
-            h.vfree, h.s_vfree = keep["vfree"].data_ptr(), nv // VBLOCK + 1
+        h.vfree, h.s_vfree = keep["vfree"].data_ptr(), nv // VBLOCK + 1
         for i, k in enumerate(self.data_specs):
             t = mst["data"][k]
             if t.shape[0] != ndev or t.device != dev or not t.is_contiguous():
@@ -1959,16 +1988,18 @@ class Megakernel:
 
     def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
                     threads: int, smem: int, dev, pgas: bool = False,
-                    steal: bool = True) -> None:
+                    steal: bool = True, home: bool = False) -> None:
         """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
         ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
-        configuration, with ``steal`` or without) over ``host``'s mesh;
-        raises if the launch fails, or if a steal kernel's mesh has more
-        devices than the card holds CTAs at once (``mesh_coresident``). A
-        table with user bodies launches its own library's kernels."""
+        configuration, with ``steal`` or without; ``home``: its migrating
+        configuration) over ``host``'s mesh; raises if the launch fails,
+        or if a steal kernel's mesh has more devices than the card holds
+        CTAs at once (``mesh_coresident``). A table with user bodies, and
+        any table under the PGAS or migrating configuration, launches
+        its own library's kernels."""
         k = MESH_KINDS.index(kind)
         if k:
-            limit = self.coresident(kind, mode, pgas, steal)
+            limit = self.coresident(kind, mode, pgas, steal, home)
             if host.ndev > limit:
                 raise RuntimeError(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
@@ -1976,49 +2007,48 @@ class Megakernel:
                     "(one CTA an SM, cooperative launch): use a mesh of at "
                     f"most {limit}")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if self.user_bodies:
+        if self.user_bodies or pgas:
             if self.uses_pgas_text() and not pgas:
                 raise ValueError(
                     "a user body names ctx.pgas, which exists only under "
                     "the resident kernel's PGAS configuration "
                     "(ResidentKernel(channels=...) or PGASMegakernel)")
-            lib = self.user_library(pgas)
+            lib = self.user_library(pgas, home)
             fn = lib.hclib_user_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
-            err = fn(ctypes.byref(host), k, mode, int(steal), int(pgas),
-                     stream)
+            err = fn(ctypes.byref(host), k, mode, int(steal),
+                     _user_variant(pgas, home), stream)
         else:
-            if pgas:
-                raise ValueError("the PGAS configuration runs user bodies "
-                                 "(a table with (name, fn, cuda) entries)")
             lib = _build.library("megakernel")
             fn = lib.hclib_mesh_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             err = fn(ctypes.byref(host), k, mode, threads, smem, stream)
-        counter = ("resident_pgas" if pgas else
-                   "mk_user" if self.user_bodies and k == 0 else kind)
+        counter = ("resident_homed" if home else "resident_pgas" if pgas
+                   else "mk_user" if self.user_bodies and k == 0 else kind)
         _build.check(lib, err, counter)
         _build.LAUNCHES[counter] += 1
 
     def coresident(self, kind: str, mode: int, pgas: bool = False,
-                   steal: bool = True) -> int:
+                   steal: bool = True, home: bool = False) -> int:
         """The most CTAs of steal kernel ``kind`` (instance ``mode``; the
-        resident kernel's PGAS configuration with ``pgas``) this card
-        holds at once, from this table's library."""
-        if not self.user_bodies:
+        resident kernel's PGAS configuration with ``pgas``, its migrating
+        one with ``home``) this card holds at once, from this table's
+        library."""
+        if not (self.user_bodies or pgas):
             return mesh_coresident(kind, mode)
-        lib = self.user_library(pgas)
+        lib = self.user_library(pgas, home)
         fn = lib.hclib_user_coresident
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         out = ctypes.c_int(0)
         _build.check(lib,
-                     fn(MESH_KINDS.index(kind), mode, int(steal), int(pgas),
-                        ctypes.byref(out)), f"{kind} occupancy")
+                     fn(MESH_KINDS.index(kind), mode, int(steal),
+                        _user_variant(pgas, home), ctypes.byref(out)),
+                     f"{kind} occupancy")
         return out.value
 
     def fold_dispatches(self, dispatch: torch.Tensor) -> Dict[str, int]:
@@ -2282,6 +2312,13 @@ class MeshGrid:
         if self.dev.type == "cpu":
             return self.total
         return self.keep["dispatch"].sum(0, dtype=torch.int32)
+
+
+def _user_variant(pgas: bool, home: bool) -> int:
+    """A user library's variant (csrc/user.cuh ``HCLIB_USER_PGAS``): 0
+    the scheduler, the ring and the resident kernel steal-only, 1 its
+    PGAS configurations, 2 its migrating configuration."""
+    return 2 if home else int(bool(pgas))
 
 
 def mesh_slice(mst: Dict[str, object], d: int) -> Dict[str, object]:

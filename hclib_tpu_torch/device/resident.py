@@ -1,51 +1,72 @@
 """The resident multi-device kernel on one card: one CTA a mesh device
 runs the scheduler and the XOR-hop exchange in one launch.
 
-Port of ``hclib_tpu/device/resident.py`` ``ResidentKernel`` (:322) with
-``homed=False`` and ``decode_fault_stats`` (:268), in three
-configurations of one kernel (``csrc/mesh.cuh`` ``resident_kernel``,
-replacing ``_kernel`` :626):
+Port of ``hclib_tpu/device/resident.py`` ``ResidentKernel`` (:322) and
+``decode_fault_stats`` (:268), in four configurations of one kernel
+(``csrc/mesh.cuh`` ``resident_kernel``, replacing ``_kernel`` :626):
 
-- steal-only (``steal=True``, no channels; what ``ICIStealMegakernel``
-  delegates to on power-of-two meshes): a round runs the abort word;
-  ``sched(quantum)``; the fold over the XOR hops in ``hop_order`` (each
-  hop a credited exchange of the stat vector with ``me ^ (1 << k)``: the
-  recursive-doubling sums of pending and abort, the partner's backlog
-  raw) and, at each hop, the demand-driven steal: ``clip((mine - theirs
-  + 1) // 2, 0, W)`` link-free whitelisted ready rows to a partner whose
-  backlog is under ``min(quantum, W)``, into that hop's inbox. With no
-  active messages or channels the stat vector's XOR all-to-all section is
-  all zeros, so this configuration sends the seven sums and the backlog
-  only (8 words a hop).
+- steal-only (``steal=True``, no channels, ``homed=False`` with no value
+  args; what ``ICIStealMegakernel`` delegates to on power-of-two
+  meshes): a round runs the abort word; ``sched(quantum)``; the fold over
+  the XOR hops in ``hop_order`` (each hop a credited exchange of the
+  stat vector with ``me ^ (1 << k)``: the recursive-doubling sums of
+  pending and abort, the partner's backlog raw) and, at each hop, the
+  demand-driven steal: ``clip((mine - theirs + 1) // 2, 0, W)``
+  link-free whitelisted ready rows to a partner whose backlog is under
+  ``min(quantum, W)``, into that hop's inbox. With no active messages or
+  channels the stat vector's XOR all-to-all section is all zeros, so
+  this configuration sends the seven sums and the backlog only (8 words
+  a hop).
 - PGAS-only (``steal=False``; what a power-of-two ``PGASMegakernel``
   delegates to): the bodies' one-sided puts, active messages and
   wait-untils (``ctx.pgas``: ``put``, ``am``, ``wait_until``, ``count``,
   ``me``, ``ndev``, ``nchan``; op_put :834, op_am :801, op_wait_until
-  :862, op_count :878), the outbox drain (:1189: at most ``am_window //
-  2`` messages a target a round, FIFO, OVF_OUTBOX when the outbox is
-  full), the whole stat vector with its XOR all-to-all section (sent and
-  received counts a source: ``SX_AM`` ndev words, ``SX_DATA`` ndev x
-  nchan), the exit once the folded pending is 0, every outbox is empty
-  and sent equals received, then ``drain_receives`` (:1322: the announced
-  puts added to ``chan_tot``, the announced messages installed) and
-  ``scan_waits`` (:1381); host-declared ``run(waits=...)`` as in JAX
-  (each parked row one extra dependency, off the ready ring).
+  :862, op_count :878), the remote atomics and locks (``fadd``,
+  ``fadd_get``, ``cswap``, ``lock``, ``unlock``: op_fadd :881 to
+  op_unlock :903, built-in messages the owner's serial scheduler
+  applies in ``handle_am`` :1231 - that order is the atomicity - with
+  ``RC_REPLY`` / ``RC_GRANT`` replies that dep-decrement a parked row;
+  a full lock FIFO sets OVF_LOCKQ), the outbox drain (:1189: at most
+  ``am_window // 2`` messages a target a round, FIFO, OVF_OUTBOX when
+  the outbox is full), the whole stat vector with its XOR all-to-all
+  section (sent and received counts a source: ``SX_AM`` ndev words,
+  ``SX_DATA`` ndev x nchan), the exit once the folded pending is 0,
+  every outbox is empty and sent equals received, then
+  ``drain_receives`` (:1322: the announced puts added to ``chan_tot``,
+  the announced messages through ``handle_am``) and ``scan_waits``
+  (:1381); host-declared ``run(waits=...)`` as in JAX (each parked row
+  one extra dependency, off the ready ring).
 - both (``steal=True`` with ``channels``): the two on the same hops.
+- migrating (``steal=True`` with ``homed=True`` and migratable kinds, or
+  with value args): the home-link protocol (:14-60) on the PGAS
+  configuration's outbox, inbox and stat vector, channels or not. A
+  ready row with links or a dynamic out slot exports as a copy naming
+  its proxy (``F_HOME`` / ``F_HROW``; ``export`` :1069, ``elig_of``
+  :1041 with the proxy budget ``proxy_cap`` read once a scan), the
+  proxy stays pending at home off the ring; copies never re-export; the
+  copy's chain forwards its value home in an ``RC_COMPLETE`` message
+  (``complete_hook`` :914), which writes the proxy's out slot, completes
+  it and takes back the execution count. Copies write their result into
+  the reserved slots ``[rbase, num_values)`` (``install_fixed`` :993),
+  below which dynamic values stay (``value_limit``); declared value args
+  are dereferenced at export and rehydrated into the row's own value
+  block at install. The scheduler keeps home links
+  (``Megakernel.tracks_home``). On the card: ``resident_homed``.
 
 The mesh exits in lockstep. A mesh device is one co-resident CTA
 (``parallel.mesh.CtaMesh``); the plain version (``_plain_resident``: the
 same rounds over the plain cores device by device) is what the CPU tests
-hold against JAX and the card against. The PGAS configurations run user
-bodies (``Megakernel(kernels=[(name, fn, cuda)])``), so on the card they
-run from the table's user-body library (``csrc/user.cuh``).
+hold against JAX and the card against. The PGAS and migrating
+configurations run from the table's user-body library
+(``csrc/user.cuh``; a table of built-in bodies alone builds one with no
+user body). ``info`` reports, under them, each device's live proxies
+and their peak and the built-in messages it applied by kind.
 
-Not ported yet, each raising naming ROADMAP A11b: homed migration
-(``homed=True`` with migratable kinds; value-arg rehydration), remote
-atomics and locks (``ctx.pgas.fadd``, ``fadd_get``, ``cswap``, ``lock``,
-``unlock``; active messages of builtin kinds), the injection ring and
-tenancy (``inject``, ``tenants``, ``inject_rows``, ``tenant_table``),
-fault injection (``fault_plan``), quiesce and resume (``quiesce``,
-``resume_state``) and a traced or checkpoint-built Megakernel.
+Not ported yet, each raising naming ROADMAP A11b: the injection ring
+and tenancy (``inject``, ``tenants``, ``inject_rows``,
+``tenant_table``), fault injection (``fault_plan``), quiesce and resume
+(``quiesce``, ``resume_state``) and a traced or checkpoint-built
+Megakernel.
 """
 
 from __future__ import annotations
@@ -74,6 +95,7 @@ from .descriptor import (
     TaskGraphBuilder,
 )
 from .megakernel import (
+    C_EXECUTED,
     C_HEAD,
     C_OVERFLOW,
     C_PENDING,
@@ -83,12 +105,14 @@ from .megakernel import (
     C_VBASE,
     MAX_CHANS,
     MAX_HOPS,
+    OVF_LOCKQ,
     OVF_OUTBOX,
     OVF_WAITS,
     PG_SECTIONS,
     VBLOCK,
     Megakernel,
     _PlainCore,
+    _i32,
     decode_overflow,
     mesh_slice,
 )
@@ -97,7 +121,31 @@ from .sharded import abort_words, mesh_info, mesh_state
 __all__ = ["ResidentKernel", "decode_fault_stats", "FS_WORDS",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
            "export_rows", "import_rows", "run_mesh_kernel",
-           "exchange_info", "pgas_layout", "stat_words"]
+           "exchange_info", "pgas_layout", "stat_words", "lock_block_slots",
+           "RC_COMPLETE", "RC_FADD", "RC_FADD_R", "RC_CSWAP", "RC_REPLY",
+           "RC_LOCK", "RC_UNLOCK", "RC_GRANT", "RC_NAMES"]
+
+# Built-in active-message kinds (resident.py RC_*): negative F_FN values
+# that the receiving scheduler applies at drain time; they never occupy a
+# task row.
+RC_COMPLETE = -2  # [proxy_row, value]: a migrated task's result, home
+RC_FADD = -3      # [slot, delta]: fire-and-forget fetch-add
+RC_FADD_R = -4    # [slot, delta, src, row, rslot]: fetch-add, reply old
+RC_CSWAP = -5     # [slot, expected, new, src, row, rslot]: compare-swap
+RC_REPLY = -6     # [row, value, rslot]: deposit value, dep-decrement row
+RC_LOCK = -7      # [lbase, src, row, qcap]: acquire or enqueue
+RC_UNLOCK = -8    # [lbase, qcap]: release, or grant the next waiter
+RC_GRANT = -9     # [row]: lock granted, dep-decrement the parked row
+RC_NAMES = {RC_COMPLETE: "complete", RC_FADD: "fadd", RC_FADD_R: "fadd_get",
+            RC_CSWAP: "cswap", RC_REPLY: "reply", RC_LOCK: "lock",
+            RC_UNLOCK: "unlock", RC_GRANT: "grant"}
+
+
+def lock_block_slots(qcap: int) -> int:
+    """Value slots a lock block occupies: [held, qlen, head, (dev, row) x
+    qcap] (resident.py :243). The host presets it to zero at ``lbase`` on
+    the owner device."""
+    return 3 + 2 * int(qcap)
 
 # Per-device fault/abort stats row (resident.py FS_*).
 FS_DROPPED = 0
@@ -127,14 +175,21 @@ SPIN_TIMEOUT_S = 30.0
 MESH_MAX_SCAN = 1024  # csrc/mesh.cuh MAX_SCAN
 P_STAT = 32  # csrc/mesh.cuh: the word of a port where its stat slab starts
 P_INBOX = 64  # csrc/mesh.cuh: steal-only, the words before the row inbox
-PS_RECV, PS_NWAIT, PS_SENT = 0, 1, 2  # csrc/mesh.cuh pstate words
+# A device's pstate words (csrc/mesh.cuh PS_*): resident.py's RECV, NWAIT,
+# SENT and PROXIES (live proxies), then the port's own: the proxies' peak,
+# the built-in messages applied (kind k at PS_AMS - 2 - k), and what the
+# host writes before a launch (the proxy budget, homed, rbase, whether
+# spawn keeps home links, whether any kind declares value args).
+PS_RECV, PS_NWAIT, PS_SENT, PS_PROXIES, PS_PEAK, PS_AMS = 0, 1, 2, 3, 7, 8
+PS_CAP, PS_HOMED, PS_RBASE, PS_TRACK, PS_VARGS = 16, 17, 18, 19, 20
+PS_WORDS = 24
 # What stopped a mesh (csrc/mesh.cuh W_* and the protocol faults).
 _WAITS = {1: "stat credit", 2: "stat arrival", 3: "row credit",
           4: "row arrival", 5: "put arrival", 6: "active-message arrival"}
 _FAULTS = {7: "a put on an undeclared channel",
            8: "a put outside its channel's buffer rows",
-           9: "an active message to a device outside the mesh (or of a "
-              "builtin kind, ROADMAP A11b)"}
+           9: "an active message, atomic or lock op to a device outside "
+              "the mesh, or ctx.pgas.am of a built-in kind (fn < 0)"}
 
 
 def decode_fault_stats(row) -> Dict[str, Any]:
@@ -163,9 +218,10 @@ def decode_fault_stats(row) -> Dict[str, Any]:
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP A11b (the unified resident "
-        "kernel's homed migration, remote atomics and locks, injection, "
-        "faults and quiesce); the port runs the steal-only, PGAS-only and "
-        "steal-with-channels configurations with homed=False")
+        "kernel's injection ring and tenancy, fault plans, quiesce and "
+        "resume, traced or checkpoint-built tables); the port runs the "
+        "steal, PGAS and homed-migration configurations with remote "
+        "atomics and locks")
 
 
 def stat_words(ndev: int, nchan: int) -> int:
@@ -233,6 +289,99 @@ def import_rows(core: _PlainCore, rows: List[List[int]]) -> None:
         core.install_descriptor(lambda w, row=row: row[w])
 
 
+def _links(core: _PlainCore, row: int) -> bool:
+    """resident.py homed_elig_of: the row carries successor links or
+    writes a dynamic value slot (valid only at home), so it migrates as a
+    homed copy and leaves a proxy."""
+    t, r = core.tasks, row * DESC_WORDS
+    return (t[r + F_SUCC0] != NO_TASK or t[r + F_SUCC1] != NO_TASK
+            or t[r + F_CSR_N] > 0 or t[r + F_OUT] >= core.counts[C_VBASE])
+
+
+def _elig_mig(core: _PlainCore, row: int, rk: "ResidentKernel",
+              allow_homed: bool) -> bool:
+    """resident.py elig_of: a migratable kind, migrate-once (F_HOME < 0),
+    and link-free unless homed with the proxy budget open (snapshotted
+    once a scan, ``allow_homed``)."""
+    r = row * DESC_WORDS
+    if core.tasks[r + F_FN] not in rk.migratable or core.tasks[
+            r + F_HOME] >= 0:
+        return False
+    return not _links(core, row) or (rk.homed and allow_homed)
+
+
+def export_migrating(core: _PlainCore, quota: int, pg: "_PlainPgas",
+                     xs=None) -> List[List[int]]:
+    """resident.py export (:1069) of the migrating configuration: up to
+    ``quota`` eligible rows of the first ``scan`` behind the ring head
+    leave. A row with links (homed) ships a copy naming its proxy
+    (F_HOME = me, F_HROW = the row, links cleared on the wire) and stays
+    pending at home off the ring; a link-free row moves whole
+    (tombstoned, freed, its pending count handed over). Declared value
+    args are dereferenced into the wire (F_VMASK names them; export owns
+    the mask). The moved rows' words."""
+    rk, c, t, cap = pg.rk, core.counts, core.tasks, core.capacity
+    head = c[C_HEAD]
+    n = min(c[C_TAIL] - head, rk.scan)
+    cand = [core.ready[(head + j) % cap] for j in range(n)]
+    allow = pg.ps[PS_PROXIES] < rk.proxy_cap
+    nsend = min(quota, sum(_elig_mig(core, x, rk, allow) for x in cand))
+    rows: List[List[int]] = []
+    kp = nwhole = 0
+    for x in cand:
+        if len(rows) < nsend and _elig_mig(core, x, rk, allow):
+            r = x * DESC_WORDS
+            row = t[r:r + DESC_WORDS]
+            row[F_VMASK] = 0
+            if rk.homed and _links(core, x):
+                row[F_SUCC0] = row[F_SUCC1] = NO_TASK
+                row[F_CSR_OFF] = row[F_CSR_N] = 0
+                row[F_HOME], row[F_HROW] = pg.me, x
+                pg.ps[PS_PROXIES] += 1
+                pg.ps[PS_PEAK] = max(pg.ps[PS_PEAK], pg.ps[PS_PROXIES])
+            else:
+                t[r + F_DEP] = -1
+                core.free[0] += 1
+                core.free[core.free[0]] = x
+                nwhole += 1
+            vargs = rk.migratable[t[r + F_FN]]
+            if vargs:
+                for i in vargs:
+                    row[F_A0 + i] = core.ivalues[t[r + F_A0 + i]]
+                row[F_VMASK] = rk.vmask[t[r + F_FN]]
+            rows.append(row)
+        else:
+            core.ready[(head + nsend + kp) % cap] = x
+            kp += 1
+    c[C_HEAD] = head + nsend
+    c[C_PENDING] -= nwhole
+    if xs is not None:
+        xs[XS_ROWS] += nsend
+    return rows
+
+
+def install_fixed(core: _PlainCore, row_words, rk: "ResidentKernel") -> int:
+    """resident.py install_fixed (:993): adopt a row from the wire, then
+    a homed copy writes its result into its reserved slot rbase + row,
+    and dereferenced value args rehydrate into the row's own value
+    block (F_VMASK cleared: the wire is its only writer). The row."""
+    row = core.install_descriptor(lambda w: row_words[w])
+    t, r = core.tasks, row * DESC_WORDS
+    if t[r + F_HOME] >= 0:
+        t[r + F_OUT] = rk.rbase + row
+    if rk.has_vargs:
+        mask = t[r + F_VMASK]
+        base = core.counts[C_VBASE] + row * VBLOCK
+        jj = 0
+        for i in range(6):
+            if (mask >> i) & 1:
+                core.ivalues[base + jj] = t[r + F_A0 + i]
+                t[r + F_A0 + i] = base + jj
+                jj += 1
+        t[r + F_VMASK] = 0
+    return row
+
+
 def mesh_workspace(ndev: int, nports: int, window: int, dev,
                    p_inbox: int = P_INBOX) -> tuple:
     """The steal kernels' ports (zeroed: counters, stat slabs, inboxes)
@@ -255,7 +404,7 @@ def pgas_layout(ndev: int, nchan: int, amw: int, outq: int, maxw: int
     the stat accumulator, the arrival counters a source (messages, then
     puts a channel) and the inbox rings a source. Each section starts on
     a 32-byte boundary."""
-    sizes = [8, 8, ndev, ndev, ndev, ndev * nchan, ndev * nchan, nchan,
+    sizes = [8, PS_WORDS, ndev, ndev, ndev, ndev * nchan, ndev * nchan, nchan,
              outq, outq * DESC_WORDS, maxw * 3, stat_words(ndev, nchan),
              ndev, ndev * nchan, ndev * amw * DESC_WORDS]
     assert len(sizes) == PG_SECTIONS
@@ -277,10 +426,12 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     configuration, ``steal`` or not) over stacked state ``st`` on the
     card, wait for it, and raise if a spin timed out or a body broke the
     protocol. ``pgas`` holds the channels (``chans``: buffer index, rows,
-    the buffer's rows, row bytes), ``nchan``, ``amw``, ``outq``, ``maxw``
-    and each device's host waits (``waits``). Returns the fault-stats
-    rows (``fstats``), the exchange volume rows (``xstats``) and the
-    launch's CUDA-event time (``kernel_ms``)."""
+    the buffer's rows, row bytes), ``nchan``, ``amw``, ``outq``, ``maxw``,
+    each device's host waits (``waits``) and starting pstate words
+    (``pstate``), whether the migrating configuration runs (``home``)
+    and the value limit. Returns the fault-stats rows (``fstats``), the
+    exchange volume rows (``xstats``), the pstate rows at exit (PGAS
+    configurations) and the launch's CUDA-event time (``kernel_ms``)."""
     ndev = st["tasks"].shape[0]
     dev = st["tasks"].device
     if not 0 <= scan <= MESH_MAX_SCAN:
@@ -298,7 +449,7 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                                  pgas["maxw"])
         pg = np.zeros((ndev, words), np.int32)
         for d, wlist in enumerate(pgas["waits"]):
-            pg[d, off[1] + PS_NWAIT] = len(wlist)
+            pg[d, off[1]:off[1] + PS_WORDS] = pgas["pstate"][d]
             for i, w in enumerate(wlist):
                 pg[d, off[10] + 3 * i:off[10] + 3 * i + 3] = w
         pg_t = torch.from_numpy(pg).to(dev)
@@ -312,11 +463,15 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
             h.chan_nrows[c], h.chan_row_bytes[c] = nrows, rb
         for i, o in enumerate(off):
             h.pg_off[i] = o
+        # alloc_values / free_values stay below the value limit (the
+        # resident kernel's migration result slots sit above it); no
+        # mesh kernel stages values, so this is num_values's only use.
+        h.num_values = int(pgas["value_limit"])
     ws, err, port_words = mesh_workspace(
         ndev, nports, window if steal else 0, dev, p_inbox)
     wl_t = torch.zeros(32, dtype=torch.int32, device=dev)
     for f in wl:
-        wl_t[f] = 1
+        wl_t[f] = wl[f] if isinstance(wl, dict) else 1
     abort_t = torch.from_numpy(abort_arr).to(dev)
     fstats = torch.zeros(ndev, FS_WORDS, dtype=torch.int32, device=dev)
     xstats = torch.zeros(ndev, XS_WORDS, dtype=torch.int32, device=dev)
@@ -335,7 +490,7 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     mk.mesh_launch(kind, h, mode, threads, smem, dev, pgas=pgas is not None,
-                   steal=steal)
+                   steal=steal, home=bool(pgas and pgas["home"]))
     t1.record()
     t1.synchronize()
     e = err.cpu().tolist()
@@ -349,8 +504,11 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
             f"for a {_WAITS.get(e[5], e[5])} at round {e[3]}, hop {e[4]}; "
             "the mesh stopped")
     mk.fold_dispatches(keep["dispatch"].sum(0, dtype=torch.int32))
-    return {"fstats": fstats.cpu().numpy(), "xstats": xstats.cpu().numpy(),
-            "kernel_ms": t0.elapsed_time(t1)}
+    out = {"fstats": fstats.cpu().numpy(), "xstats": xstats.cpu().numpy(),
+           "kernel_ms": t0.elapsed_time(t1)}
+    if pgas is not None:
+        out["pstate"] = keep["pg"][:, off[1]:off[1] + PS_WORDS].cpu().numpy()
+    return out
 
 
 def exchange_info(out: Dict[str, Any]) -> Dict[str, Any]:
@@ -369,8 +527,10 @@ def exchange_info(out: Dict[str, Any]) -> Dict[str, Any]:
 class _PlainPgas:
     """One device's PGAS state and operations over its plain core
     (resident.py's outbox, message and put counts, chan_tot, pstate and
-    wait table; op_put, op_am, op_wait_until, op_count and the round's
-    drains): what ``ctx.pgas`` is on the CPU."""
+    wait table; op_put, op_am, op_wait_until, op_count, the atomics and
+    locks op_fadd, op_fadd_get, op_cswap, op_lock, op_unlock, and the
+    round's drains with handle_am's built-in kinds): what ``ctx.pgas``
+    is on the CPU."""
 
     def __init__(self, rk: "ResidentKernel", core: _PlainCore, me: int,
                  data: Dict[str, torch.Tensor], waits, peers: list):
@@ -383,7 +543,7 @@ class _PlainPgas:
         self.data_sent = [[0] * nc for _ in range(ndev)]
         self.chan_recv = [[0] * nc for _ in range(ndev)]
         self.chan_tot = [0] * nc
-        self.recv = self.sent = 0
+        self.ps = rk.pstate_words(len(waits))
         self.waits = [list(w) for w in waits]
         # inbox[src][slot]: the rows source src sent here, am_window slots.
         self.inbox = [[None] * rk.am_window for _ in range(ndev)]
@@ -397,8 +557,7 @@ class _PlainPgas:
                 f"channel id {chan} not configured (have "
                 f"{len(self.rk.channels)}): a kernel using ctx.pgas.put "
                 "needs its channel declared in ResidentKernel(channels=)")
-        if not 0 <= dev < self.ndev:
-            raise ValueError(f"put to device {dev} outside the mesh")
+        self._target(dev, "put")
         bname, rows = self.rk.channels[chan]
         buf = self.data[bname]
         if not (0 <= src_row and 0 <= dst_row
@@ -408,19 +567,31 @@ class _PlainPgas:
         buf[dev, dst_row:dst_row + rows] = buf[self.me,
                                                src_row:src_row + rows]
         self.data_sent[dev][chan] += 1
-        self.sent += 1
+        self.ps[PS_SENT] += 1
+
+    def _target(self, dev: int, what: str) -> None:
+        if not 0 <= dev < self.ndev:
+            raise ValueError(f"{what} to device {dev} outside the mesh")
 
     def am(self, dev: int, fn: int, args: Sequence[int] = (),
            out: int = 0) -> None:
-        """Queue a task descriptor for device ``dev``'s scheduler (sent by
-        the round's drain_outbox); OVF_OUTBOX when the outbox is full."""
+        """Queue a task descriptor of user kind ``fn`` for device
+        ``dev``'s scheduler (sent by the round's drain_outbox); OVF_OUTBOX
+        when the outbox is full. The built-in kinds (fn < 0) are sent by
+        the atomics and locks below, never named here."""
         if len(args) > 6:
             raise ValueError("at most 6 args per AM")
         if fn < 0:
-            raise _later("active messages of builtin kinds (fn < 0)")
-        if not 0 <= dev < self.ndev:
-            raise ValueError(f"active message to device {dev} outside the "
-                             "mesh")
+            raise ValueError(
+                f"ctx.pgas.am of kind {fn}: the built-in kinds (fn < 0) "
+                "are sent by ctx.pgas.fadd, fadd_get, cswap, lock and "
+                "unlock")
+        self._target(dev, "active message")
+        self.send(dev, fn, args, out)
+
+    def send(self, dev: int, fn: int, args: Sequence[int] = (),
+             out: int = 0) -> None:
+        """op_am: the row into the outbox, any kind."""
         if len(self.outq) >= self.rk.outbox:
             self.core.counts[C_OVERFLOW] |= OVF_OUTBOX
             return
@@ -428,7 +599,7 @@ class _PlainPgas:
         row[F_FN] = fn
         row[F_SUCC0] = row[F_SUCC1] = NO_TASK
         for i, a in enumerate(args):
-            row[F_A0 + i] = int(a)
+            row[F_A0 + i] = _i32(int(a))
         row[F_OUT] = out
         row[F_HOME] = NO_TASK
         row[F_HROW] = row[F_CSR_OFF] = row[F_VMASK] = 0
@@ -439,6 +610,7 @@ class _PlainPgas:
         ``need`` puts have been announced on channel ``chan``."""
         if len(self.waits) < self.rk.max_waits:
             self.waits.append([chan, need, row])
+            self.ps[PS_NWAIT] = len(self.waits)
         else:
             self.core.counts[C_OVERFLOW] |= OVF_WAITS
 
@@ -446,11 +618,39 @@ class _PlainPgas:
         """The puts announced on channel ``chan`` so far."""
         return self.chan_tot[chan]
 
-    def _refused(self, *_a, **_k):
-        raise _later("remote atomics and locks (ctx.pgas.fadd, fadd_get, "
-                     "cswap, lock, unlock)")
+    def fadd(self, dev: int, slot: int, delta: int) -> None:
+        """Fire-and-forget fetch-add of device ``dev``'s value slot,
+        applied by its owner's scheduler."""
+        self._target(dev, "fadd")
+        self.send(dev, RC_FADD, (slot, delta))
 
-    fadd = fadd_get = cswap = lock = unlock = _refused
+    def fadd_get(self, dev: int, slot: int, delta: int, row: int,
+                 rslot: int) -> None:
+        """Fetch-add whose OLD value lands in my slot ``rslot`` and
+        dep-decrements my parked row ``row`` (spawned with one extra
+        dependency)."""
+        self._target(dev, "fadd_get")
+        self.send(dev, RC_FADD_R, (slot, delta, self.me, row, rslot))
+
+    def cswap(self, dev: int, slot: int, expected: int, new: int, row: int,
+              rslot: int) -> None:
+        """Compare-swap of device ``dev``'s slot; the old value replies to
+        (row, rslot) as fadd_get's. ``me`` is the wire's source word (the
+        owner replies to it)."""
+        self._target(dev, "cswap")
+        self.send(dev, RC_CSWAP, (slot, expected, new, self.me, row, rslot))
+
+    def lock(self, dev: int, lbase: int, row: int, qcap: int) -> None:
+        """Acquire the lock block at ``lbase`` on ``dev``
+        (``lock_block_slots(qcap)`` slots); parked row ``row`` (one extra
+        dependency) is dep-decremented when the lock is granted."""
+        self._target(dev, "lock")
+        self.send(dev, RC_LOCK, (lbase, self.me, row, qcap))
+
+    def unlock(self, dev: int, lbase: int, qcap: int) -> None:
+        """Release the lock block, or hand it to the next waiter."""
+        self._target(dev, "unlock")
+        self.send(dev, RC_UNLOCK, (lbase, qcap))
 
     def drain_outbox(self) -> None:
         """Send the outbox FIFO, at most am_window // 2 a target this
@@ -464,29 +664,93 @@ class _PlainPgas:
             self.peers[t].inbox[self.me][self.am_sent[t] % amw] = row
             self.am_sent[t] += 1
             sent_round[t] += 1
-            self.sent += 1
+            self.ps[PS_SENT] += 1
             n += 1
         del self.outq[:n]
 
+    def dep_dec(self, row: int) -> None:
+        t = self.core.tasks
+        d = t[row * DESC_WORDS + F_DEP] - 1
+        t[row * DESC_WORDS + F_DEP] = d
+        if d == 0:
+            self.core.push_ready(row)
+
+    def handle_am(self, row: List[int]) -> None:
+        """handle_am (:1231): a user kind installs (install_fixed); a
+        built-in kind is applied here by the owner's serial scheduler,
+        which is what makes the atomics atomic."""
+        fn = row[F_FN]
+        a = row[F_A0:F_A0 + 6]
+        iv, c = self.core.ivalues, self.core.counts
+        if fn >= 0:
+            install_fixed(self.core, row, self.rk)
+            return
+        if RC_GRANT <= fn <= RC_COMPLETE:
+            self.ps[PS_AMS - 2 - fn] += 1
+        if fn == RC_COMPLETE:
+            iv[self.core.tasks[a[0] * DESC_WORDS + F_OUT]] = a[1]
+            self.core.complete(a[0])
+            c[C_EXECUTED] -= 1  # the execution was counted on the thief
+            self.ps[PS_PROXIES] -= 1
+        elif fn == RC_FADD:
+            iv[a[0]] = _i32(iv[a[0]] + a[1])
+        elif fn == RC_FADD_R:
+            old = iv[a[0]]
+            iv[a[0]] = _i32(old + a[1])
+            self.send(a[2], RC_REPLY, (a[3], old, a[4]))
+        elif fn == RC_CSWAP:
+            old = iv[a[0]]
+            iv[a[0]] = a[2] if old == a[1] else old
+            self.send(a[3], RC_REPLY, (a[4], old, a[5]))
+        elif fn == RC_REPLY:
+            iv[a[2]] = a[1]
+            self.dep_dec(a[0])
+        elif fn == RC_LOCK:
+            lbase, src, prow, qcap = a[:4]
+            if iv[lbase] == 0:
+                iv[lbase] = 1
+                self.send(src, RC_GRANT, (prow,))
+            else:
+                qlen, hq = iv[lbase + 1], iv[lbase + 2]
+                if qlen < qcap:
+                    pos = lbase + 3 + 2 * ((hq + qlen) % qcap)
+                    iv[pos], iv[pos + 1] = src, prow
+                    iv[lbase + 1] = qlen + 1
+                else:
+                    c[C_OVERFLOW] |= OVF_LOCKQ
+        elif fn == RC_UNLOCK:
+            lbase, qcap = a[:2]
+            qlen = iv[lbase + 1]
+            if qlen == 0:
+                iv[lbase] = 0
+            elif qlen > 0:
+                hq = iv[lbase + 2]
+                pos = lbase + 3 + 2 * (hq % qcap)
+                iv[lbase + 2] = (hq + 1) % qcap
+                iv[lbase + 1] = qlen - 1
+                # The lock stays held: the next waiter has it.
+                self.send(iv[pos], RC_GRANT, (iv[pos + 1],))
+        elif fn == RC_GRANT:
+            self.dep_dec(a[0])
+
     def drain_receives(self, am_exp: List[int], put_exp) -> None:
         """Take exactly what the fold announced from each source: puts
-        into chan_tot, then the messages (user kinds install as ready
-        rows), sources in me ^ p order."""
+        into chan_tot, then the messages (handle_am), sources in me ^ p
+        order."""
         for c in range(self.rk.nchan):
             for p in range(self.ndev):
                 src = self.me ^ p
                 delta = put_exp[src][c] - self.chan_recv[src][c]
                 self.chan_recv[src][c] = put_exp[src][c]
                 self.chan_tot[c] += delta
-                self.recv += delta
+                self.ps[PS_RECV] += delta
         amw = self.rk.am_window
         for p in range(self.ndev):
             src = self.me ^ p
             base = self.am_recv[src]
             for i in range(am_exp[src] - base):
-                row = self.inbox[src][(base + i) % amw]
-                self.core.install_descriptor(lambda w, row=row: row[w])
-            self.recv += am_exp[src] - base
+                self.handle_am(self.inbox[src][(base + i) % amw])
+            self.ps[PS_RECV] += am_exp[src] - base
             self.am_recv[src] = am_exp[src]
 
     def scan_waits(self) -> None:
@@ -495,10 +759,11 @@ class _PlainPgas:
         kept = []
         for ch, need, row in self.waits:
             if self.chan_tot[ch] >= need:
-                self.core._dec(row)
+                self.dep_dec(row)
             else:
                 kept.append([ch, need, row])
         self.waits = kept
+        self.ps[PS_NWAIT] = len(kept)
 
 
 def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
@@ -506,19 +771,24 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                     waits) -> Dict[str, Any]:
     """The plain version of the resident kernel: every device's round in
     lockstep over the plain cores (the PGAS state of each on its core's
-    ``pgas`` under a PGAS configuration). Returns the FS and XS rows and
-    the wall time (``kernel_ms``)."""
+    ``pgas`` under a PGAS configuration; the migrating configuration's
+    export, install_fixed and completion hook). Returns the FS and XS
+    rows, the pstate rows (PGAS configurations) and the wall time
+    (``kernel_ms``)."""
     t0 = time.perf_counter()
     mk, window, scan = rk.mk, rk.window, rk.scan
     ndev = st["tasks"].shape[0]
     cores = [_PlainCore(mk, mesh_slice(st, d)) for d in range(ndev)]
     for c in cores:
         c.stage(True)
+        c.value_limit = rk.rbase
     pgs: List[_PlainPgas] = []
     if rk.pgas:
         for d, c in enumerate(cores):
             c.pgas = _PlainPgas(rk, c, d, st["data"], waits[d], pgs)
             pgs.append(c.pgas)
+            if rk.homed_mig:
+                c.complete_hook = _completion_hook(c, c.pgas)
     nsw = stat_words(ndev, rk.nchan) if rk.pgas else STAT_WORDS
     fs = np.zeros((ndev, FS_WORDS), np.int32)
     fs[:, FS_DEAD_ROUND] = -1
@@ -542,9 +812,9 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0, 0,
                sum(local_abort), 0]
         if pgs:
-            tot[SF_RECV] = sum(pg.recv for pg in pgs)
+            tot[SF_RECV] = sum(pg.ps[PS_RECV] for pg in pgs)
             tot[SF_OUTB] = sum(len(pg.outq) for pg in pgs)
-            tot[SF_SENT] = sum(pg.sent for pg in pgs)
+            tot[SF_SENT] = sum(pg.ps[PS_SENT] for pg in pgs)
             am_exp = [[pgs[s].am_sent[v] for s in range(ndev)]
                       for v in range(ndev)]
             put_exp = [[list(pgs[s].data_sent[v]) for s in range(ndev)]
@@ -559,10 +829,19 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                 peer_b, myb = snd[d ^ (1 << k)], backlog(c)
                 quota = (min(max((myb - peer_b + 1) // 2, 0), window)
                          if peer_b < starve_below else 0)
-                boxes.append(export_rows(c, quota, scan, wl, True, xs[d])
-                             if quota > 0 else [])
+                if quota <= 0:
+                    boxes.append([])
+                elif rk.migrating:
+                    boxes.append(export_migrating(c, quota, pgs[d], xs[d]))
+                else:
+                    boxes.append(export_rows(c, quota, scan, wl, True,
+                                             xs[d]))
             for d, c in enumerate(cores):
-                import_rows(c, boxes[d ^ (1 << k)])
+                if rk.migrating:
+                    for row in boxes[d ^ (1 << k)]:
+                        install_fixed(c, row, rk)
+                else:
+                    import_rows(c, boxes[d ^ (1 << k)])
         aborted = tot[SF_ABORT] > 0
         for d in range(ndev):
             if aborted and fs[d, FS_ABORT_ROUND] < 0:
@@ -581,15 +860,36 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         if pgs:
             xs[d, XS_AMS] = sum(pgs[d].am_sent)
             xs[d, XS_PUTS] = sum(map(sum, pgs[d].data_sent))
-    return {"fstats": fs, "xstats": xs,
-            "kernel_ms": (time.perf_counter() - t0) * 1e3}
+    out = {"fstats": fs, "xstats": xs,
+           "kernel_ms": (time.perf_counter() - t0) * 1e3}
+    if pgs:
+        out["pstate"] = np.array([pg.ps for pg in pgs], np.int32)
+    return out
+
+
+def _completion_hook(core: _PlainCore, pg: _PlainPgas):
+    """resident.py complete_hook (:914): a migrated chain's last task (its
+    row carries the home link) forwards its result to the home proxy in
+    an RC_COMPLETE message, at the top of its completion."""
+    t = core.tasks
+
+    def hook(idx: int) -> None:
+        r = idx * DESC_WORDS
+        if t[r + F_HOME] >= 0:
+            pg.send(t[r + F_HOME], RC_COMPLETE,
+                    (t[r + F_HROW], core.ivalues[t[r + F_OUT]]))
+    return hook
 
 
 class ResidentKernel:
     """One resident scheduler per device of a 1D/2D/3D mesh with
-    power-of-two axes (``parallel.mesh.CtaMesh``), with ``homed=False``:
-    ``steal=True`` moves link-free ready rows of ``migratable_fns`` (a
-    sequence of kernel-table ids) whole; ``channels`` (``{name:
+    power-of-two axes (``parallel.mesh.CtaMesh``): ``steal=True`` moves
+    ready rows of ``migratable_fns`` (kernel-table ids, or ``{id:
+    (value_arg_index, ...)}`` naming the args that are value-slot
+    references, dereferenced at export): link-free rows whole, and with
+    ``homed`` (the default) rows with links as homed copies under the
+    home-link protocol, at most ``proxy_cap`` live proxies a device
+    (default ``max(8, capacity // 4)``); ``channels`` (``{name:
     (data_buffer, rows)}``, as PGASMegakernel) or ``steal=False`` give the
     bodies ``ctx.pgas``: one-sided puts of ``rows`` rows of a channel's
     buffer, active messages under a per-(source, target) inbox of
@@ -668,10 +968,6 @@ class ResidentKernel:
                     "(arriving rows rehydrate into their own row block)"
                 )
         # What this slice does not run yet.
-        if self.steal and self.homed and self.migratable:
-            raise _later("homed=True migration (home-link proxies)")
-        if any(self.migratable.values()):
-            raise _later("migratable_fns value args (rehydration)")
         if inject:
             raise _later("inject=True (the resident injection ring)")
         if tenants is not None and tenants is not False:
@@ -696,15 +992,53 @@ class ResidentKernel:
             raise ValueError(f"at most {MAX_CHANS} channels, got "
                              f"{len(self.channels)}")
         self.nchan = max(1, len(self.channels))
+        # Homed migration (JAX's migratable and homed): the scheduler
+        # keeps home links, and one result slot a row is reserved at the
+        # top of the value buffer, [rbase, num_values), below which
+        # dynamic value allocation stays.
+        self.homed_mig = bool(self.migratable) and self.homed
+        if self.homed_mig:
+            mk.tracks_home = True
+        self.vmask = {f: sum(1 << i for i in set(v))
+                      for f, v in self.migratable.items()}
+        self.has_vargs = any(self.vmask.values())
+        # The migrating configuration: homed copies with their proxies
+        # and completions, or value args dereferenced on the wire. It
+        # runs on the PGAS configuration's outbox, inbox and stat vector
+        # even without channels (a completion is an active message).
+        self.migrating = self.steal and (self.homed_mig or self.has_vargs)
         # The PGAS configurations: ctx.pgas, the outbox and receive
         # drains, the stat vector's all-to-all section and the wait table.
-        self.pgas = not self.steal or bool(self.channels)
+        self.pgas = (not self.steal or bool(self.channels)
+                     or self.migrating)
+        # Above this many live proxies a device stops exporting
+        # dependency-bearing rows (link-free rows still move).
+        self.proxy_cap = (int(proxy_cap) if proxy_cap is not None
+                          else max(8, mk.capacity // 4))
+        self.rbase = (mk.num_values - mk.capacity if self.homed_mig
+                      else mk.num_values)
+        if self.rbase <= 0:
+            raise ValueError(
+                "migration needs num_values > capacity (one result slot "
+                "per row is reserved at the top of the value buffer)")
         self.window = int(window)
         self.scan = int(scan) if scan is not None else 2 * self.window
         self.am_window = int(am_window)
         self.outbox = int(outbox)
         self.max_waits = int(max_waits)
         self.timeout_s = SPIN_TIMEOUT_S
+
+    def pstate_words(self, nwait: int) -> List[int]:
+        """A device's pstate words at the start of a run (``PS_*``): its
+        host waits, and the configuration words the card's kernel reads
+        (the proxy budget, homed, rbase, home tracking, value args)."""
+        ps = [0] * PS_WORDS
+        ps[PS_NWAIT] = nwait
+        ps[PS_CAP], ps[PS_HOMED], ps[PS_RBASE] = (
+            self.proxy_cap, int(self.homed), self.rbase)
+        ps[PS_TRACK], ps[PS_VARGS] = int(self.mk.tracks_home), int(
+            self.has_vargs)
+        return ps
 
     def _hop_bits(self, hop_order) -> Tuple[int, ...]:
         """``hop_order`` (XOR partner deltas) as the bit-index sequence the
@@ -788,6 +1122,18 @@ class ResidentKernel:
             va = max(int(counts[d][C_VALLOC]) for d in range(ndev))
             for d in range(ndev):
                 counts[d][C_VALLOC] = va
+            if self.homed_mig:
+                # The host value region and the row-owned blocks must
+                # stay below the migration result slots.
+                blocks = VBLOCK * mk.capacity if mk.uses_row_values else 0
+                for d in range(ndev):
+                    need = int(counts[d][C_VALLOC]) + blocks
+                    if need > self.rbase:
+                        raise ValueError(
+                            f"device {d}: value region [0, {need}) overlaps "
+                            f"the migration result slots at [{self.rbase}, "
+                            f"{mk.num_values}); grow num_values by at least "
+                            f"{need - self.rbase}")
             for d, wlist in enumerate(waits):
                 for (_, _, row) in wlist:
                     tasks[d, row, F_DEP] += 1
@@ -801,7 +1147,10 @@ class ResidentKernel:
 
         st = mesh_state(mk, ndev, self.mesh.device, builders, data, ivalues,
                         mutate=bump_waits)
-        wl = frozenset(self.migratable) if self.steal else frozenset()
+        # The whitelist: kind -> 1, with the kind's value-arg mask above
+        # bit 0 (the migrating configuration dereferences those args).
+        wl = ({f: 1 | (self.vmask[f] << 1) for f in self.migratable}
+              if self.steal else {})
         if st["tasks"].device.type == "cpu":
             out = _plain_resident(self, st, wl, abort_arr, quantum,
                                   max_rounds, hop_bits, waits)
@@ -816,7 +1165,10 @@ class ResidentKernel:
                                   t[0, 0].numel() * t.element_size()))
                 pgas = {"nchan": self.nchan, "amw": self.am_window,
                         "outq": self.outbox, "maxw": self.max_waits,
-                        "chans": chans, "waits": waits}
+                        "chans": chans, "waits": waits,
+                        "pstate": [self.pstate_words(len(w)) for w in waits],
+                        "home": self.migrating,
+                        "value_limit": self.rbase}
             out = run_mesh_kernel(
                 "resident_steal", mk, st, wl, abort_arr, quantum,
                 max_rounds, self.window, self.scan, hop_bits,
@@ -828,6 +1180,13 @@ class ResidentKernel:
         info["exchange"] = exchange_info(out)
         fsd = [decode_fault_stats(fs[d]) for d in range(ndev)]
         info["fault_stats"] = fsd
+        if "pstate" in out:
+            ps = np.asarray(out["pstate"])
+            info["proxies"] = ps[:, PS_PROXIES].tolist()
+            info["proxies_peak"] = ps[:, PS_PEAK].tolist()
+            info["builtin_ams"] = {
+                name: ps[:, PS_AMS - 2 - k].tolist()
+                for k, name in RC_NAMES.items()}
         info["aborted"] = any(f["abort_round"] >= 0 for f in fsd)
         if mk.batch_specs:
             trows = st["tstats"].cpu().numpy()

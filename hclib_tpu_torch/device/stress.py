@@ -1,4 +1,5 @@
-"""Benchmark-scale multi-device workloads on one card: the forest steal.
+"""Benchmark-scale multi-device workloads on one card: the forest steal
+and the unified load.
 
 Port of ``hclib_tpu/device/stress.py`` ``FOREST_STEAL_BENCH``,
 ``FOREST_STEAL_QUICK`` (:46-47) and ``forest_steal`` (:50): a maximally
@@ -14,11 +15,20 @@ thief's value buffer).
 On the card a mesh device is one CTA (``parallel.mesh.cuda_mesh``); the
 run is timed by the host's wall clock around a run that ends with the
 copy of the results to the host (which waits for the card), after a
-warm-up run. ``unified_load`` (:149) needs homed migration and the
-remote atomics of the unified resident kernel: it raises naming ROADMAP
-A11b.
+warm-up run. ``unified_load`` (:149) runs the resident kernel's
+migrating configuration: a skewed fib tree whose stolen rows with links
+leave home proxies (their results return as remote completions, SUM's
+value args rehydrated on the thief) beside remote fetch-adds from every
+device, exact, scalar or with FIB routed through the batch tier.
 
-Beside them, the user-body workloads of the mesh (no JAX counterpart
+Beside them, the dry run's phase 0 (``dryrun0``: fib, sum, BUMP and a
+remote FADD through the same configuration) and the lock workload
+(``lock_megakernel``, ``lock_builders``, ``check_locks``: a LOCKER on
+every device contends device 0's lock block; each critical section's
+compare-swap tripwire, observed by a parked row, shows an overlap as a
+nonzero TEAR; a fetch-add and a compare-swap reply their old values).
+
+And the user-body workloads of the mesh (no JAX counterpart
 module; JAX writes these bodies in its tests and its multi-chip dry run):
 ``bump_megakernel`` and ``put_consume_megakernel``, the dry run's
 tables of its phases 2-3 and 4 (``dryrun_builders``), and the PGAS
@@ -41,7 +51,10 @@ import numpy as np
 __all__ = ["forest_steal", "unified_load",
            "FOREST_STEAL_BENCH", "FOREST_STEAL_QUICK", "bump_megakernel",
            "pgas_megakernel", "pgas_builders", "check_pgas", "PGAS_ROWS",
-           "PGAS_COLS", "put_consume_megakernel", "dryrun_builders"]
+           "PGAS_COLS", "put_consume_megakernel", "dryrun_builders",
+           "unified_megakernel", "unified_builders", "unified_resident",
+           "check_unified", "dryrun0_megakernel", "dryrun0",
+           "lock_megakernel", "lock_builders", "check_locks"]
 
 # The benchmark-of-record forest-steal configuration (bench.py
 # --multichip's headline), scalar and batched arms alike.
@@ -161,13 +174,287 @@ def forest_steal(
     return info
 
 
-def unified_load(*args, **kwargs) -> Dict:
-    """Dependency-bearing migration plus PGAS under load (JAX's
-    ``unified_load``): not ported yet."""
-    raise NotImplementedError(
-        "unified_load needs the unified resident kernel's homed migration "
-        "and PGAS channels (remote fetch-adds): ROADMAP A11b; the port "
-        "runs its steal-only configuration")
+# ---- homed migration and the remote atomics: unified_load, the dry
+# run's phase 0 and the lock workload
+
+FIB5, SUM5, FADD5 = 0, 1, 2  # unified_load's table
+
+
+def _fadd2(ctx):
+    ctx.pgas.fadd(0, 2, ctx.arg(0))
+
+
+FADD2_CUDA = "ctx.pgas.fadd(0, 2, ctx.arg(0));"
+
+
+def unified_megakernel(capacity: int = 1024, batch_width: int = 0,
+                       device="cuda"):
+    """unified_load's table: the built-in fib and sum, and FADD (a
+    fire-and-forget fetch-add of arg 0 into device 0's slot 2); every
+    row's value block, 16 host slots and one migration result slot a
+    row."""
+    from .megakernel import BatchSpec, Megakernel, VBLOCK
+
+    return Megakernel(
+        ["fib", "sum", ("fadd", _fadd2, FADD2_CUDA)], capacity=capacity,
+        num_values=VBLOCK * capacity + 16 + capacity, succ_capacity=64,
+        uses_row_values=True,
+        route={"fib": BatchSpec(batch_width)} if batch_width else None,
+        device=device)
+
+
+def unified_builders(ndev: int, n: int, fadds: int):
+    """FIB(n) on device 0 into slot 3, and FADDs 1..fadds dealt
+    round-robin over the devices; 8 host slots reserved everywhere.
+    Returns the builders and the sum of the increments."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(FIB5, args=[n], out=3)
+    for i in range(fadds):
+        bs[i % ndev].add(FADD5, args=[i + 1])
+    for b in bs:
+        b.reserve_values(8)
+    return bs, fadds * (fadds + 1) // 2
+
+
+def unified_resident(mk, ndev: int, window: int = 8, device="cuda"):
+    """The resident kernel of unified_load and the dry run's phase 0:
+    homed migration of FIB, and of SUM with its two value args."""
+    from ..parallel.mesh import CtaMesh
+    from .resident import ResidentKernel
+
+    return ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                          migratable_fns={FIB5: (), SUM5: (0, 1)},
+                          window=window, am_window=8)
+
+
+def check_unified(iv, info, n: int, fadds: int, total: int) -> int:
+    """unified_load's exact totals; returns the task count: fib(n) in
+    device 0's slot 3 (the root runs at home before the first
+    exchange), every fetch-add applied once at the owner, executed the
+    tree's FIB and SUM rows plus the FADDs, no proxy left."""
+    from ..models.fib import fib_seq, task_count
+
+    iv = np.asarray(iv)
+    expect = task_count(n)
+    expect += (expect - 1) // 2 + fadds
+    if (info["pending"] != 0 or int(iv[:, 3].sum()) != fib_seq(n)
+            or int(iv[0, 2]) != total or info["executed"] != expect
+            or any(info["proxies"])):
+        raise AssertionError(
+            f"unified fib({n}) + {fadds} fetch-adds: slot 3 "
+            f"{iv[:, 3].tolist()}, slot 2 {int(iv[0, 2])} (want "
+            f"{total}), executed {info['executed']} (want {expect}), "
+            f"pending {info['pending']}, proxies {info['proxies']}")
+    return expect
+
+
+def unified_load(
+    ndev: int = 8,
+    n: int = 10,
+    fadds: int = 32,
+    capacity: int = 1024,
+    quantum: int = 32,
+    window: int = 8,
+    batch_width: int = 0,
+    device="cuda",
+) -> Dict:
+    """Dependency-bearing migration and remote atomics under load in one
+    resident kernel a device (JAX's ``unified_load``): a skewed fib(``n``)
+    tree on device 0 (stolen rows with links leave home proxies, their
+    results return as remote completions) and ``fadds`` fire-and-forget
+    fetch-adds of device 0's slot 2 from every device. Totals exact.
+    ``batch_width`` routes FIB through the batch tier inside the
+    resident kernel; the info then carries per-device ``tiers``. A
+    warm-up run on a tiny graph first (the build and the first launch);
+    the timed run's host wall time, and its ``ivalues``."""
+    mk = unified_megakernel(capacity, batch_width, device)
+    rk = unified_resident(mk, ndev, window, device)
+    wb, _ = unified_builders(ndev, 2, ndev)
+    rk.run(wb, quantum=quantum)
+    builders, total = unified_builders(ndev, n, fadds)
+    t0 = time.perf_counter()
+    iv, _, info = rk.run(builders, quantum=quantum)
+    dt = time.perf_counter() - t0
+    expect = check_unified(iv, info, n, fadds, total)
+    per_dev = np.asarray(info["per_device_counts"])[:, 5]
+    if batch_width:
+        tiers = info["tiers"]
+        batched = sum(t["batch_tasks"] for t in tiers)
+        scalar = sum(t["scalar_tasks"] for t in tiers)
+        assert batched + scalar == expect, (batched, scalar, expect)
+        assert batched > 0, tiers
+    info = dict(info)
+    info.update(
+        name=f"unified_load fib({n}) + {fadds} remote fetch-adds "
+        f"on {ndev} devices"
+        + (f" [batch w={batch_width}]" if batch_width else ""),
+        seconds=dt,
+        timer="host wall clock around a synchronised run",
+        tasks=expect,
+        tasks_per_sec=expect / dt,
+        devices_used=int((per_dev > 0).sum()),
+        imbalance=float(per_dev.max() * ndev / max(per_dev.sum(), 1)),
+        per_device_counts=np.asarray(info["per_device_counts"]).tolist(),
+        ivalues=iv,
+    )
+    return info
+
+
+def dryrun0_megakernel(device="cuda"):
+    """The multi-chip dry run's phase 0 table (__graft_entry__.py :95-112):
+    fib, sum, BUMP (slot 0 += arg 0) and FADD (device 0's slot 2 +=
+    arg 0, remotely); capacity 512, VBLOCK * 512 + 16 + 512 value slots
+    (the row blocks, 16 host slots, the migration result slots)."""
+    from .megakernel import Megakernel, VBLOCK
+
+    return Megakernel(
+        ["fib", "sum", ("bump", _bump0, BUMP0_CUDA),
+         ("fadd", _fadd2, FADD2_CUDA)],
+        capacity=512, num_values=VBLOCK * 512 + 16 + 512, succ_capacity=64,
+        uses_row_values=True, device=device)
+
+
+def dryrun0(ndev: int = 8, device="cuda"):
+    """The dry run's phase 0 literally: fib(9) on device 0 into slot 3
+    and FADD 7 on device 1 through the homed resident kernel (window 8,
+    am_window 8, quantum 32); raises unless fib(9) = 34 landed home and
+    the fetch-add at its owner. Returns (ivalues, info)."""
+    from .descriptor import TaskGraphBuilder
+
+    rk = unified_resident(dryrun0_megakernel(device), ndev, 8, device)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(0, args=[9], out=3)
+    bs[1 % ndev].add(3, args=[7])
+    for b in bs:
+        b.reserve_values(8)
+    iv, _, info = rk.run(bs, quantum=32)
+    if (info["pending"] != 0 or int(iv[0, 3]) != 34
+            or int(iv[0, 2]) != 7):
+        raise AssertionError(f"dry run phase 0: slot 3 {int(iv[0, 3])}, "
+                             f"slot 2 {int(iv[0, 2])}")
+    return iv, info
+
+
+# The lock workload (JAX's test_resident_volume_stress_on_tpu lock part,
+# and test_remote_atomics_and_lock's asker and swapper): one LOCKER on
+# every device contends device 0's lock block.
+LOCKER, CSECT, OBSERVE, ASKER, CONSUME_R, SWAPPER = range(6)
+LK_X, LK_Y, LK_OCC, LK_TEAR, LK_RSLOT, LK_LBASE = 4, 5, 10, 11, 20, 32
+
+
+def _locker(ctx):
+    row = ctx.spawn(CSECT, args=[ctx.arg(0)], dep_count=1)
+    ctx.pgas.lock(0, LK_LBASE, row, ctx.pgas.ndev)
+
+
+def _csect(ctx):
+    # The occupancy tripwire: cswap OCC 0 -> 1 on entry, observed by a
+    # parked OBSERVE; the messages to device 0 are FIFO, so OCC is back
+    # to 0 before the unlock grants the next waiter.
+    s = ctx.arg(0)
+    obs = ctx.spawn(OBSERVE, args=[s], dep_count=1)
+    ctx.pgas.cswap(0, LK_OCC, 0, 1, obs, s)
+    ctx.pgas.fadd(0, LK_X, 1)
+    ctx.pgas.fadd(0, LK_Y, 1)
+    ctx.pgas.fadd(0, LK_OCC, -1)
+    ctx.pgas.unlock(0, LK_LBASE, ctx.pgas.ndev)
+
+
+def _observe(ctx):
+    ctx.pgas.fadd(0, LK_TEAR, ctx.value(ctx.arg(0)))
+
+
+def _asker(ctx):
+    row = ctx.spawn(CONSUME_R, args=[3], dep_count=1)
+    ctx.pgas.fadd_get(0, 6, 10, row, 3)
+
+
+def _consume_r(ctx):
+    ctx.set_value(4, ctx.value(ctx.arg(0)))
+
+
+def _swapper(ctx):
+    row = ctx.spawn(CONSUME_R, args=[3], dep_count=1)
+    ctx.pgas.cswap(0, 12, 55, 77, row, 3)
+
+
+LOCK_TABLE = (
+    ("locker", _locker, f"""
+  const int a = ctx.arg(0);
+  const int row = ctx.spawn({CSECT}, &a, 1, 1);
+  ctx.pgas.lock(0, {LK_LBASE}, row, ctx.pgas.ndev);"""),
+    ("csect", _csect, f"""
+  const int s = ctx.arg(0);
+  const int obs = ctx.spawn({OBSERVE}, &s, 1, 1);
+  ctx.pgas.cswap(0, {LK_OCC}, 0, 1, obs, s);
+  ctx.pgas.fadd(0, {LK_X}, 1);
+  ctx.pgas.fadd(0, {LK_Y}, 1);
+  ctx.pgas.fadd(0, {LK_OCC}, -1);
+  ctx.pgas.unlock(0, {LK_LBASE}, ctx.pgas.ndev);"""),
+    ("observe", _observe,
+     f"ctx.pgas.fadd(0, {LK_TEAR}, ctx.value(ctx.arg(0)));"),
+    ("asker", _asker, f"""
+  const int a = 3;
+  const int row = ctx.spawn({CONSUME_R}, &a, 1, 1);
+  ctx.pgas.fadd_get(0, 6, 10, row, 3);"""),
+    ("consume_r", _consume_r, "ctx.set_value(4, ctx.value(ctx.arg(0)));"),
+    ("swapper", _swapper, f"""
+  const int a = 3;
+  const int row = ctx.spawn({CONSUME_R}, &a, 1, 1);
+  ctx.pgas.cswap(0, 12, 55, 77, row, 3);"""),
+)
+
+
+def lock_megakernel(capacity: int = 64, device="cuda"):
+    """The lock workload's table; the lock block of a 128-device mesh
+    (lock_block_slots(128) slots at LK_LBASE) fits its 512 value
+    slots."""
+    from .megakernel import Megakernel
+
+    return Megakernel(list(LOCK_TABLE), capacity=capacity, num_values=512,
+                      succ_capacity=8, device=device)
+
+
+def lock_builders(ndev: int):
+    """A LOCKER on every device (reply slot LK_RSLOT), an ASKER on device
+    1 and a SWAPPER on device 2 (meshes of three or more); the lock
+    block reserved, and device 0's slots 6 and 12 preset to 100 and 55.
+    Returns the builders and the value slots."""
+    from .descriptor import TaskGraphBuilder
+    from .resident import lock_block_slots
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for b in bs:
+        b.add(LOCKER, args=[LK_RSLOT])
+        b.reserve_values(LK_LBASE + lock_block_slots(ndev))
+    bs[1 % ndev].add(ASKER)
+    if ndev >= 3:
+        bs[2].add(SWAPPER)
+    iv = np.zeros((ndev, 512), np.int32)
+    iv[0, 6], iv[0, 12] = 100, 55
+    return bs, iv
+
+
+def check_locks(iv, info, ndev: int) -> None:
+    """Raise unless every critical section ran alone and once (X = Y =
+    ndev, no observer saw OCC held, OCC back to 0), the lock ended
+    released with its queue empty, the fetch-add and the compare-swap
+    replied the old values, and the task count is exact."""
+    iv = np.asarray(iv)
+    ok = (iv[0, LK_X] == ndev and iv[0, LK_Y] == ndev
+          and iv[0, LK_TEAR] == 0 and iv[0, LK_OCC] == 0
+          and iv[0, LK_LBASE] == 0 and iv[0, LK_LBASE + 1] == 0
+          and iv[0, 6] == 110 and iv[1 % ndev, 4] == 100
+          and (ndev < 3 or (iv[0, 12] == 77 and iv[2, 4] == 55))
+          and info["pending"] == 0
+          and info["executed"] == 3 * ndev + 2 + 2 * (ndev >= 3))
+    if not ok:
+        raise AssertionError(
+            f"locks on {ndev} devices: device 0 slots {iv[0, :16].tolist()}"
+            f", lock block {iv[0, LK_LBASE:LK_LBASE + 3].tolist()}, "
+            f"executed {info['executed']}")
 
 
 # ---- user-body workloads: the dry run's bump table and the PGAS exchange

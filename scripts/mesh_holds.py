@@ -43,6 +43,15 @@ CUDA-event time on the card, the plain version's wall time on the CPU;
   target; ``pgas_steal_8``: the same with 32 BUMPs on device 0 stolen
   over the same hops (steal with channels, window 4, quantum 4). These
   also return the heap and the messages and puts sent.
+- ``homed_2``, ``homed_8``, ``homed_3d``, ``homed_8_b8``: the resident
+  kernel's migrating configuration (``resident_homed``) on JAX's homed
+  fib tests: fib(8) on 2 devices (window 16, quantum 4), fib(9) on 8
+  (window 8, quantum 16; and with FIB routed at width 8), fib(6) on a
+  2x2x2 mesh (quantum 4); FIB migratable, SUM with its two value args.
+- ``atomics_4``: the lock workload (``stress.lock_builders``) on 4
+  devices, steal=False: a LOCKER a device, a fetch-add with its reply,
+  a compare-swap with its reply. These return the proxies, their peak
+  and the built-in messages each device applied.
 
 ``USER_CASES`` hold the user library's scheduler (``mk_user_kernel``) on
 one device (``run_user_case``), each on ``USER_TABLE`` (the built-in fib
@@ -106,6 +115,17 @@ CASES = {
     "pgas_4": ("pgas", 4, 0, True, dict(am_window=2)),
     "pgas_8": ("pgas", 8, 0, True, dict(am_window=8)),
     "pgas_steal_8": ("pgas_steal", 8, 0, True, dict(am_window=8)),
+    # JAX's homed tests (tests/test_resident.py) at their shapes: (fib n,
+    # capacity, window, quantum, mesh dims).
+    "homed_2": ("homed", 2, 0, False, dict(n=8, cap=96, window=16,
+                                          quantum=4)),
+    "homed_8": ("homed", 8, 0, False, dict(n=9, cap=160, window=8,
+                                          quantum=16)),
+    "homed_3d": ("homed", 8, 0, False, dict(n=6, cap=64, window=8,
+                                           quantum=4, dims=(2, 2, 2))),
+    "homed_8_b8": ("homed", 8, 8, False, dict(n=9, cap=160, window=8,
+                                             quantum=16)),
+    "atomics_4": ("atomics", 4, 0, False, {}),
 }
 
 
@@ -119,7 +139,8 @@ def kernel_of(name: str) -> str:
     return {"sharded": "mesh_round", "ring": "ici_ring",
             "resident": "resident_steal", "user_sharded": "mk_user",
             "user_ici": "resident_steal", "pgas": "resident_pgas",
-            "pgas_steal": "resident_pgas"}[kind]
+            "pgas_steal": "resident_pgas", "homed": "resident_homed",
+            "atomics": "resident_pgas"}[kind]
 
 
 def builders(ndev: int, dealt: bool):
@@ -165,9 +186,69 @@ def _user_case(kind, ndev, burst, kw, device):
     return iv, data, info
 
 
+def homed_megakernel(cap: int, bw: int, device):
+    """JAX's homed tests' fib table: every row's value block, 16 host
+    slots and one migration result slot a row (a library of built-in
+    bodies alone on the card)."""
+    from hclib_tpu_torch.device.megakernel import VBLOCK
+    from hclib_tpu_torch.device.workloads import make_fib_megakernel
+
+    return make_fib_megakernel(cap, num_values=VBLOCK * cap + 16 + cap,
+                               batch_width=bw or None, device=device)
+
+
+def _homed_case(kind, ndev, bw, kw, device):
+    """A homed fib (FIB and SUM migratable, SUM's two value args) or the
+    lock workload; raises unless its totals are exact."""
+    from hclib_tpu_torch.models.fib import fib_seq, task_count
+
+    if kind == "atomics":
+        bs, iv0 = stress.lock_builders(ndev)
+        rk = ResidentKernel(stress.lock_megakernel(device=device),
+                            CtaMesh((ndev,), ("q",), device=device),
+                            steal=False)
+        iv, data, info = rk.run(bs, ivalues=iv0, quantum=8)
+        stress.check_locks(iv, info, ndev)
+        return iv, data, info
+    dims = kw.get("dims", (ndev,))
+    mesh = CtaMesh(dims, ("x", "y", "z")[:len(dims)], device=device)
+    rk = ResidentKernel(homed_megakernel(kw["cap"], bw, device), mesh,
+                        migratable_fns={FIB: (), FIB + 1: (0, 1)},
+                        window=kw["window"], am_window=8)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(FIB, args=[kw["n"]], out=0)
+    iv, data, info = rk.run(bs, quantum=kw["quantum"])
+    t = task_count(kw["n"])
+    if (int(np.asarray(iv)[:, 0].sum()) != fib_seq(kw["n"])
+            or info["executed"] != t + (t - 1) // 2
+            or info["pending"] != 0 or any(info["proxies"])):
+        raise AssertionError(f"homed fib({kw['n']}): {iv[:, 0].tolist()}, "
+                             f"executed {info['executed']}")
+    return iv, data, info
+
+
 def run_case(name: str, device: str) -> dict:
     """One case on ``device``; returns what it is compared on."""
     kind, ndev, bw, dealt, kw = CASES[name]
+    if kind in ("homed", "atomics"):
+        iv, data, info = _homed_case(kind, ndev, bw, kw, device)
+        ex = info["exchange"]
+        return {
+            "iv": np.asarray(iv),
+            "counts": np.asarray(info["per_device_counts"]),
+            "rounds": info["rounds"],
+            "tiers": info.get("tiers"),
+            "fault_stats": info["fault_stats"],
+            "aborted": info["aborted"],
+            "rows": ex["rows"], "stat_words": ex["stat_words"],
+            "ams": ex["ams"], "puts": ex["puts"],
+            "proxies": info["proxies"],
+            "proxies_peak": info["proxies_peak"],
+            "builtin_ams": info["builtin_ams"],
+            "executed": info["executed"],
+            "kernel_ms": ex["kernel_ms"],
+            "exchange_ms": None,
+        }
     if kind.startswith(("user", "pgas")):
         iv, data, info = _user_case(kind, ndev, dealt, kw, device)
         ex = info.get("exchange", {})
@@ -338,12 +419,22 @@ def _user_tables(device):
 
 def user_sources():
     """The generated sources of every user library these holds and
-    ``chip_smoke.py`` build: USER_TABLE's, the dry run's two tables and
-    the PGAS exchange's."""
+    ``chip_smoke.py`` build: USER_TABLE's, the dry run's tables, the PGAS
+    exchange's, the lock workload's, and the migrating configuration's
+    of the homed fib (scalar and width 8), unified_load's table (scalar
+    and width 8) and the dry run's phase 0."""
     return [user_megakernel(16, "cpu").user_source(),
             stress.bump_megakernel("cpu").user_source(),
             stress.pgas_megakernel(device="cpu").user_source(),
-            stress.put_consume_megakernel("cpu").user_source()]
+            stress.put_consume_megakernel("cpu").user_source(),
+            stress.lock_megakernel(device="cpu").user_source(),
+            homed_megakernel(64, 0, "cpu").user_source(True, home=True),
+            homed_megakernel(64, 8, "cpu").user_source(True, home=True),
+            stress.unified_megakernel(64, 0, "cpu").user_source(
+                True, home=True),
+            stress.unified_megakernel(64, 8, "cpu").user_source(
+                True, home=True),
+            stress.dryrun0_megakernel("cpu").user_source(True, home=True)]
 
 
 USER_CASES = ("chain_free", "mixed", "ufib")

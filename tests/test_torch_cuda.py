@@ -731,7 +731,8 @@ MESH_CASES = ("sharded_nosteal_8", "sharded_steal_8", "sharded_steal_8_b8",
               "ring_3_b8", "ring_1", "resident_2", "resident_4",
               "resident_8_hops", "resident_8_abort", "resident_8_b8",
               "user_sharded_8", "user_resident_8", "pgas_2", "pgas_4",
-              "pgas_8", "pgas_steal_8")
+              "pgas_8", "pgas_steal_8", "homed_2", "homed_8", "homed_3d",
+              "homed_8_b8", "atomics_4")
 
 
 def _mesh_holds():
@@ -876,3 +877,53 @@ def test_pgas_protocol_fault_stops_the_mesh(card):
     pg = PGASMegakernel(mk, cuda_mesh(2), channels={"c0": ("heap", 1)})
     with pytest.raises(RuntimeError, match="undeclared channel"):
         pg.run(bs, data={"heap": np.zeros((2, 4, 128), np.int32)})
+
+
+def test_lock_fifo_overflow_raises_on_card(card):
+    """Four lockers on a lock whose FIFO holds one waiter: the owner CTA
+    sets OVF_LOCKQ and the run raises naming the lock FIFO, as the plain
+    version does."""
+    from hclib_tpu_torch.device.resident import (ResidentKernel,
+                                                 lock_block_slots)
+    from hclib_tpu_torch.parallel.mesh import cpu_mesh, cuda_mesh
+
+    def lock1(ctx):
+        row = ctx.spawn(1, dep_count=1)
+        ctx.pgas.lock(0, 8, row, 1)
+
+    def crit(ctx):
+        ctx.pgas.unlock(0, 8, 1)
+
+    for device, mesh in (("cuda", cuda_mesh(4)), ("cpu", cpu_mesh(4))):
+        mk = tmk.Megakernel(
+            [("lock1", lock1, """
+  const int row = ctx.spawn(1, nullptr, 0, 1);
+  ctx.pgas.lock(0, 8, row, 1);"""),
+             ("crit", crit, "ctx.pgas.unlock(0, 8, 1);")],
+            capacity=16, num_values=32, succ_capacity=8, device=device)
+        bs = [TaskGraphBuilder() for _ in range(4)]
+        for b in bs:
+            b.add(0)
+            b.reserve_values(8 + lock_block_slots(1))
+        with pytest.raises(RuntimeError, match="lock FIFO"):
+            ResidentKernel(mk, mesh, steal=False).run(bs)
+
+
+def test_builtin_only_homed_library_holds(card):
+    """A table of built-in bodies alone (fib and sum) runs the migrating
+    configuration from a user library with no user body: it builds,
+    holds the migrating instance only, and equals the plain run word for
+    word (value slots, counts, rounds, proxies, built-in messages)."""
+    h = _mesh_holds()
+    mk = h.homed_megakernel(64, 0, "cuda")
+    assert not mk.user_bodies
+    src = mk.user_source(True, home=True)
+    assert "#define HCLIB_USER_PGAS 2" in src and "user_body_0" not in src
+    lib = mk.user_library(True, home=True)
+    out = ctypes.c_int(0)
+    fn = lib.hclib_user_coresident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    assert fn(2, 0, 1, 2, ctypes.byref(out)) == 0 and out.value >= 8
+    assert fn(0, 0, 1, 0, ctypes.byref(out)) != 0  # no mk_user_kernel
+    h.compare(h.run_case("homed_3d", "cuda"), h.run_case("homed_3d", "cpu"),
+              "homed_3d")

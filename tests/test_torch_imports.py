@@ -149,6 +149,11 @@ ENTRY_POINTS = {
     "forest_steal": lambda: __import__(
         "hclib_tpu_torch.device.stress", fromlist=["x"]).forest_steal(
             ndev=2, roots=2, n=3, capacity=64),
+    "unified_load": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).unified_load(
+            ndev=2, n=4, fadds=2, capacity=64),
+    "dryrun0": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).dryrun0(),
 }
 
 

@@ -297,11 +297,15 @@ class _Plan:
 
 
 REFUSED_INIT = {
-    "homed": dict(migratable_fns=[FIB], homed=True),
-    "value_args": dict(migratable_fns={FIB: (0,)}, homed=False),
-    # Channels run (tests/test_torch_pgas.py); with homed migration beside
-    # them they still refuse, and the PGAS configuration with injection.
-    "channels_homed": dict(channels={"c": ("x", 1)}, migratable_fns=[FIB]),
+    # Homed migration, value args and channels run (tests/
+    # test_torch_homed.py, test_torch_pgas.py); beside a fault plan, mesh
+    # tenancy or injection they still refuse, as does the PGAS
+    # configuration with injection.
+    "homed_faults": dict(migratable_fns=[FIB], fault_plan=_Plan()),
+    "value_args_tenants": dict(migratable_fns={FIB: (0,)}, homed=False,
+                               tenants=2),
+    "channels_homed_inject": dict(channels={"c": ("x", 1)},
+                                  migratable_fns=[FIB], inject=True),
     "inject": dict(inject=True),
     "tenants": dict(tenants=2),
     "fault_plan": dict(fault_plan=_Plan()),
@@ -316,9 +320,10 @@ def test_resident_refuses_what_is_not_ported(name):
 
 
 REFUSED_RUN = {
-    # waits= runs (tests/test_torch_pgas.py); a body's remote atomic on
-    # the PGAS configuration still refuses (ROADMAP A11b.2).
-    "pgas_atomics": None,
+    # waits= and a body's remote atomics run (tests/test_torch_pgas.py,
+    # test_torch_homed.py); quiescing the PGAS configuration still
+    # refuses (ROADMAP A11b).
+    "pgas_quiesce": None,
     "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []]),
     "quiesce": dict(quiesce=True),
     "resume_state": dict(resume_state={"tasks": None}),
@@ -338,7 +343,8 @@ def test_resident_run_refuses_what_is_not_ported(name):
         bs = [TBuilder() for _ in range(2)]
         bs[0].add(0)
         with pytest.raises(NotImplementedError, match="A11b"):
-            rk.run(bs, data={"x": np.zeros((2, 2, 4), np.int32)})
+            rk.run(bs, data={"x": np.zeros((2, 2, 4), np.int32)},
+                   quiesce=True)
         return
     rk = ResidentKernel(_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
                         homed=False)
@@ -392,9 +398,13 @@ def test_mesh_shape_and_argument_errors():
         CtaMesh((2, 2, 2, 2), ("a", "b", "c", "d"), device="cpu")
 
 
-def test_unified_load_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tstress.unified_load()
+def test_unified_load_runs_exact():
+    """unified_load (homed migration and remote fetch-adds) at 4 devices:
+    its totals are held inside; the tree spread and no proxy is left."""
+    info = tstress.unified_load(ndev=4, n=7, fadds=8, capacity=128,
+                                device="cpu")
+    assert info["tasks"] == expected([7])[0] + 8
+    assert info["devices_used"] >= 2 and info["proxies"] == [0] * 4
 
 
 def test_mesh_entry_points_default_to_the_card():

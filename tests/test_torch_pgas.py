@@ -454,16 +454,43 @@ def test_pgas_exchange_exact_at_8_devices():
 # ----------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("op", ["fadd", "fadd_get", "cswap", "lock",
-                                "unlock"])
-def test_remote_atomics_and_locks_refuse(op):
+ATOMIC_OPS = {
+    # op: (ctx.pgas call from device 0 at device 1, device 1's slots 0..3
+    # after the run: slot 0 preset 5, slot 2 the reply slot).
+    "fadd": (lambda p, row: p.fadd(1, 0, 7), [12, 0, 0, 0]),
+    "fadd_get": (lambda p, row: p.fadd_get(1, 0, 7, row, 2), [12, 0, 0, 0]),
+    "cswap": (lambda p, row: p.cswap(1, 0, 5, 9, row, 2), [9, 0, 0, 0]),
+    "lock": (lambda p, row: p.lock(1, 1, row, 1), [5, 1, 0, 0]),
+    "unlock": (lambda p, row: p.unlock(1, 1, 1), [5, 0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("op", sorted(ATOMIC_OPS))
+def test_remote_atomics_and_locks_run(op):
+    """Each of ctx.pgas's atomics and lock ops from device 0 at device 1
+    (its owner applies it in the receive drain): the owner's slots, the
+    reply deposited in device 0's slot 2 and its parked CONSUME (one
+    extra dependency) released, where the op replies."""
+    call, want = ATOMIC_OPS[op]
+    replies = op in ("fadd_get", "cswap", "lock")
+
     def body(ctx):
-        getattr(ctx.pgas, op)(0, 1, 2)
+        row = ctx.spawn(CONSUME, args=[3], dep_count=1) if replies else 0
+        call(ctx.pgas, row)
 
     bs = [TBuilder() for _ in range(2)]
     bs[0].add(EXTRA)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11b"):
-        _run(body, 2, bs)
+    iv0 = np.zeros((2, 64), np.int32)
+    iv0[1, 0] = 5
+    iv0[1, 1] = 1 if op == "unlock" else 0  # a held lock, no waiter
+    pg = PGASMegakernel(tmk(body), cpu_mesh(2), channels=CHANNELS)
+    iv, _, info = pg.run(bs, data={"heap": heap(2)}, ivalues=iv0)
+    assert iv[1, :4].tolist() == want
+    assert info["pending"] == 0
+    assert info["builtin_ams"][op][1] == 1
+    if op in ("fadd_get", "cswap"):
+        assert iv[0, 2] == 5 and info["builtin_ams"]["reply"][0] == 1
+    assert info["executed"] == 1 + replies
 
 
 def test_pgas_refuses_a_non_power_of_two_mesh():
