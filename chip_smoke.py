@@ -237,6 +237,26 @@ header, qstat and the whole output state equal to the plain core's.
              by kind, the proxies' peak and the bound an arm; then
              (outside the launch counts) every arm's plain run, word
              for word.
+29. inject   - the injection ring and mesh tenancy (the resident
+             kernel's injecting instances, csrc/mesh.cuh
+             resident_kernel<.., kInject>, from the tables' user
+             libraries): JAX's composition of steal, a put with its
+             parked consumer and three injected rows on 4 CTAs
+             (compose_4); the two compositions JAX runs only on a TPU,
+             on one CTA: the five-way one (steal, fetch-add, lock, put
+             and an injected stream; slot 5 = 37, slot 6 = 42) and the
+             volume stress (fib(14), 64 fetch-adds, 8 contending
+             lockers with the compare-swap tripwire, 4 puts, a 64-row
+             stream; executed 1,937); the whole card, 128 CTAs: 160 x
+             fib(12) on device 0 steal-only plus 256 FIB(4) rows on
+             every device's ring (32,768 rows, 32 MiB of ring; 537,504
+             tasks, exact), and four tenant lanes gold / std / bg / late
+             at 4:2:1:1 through a MeshTenantTable (3,072 / 2,048 /
+             1,024 admissions installed once, late's 512 rows expired on
+             the ring and dropped by the card, per-tenant conservation).
+             Each arm warmed up (its library's first launch), then timed
+             by CUDA events; then (outside the launch counts) each arm's
+             plain run, word for word with the tctl echo.
 
 The ``user`` lines, before the main path, hold the user-body
 scheduler on one device to the plain core (``scripts/mesh_holds.py``
@@ -257,7 +277,11 @@ phases 2 and 3 and the PGAS exchange at 2, 4 and 8 devices (with steal
 beside it at 8), data buffers and messages and puts sent included; and
 the migrating configuration on JAX's homed fib tests (2 and 8 devices,
 a 2x2x2 mesh, width 8 at 8) and the lock workload at 4 devices, their
-proxies and built-in messages included.
+proxies and built-in messages included; and the injecting instances on
+the forest with injected FIB rows (8 devices), the PGAS exchange with
+injected BUMPs (4 devices, and 8 with steal), JAX's three compositions
+that inject, and four tenant lanes on 4 devices with a 16-row table,
+the tctl echo included.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -269,7 +293,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-28 are the main path: launch counts are zeroed just before each
+Phases 3-29 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -3242,6 +3266,81 @@ def main() -> int:
     emit({"phase": "homed", "arms": homed_arms, "plain_ms": homed_plain,
           "library": "none: no PyTorch call runs a task scheduler, its "
                      "migration protocol or its remote atomics",
+          "launches": launches})
+
+    # 29. the injection ring and mesh tenancy (the resident kernel's
+    # injecting instances, resident_inject): scripts/mesh_holds.py's
+    # PHASE29 arms - JAX's three resident compositions that inject
+    # (tests/test_resident.py :238 on 4 CTAs, and the TPU-only :420 and
+    # :472 on one), 160 x fib(12) with 256 FIB(4) rows on each of 128
+    # rings, and four tenant lanes through a MeshTenantTable on 128 CTAs.
+    # Each arm runs twice on the card (the first launch of its library
+    # is the warm-up), exact by JAX's assertions; then, outside the
+    # counts, its plain run word for word (value slots, counts rows,
+    # rounds, fault stats, exchange volume, heap, the tctl echo and the
+    # table's stats).
+    from hclib_tpu_torch.device.tenants import TC_CONSUMED
+
+    _build.reset_launches()
+    inj_arms, inj_out = {}, {}
+    for name in mesh_holds.PHASE29:
+        mesh_holds.run_arm(name, "cuda")  # warm-up
+        t0 = time.perf_counter()
+        got = mesh_holds.run_arm(name, "cuda")
+        dt = time.perf_counter() - t0
+        inj_out[name] = got
+        # Rows the polls consumed: installed or dropped expired.
+        ring_rows = (int(got["tenant_ctl"][:, :, TC_CONSUMED].sum())
+                     if got["tenant_ctl"] is not None else
+                     {"compose_4": 3, "five_way_1": 2, "volume_1": 64,
+                      "inject_128": 128 * 256}[name])
+        arm = {"seconds": dt, "kernel_ms": got["kernel_ms"],
+               "tasks": got["executed"], "rounds": got["rounds"],
+               "ring_rows": ring_rows,
+               "expired_on_card": sum(f["tenant_expired"]
+                                      for f in got["fault_stats"]),
+               "devices_used": int((got["counts"][:, 5] > 0).sum()),
+               "rows_exported": sum(got["rows"]),
+               "stat_words": sum(got["stat_words"]), "ams": sum(got["ams"])}
+        if got["tenants"] is not None:
+            arm["tenants"] = {t: {k: v[k] for k in (
+                "accepted", "completed", "expired", "dropped", "backlog")}
+                for t, v in got["tenants"].items()}
+        # The bound (bytes): row 7's 136 B a task, 64 B an active message
+        # or a descriptor row moved, 4 B a stat word sent, and 64 B a
+        # descriptor read from a ring row.
+        arm["bound_ms"] = bound(0.0, 136.0 * arm["tasks"] + 64.0 * (
+            arm["ams"] + arm["rows_exported"] + ring_rows)
+            + 4.0 * arm["stat_words"])[0]
+        inj_arms[name] = arm
+        emit({"phase": "inject", "arm": name, **arm})
+    check(inj_arms["inject_128"]["tasks"] == 537504
+          and inj_arms["inject_128"]["devices_used"] == 128,
+          f"inject_128: {inj_arms['inject_128']}")
+    check(inj_arms["tenants_128"]["expired_on_card"] == 512,
+          f"tenants_128: {inj_arms['tenants_128']}")
+    launches = path_done("inject")
+    # Outside the counts: every arm's plain run, word for word.
+    inj_plain, inj_err = {}, {}
+    for name in mesh_holds.PHASE29:
+        want = mesh_holds.run_arm(name, "cpu")
+        inj_err[name] = mesh_holds.compare(inj_out[name], want, name)
+        inj_plain[name] = want["kernel_ms"]
+    emit({"phase": "inject", "plain_equal": sorted(inj_err),
+          "max_abs_err": inj_err, "plain_ms": inj_plain})
+    a = inj_arms["inject_128"]
+    kernels["resident_inject"] = {
+        "name": "resident_inject", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/resident.py:2222",
+        "max_abs_err": max(list(inj_err.values())
+                           + [mesh_hold_err["resident_inject"]]),
+        "ms": a["kernel_ms"], "plain_ms": inj_plain["inject_128"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+    emit({"phase": "inject", "arms": inj_arms, "plain_ms": inj_plain,
+          "library": "none: no PyTorch call runs a task scheduler or its "
+                     "injection ring",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

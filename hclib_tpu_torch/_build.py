@@ -21,17 +21,20 @@ the QUERY body, scalar and batched, ``"bnb_node"`` the knapsack NODE
 body, scalar and batched, ``"tracebuf"`` the megakernel launches that
 ran an observed instance: the flight recorder or the quiesce poll, and
 ``"stream"`` the entries of the streaming front door's kernel
-(``csrc/stream.cuh``, in the megakernel library), whose body dispatches fold into the body counters
-as the megakernel's do); the mesh kernels of ``csrc/mesh.cuh`` (in the
-megakernel library): ``"mesh_round"`` the sharded runner's grid launches
-(one a steal round), ``"ici_ring"`` and ``"resident_steal"`` the launches
-of the ring and the resident kernel's steal-only configuration (one a
-run), ``"resident_pgas"`` its PGAS configurations (channels, with or
-without steal), ``"resident_homed"`` its migrating configuration (homed
-copies with their completions, value args); ``"mk_user"`` the launches of a user-body library's
-scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a user table on one
-device, or a grid launch of the sharded runner). A user table's launches
-of the ring and the resident kernel count as those kernels'.
+(``csrc/stream.cuh``, in the megakernel library), whose body dispatches
+fold into the body counters as the megakernel's do); the mesh kernels
+of ``csrc/mesh.cuh`` (in the megakernel library): ``"mesh_round"`` the
+sharded runner's grid launches (one a steal round), ``"ici_ring"`` and
+``"resident_steal"`` the launches of the ring and the resident kernel's
+steal-only configuration (one a run), ``"resident_pgas"`` its PGAS
+configurations (channels, with or without steal), ``"resident_homed"``
+its migrating configuration (homed copies with their completions, value
+args), ``"resident_inject"`` its injecting instances (the injection ring
+and mesh tenancy, any configuration); ``"mk_user"`` the launches of a
+user-body library's scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a
+user table on one device, or a grid launch of the sharded runner). A
+user table's launches of the ring and the resident kernel count as
+those kernels'.
 
 A table with user-defined bodies (``Megakernel(kernels=[(name, fn,
 cuda)])``) builds its own small library from a generated source,
@@ -71,10 +74,11 @@ LAUNCHES: Dict[str, int] = {
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
     "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
     "resident_steal": 0, "resident_pgas": 0, "resident_homed": 0,
-    "mk_user": 0,
+    "resident_inject": 0, "mk_user": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_USER_LIBS: Dict[str, ctypes.CDLL] = {}  # generated source -> its library
 
 
 def reset_launches() -> None:
@@ -185,7 +189,13 @@ def build_all(user_sources=()) -> Dict[str, float]:
 
 def user_library(source: str) -> ctypes.CDLL:
     """The loaded user-body library of generated ``source`` (built on
-    first use, by itself: megakernel.cu's library is not rebuilt)."""
+    first use, by itself: megakernel.cu's library is not rebuilt). Found
+    by its source text once loaded: its key reads and hashes the headers,
+    ~1 ms that a fresh table's first launch would otherwise pay inside
+    its timed window."""
+    lib = _USER_LIBS.get(source)
+    if lib is not None:
+        return lib
     key = "user-" + user_key(source)
     lib = _LIBS.get(key)
     if lib is None:
@@ -196,6 +206,7 @@ def user_library(source: str) -> ctypes.CDLL:
         lib.hclib_error_string.restype = ctypes.c_char_p
         lib.hclib_error_string.argtypes = [ctypes.c_int]
         _LIBS[key] = lib
+    _USER_LIBS[source] = lib
     return lib
 
 

@@ -22,12 +22,17 @@
 //                       :497-536), both at once, and migrating (kHome:
 //                       homed_elig_of :1025, the proxy budget, export's
 //                       homed copies and value args, install_fixed :993,
-//                       complete_hook :914 in HomeSched)
+//                       complete_hook :914 in HomeSched); each of them
+//                       also with the injection ring (kInject: poll
+//                       :1404, the tenant lanes' tpoll :1458, the ring
+//                       backlog in the fold's SF_INJ and the exit,
+//                       :1938-1988)
 // csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
 // mk_kernel's body a block) and instantiates these with the built-in
 // thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
-// with its own bodies, the PGAS and migrating configurations only there
-// (a table of built-in bodies alone builds one with no user body).
+// with its own bodies, the PGAS and migrating configurations and the
+// injecting instances only there (a table of built-in bodies alone
+// builds one with no user body).
 //
 // Design. The steal kernels keep the whole run in one launch: each CTA's
 // thread 0 runs the serial scheduler of mk_kernel (Sched's stage, pop,
@@ -78,6 +83,15 @@
 // to a device outside the mesh) stops the mesh the same way. A protocol
 // fault shows as an error, never as a hung launch.
 //
+// Injection. Each device's ring (R rows of RING_ROW words, host-written
+// before the launch) and its ictl row (tail, closed, consumed) are in
+// global memory; the kernel re-reads the tail every round with a relaxed
+// load, installs the published rows past its consumed cursor in order and
+// folds the backlog it leaves into SF_INJ, so the mesh exits only when
+// every ring is drained. On a tenant mesh the ring is T lane regions and
+// each device's (T, 8) tctl rows are scanned and updated in place by its
+// thread 0 (the host reads them back as the echo).
+//
 // What bounds it: as mk_kernel, a chain of dependent loads and stores by
 // one thread a CTA, now on ndev SMs at once; an exchange hop adds the
 // round trip of two flag handshakes through L2, and a put its row bytes.
@@ -107,11 +121,12 @@ constexpr int P_SARR = 0, P_SCRED = 8, P_RARR = 16, P_RCRED = 24;
 constexpr int P_STAT = 32, STAT_WORDS = 8, P_INBOX = 64;
 // Resident stat words (resident.py SF_*): the sums of [0, SX_AM), then
 // the XOR all-to-all section (the PGAS configurations), then the sender's
-// ready backlog. With no active messages, channels, injection or faults,
-// the all-to-all section is all zeros and the steal-only kernel does not
-// send it (S_BL is 7 there).
+// ready backlog. SF_INJ sums the injection rings' backlog (0 without
+// kInject). With no active messages, channels or faults, the all-to-all
+// section is all zeros and the steal-only kernel does not send it (S_BL
+// is 7 there).
 constexpr int SF_PEND = 0, SF_RECV = 1, SF_OUTB = 2, SF_SENT = 3,
-              SF_ABORT = 5, SX_AM = 7, S_BL = 7;
+              SF_INJ = 4, SF_ABORT = 5, SX_AM = 7, S_BL = 7;
 // The error row: the stop word, the claim, then what timed out (or the
 // protocol fault).
 constexpr int ER_STOP = 0, ER_CLAIM = 1, ER_DEV = 2, ER_ROUND = 3,
@@ -122,7 +137,14 @@ enum {
 };
 // resident.py FS_*: the fault/abort stats row a device writes at exit.
 constexpr int FS_DEAD_ROUND = 4, FS_ABORT_ROUND = 7, FS_QUIESCE_ROUND = 10,
-              FS_WORDS = 16;
+              FS_TEN_EXPIRED = 11, FS_WORDS = 16;
+// The injection ring's layout (descriptor.py RING_ROW, TEN_*; tenants.py
+// TC_*): a row's words past the descriptor, and a lane's tctl row.
+namespace inj {
+constexpr int ROW = 256, TEN_EXPIRED = 17;
+constexpr int TC_TAIL = 0, TC_CONSUMED = 1, TC_WEIGHT = 2, TC_PAUSE = 3,
+              TC_EXPIRED = 4, TC_INSTALLED = 5, TC_DROPPED = 6;
+}  // namespace inj
 // The exchange's volume a device (both steal kernels): rows it exported,
 // stat words it sent; and what the PGAS configurations sent: active
 // messages and puts.
@@ -180,6 +202,13 @@ struct MeshArgs {
   int chan_buf[MAX_CHANS], chan_rows[MAX_CHANS], chan_nrows[MAX_CHANS];
   long long chan_row_bytes[MAX_CHANS];
   int pg_off[PG_SECTIONS];
+  // The injecting instances: each device's ring (ring_rows rows of
+  // inj::ROW words), its ictl row (tail, closed, consumed) and, with
+  // ntenants lanes of `region` rows, its (ntenants, 8) tctl rows.
+  const int32_t* iring;
+  const int32_t* ictl;
+  int32_t* tctl;
+  int ring_rows, ntenants, region;
 };
 
 // Device d's slice of the stacked state (in place: tasks_in == tasks).
@@ -810,6 +839,73 @@ struct Pgas {
   }
 };
 
+// One device's injection ring and its poll, on thread 0 (resident.py
+// poll :1404 and tpoll :1458): ring rows install in order through the
+// PGAS configurations' install_fixed, or the core's install_descriptor in
+// the steal-only one; a row the host marked TEN_EXPIRED is dropped and
+// counted. Returns the backlog the poll leaves (the fold's SF_INJ).
+template <bool kPgas>
+struct Ring {
+  const MeshArgs& m;
+  const Pgas& P;
+  int me;
+  int consumed;  // the linear poll's cursor (starts at ictl word 2)
+  int expired;   // rows dropped expired (FS_TEN_EXPIRED)
+
+  template <class SS>
+  __device__ bool take(SS& S, int slot) const {
+    const int32_t* src =
+        m.iring + (static_cast<size_t>(me) * m.ring_rows + slot) * inj::ROW;
+    if (src[inj::TEN_EXPIRED] != 0) return false;
+    int32_t d[DESC];
+    for (int w = 0; w < DESC; ++w) d[w] = src[w];
+    if constexpr (kPgas)
+      P.install_fixed(S, d);
+    else
+      S.install_descriptor(d);
+    return true;
+  }
+
+  template <class SS>
+  __device__ int poll(SS& S, int r) {
+    const int T = m.ntenants;
+    if (T == 0) {
+      const int tail = ld_relaxed(m.ictl + 8 * me);  // re-read every round
+      for (int c = consumed; c < tail; ++c) expired += take(S, c) ? 0 : 1;
+      consumed = max(consumed, tail);
+      return tail - consumed;
+    }
+    // The weighted round-robin over the lanes from lane r mod T: a lane
+    // takes min(weight, avail, headroom()) rows, paused lanes are swept.
+    int32_t* tc0 = m.tctl + static_cast<size_t>(me) * T * 8;
+    for (int k = 0; k < T; ++k) {
+      const int lane = (r + k) % T;
+      int32_t* tc = tc0 + lane * 8;
+      const int tail = tc[inj::TC_TAIL], cons = tc[inj::TC_CONSUMED];
+      const bool paused = tc[inj::TC_PAUSE] != 0;
+      const int avail = tail - cons;
+      const int n =
+          paused ? 0 : min(min(tc[inj::TC_WEIGHT], avail), S.headroom());
+      int c = cons, inst = 0, exp = 0;
+      for (; c < cons + n; ++c) {
+        if (take(S, lane * m.region + c))
+          ++inst;
+        else
+          ++exp;
+      }
+      tc[inj::TC_CONSUMED] = paused ? tail : c;
+      if (paused) tc[inj::TC_DROPPED] += avail;
+      tc[inj::TC_INSTALLED] += inst;
+      tc[inj::TC_EXPIRED] += exp;
+      expired += exp;
+    }
+    int backlog = 0;
+    for (int l = 0; l < T; ++l)
+      backlog += tc0[l * 8 + inj::TC_TAIL] - tc0[l * 8 + inj::TC_CONSUMED];
+    return backlog;
+  }
+};
+
 // The scheduler of the resident kernel's homed configuration (JAX's
 // _make_core with tracks_home and complete_hook): spawn and
 // take_continuation keep the home links (when `track`), and a completing
@@ -994,8 +1090,10 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
 // kHome (with kSteal and kPgas): the migrating configuration - the export
 // and install of homed copies and of value args, HomeSched's home links
 // and completion messages (resident.py with migratable kinds and homed,
-// or value args).
-template <bool kLanes, bool kSteal, bool kPgas, class B, bool kHome = false>
+// or value args). kInject: after sched(quantum), the ring's poll (Ring);
+// its backlog rides the fold's SF_INJ and the mesh exits only at 0.
+template <bool kLanes, bool kSteal, bool kPgas, class B, bool kHome = false,
+          bool kInject = false>
 __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   static_assert(!kHome || (kSteal && kPgas), "the migrating configuration");
   __shared__ int32_t s_counts[8];
@@ -1018,6 +1116,8 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   const int sbl = kPgas ? m.stat_words - 1 : S_BL;
   const int p_inbox = kPgas ? m.p_inbox : P_INBOX;
   int xs[XS_WORDS] = {0, 0, 0, 0};
+  Ring<kPgas> I{m, P, me, 0, 0};
+  if constexpr (kInject) I.consumed = ld_relaxed(m.ictl + 8 * me + 2);
   S.stage(a);
   int r = 0, abort_round = -1;
   bool done = false, ok = true;
@@ -1027,9 +1127,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     mesh_sched<kLanes>(S, a, R, O, bodies);
     if constexpr (kPgas) {
       if (X.stopped()) break;  // a body's protocol fault
-      P.drain_outbox();
     }
-    int acc[SX_AM] = {s_counts[C_PENDING], 0, 0, 0, 0, local_abort, 0};
+    int inj_backlog = 0;
+    if constexpr (kInject) inj_backlog = I.poll(S, r);
+    if constexpr (kPgas) P.drain_outbox();
+    int acc[SX_AM] = {s_counts[C_PENDING], 0, 0, 0, inj_backlog, local_abort,
+                      0};
     if constexpr (kPgas) P.stat_init(acc);
     for (int h = 0; h < m.nhops && ok; ++h) {
       const int k = m.hops[h], partner = me ^ (1 << k);
@@ -1080,9 +1183,10 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     if (!ok) break;
     const bool aborted = acc[SF_ABORT] > 0;
     if (aborted && abort_round < 0) abort_round = r;
-    done = acc[SF_PEND] == 0 || aborted;
+    const bool ring_idle = !kInject || acc[SF_INJ] == 0;
+    done = (acc[SF_PEND] == 0 && ring_idle) || aborted;
     if constexpr (kPgas) {
-      done = (acc[SF_PEND] == 0 && acc[SF_OUTB] == 0 &&
+      done = (acc[SF_PEND] == 0 && acc[SF_OUTB] == 0 && ring_idle &&
               acc[SF_SENT] == acc[SF_RECV]) ||
              aborted;
       if (!P.drain_receives(S)) break;
@@ -1106,6 +1210,7 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     fs[i] = i == FS_DEAD_ROUND || i == FS_QUIESCE_ROUND ? -1
             : i == FS_ABORT_ROUND                       ? abort_round
                                                         : 0;
+  if constexpr (kInject) fs[FS_TEN_EXPIRED] = I.expired;
 }
 
 }  // namespace
@@ -1131,6 +1236,7 @@ struct MeshHost {
   long long chan_buf[MAX_CHANS], chan_rows[MAX_CHANS],
       chan_nrows[MAX_CHANS], chan_row_bytes[MAX_CHANS];
   long long pg_off[PG_SECTIONS];
+  long long iring, ictl, tctl, ring_rows, ntenants, region;
 };
 
 }  // extern "C"
@@ -1211,6 +1317,12 @@ MeshArgs mesh_args(const MeshHost* h) {
   }
   for (int i = 0; i < PG_SECTIONS; ++i)
     m.pg_off[i] = static_cast<int>(h->pg_off[i]);
+  m.iring = reinterpret_cast<const int32_t*>(h->iring);
+  m.ictl = reinterpret_cast<const int32_t*>(h->ictl);
+  m.tctl = reinterpret_cast<int32_t*>(h->tctl);
+  m.ring_rows = static_cast<int>(h->ring_rows);
+  m.ntenants = static_cast<int>(h->ntenants);
+  m.region = static_cast<int>(h->region);
   return m;
 }
 

@@ -32,11 +32,14 @@
 //                     2: resident_kernel's migrating configuration
 //                     (homed copies and their completions, value args;
 //                     the PGAS ops too), its bodies spawning through
-//                     HomeSched.
-// A table whose bodies name ctx.pgas runs only under the last two; a
+//                     HomeSched;
+//   HCLIB_USER_INJECT 1: instead of those, resident_kernel's injecting
+//                     instances of the same configurations (kInject: the
+//                     injection ring and mesh tenancy).
+// A table whose bodies name ctx.pgas runs only under PGAS 1 and 2; a
 // table builds a variant only when it is run there. A table of built-in
 // bodies alone (fib and sum, say) builds a library with no user body for
-// the last two.
+// PGAS 1 and 2 and for the injecting instances.
 // A table may mix user bodies with the built-in thread-0 bodies fib, sum
 // and uts_node (and their batch_of forms); their body ids are the
 // built-in ones, a user body's is NBODY + its index in the table's user
@@ -54,6 +57,9 @@
 #endif
 #ifndef HCLIB_USER_PGAS
 #define HCLIB_USER_PGAS 0
+#endif
+#ifndef HCLIB_USER_INJECT
+#define HCLIB_USER_INJECT 0
 #endif
 
 namespace {
@@ -232,7 +238,23 @@ __global__ void __launch_bounds__(1) mk_user_kernel(MeshArgs m) {
 // The instance of (kind, lanes, steal, pgas) this library holds, or null.
 void* user_kernel_of(int kind, int lanes, int steal, int pgas) {
   if (lanes != int(kUserLanes) || pgas != HCLIB_USER_PGAS) return nullptr;
-#if HCLIB_USER_PGAS == 2
+#if HCLIB_USER_INJECT && HCLIB_USER_PGAS == 2
+  if (kind == 2 && steal)
+    return reinterpret_cast<void*>(
+        resident_kernel<kUserLanes, true, true, UserBodies, true, true>);
+#elif HCLIB_USER_INJECT && HCLIB_USER_PGAS
+  if (kind == 2)
+    return steal ? reinterpret_cast<void*>(
+                       resident_kernel<kUserLanes, true, true, UserBodies,
+                                       false, true>)
+                 : reinterpret_cast<void*>(
+                       resident_kernel<kUserLanes, false, true, UserBodies,
+                                       false, true>);
+#elif HCLIB_USER_INJECT
+  if (kind == 2 && steal)
+    return reinterpret_cast<void*>(
+        resident_kernel<kUserLanes, true, false, UserBodies, false, true>);
+#elif HCLIB_USER_PGAS == 2
   if (kind == 2 && steal)
     return reinterpret_cast<void*>(
         resident_kernel<kUserLanes, true, true, UserBodies, true>);
@@ -273,8 +295,10 @@ int hclib_user_coresident(int kind, int lanes, int steal, int pgas,
 // kind 0: mk_user_kernel, an ordinary launch of ndev one-thread blocks;
 // 1: ici_ring_kernel; 2: resident_kernel with steal and / or pgas (pgas
 // 2: the migrating configuration) (cooperative launches of ndev one-thread
-// CTAs). An instance this library's variant does not hold is invalid.
-// Returns cudaGetLastError() (0 = launched).
+// CTAs); an injecting library's resident_kernel wants the ring (h->ictl,
+// and h->tctl with tenant lanes), any other library none. An instance
+// this library's variant does not hold is invalid. Returns
+// cudaGetLastError() (0 = launched).
 int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
                       int pgas, void* stream) {
   void* kernel = user_kernel_of(kind, lanes, steal, pgas);
@@ -282,11 +306,15 @@ int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
       (kind > 0 && !steal_args_ok(h)) ||
       (pgas && (!h->pg || h->nchan < 1 || h->amw < 2 || h->outq < 1 ||
                 h->stat_words < S_BL + 1 ||
-                h->p_inbox < P_STAT + h->stat_words)))
+                h->p_inbox < P_STAT + h->stat_words)) ||
+      (h->ictl != 0) != (HCLIB_USER_INJECT != 0) ||
+      (h->ictl && (!h->iring || h->ntenants < 0 ||
+                   (h->ntenants > 0 &&
+                    (!h->tctl || h->ntenants * h->region > h->ring_rows)))))
     return cudaErrorInvalidValue;
   MeshArgs m = mesh_args(h);
   const auto st = static_cast<cudaStream_t>(stream);
-#if !HCLIB_USER_PGAS
+#if !HCLIB_USER_PGAS && !HCLIB_USER_INJECT
   if (kind == 0) {
     mk_user_kernel<kUserLanes><<<m.ndev, 1, 0, st>>>(m);
     return cudaGetLastError();

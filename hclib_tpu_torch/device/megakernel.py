@@ -82,7 +82,7 @@ import ctypes
 import math
 import re
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1374,7 +1374,7 @@ class Megakernel:
             else user_fn[n] if n in user_fn
             else self._plain[n] for f, n in enumerate(names)
         ]
-        self._user_libs: Dict[int, object] = {}
+        self._user_libs: Dict[Tuple[int, bool], object] = {}
         self._last_info: Optional[dict] = None
 
     def body_id(self, name: str) -> int:
@@ -1412,7 +1412,7 @@ class Megakernel:
                 "device='cpu'")
 
     def user_source(self, pgas: Optional[bool] = None,
-                    home: bool = False) -> str:
+                    home: bool = False, inject: bool = False) -> str:
         """The CUDA source of this table's user-body library
         (csrc/user.cuh, then each user body's statements as
         ``user_body_<k>(Ctx& ctx)`` and the switch over them; none for a
@@ -1420,12 +1420,16 @@ class Megakernel:
         resident kernel's PGAS configurations, or the scheduler, the ring
         and the resident kernel steal-only); None: the PGAS variant iff a
         body names ``ctx.pgas``. ``home``: the resident kernel's
-        migrating configuration (``HCLIB_USER_PGAS 2``)."""
+        migrating configuration (``HCLIB_USER_PGAS 2``). ``inject``: the
+        resident kernel's injecting instances of that variant
+        (``HCLIB_USER_INJECT 1``) instead."""
         if pgas is None:
             pgas = self.uses_pgas_text()
         lines = [f"#define HCLIB_USER_LANES {int(bool(self.batch_specs))}",
-                 f"#define HCLIB_USER_PGAS {_user_variant(pgas, home)}",
-                 '#include "user.cuh"', "", "namespace {", ""]
+                 f"#define HCLIB_USER_PGAS {_user_variant(pgas, home)}"]
+        if inject:
+            lines.append("#define HCLIB_USER_INJECT 1")
+        lines += ['#include "user.cuh"', "", "namespace {", ""]
         for k, (name, _, cuda) in enumerate(self.user_bodies):
             lines += [f"// {name}",
                       f"__device__ void user_body_{k}(Ctx& ctx) {{", cuda,
@@ -1438,14 +1442,16 @@ class Megakernel:
                   "}  // namespace", ""]
         return "\n".join(lines)
 
-    def user_library(self, pgas: bool = False, home: bool = False):
+    def user_library(self, pgas: bool = False, home: bool = False,
+                     inject: bool = False):
         """This table's user-body library of variant ``pgas`` (or
-        ``home``), built on first use (``_build.user_library``)."""
-        variant = _user_variant(pgas, home)
-        if variant not in self._user_libs:
-            self._user_libs[variant] = _build.user_library(
-                self.user_source(bool(pgas), home))
-        return self._user_libs[variant]
+        ``home``; ``inject``: its injecting instances), built on first
+        use (``_build.user_library``)."""
+        key = (_user_variant(pgas, home), bool(inject))
+        if key not in self._user_libs:
+            self._user_libs[key] = _build.user_library(
+                self.user_source(bool(pgas), home, bool(inject)))
+        return self._user_libs[key]
 
     def uses_pgas_text(self) -> bool:
         """Whether a user body's CUDA source names ``ctx.pgas``."""
@@ -1988,18 +1994,21 @@ class Megakernel:
 
     def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
                     threads: int, smem: int, dev, pgas: bool = False,
-                    steal: bool = True, home: bool = False) -> None:
+                    steal: bool = True, home: bool = False,
+                    inject: bool = False) -> None:
         """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
         ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
         configuration, with ``steal`` or without; ``home``: its migrating
-        configuration) over ``host``'s mesh; raises if the launch fails,
-        or if a steal kernel's mesh has more devices than the card holds
-        CTAs at once (``mesh_coresident``). A table with user bodies, and
-        any table under the PGAS or migrating configuration, launches
-        its own library's kernels."""
+        configuration; ``inject``: the resident kernel's injecting
+        instance of that configuration) over ``host``'s mesh; raises if
+        the launch fails, or if a steal kernel's mesh has more devices
+        than the card holds CTAs at once (``mesh_coresident``). A table
+        with user bodies, and any table under the PGAS or migrating
+        configuration or injecting, launches its own library's
+        kernels."""
         k = MESH_KINDS.index(kind)
         if k:
-            limit = self.coresident(kind, mode, pgas, steal, home)
+            limit = self.coresident(kind, mode, pgas, steal, home, inject)
             if host.ndev > limit:
                 raise RuntimeError(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
@@ -2007,13 +2016,13 @@ class Megakernel:
                     "(one CTA an SM, cooperative launch): use a mesh of at "
                     f"most {limit}")
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if self.user_bodies or pgas:
+        if self.user_bodies or pgas or inject:
             if self.uses_pgas_text() and not pgas:
                 raise ValueError(
                     "a user body names ctx.pgas, which exists only under "
                     "the resident kernel's PGAS configuration "
                     "(ResidentKernel(channels=...) or PGASMegakernel)")
-            lib = self.user_library(pgas, home)
+            lib = self.user_library(pgas, home, inject)
             fn = lib.hclib_user_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
@@ -2027,20 +2036,22 @@ class Megakernel:
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             err = fn(ctypes.byref(host), k, mode, threads, smem, stream)
-        counter = ("resident_homed" if home else "resident_pgas" if pgas
+        counter = ("resident_inject" if inject else "resident_homed" if home
+                   else "resident_pgas" if pgas
                    else "mk_user" if self.user_bodies and k == 0 else kind)
         _build.check(lib, err, counter)
         _build.LAUNCHES[counter] += 1
 
     def coresident(self, kind: str, mode: int, pgas: bool = False,
-                   steal: bool = True, home: bool = False) -> int:
+                   steal: bool = True, home: bool = False,
+                   inject: bool = False) -> int:
         """The most CTAs of steal kernel ``kind`` (instance ``mode``; the
         resident kernel's PGAS configuration with ``pgas``, its migrating
-        one with ``home``) this card holds at once, from this table's
-        library."""
-        if not (self.user_bodies or pgas):
+        one with ``home``, their injecting instances with ``inject``)
+        this card holds at once, from this table's library."""
+        if not (self.user_bodies or pgas or inject):
             return mesh_coresident(kind, mode)
-        lib = self.user_library(pgas, home)
+        lib = self.user_library(pgas, home, inject)
         fn = lib.hclib_user_coresident
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -2243,6 +2254,10 @@ MAX_CHANS = 8  # csrc/mesh.cuh: channels of a PGAS configuration
 PG_SECTIONS = 15  # csrc/mesh.cuh PG_*: the sections of a PGAS workspace
 _PGAS_FIELDS = ("vfree", "s_vfree", "pg", "s_pg", "nchan", "amw", "outq",
                 "maxw", "stat_words", "p_inbox")
+# The injecting instances: each device's ring, ictl and tctl rows, the
+# ring's rows a device, the tenant lanes and a lane region's rows.
+_INJECT_FIELDS = ("iring", "ictl", "tctl", "ring_rows", "ntenants",
+                  "region")
 
 
 class MeshHost(ctypes.Structure):
@@ -2250,8 +2265,8 @@ class MeshHost(ctypes.Structure):
     tensor with its per-device stride (in words; data buffers in bytes),
     the table's sizes, the steal protocol's words, and (user-body
     libraries) the value-block stacks and the PGAS configuration's
-    workspace and channels. Every field is 64 bits (pointers too), so
-    both sides lay it out alike."""
+    workspace and channels; the injecting instances' ring). Every field
+    is 64 bits (pointers too), so both sides lay it out alike."""
 
     _fields_ = (
         [(n, ctypes.c_int64) for n in _MESH_FIELDS]
@@ -2263,6 +2278,7 @@ class MeshHost(ctypes.Structure):
         + [(n, ctypes.c_int64 * MAX_CHANS) for n in
            ("chan_buf", "chan_rows", "chan_nrows", "chan_row_bytes")]
         + [("pg_off", ctypes.c_int64 * PG_SECTIONS)]
+        + [(n, ctypes.c_int64) for n in _INJECT_FIELDS]
     )
 
 

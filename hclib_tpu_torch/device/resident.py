@@ -53,6 +53,24 @@ Port of ``hclib_tpu/device/resident.py`` ``ResidentKernel`` (:322) and
   block at install. The scheduler keeps home links
   (``Megakernel.tracks_home``). On the card: ``resident_homed``.
 
+Each of them also injects (``inject=True``: ``csrc/mesh.cuh``
+``resident_kernel<.., kInject>``; poll :1404, tpoll :1458, the round
+:1938-1973): every device has an injection ring of ``ring_capacity``
+rows (``RING_ROW`` words each, ``run(inject_rows=...)`` packed by
+``pack_inject_rows``) and an 8-word ictl row (tail, closed, consumed)
+the kernel re-reads every round; after ``sched(quantum)`` the poll
+installs the published rows in order (``install_fixed``; the
+steal-only configuration through the core's ``install_descriptor``),
+dropping and counting (``FS_TEN_EXPIRED``) a row marked
+``TEN_EXPIRED``. With ``tenants=`` (mesh tenancy, lanes from
+``tenants.normalize_mesh_tenants``) the ring is ``T`` lane regions of
+``region_rows`` rows and the poll is the weighted round-robin lane scan
+(from lane ``r mod T``, at most ``min(weight, avail, headroom())`` rows
+a lane, paused lanes swept) over a ``(T, 8)`` tctl block a device that
+``run(tenant_table=MeshTenantTable(...))`` pumps in and absorbs back.
+The ring backlog is the fold's ``SF_INJ`` sum, and the mesh exits only
+once it is 0. On the card: ``resident_inject``.
+
 The mesh exits in lockstep. A mesh device is one co-resident CTA
 (``parallel.mesh.CtaMesh``); the plain version (``_plain_resident``: the
 same rounds over the plain cores device by device) is what the CPU tests
@@ -62,10 +80,9 @@ configurations run from the table's user-body library
 user body). ``info`` reports, under them, each device's live proxies
 and their peak and the built-in messages it applied by kind.
 
-Not ported yet, each raising naming ROADMAP A11b: the injection ring
-and tenancy (``inject``, ``tenants``, ``inject_rows``,
-``tenant_table``), fault injection (``fault_plan``), quiesce and resume
-(``quiesce``, ``resume_state``) and a traced or checkpoint-built
+Not ported yet, each raising naming ROADMAP A11b: fault injection
+(``fault_plan``), quiesce and resume (``quiesce``, ``resume_state``;
+an injecting or tenant run included) and a traced or checkpoint-built
 Megakernel.
 """
 
@@ -80,6 +97,9 @@ import torch
 from ..runtime.resilience import StallError
 from .descriptor import (
     DESC_WORDS,
+    RING_ROW,
+    TEN_EXPIRED,
+    TEN_ID,
     F_A0,
     F_CSR_N,
     F_CSR_OFF,
@@ -117,8 +137,20 @@ from .megakernel import (
     mesh_slice,
 )
 from .sharded import abort_words, mesh_info, mesh_state
+from .tenants import (
+    TC_CONSUMED,
+    TC_DROPPED,
+    TC_EXPIRED,
+    TC_INSTALLED,
+    TC_PAUSE,
+    TC_TAIL,
+    TC_WEIGHT,
+    build_row,
+    normalize_mesh_tenants,
+)
 
-__all__ = ["ResidentKernel", "decode_fault_stats", "FS_WORDS",
+__all__ = ["ResidentKernel", "decode_fault_stats", "pack_inject_rows",
+           "FS_WORDS",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
            "export_rows", "import_rows", "run_mesh_kernel",
            "exchange_info", "pgas_layout", "stat_words", "lock_block_slots",
@@ -164,7 +196,8 @@ FS_WORDS = 16
 
 # The stat vector (resident.py SF_* / SX_*): the sums the fold keeps, then
 # (PGAS configurations) the XOR all-to-all section, then the backlog.
-SF_PEND, SF_RECV, SF_OUTB, SF_SENT, SF_ABORT, SX_AM = 0, 1, 2, 3, 5, 7
+SF_PEND, SF_RECV, SF_OUTB, SF_SENT, SF_INJ, SF_ABORT, SX_AM = (
+    0, 1, 2, 3, 4, 5, 7)
 STAT_WORDS = 8  # steal-only: the stat words a hop sends (sums, backlog)
 # The exchange's volume a device (csrc/mesh.cuh XS_*): rows it exported,
 # stat words it sent, and the active messages and puts it sent.
@@ -218,10 +251,30 @@ def decode_fault_stats(row) -> Dict[str, Any]:
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP A11b (the unified resident "
-        "kernel's injection ring and tenancy, fault plans, quiesce and "
-        "resume, traced or checkpoint-built tables); the port runs the "
-        "steal, PGAS and homed-migration configurations with remote "
-        "atomics and locks")
+        "kernel's fault plans, quiesce and resume, traced or "
+        "checkpoint-built tables); the port runs the steal, PGAS and "
+        "homed-migration configurations with remote atomics and locks, "
+        "the injection ring and mesh tenancy")
+
+
+def pack_inject_rows(rows: Sequence, R: int, dev: int = 0):
+    """Pack one device's ``inject_rows`` specs into its ``(R, RING_ROW)``
+    ring image (resident.py :221): tuples ``(fn, args[, out[,
+    tenant_lane]])`` or prebuilt RING_ROW numpy rows (``build_row`` with
+    a TEN_ID stamp). Returns ``(ring, n)``."""
+    ring = np.zeros((R, RING_ROW), np.int32)
+    if len(rows) > R:
+        raise ValueError(f"device {dev}: injection ring overflow")
+    for i, spec in enumerate(rows):
+        if isinstance(spec, np.ndarray):
+            ring[i] = np.asarray(spec, np.int32).reshape(RING_ROW)
+            continue
+        fn, args = spec[0], spec[1]
+        out = spec[2] if len(spec) > 2 else 0
+        ring[i] = build_row(fn, args, out)
+        if len(spec) > 3:
+            ring[i, TEN_ID] = int(spec[3])
+    return ring, len(rows)
 
 
 def stat_words(ndev: int, nchan: int) -> int:
@@ -420,7 +473,8 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                     max_rounds: int, window: int, scan: int,
                     hops: Sequence[int], nports: int,
                     timeout_s: float, pgas: Optional[dict] = None,
-                    steal: bool = True) -> Dict[str, Any]:
+                    steal: bool = True,
+                    inject: Optional[dict] = None) -> Dict[str, Any]:
     """Launch steal kernel ``kind`` (``"ici_ring"`` or
     ``"resident_steal"``; with ``pgas``, the resident kernel's PGAS
     configuration, ``steal`` or not) over stacked state ``st`` on the
@@ -429,9 +483,12 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     the buffer's rows, row bytes), ``nchan``, ``amw``, ``outq``, ``maxw``,
     each device's host waits (``waits``) and starting pstate words
     (``pstate``), whether the migrating configuration runs (``home``)
-    and the value limit. Returns the fault-stats rows (``fstats``), the
-    exchange volume rows (``xstats``), the pstate rows at exit (PGAS
-    configurations) and the launch's CUDA-event time (``kernel_ms``)."""
+    and the value limit. ``inject`` (the resident kernel's injecting
+    instance) holds each device's ring, ictl and tctl rows
+    (``ResidentKernel._ring``). Returns the fault-stats rows
+    (``fstats``), the exchange volume rows (``xstats``), the pstate rows
+    at exit (PGAS configurations), the tctl echo (a tenant mesh) and the
+    launch's CUDA-event time (``kernel_ms``)."""
     ndev = st["tasks"].shape[0]
     dev = st["tasks"].device
     if not 0 <= scan <= MESH_MAX_SCAN:
@@ -486,11 +543,20 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     for i, k in enumerate(hops):
         h.hops[i] = int(k)
     h.timeout_ns = int(timeout_s * 1e9)
+    if inject is not None:
+        for k, name in (("ring", "iring"), ("ictl", "ictl"),
+                        ("tctl", "tctl")):
+            if inject[k] is not None:
+                keep[name] = torch.from_numpy(inject[k]).to(dev)
+                setattr(h, name, keep[name].data_ptr())
+        h.ring_rows = inject["ring"].shape[1]
+        h.ntenants, h.region = inject["T"], inject["region"]
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     mk.mesh_launch(kind, h, mode, threads, smem, dev, pgas=pgas is not None,
-                   steal=steal, home=bool(pgas and pgas["home"]))
+                   steal=steal, home=bool(pgas and pgas["home"]),
+                   inject=inject is not None)
     t1.record()
     t1.synchronize()
     e = err.cpu().tolist()
@@ -508,6 +574,8 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
            "kernel_ms": t0.elapsed_time(t1)}
     if pgas is not None:
         out["pstate"] = keep["pg"][:, off[1]:off[1] + PS_WORDS].cpu().numpy()
+    if "tctl" in keep:
+        out["tctl"] = keep["tctl"].cpu().numpy()
     return out
 
 
@@ -766,15 +834,78 @@ class _PlainPgas:
         self.ps[PS_NWAIT] = len(kept)
 
 
+class _PlainRing:
+    """One device's injection ring and its poll (resident.py poll :1404
+    and tpoll :1458): the rows of ``ring`` (``(R, RING_ROW)``), the
+    consumed cursor, and on a tenant mesh the device's ``(T, 8)`` tctl
+    rows, mutated in place into the echo."""
+
+    def __init__(self, rk: "ResidentKernel", core: _PlainCore, fs, inj,
+                 d: int):
+        self.core, self.fs, self.ictl = core, fs, inj["ictl"][d]
+        self.ring = inj["ring"][d]
+        self.T, self.region = inj["T"], inj["region"]
+        self.tctl = None if inj["tctl"] is None else inj["tctl"][d]
+        self.consumed = int(self.ictl[2])
+        # The steal-only configuration adopts rows through the core's
+        # install_descriptor; the PGAS ones through install_fixed.
+        self.install = ((lambda row: install_fixed(core, row, rk)) if rk.pgas
+                        else (lambda row: core.install_descriptor(
+                            lambda w: row[w])))
+
+    def _take(self, slot: int) -> bool:
+        """Install ring row ``slot``, or drop it (counted) when the host
+        marked it expired; True when it installed."""
+        row = self.ring[slot]
+        if row[TEN_EXPIRED] != 0:
+            return False
+        self.install(row[:DESC_WORDS].tolist())
+        return True
+
+    def poll(self, r: int) -> int:
+        """This round's poll; returns the ring backlog it leaves (the
+        fold's SF_INJ word)."""
+        if self.tctl is None:
+            tail = int(self.ictl[0])  # re-read every round
+            for c in range(self.consumed, tail):
+                if not self._take(c):
+                    self.fs[FS_TEN_EXPIRED] += 1
+            self.consumed = max(self.consumed, tail)
+            return tail - self.consumed
+        tc, T, region = self.tctl, self.T, self.region
+        for k in range(T):
+            lane = (r + k) % T
+            tail, cons = int(tc[lane, TC_TAIL]), int(tc[lane, TC_CONSUMED])
+            paused = tc[lane, TC_PAUSE] != 0
+            avail = tail - cons
+            take = 0 if paused else min(int(tc[lane, TC_WEIGHT]), avail,
+                                        self.core.headroom())
+            c, inst, exp = cons, 0, 0
+            while c < cons + take:
+                if self._take(lane * region + c):
+                    inst += 1
+                else:
+                    exp += 1
+                c += 1
+            tc[lane, TC_CONSUMED] = tail if paused else c
+            if paused:
+                tc[lane, TC_DROPPED] += avail
+            tc[lane, TC_INSTALLED] += inst
+            tc[lane, TC_EXPIRED] += exp
+            self.fs[FS_TEN_EXPIRED] += exp
+        return int((tc[:, TC_TAIL] - tc[:, TC_CONSUMED]).sum())
+
+
 def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                     max_rounds: int, hop_bits: Sequence[int],
-                    waits) -> Dict[str, Any]:
+                    waits, inj: Optional[dict] = None) -> Dict[str, Any]:
     """The plain version of the resident kernel: every device's round in
     lockstep over the plain cores (the PGAS state of each on its core's
     ``pgas`` under a PGAS configuration; the migrating configuration's
-    export, install_fixed and completion hook). Returns the FS and XS
-    rows, the pstate rows (PGAS configurations) and the wall time
-    (``kernel_ms``)."""
+    export, install_fixed and completion hook; with ``inj``, each
+    device's ring poll after its sched). Returns the FS and XS rows, the
+    pstate rows (PGAS configurations), the tctl echo (a tenant mesh) and
+    the wall time (``kernel_ms``)."""
     t0 = time.perf_counter()
     mk, window, scan = rk.mk, rk.window, rk.scan
     ndev = st["tasks"].shape[0]
@@ -796,6 +927,11 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     fs[:, FS_QUIESCE_ROUND] = -1
     xs = np.zeros((ndev, XS_WORDS), np.int32)
     starve_below = min(quantum, window)
+    if inj is not None and inj["tctl"] is not None:
+        inj = dict(inj, tctl=inj["tctl"].copy())
+    rings = ([] if inj is None
+             else [_PlainRing(rk, c, fs[d], inj, d)
+                   for d, c in enumerate(cores)])
 
     def backlog(c):
         return c.counts[C_TAIL] - c.counts[C_HEAD]
@@ -805,12 +941,13 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         local_abort = [int(abort_arr[d, 0] != 0) for d in range(ndev)]
         for c in cores:
             c.sched(quantum)
+        inj_backlog = sum(ring.poll(r) for ring in rings)
         for pg in pgs:
             pg.drain_outbox()
         # The fold's sums (every device ends with the same ones), and
         # what each source announced to each target this round.
-        tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0, 0,
-               sum(local_abort), 0]
+        tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0,
+               inj_backlog, sum(local_abort), 0]
         if pgs:
             tot[SF_RECV] = sum(pg.ps[PS_RECV] for pg in pgs)
             tot[SF_OUTB] = sum(len(pg.outq) for pg in pgs)
@@ -846,9 +983,10 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         for d in range(ndev):
             if aborted and fs[d, FS_ABORT_ROUND] < 0:
                 fs[d, FS_ABORT_ROUND] = r
-        done = tot[SF_PEND] == 0 or aborted
+        done = (tot[SF_PEND] == 0 and tot[SF_INJ] == 0) or aborted
         if pgs:
             done = (tot[SF_PEND] == 0 and tot[SF_OUTB] == 0
+                    and tot[SF_INJ] == 0
                     and tot[SF_SENT] == tot[SF_RECV]) or aborted
             for v, pg in enumerate(pgs):
                 pg.drain_receives(am_exp[v], put_exp[v])
@@ -864,6 +1002,8 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
            "kernel_ms": (time.perf_counter() - t0) * 1e3}
     if pgs:
         out["pstate"] = np.array([pg.ps for pg in pgs], np.int32)
+    if inj is not None and inj["tctl"] is not None:
+        out["tctl"] = inj["tctl"]
     return out
 
 
@@ -967,11 +1107,7 @@ class ResidentKernel:
                     "value-arg rehydration needs uses_row_values=True "
                     "(arriving rows rehydrate into their own row block)"
                 )
-        # What this slice does not run yet.
-        if inject:
-            raise _later("inject=True (the resident injection ring)")
-        if tenants is not None and tenants is not False:
-            raise _later("tenants= (mesh tenancy)")
+        # What the port does not run yet.
         if fault_plan is not None and fault_plan.enabled():
             raise _later("fault_plan= (device fault injection)")
         if mk.trace is not None or mk.checkpoint:
@@ -992,6 +1128,22 @@ class ResidentKernel:
             raise ValueError(f"at most {MAX_CHANS} channels, got "
                              f"{len(self.channels)}")
         self.nchan = max(1, len(self.channels))
+        # The injection ring; with tenants=, T lane regions of
+        # region_rows rows a device (the ring is exactly their
+        # concatenation) and a (T, 8) tctl block a device.
+        self.inject = bool(inject)
+        self.ring_capacity = -(-int(ring_capacity) // 8) * 8
+        specs = normalize_mesh_tenants(tenants)
+        if specs is not None and not self.inject:
+            raise ValueError(
+                "tenants= partitions the injection ring into per-tenant "
+                "regions: needs inject=True")
+        self.tenant_specs = specs
+        self.T = 0 if specs is None else len(specs)
+        self.region_rows = 0
+        if self.T:
+            self.region_rows = -(-self.ring_capacity // (8 * self.T)) * 8
+            self.ring_capacity = self.T * self.region_rows
         # Homed migration (JAX's migratable and homed): the scheduler
         # keeps home links, and one result slot a row is reserved at the
         # top of the value buffer, [rbase, num_values), below which
@@ -1074,6 +1226,55 @@ class ResidentKernel:
                         f"device {d}: wait names task {row} out of range")
         return [[(int(c), int(n), int(t)) for c, n, t in w] for w in waits]
 
+    def _ring(self, inject_rows, tenant_table) -> Optional[dict]:
+        """The host half of the injection ring (resident.py :2430-2541
+        without the resume branches): each device's ``(R, RING_ROW)``
+        ring and its ictl row (tail, closed, consumed), marked closed (a
+        run drains what it was given); on a tenant mesh the table's
+        ``pump`` fills the lane regions and builds the stacked ``(ndev,
+        T, 8)`` tctl block. None without ``inject``."""
+        ndev = self.ndev
+        if tenant_table is not None and not self.T:
+            raise ValueError(
+                "tenant_table= needs a tenant-enabled mesh: build the "
+                "ResidentKernel with tenants= (or set "
+                "HCLIB_TPU_MESH_TENANTS)")
+        if not self.inject:
+            if inject_rows:
+                raise ValueError("inject_rows requires inject=True")
+            return None
+        R = self.ring_capacity
+        iring = np.zeros((ndev, R, RING_ROW), np.int32)
+        ictl = np.zeros((ndev, 8), np.int32)
+        tctl = None
+        if self.T:
+            if inject_rows:
+                raise ValueError(
+                    "a tenant-enabled mesh admits rows through its "
+                    "MeshTenantTable (run(tenant_table=...)), not "
+                    "inject_rows=")
+            if tenant_table is not None and (
+                    len(tenant_table) != self.T
+                    or tenant_table.ndev != ndev
+                    or tenant_table.region_rows != self.region_rows):
+                raise ValueError(
+                    f"tenant_table shape mismatch: table has "
+                    f"{len(tenant_table)} lanes x {tenant_table.ndev} "
+                    f"devices x {tenant_table.region_rows} region rows; "
+                    f"this mesh wants {self.T} x {ndev} x "
+                    f"{self.region_rows}")
+            ictl[:, 1] = 1
+            tctl = (tenant_table.pump(iring) if tenant_table is not None
+                    else np.zeros((ndev, self.T, 8), np.int32))
+        else:
+            for d, rows in enumerate(inject_rows or []):
+                iring[d], n = pack_inject_rows(rows, R, dev=d)
+                ictl[d, 0] = n
+                ictl[d, 1] = 1
+        return {"ring": iring, "ictl": ictl,
+                "tctl": None if tctl is None else np.asarray(tctl, np.int32),
+                "T": self.T, "region": self.region_rows}
+
     def run(
         self,
         builders: Optional[Sequence[TaskGraphBuilder]] = None,
@@ -1098,12 +1299,16 @@ class ResidentKernel:
         gains one extra dependency, satisfied once ``need`` puts landed on
         the channel. ``abort`` (truthy, or per-device flags) is folded into
         the termination sums: the mesh exits in lockstep with
-        ``info['aborted']`` instead of running the workload out."""
-        for name, v in (("inject_rows=", inject_rows),
-                        ("quiesce=", quiesce),
-                        ("resume_state=", resume_state),
-                        ("tenant_table=", tenant_table)):
-            if v is not None and v is not False and v != []:
+        ``info['aborted']`` instead of running the workload out.
+        ``inject_rows[d]`` (``inject=True``): device d's ring rows,
+        ``pack_inject_rows`` specs. ``tenant_table`` (a tenant mesh): the
+        ``MeshTenantTable`` whose admissions this run publishes (its
+        ``pump``) and whose lanes absorb the tctl echo after it;
+        ``info['tenant_ctl']`` is that echo, ``info['tenants']`` the
+        table's stats."""
+        for name, v in (("quiesce=", quiesce),
+                        ("resume_state=", resume_state)):
+            if v is not None and v is not False:
                 raise _later(name)
         if builders is None:
             raise ValueError("run() wants builders=")
@@ -1113,6 +1318,7 @@ class ResidentKernel:
             raise ValueError(f"at most {MAX_HOPS} hop bits")
         abort_arr = abort_words(abort, ndev)
         waits = self._waits(waits, builders)
+        ring = self._ring(inject_rows, tenant_table)
 
         def bump_waits(tasks, succ, ring, counts):
             # Symmetric-heap layout: host value slots occupy the SAME range
@@ -1153,7 +1359,7 @@ class ResidentKernel:
               if self.steal else {})
         if st["tasks"].device.type == "cpu":
             out = _plain_resident(self, st, wl, abort_arr, quantum,
-                                  max_rounds, hop_bits, waits)
+                                  max_rounds, hop_bits, waits, ring)
         else:
             pgas = None
             if self.pgas:
@@ -1173,7 +1379,7 @@ class ResidentKernel:
                 "resident_steal", mk, st, wl, abort_arr, quantum,
                 max_rounds, self.window, self.scan, hop_bits,
                 max(len(hop_bits), 1), self.timeout_s, pgas=pgas,
-                steal=self.steal)
+                steal=self.steal, inject=ring)
         fs = out["fstats"]
         info = mesh_info(st)
         info["rounds"] = int(info["per_device_counts"][0][C_ROUNDS])
@@ -1188,6 +1394,14 @@ class ResidentKernel:
                 name: ps[:, PS_AMS - 2 - k].tolist()
                 for k, name in RC_NAMES.items()}
         info["aborted"] = any(f["abort_round"] >= 0 for f in fsd)
+        if self.T:
+            # The stacked tctl echo (lane cursors and the cumulative
+            # install / expire / sweep counters) folds back into the
+            # front door before its stats are read.
+            info["tenant_ctl"] = np.asarray(out["tctl"])
+            if tenant_table is not None:
+                tenant_table.absorb(info["tenant_ctl"])
+                info["tenants"] = tenant_table.stats()
         if mk.batch_specs:
             trows = st["tstats"].cpu().numpy()
             info["tiers"] = [mk.decode_tier_stats(trows[d])

@@ -54,7 +54,9 @@ __all__ = ["forest_steal", "unified_load",
            "PGAS_COLS", "put_consume_megakernel", "dryrun_builders",
            "unified_megakernel", "unified_builders", "unified_resident",
            "check_unified", "dryrun0_megakernel", "dryrun0",
-           "lock_megakernel", "lock_builders", "check_locks"]
+           "lock_megakernel", "lock_builders", "check_locks",
+           "compose_inject", "five_way", "volume", "inject_forest",
+           "tenant_mesh", "INJECT_128", "TENANTS_128", "heap_data"]
 
 # The benchmark-of-record forest-steal configuration (bench.py
 # --multichip's headline), scalar and batched arms alike.
@@ -466,13 +468,13 @@ def _bump0(ctx):
 BUMP0_CUDA = "ctx.set_value(0, ctx.value(0) + ctx.arg(0));"
 
 
-def bump_megakernel(device="cuda"):
+def bump_megakernel(device="cuda", capacity: int = 256):
     """The multi-chip dry run's phases 2 and 3 table (__graft_entry__.py
     :162): one user body, BUMP (F_FN 0), adding arg 0 into value slot 0;
     capacity 256, 4 value slots."""
     from .megakernel import Megakernel
 
-    return Megakernel([("bump", _bump0, BUMP0_CUDA)], capacity=256,
+    return Megakernel([("bump", _bump0, BUMP0_CUDA)], capacity=capacity,
                       num_values=4, succ_capacity=8, device=device)
 
 
@@ -674,3 +676,393 @@ def check_pgas(iv, heap_out, info, ndev: int, burst: bool = False,
         raise AssertionError(f"pgas messages {ex['ams']}, puts {ex['puts']}")
     if info["pending"] != 0:
         raise AssertionError(f"pgas pending {info['pending']}")
+
+
+# ---- the injection ring and mesh tenancy: JAX's three resident
+# compositions that inject (tests/test_resident.py :238, :420, :472) and
+# the full-width forest and tenant loads of chip_smoke.py's phase 29.
+
+HEAP_ROWS, HEAP_COLS = 8, 128  # tests/test_resident.py ROWS, COLS
+CBUMP, CPUT, CCONSUME = range(3)  # the composition's table
+
+
+def _cbump(ctx):
+    ctx.set_value(0, ctx.value(0) + ctx.arg(0))
+
+
+def _cput(ctx):
+    ctx.pgas.put(ctx.arg(0), 0, ctx.arg(1), ctx.arg(2))
+
+
+def _cconsume(ctx):
+    ctx.set_value(ctx.arg(0), ctx.pgas.count(0))
+
+
+COMPOSE_TABLE = (
+    ("bump", _cbump, BUMP0_CUDA),
+    ("put", _cput, "ctx.pgas.put(ctx.arg(0), 0, ctx.arg(1), ctx.arg(2));"),
+    ("consume", _cconsume, "ctx.set_value(ctx.arg(0), ctx.pgas.count(0));"),
+)
+
+
+def heap_data(ndev: int) -> np.ndarray:
+    """tests/test_resident.py _heap: row r of device d holds 1000 d + r."""
+    h = np.zeros((ndev, HEAP_ROWS, HEAP_COLS), np.int32)
+    for d in range(ndev):
+        h[d] = 1000 * d + np.arange(HEAP_ROWS, dtype=np.int32)[:, None]
+    return h
+
+
+def _heap_spec():
+    import torch
+
+    return {"heap": ((HEAP_ROWS, HEAP_COLS), torch.int32)}
+
+
+def compose_inject(ndev: int = 4, ntasks: int = 24, device="cuda"):
+    """test_steal_pgas_and_injection_coexist: steal, a put with its
+    parked consumer and injected stream rows in one kernel a device (24
+    skewed BUMPs on device 0 migrate homed; device 0 puts its heap row 2
+    into device 1's row 3; BUMPs 1000, 2000 and 3000 injected on devices
+    0, 2 and 3). Held to JAX's assertions; returns (ivalues, data,
+    info)."""
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import Megakernel
+    from .resident import ResidentKernel
+
+    mk = Megakernel(list(COMPOSE_TABLE), data_specs=_heap_spec(),
+                    capacity=128, num_values=512, succ_capacity=8,
+                    device=device)
+    rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[CBUMP], channels={"c0": ("heap", 1)},
+                        inject=True, window=4)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for i in range(ntasks):
+        bs[0].add(CBUMP, args=[i + 1])
+    bs[0].add(CPUT, args=[1, 3, 2])
+    t = bs[1].add(CCONSUME, args=[1])
+    waits = [[] for _ in range(ndev)]
+    waits[1] = [(0, 1, t)]
+    rows = [[] for _ in range(ndev)]
+    for d, v in ((0, 1000), (2, 2000), (3, 3000)):
+        rows[d % ndev].append((CBUMP, [v]))
+    iv, data, info = rk.run(bs, data={"heap": heap_data(ndev)}, waits=waits,
+                            inject_rows=rows, quantum=4)
+    iv = np.asarray(iv)
+    heap = data["heap"].cpu().numpy()
+    per_dev = np.asarray(info["per_device_counts"])[:, 5]
+    ok = (info["pending"] == 0
+          and int(iv[:, 0].sum()) == ntasks * (ntasks + 1) // 2 + 6000
+          and (heap[1, 3] == 2).all() and iv[1, 1] == 1
+          and int((per_dev > 0).sum()) >= min(3, ndev))
+    if not ok:
+        raise AssertionError(
+            f"compose on {ndev}: slot 0 {iv[:, 0].tolist()}, consumer "
+            f"{iv[1, 1]}, executed per device {per_dev.tolist()}")
+    return iv, data, info
+
+
+FW_LBASE, FW_QCAP, FW_BUMP = 16, 2, 2  # the five-way composition
+
+
+def _fw_start(ctx):
+    ctx.pgas.fadd(0, 5, 7)
+    row = ctx.spawn(1, dep_count=1)
+    ctx.pgas.lock(0, FW_LBASE, row, FW_QCAP)
+    ctx.pgas.put(0, 0, 3, 2)  # self-put row 2 -> row 3
+
+
+def _fw_csect(ctx):
+    ctx.pgas.fadd(0, 5, 30)
+    ctx.pgas.unlock(0, FW_LBASE, FW_QCAP)
+
+
+def _fw_bump(ctx):
+    ctx.set_value(6, ctx.value(6) + ctx.arg(0))
+
+
+FIVE_WAY_TABLE = (
+    ("start", _fw_start, f"""
+  ctx.pgas.fadd(0, 5, 7);
+  const int row = ctx.spawn(1, nullptr, 0, 1);
+  ctx.pgas.lock(0, {FW_LBASE}, row, {FW_QCAP});
+  ctx.pgas.put(0, 0, 3, 2);"""),
+    ("csect", _fw_csect, f"""
+  ctx.pgas.fadd(0, 5, 30);
+  ctx.pgas.unlock(0, {FW_LBASE}, {FW_QCAP});"""),
+    ("bump", _fw_bump, "ctx.set_value(6, ctx.value(6) + ctx.arg(0));"),
+)
+
+
+def five_way(device="cuda"):
+    """test_resident_compiles_and_runs_on_tpu (JAX runs it only on a
+    TPU): steal, a self-put, a fetch-add, a lock and an injected stream
+    in one kernel on one device; iv[0, 5] == 37, iv[0, 6] == 42, the put
+    landed. Returns (ivalues, data, info)."""
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import Megakernel
+    from .resident import ResidentKernel, lock_block_slots
+
+    mk = Megakernel(list(FIVE_WAY_TABLE), data_specs=_heap_spec(),
+                    capacity=64, num_values=256, succ_capacity=8,
+                    device=device)
+    rk = ResidentKernel(mk, CtaMesh((1,), ("q",), device=device),
+                        channels={"c0": ("heap", 1)}, steal=True,
+                        migratable_fns=[0], inject=True)
+    b = TaskGraphBuilder()
+    b.add(0)
+    b.reserve_values(FW_LBASE + lock_block_slots(FW_QCAP))
+    iv, data, info = rk.run(
+        [b], data={"heap": heap_data(1)}, quantum=8,
+        inject_rows=[[(FW_BUMP, [41]), (FW_BUMP, [1])]])
+    iv = np.asarray(iv)
+    if not (iv[0, 5] == 37 and iv[0, 6] == 42
+            and (data["heap"].cpu().numpy()[0, 3] == 2).all()
+            and info["pending"] == 0):
+        raise AssertionError(f"five-way: slots {iv[0, :8].tolist()}")
+    return iv, data, info
+
+
+# The volume stress test (test_resident_volume_stress_on_tpu).
+(VFIB, VSUM, VBUMP, VFADDER, VLOCKER, VCSECT, VPUT, VCONSUME,
+ VOBS) = range(9)
+V_QCAP, V_LBASE, V_FADD_SLOT, V_X, V_Y, V_OCC, V_TEAR, V_RS0 = (
+    8, 32, 2, 4, 5, 10, 11, 20)
+V_FADDERS, V_PER_FADDER, V_LOCKERS, V_INJECT, V_PUTS = 16, 4, 8, 64, 4
+
+
+def _v_fadder(ctx):
+    for _ in range(V_PER_FADDER):
+        ctx.pgas.fadd(0, V_FADD_SLOT, ctx.arg(0))
+
+
+def _v_locker(ctx):
+    row = ctx.spawn(VCSECT, args=[ctx.arg(0)], dep_count=1)
+    ctx.pgas.lock(0, V_LBASE, row, V_QCAP)
+
+
+def _v_csect(ctx):
+    s = ctx.arg(0)
+    obs = ctx.spawn(VOBS, args=[s], dep_count=1)
+    ctx.pgas.cswap(0, V_OCC, 0, 1, obs, s)
+    ctx.pgas.fadd(0, V_X, 1)
+    ctx.pgas.fadd(0, V_Y, 1)
+    ctx.pgas.fadd(0, V_OCC, -1)
+    ctx.pgas.unlock(0, V_LBASE, V_QCAP)
+
+
+def _v_observe(ctx):
+    ctx.pgas.fadd(0, V_TEAR, ctx.value(ctx.arg(0)))
+
+
+def _v_put(ctx):
+    ctx.pgas.put(0, 0, ctx.arg(0), 0)  # my row 0 -> row arg0
+
+
+def _v_consume(ctx):
+    ctx.set_value(6, ctx.pgas.count(0))
+
+
+def _v_bump(ctx):
+    ctx.set_value(7, ctx.value(7) + ctx.arg(0))
+
+
+VOLUME_TABLE = (
+    "fib", "sum",
+    ("bump", _v_bump, "ctx.set_value(7, ctx.value(7) + ctx.arg(0));"),
+    ("fadder", _v_fadder, f"""
+  for (int i = 0; i < {V_PER_FADDER}; ++i)
+    ctx.pgas.fadd(0, {V_FADD_SLOT}, ctx.arg(0));"""),
+    ("locker", _v_locker, f"""
+  const int a = ctx.arg(0);
+  const int row = ctx.spawn({VCSECT}, &a, 1, 1);
+  ctx.pgas.lock(0, {V_LBASE}, row, {V_QCAP});"""),
+    ("csect", _v_csect, f"""
+  const int s = ctx.arg(0);
+  const int obs = ctx.spawn({VOBS}, &s, 1, 1);
+  ctx.pgas.cswap(0, {V_OCC}, 0, 1, obs, s);
+  ctx.pgas.fadd(0, {V_X}, 1);
+  ctx.pgas.fadd(0, {V_Y}, 1);
+  ctx.pgas.fadd(0, {V_OCC}, -1);
+  ctx.pgas.unlock(0, {V_LBASE}, {V_QCAP});"""),
+    ("put", _v_put, "ctx.pgas.put(0, 0, ctx.arg(0), 0);"),
+    ("consume", _v_consume, "ctx.set_value(6, ctx.pgas.count(0));"),
+    ("observe", _v_observe,
+     f"ctx.pgas.fadd(0, {V_TEAR}, ctx.value(ctx.arg(0)));"),
+)
+
+
+def volume(n: int = 14, device="cuda"):
+    """test_resident_volume_stress_on_tpu (JAX runs it only on a TPU):
+    fib(n) through a 512-row table (homed FIB and SUM with its value
+    args), 64 fetch-adds from 16 senders through the outbox pacer, 8
+    lockers contending one lock FIFO whose critical sections trip a
+    compare-swap occupancy wire (TEAR stays 0), a consumer parked on 4
+    self-puts and a 64-row injected stream, on one device; every JAX
+    assertion, the executed count exact. Returns (ivalues, data,
+    info)."""
+    from ..models.fib import fib_seq, task_count
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import VBLOCK, Megakernel
+    from .resident import ResidentKernel, lock_block_slots
+
+    cap = 512
+    mk = Megakernel(list(VOLUME_TABLE), data_specs=_heap_spec(),
+                    capacity=cap, num_values=VBLOCK * cap + 64 + cap,
+                    succ_capacity=64, uses_row_values=True, device=device)
+    rk = ResidentKernel(mk, CtaMesh((1,), ("q",), device=device),
+                        migratable_fns={VFIB: (), VSUM: (0, 1)},
+                        channels={"c0": ("heap", 1)}, inject=True,
+                        window=8, am_window=8, outbox=128)
+    b = TaskGraphBuilder()
+    b.add(VFIB, args=[n], out=3)
+    for i in range(V_FADDERS):
+        b.add(VFADDER, args=[i + 1])
+    for i in range(V_LOCKERS):
+        b.add(VLOCKER, args=[V_RS0 + i])
+    for r in range(V_PUTS):
+        b.add(VPUT, args=[2 + r])
+    t = b.add(VCONSUME)
+    b.reserve_values(V_LBASE + lock_block_slots(V_QCAP))
+    iv, data, info = rk.run(
+        [b], data={"heap": heap_data(1)}, waits=[[(0, V_PUTS, t)]],
+        inject_rows=[[(VBUMP, [j + 1]) for j in range(V_INJECT)]],
+        quantum=4)
+    iv = np.asarray(iv)
+    heap = data["heap"].cpu().numpy()
+    t_n = task_count(n)
+    ok = (info["pending"] == 0 and int(iv[0, 3]) == fib_seq(n)
+          and int(iv[0, V_FADD_SLOT]) == V_PER_FADDER * V_FADDERS * (
+              V_FADDERS + 1) // 2
+          and int(iv[0, V_X]) == V_LOCKERS and int(iv[0, V_Y]) == V_LOCKERS
+          and int(iv[0, V_TEAR]) == 0 and int(iv[0, V_OCC]) == 0
+          and int(iv[0, V_LBASE]) == 0 and int(iv[0, V_LBASE + 1]) == 0
+          and int(iv[0, 7]) == V_INJECT * (V_INJECT + 1) // 2
+          and int(iv[0, 6]) == V_PUTS
+          and all((heap[0, 2 + r] == 0).all() for r in range(V_PUTS))
+          and info["executed"] == (t_n + (t_n - 1) // 2 + V_FADDERS
+                                   + 3 * V_LOCKERS + V_PUTS + 1 + V_INJECT))
+    if not ok:
+        raise AssertionError(f"volume: slots {iv[0, :12].tolist()}, "
+                             f"executed {info['executed']}")
+    return iv, data, info
+
+
+INJECT_128 = dict(ndev=128, roots=160, n=12, per_dev=256, n_inj=4,
+                  capacity=4096)
+
+
+def inject_forest(ndev: int = 128, roots: int = 160, n: int = 12,
+                  per_dev: int = 256, n_inj: int = 4, capacity: int = 4096,
+                  quantum: int = 64, window: int = 8, device="cuda"):
+    """The forest of ``roots`` FIB(n) roots on device 0 through the
+    resident kernel steal-only (homed=False), and ``per_dev`` FIB(n_inj)
+    rows on every device's injection ring, row j of device d writing host
+    slot roots + d * per_dev + j (a migrated row writes it on the
+    thief). The forest and the injected totals exact. Returns (ivalues,
+    info)."""
+    from ..models.fib import fib_seq, task_count
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import VBLOCK
+    from .resident import ResidentKernel
+    from .workloads import FIB, make_fib_megakernel
+
+    nv = roots + ndev * per_dev
+    mk = make_fib_megakernel(capacity,
+                             num_values=VBLOCK * capacity + max(64, nv),
+                             device=device)
+    rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[FIB], homed=False, window=window,
+                        inject=True, ring_capacity=per_dev)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for r in range(roots):
+        bs[0].add(FIB, args=[n], out=r)
+    for b in bs:
+        b.reserve_values(nv)
+    rows = [[(FIB, [n_inj], roots + d * per_dev + j) for j in range(per_dev)]
+            for d in range(ndev)]
+    iv, _, info = rk.run(bs, inject_rows=rows, quantum=quantum)
+    iv = np.asarray(iv)
+
+    def per(k):
+        t = task_count(k)
+        return t + (t - 1) // 2
+
+    want = roots * per(n) + ndev * per_dev * per(n_inj)
+    got_f = int(iv[:, :roots].sum(dtype=np.int64))
+    got_i = int(iv[:, roots:nv].sum(dtype=np.int64))
+    if (info["pending"] != 0 or info["executed"] != want
+            or got_f != roots * fib_seq(n)
+            or got_i != ndev * per_dev * fib_seq(n_inj)):
+        raise AssertionError(
+            f"inject forest on {ndev}: executed {info['executed']} (want "
+            f"{want}), forest {got_f}, injected {got_i}")
+    return iv, info
+
+
+# (tenant, weight, admissions on 128 devices): the last one's deadline
+# lapses before the launch (tests/test_tenants.py :1051, first half,
+# scaled, with a late lane).
+TENANTS_128 = (("gold", 4, 3072), ("std", 2, 2048), ("bg", 1, 1024),
+               ("late", 1, 512))
+
+
+def tenant_mesh(ndev: int = 128, lanes=TENANTS_128, ring_capacity: int = 128,
+                capacity: int = 256, quantum: int = 8, window: int = 4,
+                device="cuda"):
+    """Mesh tenancy through the resident kernel steal-only (homed=False,
+    BUMP migratable): a MeshTenantTable on a fake clock routes every
+    lane's admissions (BUMP of lane index + 1) over the devices; the last
+    lane's rows (BUMP 1 << 16, deadline 1 s) are published by an earlier
+    pump and the clock passes their deadline before the launch, so the
+    launch's pump marks them TEN_EXPIRED and the card's poll drops them.
+    Every other admission installs once (the BUMP total exact) and per
+    tenant accepted == completed + expired + dropped + backlog. One BUMP
+    0 seeds every device. Returns (ivalues, info)."""
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import RING_ROW, TaskGraphBuilder
+    from .resident import ResidentKernel
+    from .tenants import MeshTenantTable, TenantSpec
+
+    rk = ResidentKernel(bump_megakernel(device, capacity),
+                        CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[0], homed=False, window=window,
+                        inject=True, ring_capacity=ring_capacity,
+                        tenants=[TenantSpec(t, weight=w)
+                                 for t, w, _ in lanes])
+    now = [100.0]
+    table = MeshTenantTable(rk.tenant_specs, ndev, rk.region_rows,
+                            clock=lambda: now[0])
+    late, n_late = lanes[-1][0], lanes[-1][2]
+    for _ in range(n_late):
+        if not table.submit(late, 0, args=[1 << 16], deadline_s=1.0):
+            raise AssertionError(f"tenant {late}: admission refused")
+    table.pump(np.zeros((ndev, rk.ring_capacity, RING_ROW), np.int32))
+    now[0] += 2.0
+    total = 0
+    for i, (tid, _, n) in enumerate(lanes[:-1]):
+        for _ in range(n):
+            if not table.submit(tid, 0, args=[i + 1]):
+                raise AssertionError(f"tenant {tid}: admission refused")
+        total += n * (i + 1)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for b in bs:
+        b.add(0, args=[0])
+    iv, _, info = rk.run(bs, quantum=quantum, tenant_table=table)
+    iv = np.asarray(iv)
+    ten = info["tenants"]
+    bad = [t for t, s in ten.items()
+           if s["accepted"] != s["completed"] + s["expired"] + s["dropped"]
+           + s["backlog"]]
+    exp = sum(f["tenant_expired"] for f in info["fault_stats"])
+    if (bad or info["pending"] != 0 or int(iv[:, 0].sum()) != total
+            or exp != n_late or ten[late]["expired"] != n_late
+            or any(ten[t]["completed"] != n for t, _, n in lanes[:-1])):
+        raise AssertionError(
+            f"tenants on {ndev}: total {int(iv[:, 0].sum())} (want {total}),"
+            f" expired on the card {exp}, unbalanced {bad}, stats {ten}")
+    return iv, info

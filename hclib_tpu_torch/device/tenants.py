@@ -1,15 +1,16 @@
-"""Multi-tenant streaming front door, the single-device half: tenant
-lanes with quotas, deadline admission and explicit backpressure. The
-port's own copy of ``hclib_tpu/device/tenants.py`` (numpy and threads
-only), names and semantics unchanged:
+"""Multi-tenant streaming front door: tenant lanes with quotas, deadline
+admission and explicit backpressure. The port's own copy of
+``hclib_tpu/device/tenants.py`` (numpy and threads only), names and
+semantics unchanged:
 
 - **Ring regions + WRR poll** (the stream kernel, device/inject.py and
-  ``csrc/stream.cuh``): the injection ring is partitioned into
-  per-tenant regions of ``region_rows`` rows, each with its own tail and
-  consumed cursor in an 8-word ``tctl`` row (``TC_*``). The in-kernel
-  poll visits the lanes weighted-round-robin, at most ``weight`` rows a
-  lane a poll, never more than the scheduler's live ``headroom()``, so
-  a full task table is backpressure on the ring, not an overflow.
+  ``csrc/stream.cuh``; the resident kernel, device/resident.py and
+  ``csrc/mesh.cuh``): the injection ring is partitioned into per-tenant
+  regions of ``region_rows`` rows, each with its own tail and consumed
+  cursor in an 8-word ``tctl`` row (``TC_*``). The in-kernel poll
+  visits the lanes weighted-round-robin, at most ``weight`` rows a lane
+  a poll, never more than the scheduler's live ``headroom()``, so a
+  full task table is backpressure on the ring, not an overflow.
   ``wrr_poll_reference`` is its executable spec.
 - **Admission** (host, ``TenantTable``): every submission gets a typed
   ``Admission`` verdict - ACCEPTED, QUEUED or REJECTED(reason) - from a
@@ -17,26 +18,30 @@ only), names and semantics unchanged:
   clock), deadlines (``CancelScope`` chains, expiry lazily dropped by
   the device poll and counted) and the poison ladder (throttle, then
   quarantine: the lane is paused on the device and swept).
+- **Mesh-wide tenancy** (``MeshTenantTable``): one roster over every
+  device of a resident mesh, a ``TenantTable`` replica a device;
+  ``submit`` routes each admission to the least-backlogged replica (or
+  ``device=``), the rate bucket is mesh-wide and the poison ladder and
+  deadline budget act on aggregate counts. ``HCLIB_TPU_MESH_TENANTS``
+  (``mesh_tenants_from_env``) is its wrapper-script spelling.
 - **Survivability**: tenant identity rides the ring row (``TEN_ID``), so
   a quiesce exports per-tenant residue and the cumulative ``tctl`` /
   ``tstats`` counter blocks (``export_state``) and ``resume_from``
   re-publishes them per lane, deadlines re-armed from their remaining
-  budget.
+  budget; ``MeshTenantTable.reshard`` re-deals a mesh's residue over
+  another device count.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``MeshTenantTable`` and ``normalize_mesh_tenants`` (the mesh
-runners, A11) and ``TenantTable.protocol_model`` (the hclint
-explorer, A13).
+Not ported: ``TenantTable.protocol_model`` (the hclint explorer, ROADMAP
+A13) raises ``NotImplementedError``.
 """
 
-from __future__ import annotations
 from __future__ import annotations
 
 import threading
 import time
 from collections import deque
 from typing import (
-    Any, Callable, Dict, List, Optional, Sequence, Union,
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, Union,
 )
 
 import numpy as np
@@ -81,6 +86,7 @@ __all__ = [
     "normalize_tenants",
     "tenants_from_env",
     "normalize_mesh_tenants",
+    "mesh_tenants_from_env",
     "per_tenant_ring_counts",
     "wrr_poll_reference",
     "TC_TAIL",
@@ -1146,13 +1152,637 @@ class TenantTable:
         }
 
 class MeshTenantTable:
-    """The mesh-wide admission front door (one tenant roster spanning the
-    devices of a resident mesh): it needs the mesh runners."""
+    """The mesh-wide admission front door: one tenant roster spanning
+    every device of a resident mesh. Device ``d``'s injection ring is
+    partitioned into the same per-tenant contiguous regions as the
+    single-device front door - internally one :class:`TenantTable`
+    replica per device, all sharing the roster - and the in-kernel WRR
+    poll runs unchanged per device against that device's tctl block.
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "MeshTenantTable spans a resident device mesh; the mesh "
-            "runners are ROADMAP A11")
+    **Routing** (``submit``): an admission lands on one device - an
+    explicit ``device=``, else the least-backlogged replica of the
+    tenant's lane among its ``placement`` candidates (ties to the
+    lowest id). Devices whose region/backlog gates would reject are
+    passed over before any quota is charged, so a full device spills to
+    its siblings and the whole mesh must be saturated before a
+    ``REJECTED("ring"/"backlog")`` verdict surfaces. The Admission
+    ladder itself is the single-device ladder verbatim (the routed
+    replica's ``admit`` decides).
+
+    **Quota scope**: ``rate`` is MESH-WIDE (one aggregate token bucket
+    per tenant, charged once before the routed admit; replicas are
+    built rate-free so nothing double-charges); ``max_in_flight`` /
+    ``queue_capacity`` / the ring budget are per device-lane region.
+    The poison ladder and the ``deadline_budget`` are enforced on
+    AGGREGATE counts at every pump - throttle clamps the lane's WRR
+    weight on every device, quarantine pauses it everywhere - so a
+    tenant cannot evade isolation by spreading failures across devices.
+
+    **Survivability**: ``export_state`` packs per-device tenant-tagged
+    residue (each live row stamped with its TEN_DEADLINE_MS remaining
+    budget) plus aggregate tctl/tstats counter blocks in the resident
+    bundle schema; ``resume_from`` accepts any exported mesh size and
+    re-deals residue round-robin per tenant across THIS table's devices
+    (per-tenant counts conserved by construction, deadlines re-armed),
+    so a ``reshard(N -> M)`` cut is a fresh M-device table resuming the
+    N-device state. ``pressure()`` is the autoscaler feed: per-tenant
+    backlog / in-flight / ring-residue / deadline-budget drain.
+    """
+
+    def __init__(self, specs: Sequence[TenantSpec], ndev: int,
+                 region_rows: int,
+                 clock: Callable[[], float] = time.monotonic,
+                 placement: Optional[Dict[str, Sequence[int]]] = None,
+                 egress=None, futures: "Optional[FutureTable]" = None,
+                 ) -> None:
+        self.specs = list(specs)
+        if not self.specs:
+            raise ValueError("at least one tenant lane")
+        self.ndev = int(ndev)
+        if self.ndev < 1:
+            raise ValueError(f"ndev must be >= 1, got {ndev}")
+        self.region_rows = int(region_rows)
+        self.clock = clock
+        self._lock = threading.Lock()
+        # Mesh-wide rate quota: one aggregate bucket per tenant; the
+        # replicas are rate-free and their poison/budget thresholds are
+        # disabled (enforced on aggregates here instead).
+        self._buckets: Dict[str, Optional[TokenBucket]] = {
+            s.id: (
+                None if s.rate is None
+                else TokenBucket(s.rate, s.burst, clock)
+            )
+            for s in self.specs
+        }
+        self._replicas = [
+            TenantSpec(
+                s.id, weight=s.weight, rate=None,
+                max_in_flight=s.max_in_flight,
+                queue_capacity=s.queue_capacity,
+                deadline_s=s.deadline_s, deadline_budget=None,
+                poison_throttle=2**30, poison_quarantine=2**30,
+                retry=s.retry, validator=s.validator,
+            )
+            for s in self.specs
+        ]
+        # Completion-mailbox egress: ONE mesh-wide FutureTable shared by
+        # every replica (a future routed to device d must resolve no
+        # matter which successor device retires it after a reshard).
+        # Replicas are built egress=False so an env knob can never make
+        # one privately own a second ledger.
+        self.egress = normalize_egress(egress)
+        if futures is not None and self.egress is None:
+            raise ValueError(
+                "futures= (a shared ledger) needs egress= on too"
+            )
+        # ``futures=`` shares a predecessor mesh's ledger across a
+        # reshard cut (resized() passes it), so PREEMPTED tokens
+        # reattach against the SAME conservation identity.
+        self.futures: Optional[FutureTable] = (
+            futures if futures is not None
+            else None if self.egress is None
+            else FutureTable(backoff_s=self.egress.backoff_s, clock=clock)
+        )
+        self.tables: List[TenantTable] = [
+            TenantTable(self._replicas, self.region_rows, clock,
+                        egress=False, futures=self.futures)
+            for _ in range(self.ndev)
+        ]
+        if placement is not None:
+            for tid, devs in placement.items():
+                if tid not in self.ids:
+                    raise ValueError(
+                        f"placement names unknown tenant {tid!r} "
+                        f"(have {self.ids})"
+                    )
+                devs = [int(d) for d in devs]
+                if not devs or any(
+                    not 0 <= d < self.ndev for d in devs
+                ):
+                    raise ValueError(
+                        f"placement for {tid!r} must be a non-empty "
+                        f"subset of devices 0..{self.ndev - 1}, got "
+                        f"{devs}"
+                    )
+        self.placement = (
+            None if placement is None
+            else {tid: [int(d) for d in devs]
+                  for tid, devs in placement.items()}
+        )
+        T = len(self.specs)
+        # Aggregate counter base from a resumed checkpoint (stats() adds
+        # it on top of the live replica sums).
+        self._base_tctl = np.zeros((T, 8), np.int64)
+        self._base_tstats = np.zeros((T, 8), np.int64)
+        self._rotor = [0] * T  # per-tenant resume re-deal cursor
+        self._budget_cancelled: set = set()
+
+    # ---- lookups ----
+
+    def __len__(self) -> int:
+        return len(self.specs)
+
+    @property
+    def ids(self) -> List[str]:
+        return [s.id for s in self.specs]
+
+    def _idx(self, tenant: Union[str, int]) -> int:
+        return self.tables[0]._lane(tenant).idx
+
+    def _candidates(self, tid: str) -> List[int]:
+        if self.placement is not None and tid in self.placement:
+            return self.placement[tid]
+        return list(range(self.ndev))
+
+    # ---- admission (any thread) ----
+
+    def resolve_deadline(self, tenant, deadline_s, cancel_scope):
+        return self.tables[0].resolve_deadline(
+            tenant, deadline_s, cancel_scope
+        )
+
+    def submit(self, tenant: Union[str, int], fn: int,
+               args: Sequence[int] = (), out: int = 0,
+               succ0: int = NO_TASK, succ1: int = NO_TASK,
+               deadline_s: Optional[float] = None,
+               cancel_scope: Optional[CancelScope] = None,
+               device: Optional[int] = None) -> Admission:
+        """Admit one task into the mesh: build the row, resolve the
+        deadline (explicit > scope chain > lane default), route, and
+        return the typed verdict (``.device`` names the landing)."""
+        row = build_row(fn, args, out, succ0, succ1)
+        deadline_at = self.resolve_deadline(tenant, deadline_s,
+                                            cancel_scope)
+        return self.submit_row(tenant, row, deadline_at, cancel_scope,
+                               device=device)
+
+    def submit_row(self, tenant: Union[str, int], row: np.ndarray,
+                   deadline_at: Optional[float] = None,
+                   cancel_scope: Optional[CancelScope] = None,
+                   device: Optional[int] = None) -> Admission:
+        """Route one prepared row to a device and admit it there. The
+        routed replica's ``admit`` is the single-device ladder verbatim;
+        routing only picks WHICH replica decides."""
+        i = self._idx(tenant)
+        tid = self.specs[i].id
+        # Terminal gates FIRST, mirroring the single-device ladder's
+        # cheapest-first order (quarantine/cancel flags are mesh-uniform
+        # by construction - every rung applies to every replica), so a
+        # doomed submission never burns a mesh-wide rate token.
+        lane0 = self.tables[0]._lanes[i]
+        if lane0.quarantined is not None:
+            adm = self.tables[0].record_reject(tid, "quarantined")
+            adm.device = 0
+            return adm
+        if lane0.scope.cancelled() or (
+            cancel_scope is not None and cancel_scope.cancelled()
+        ):
+            adm = self.tables[0].record_reject(tid, "cancelled")
+            adm.device = 0
+            return adm
+        if deadline_at is not None and self.clock() >= deadline_at:
+            adm = self.tables[0].record_reject(tid, "expired")
+            adm.device = 0
+            return adm
+        if device is not None:
+            if not 0 <= int(device) < self.ndev:
+                raise KeyError(f"no device {device} in a {self.ndev}-"
+                               "device mesh")
+            order = [int(device)]
+        else:
+            # Least-backlogged lane replica first; ties to the lowest
+            # device id (sorted() is stable over the id-ordered list).
+            order = sorted(
+                self._candidates(tid),
+                key=lambda d: self.tables[d]._lanes[i].backlog,
+            )
+        last_reason = "ring"
+        target: Optional[int] = None
+        for d in order:
+            lane = self.tables[d]._lanes[i]
+            # The region/backlog gates, probed cheaply so routing can
+            # pass over a full device before any quota is charged (the
+            # probe is advisory - the routed admit re-checks under its
+            # own lock).
+            if lane.published + len(lane.queue) >= self.region_rows:
+                last_reason = "ring"
+                continue
+            if len(lane.queue) >= lane.spec.queue_capacity:
+                last_reason = "backlog"
+                continue
+            target = d
+            break
+        if target is None:
+            adm = self.tables[order[0]].record_reject(tid, last_reason)
+            adm.device = order[0]
+            return adm
+        bucket = self._buckets[tid]
+        if bucket is not None:
+            with self._lock:
+                ok = bucket.try_take(1)
+            if not ok:
+                adm = self.tables[target].record_reject(tid, "rate")
+                adm.device = target
+                return adm
+        adm = self.tables[target].admit(
+            tenant, row, deadline_at, cancel_scope
+        )
+        adm.device = target
+        return adm
+
+    # ---- isolation (aggregate enforcement) ----
+
+    def report_failure(self, tenant: Union[str, int],
+                       exc: Optional[BaseException] = None) -> None:
+        """Aggregate poison ladder: the failure lands on the replica the
+        caller routed to conceptually, but the LADDER climbs on the
+        mesh-wide count (``_enforce`` at the next pump applies the
+        rung everywhere)."""
+        if isinstance(exc, CancelledError):
+            return
+        i = self._idx(tenant)
+        lane = self.tables[0]._lanes[i]
+        with self.tables[0]._lock:
+            lane.poisoned += 1  # thresholds are mesh-level (see _enforce)
+        self._enforce()
+
+    def quarantine(self, tenant: Union[str, int], reason: str) -> None:
+        for t in self.tables:
+            t.quarantine(tenant, reason)
+
+    def cancel(self, tenant: Union[str, int],
+               reason: str = "tenant cancelled") -> None:
+        for t in self.tables:
+            t.cancel(tenant, reason)
+
+    def _agg(self, field: str, i: int) -> int:
+        return sum(
+            getattr(t._lanes[i], field) for t in self.tables
+        )
+
+    def _enforce(self) -> None:
+        """Apply the aggregate isolation policies: a tenant's mesh-wide
+        poison count climbs the ORIGINAL spec's ladder (replicas carry
+        disabled thresholds), and a mesh-wide expiry count past the
+        deadline budget cancels the lane everywhere - once."""
+        for i, spec in enumerate(self.specs):
+            tid = spec.id
+            poisoned = self._agg("poisoned", i) + int(
+                self._base_tstats[i, TS_POISONED]
+            )
+            if poisoned >= spec.poison_quarantine:
+                self.quarantine(
+                    tid,
+                    f"poison quarantine ({poisoned} terminal failures "
+                    f"mesh-wide)",
+                )
+            elif poisoned >= spec.poison_throttle:
+                for t in self.tables:
+                    t.throttle(tid)
+            if spec.deadline_budget is not None and tid not in (
+                self._budget_cancelled
+            ):
+                expired = (
+                    self._agg("expired_host", i)
+                    + self._agg("dev_expired", i)
+                    + int(self._base_tstats[i, TS_EXPIRED_HOST])
+                    + int(self._base_tctl[i, TC_EXPIRED])
+                )
+                if expired >= spec.deadline_budget:
+                    self._budget_cancelled.add(tid)
+                    self.cancel(
+                        tid,
+                        f"tenant {tid}: deadline budget exhausted "
+                        f"({expired} expired mesh-wide >= "
+                        f"{spec.deadline_budget})",
+                    )
+
+    # ---- the mesh runner's half ----
+
+    def set_admit_round(self, r: int, device: Optional[int] = None) -> None:
+        """Telemetry admit-round feedback, mesh face: one device's round
+        gauge (``device=``) or all replicas at once (mesh runners with a
+        single merged gauge)."""
+        if device is not None:
+            self.tables[int(device)].set_admit_round(r)
+            return
+        for t in self.tables:
+            t.set_admit_round(r)
+
+    def pump(self, rings: np.ndarray) -> np.ndarray:
+        """Expire/publish every device's lanes and build the stacked
+        ``(ndev, T, 8)`` tctl block one mesh entry uploads. ``rings``
+        is the host image of the per-device injection rings,
+        ``(ndev, T * region_rows, RING_ROW)``."""
+        rings = np.asarray(rings)
+        if rings.shape[0] != self.ndev:
+            raise ValueError(
+                f"rings cover {rings.shape[0]} devices, this table has "
+                f"{self.ndev}"
+            )
+        self._enforce()
+        return np.stack(
+            [self.tables[d].pump(rings[d]) for d in range(self.ndev)]
+        )
+
+    def absorb(self, tctl_out: np.ndarray) -> None:
+        """Fold one mesh entry's stacked tctl echo back per device."""
+        tctl_out = np.asarray(tctl_out)
+        for d in range(self.ndev):
+            self.tables[d].absorb(tctl_out[d])
+
+    def drained(self) -> bool:
+        return all(t.drained() for t in self.tables)
+
+    def close_if_drained(self) -> bool:
+        return all(t.close_if_drained() for t in self.tables)
+
+    def total_published(self) -> int:
+        return sum(t.total_published() for t in self.tables)
+
+    # ---- telemetry ----
+
+    _BASE_FIELDS = {
+        # aggregate stat key -> (block, word) base-offset sources
+        "accepted": (("tstats", TS_ACCEPTED),),
+        "rejected": (("tstats", TS_REJECTED),),
+        "expired": (("tstats", TS_EXPIRED_HOST), ("tctl", TC_EXPIRED)),
+        "completed": (("tctl", TC_INSTALLED),),
+        "poisoned": (("tstats", TS_POISONED),),
+        "dropped": (("tstats", TS_DROPPED),),
+    }
+
+    def stats(self) -> Dict[str, Dict[str, Any]]:
+        """Mesh-aggregate per-tenant counters (the single-device stats
+        shape; counts sum across replicas plus any resumed base, flags
+        OR). ``per_device_stats()`` keeps the replica detail."""
+        out: Dict[str, Dict[str, Any]] = {}
+        per_dev = [t.stats() for t in self.tables]
+        for i, spec in enumerate(self.specs):
+            tid = spec.id
+            agg: Dict[str, Any] = {}
+            for d in range(self.ndev):
+                for k, v in per_dev[d][tid].items():
+                    if isinstance(v, bool) or not isinstance(
+                        v, (int, float)
+                    ):
+                        continue
+                    if k in ("weight",):
+                        agg[k] = v
+                    elif k in ("throttled", "quarantined"):
+                        agg[k] = max(agg.get(k, 0), v)
+                    else:
+                        agg[k] = agg.get(k, 0) + v
+            for k, srcs in self._BASE_FIELDS.items():
+                for block, word in srcs:
+                    base = (
+                        self._base_tstats if block == "tstats"
+                        else self._base_tctl
+                    )
+                    agg[k] = agg.get(k, 0) + int(base[i, word])
+            agg["quarantine_reason"] = next(
+                (per_dev[d][tid]["quarantine_reason"]
+                 for d in range(self.ndev)
+                 if per_dev[d][tid]["quarantine_reason"]),
+                None,
+            )
+            out[tid] = agg
+        return out
+
+    def per_device_stats(self) -> List[Dict[str, Dict[str, Any]]]:
+        return [t.stats() for t in self.tables]
+
+    def metrics(self) -> Dict[str, Dict[str, float]]:
+        """Numeric-only aggregate series (``MetricsRegistry.register(
+        "tenant", mesh_table.metrics)``)."""
+        return {
+            tid: {
+                k: float(v) for k, v in s.items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)
+            }
+            for tid, s in self.stats().items()
+        }
+
+    def latency_stats(self, tenant: Union[str, int]) -> Dict[str, float]:
+        """Admission-to-install percentiles pooled across replicas."""
+        i = self._idx(tenant)
+        xs: List[float] = []
+        for t in self.tables:
+            with t._lock:
+                xs.extend(t._lanes[i].latencies)
+        xs.sort()
+        if not xs:
+            return {"n": 0}
+
+        def pct(p: float) -> float:
+            return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+        return {"n": len(xs), "p50_s": pct(0.50), "p99_s": pct(0.99),
+                "mean_s": sum(xs) / len(xs)}
+
+    def pressure(self) -> Dict[str, Dict[str, float]]:
+        """The autoscaler feed: per-tenant mesh-aggregate backlog,
+        in-flight/ring residue, and deadline-budget drain. ``expired``
+        and ``budget`` let the policy compute per-slice drain deltas;
+        ``pressure`` is the cumulative drained fraction (1.0 = the
+        watchdog rung: the lane cancels)."""
+        out: Dict[str, Dict[str, float]] = {}
+        snap = self.stats()
+        for i, spec in enumerate(self.specs):
+            s = snap[spec.id]
+            budget = float(spec.deadline_budget or 0)
+            out[spec.id] = {
+                "backlog": float(s["backlog"]),
+                "queued": float(s["queued"]),
+                "in_flight": float(s["in_flight"]),
+                # Alias of in_flight: published-but-unconsumed rows ARE
+                # the ring residue in this design; both spellings exist
+                # so hand-built Observation feeds can use either.
+                "ring_residue": float(s["in_flight"]),
+                "expired": float(s["expired"]),
+                "budget": budget,
+                "pressure": (
+                    min(1.0, s["expired"] / budget) if budget else 0.0
+                ),
+            }
+        return out
+
+    # ---- checkpoint / reshard ----
+
+    def export_state(self, rings: np.ndarray) -> Dict[str, np.ndarray]:
+        """The mesh quiesce export, in the resident bundle schema:
+        per-device packed residue (``ring_rows`` ``(ndev, R, RING_ROW)``
+        + ``ictl`` live counts, every live row deadline-stamped) and the
+        AGGREGATE ``tctl``/``tstats`` counter blocks (device-count-free,
+        so a reshard passes them through untouched)."""
+        rings = np.asarray(rings)
+        T = len(self.specs)
+        R = rings.shape[1]
+        rr = np.zeros((self.ndev, R, RING_ROW), np.int32)
+        ictl = np.zeros((self.ndev, 8), np.int32)
+        tctl = self._base_tctl.copy()
+        tstats = self._base_tstats.copy()
+        for d in range(self.ndev):
+            st = self.tables[d].export_state(rings[d])
+            n = st["ring_rows"].shape[0]
+            rr[d, :n] = st["ring_rows"]
+            ictl[d, 0] = n
+            ictl[d, 1] = 1
+            for i in range(T):
+                for w in (TC_EXPIRED, TC_INSTALLED):
+                    tctl[i, w] += int(st["tctl"][i, w])
+                for w in (TS_ACCEPTED, TS_REJECTED, TS_EXPIRED_HOST,
+                          TS_POISONED, TS_DROPPED):
+                    tstats[i, w] += int(st["tstats"][i, w])
+                for w in (TS_THROTTLED, TS_QUARANTINED):
+                    tstats[i, w] = max(
+                        int(tstats[i, w]), int(st["tstats"][i, w])
+                    )
+                tctl[i, TC_PAUSE] = max(
+                    int(tctl[i, TC_PAUSE]), int(st["tctl"][i, TC_PAUSE])
+                )
+                tctl[i, TC_WEIGHT] = int(st["tctl"][i, TC_WEIGHT])
+        if self.futures is not None:
+            # One mesh-wide preempt AFTER every replica export: the
+            # replicas share this ledger (and never preempt it
+            # themselves), so each export above already expired its
+            # doomed rows and everything still live preempts exactly
+            # once, carrying a resume token for the successor table.
+            self.futures.preempt_all()
+        return {
+            "ring_rows": rr, "ictl": ictl,
+            "tctl": tctl.astype(np.int32),
+            "tstats": tstats.astype(np.int32),
+            "tenant_ids": np.array(self.ids),
+        }
+
+    def resume_from(self, state: Dict[str, Any]) -> None:
+        """Seed THIS table (any device count) from an exported mesh
+        state: aggregate counters become the stats base, lane flags
+        (throttle / quarantine / cancel) re-apply everywhere, and
+        tenant-tagged residue re-deals round-robin per tenant across
+        this mesh's devices - per-tenant counts conserved by
+        construction, deadlines re-armed from their stamped remaining
+        budgets."""
+        if "tctl" not in state or "tstats" not in state:
+            raise ValueError(
+                "resume state carries no per-tenant counter blocks "
+                "(tctl/tstats): it was exported without tenant lanes "
+                "and cannot resume on a tenant-enabled mesh"
+            )
+        T = len(self.specs)
+        tctl = np.asarray(state["tctl"])
+        tstats = np.asarray(state["tstats"])
+        if tctl.shape[0] != T:
+            raise ValueError(
+                f"resume state carries {tctl.shape[0]} tenant lanes, "
+                f"this mesh has {T}"
+            )
+        ids = state.get("tenant_ids")
+        if ids is not None:
+            want = [str(x) for x in np.asarray(ids).tolist()]
+            if want != self.ids:
+                raise ValueError(
+                    f"tenant roster mismatch: resume state carries "
+                    f"{want!r}, this mesh has {self.ids!r} (ids and "
+                    f"order must match - lane state is keyed by index)"
+                )
+        self._base_tctl = tctl.astype(np.int64).copy()
+        self._base_tstats = tstats.astype(np.int64).copy()
+        # Fresh replicas: live lane counters fold into the base above at
+        # export, so a table resumed IN PLACE (the autoscaler's hold
+        # path re-feeds the same object every slice) must not count them
+        # twice.
+        self.tables = [
+            TenantTable(self._replicas, self.region_rows, self.clock,
+                        egress=False, futures=self.futures)
+            for _ in range(self.ndev)
+        ]
+        self._rotor = [0] * T
+        self._budget_cancelled = set()
+        for i, spec in enumerate(self.specs):
+            if tstats[i, TS_QUARANTINED]:
+                self.quarantine(spec.id, "quarantined before checkpoint")
+            elif tstats[i, TS_THROTTLED]:
+                for t in self.tables:
+                    t.throttle(spec.id)
+            elif tctl[i, TC_PAUSE]:
+                # Paused but not quarantined: the lane was cancelled.
+                self.cancel(spec.id, "cancelled before checkpoint")
+        rr = np.asarray(
+            state.get("ring_rows", np.zeros((0, RING_ROW), np.int32)),
+            np.int32,
+        )
+        if rr.ndim == 3:
+            ic = state.get("ictl")
+            if ic is None:
+                raise ValueError(
+                    "per-device ring_rows need ictl for live row counts"
+                )
+            ic = np.asarray(ic)
+            rows = [
+                rr[d, j]
+                for d in range(rr.shape[0])
+                for j in range(int(ic[d, 0]))
+            ]
+        else:
+            rows = list(rr.reshape(-1, RING_ROW))
+        for row in rows:
+            i = int(row[TEN_ID])
+            if not 0 <= i < T:
+                raise ValueError(
+                    f"residue row tagged for tenant lane {i}; this mesh "
+                    f"has {T} lanes"
+                )
+            cand = self._candidates(self.specs[i].id)
+            dev = cand[self._rotor[i] % len(cand)]
+            self._rotor[i] += 1
+            self.tables[dev].readmit(i, row)
+        for d, t in enumerate(self.tables):
+            for lane in t._lanes:
+                if len(lane.queue) > self.region_rows:
+                    raise ValueError(
+                        f"tenant {lane.spec.id!r}: resume residue on "
+                        f"device {d} ({len(lane.queue)} rows) exceeds "
+                        f"the ring region ({self.region_rows} rows); "
+                        "resume on more devices or raise ring_capacity"
+                    )
+
+    def resized(self, ndev_new: int) -> "MeshTenantTable":
+        """A fresh table of the same roster on ``ndev_new`` devices
+        (state rides the exported bundle, not the table - feed the
+        resharded state to the new table's ``resume_from``)."""
+        return MeshTenantTable(
+            self.specs, ndev_new, self.region_rows, clock=self.clock,
+            placement=None if self.placement is None else {
+                tid: [d for d in devs if d < ndev_new] or [0]
+                for tid, devs in self.placement.items()
+            },
+            egress=self.egress, futures=self.futures,
+        )
+
+    def reshard(self, rings: np.ndarray, ndev_new: int
+                ) -> Tuple["MeshTenantTable", Dict[str, np.ndarray]]:
+        """The live-cut convenience: export this table's state, build
+        the ``ndev_new``-device successor, resume it. Returns
+        ``(new_table, exported_state)`` - per-tenant counts conserved
+        across the cut by construction."""
+        st = self.export_state(rings)
+        nxt = self.resized(ndev_new)
+        nxt.resume_from(st)
+        return nxt, st
+
+    def reattach(self, resume_token):
+        """Re-attach a PREEMPTED future on this (successor) mesh: the
+        resume token a FuturePreempted carried binds a fresh Future to
+        the same in-flight request, whose TEN_TOKEN rode the re-dealt
+        residue row (or the etok export for installed tasks)."""
+        if self.futures is None:
+            raise ValueError(
+                "reattach needs an egress-enabled mesh (pass egress= "
+                "or set HCLIB_TPU_EGRESS_DEPTH)"
+            )
+        return self.futures.reattach(resume_token)
 
 
 # ------------------------------------------------------------- plumbing
@@ -1250,12 +1880,90 @@ def tenants_from_env() -> Optional[List[TenantSpec]]:
         for i in range(n)
     ]
 
+def mesh_tenants_from_env() -> Optional[List[TenantSpec]]:
+    """The mesh-tenancy wrapper-script spelling:
+    ``HCLIB_TPU_MESH_TENANTS=N`` enables N equal lanes ``t0..t{N-1}``
+    on resident inject meshes, sharing the per-lane
+    ``HCLIB_TPU_TENANT_RATE`` / ``_BURST`` / ``_INFLIGHT`` /
+    ``_DEADLINE_S`` knobs (and ``_WEIGHTS``, whose lane count must
+    agree) with the streaming spelling. Malformed text raises - a
+    typo'd enable must not silently run the mesh unshaped. Returns
+    None when unset."""
+    from ..runtime.env import env_int
+
+    n = env_int("HCLIB_TPU_MESH_TENANTS", 0)
+    if not n:
+        return None
+    if n < 1:
+        raise ValueError(
+            f"HCLIB_TPU_MESH_TENANTS={n} must be >= 1 (unset or 0 "
+            "disables mesh tenancy)"
+        )
+    return _lane_specs_from_env(n)
+
+
+def _lane_specs_from_env(n: int) -> List[TenantSpec]:
+    """Build N lanes from the shared per-lane env knobs (the body both
+    env spellings share; weight list length must agree with ``n``)."""
+    from ..runtime.env import env_raw
+
+    w_env = env_raw("HCLIB_TPU_TENANT_WEIGHTS", "")
+    weights: Optional[List[int]] = None
+    if w_env:
+        try:
+            weights = [int(w) for w in w_env.split(",")]
+        except ValueError:
+            raise ValueError(
+                f"HCLIB_TPU_TENANT_WEIGHTS={w_env!r} must be a "
+                f"comma-separated list of ints (e.g. '4,2,1')"
+            ) from None
+        if any(w < 1 for w in weights):
+            raise ValueError(
+                f"HCLIB_TPU_TENANT_WEIGHTS={w_env!r}: weights must "
+                f"be >= 1"
+            )
+        if len(weights) != n:
+            raise ValueError(
+                f"HCLIB_TPU_TENANT_WEIGHTS={w_env!r} names "
+                f"{len(weights)} lanes but {n} were requested - "
+                "update both or unset one"
+            )
+    rate = _env_float("HCLIB_TPU_TENANT_RATE")
+    burst = _env_float("HCLIB_TPU_TENANT_BURST")
+    if burst is not None and rate is None:
+        raise ValueError(
+            "HCLIB_TPU_TENANT_BURST needs HCLIB_TPU_TENANT_RATE: burst "
+            "is the token bucket's depth, rate its refill - without a "
+            "rate no bucket is built and admission is unlimited"
+        )
+    inflight = _env_float("HCLIB_TPU_TENANT_INFLIGHT")
+    if inflight is not None and inflight != int(inflight):
+        raise ValueError(
+            f"HCLIB_TPU_TENANT_INFLIGHT={inflight} must be a whole "
+            f"number of in-flight tasks"
+        )
+    deadline = _env_float("HCLIB_TPU_TENANT_DEADLINE_S")
+    return [
+        TenantSpec(
+            f"t{i}",
+            weight=(weights[i] if weights else 1),
+            rate=rate,
+            burst=burst,
+            max_in_flight=None if inflight is None else int(inflight),
+            deadline_s=deadline,
+        )
+        for i in range(n)
+    ]
+
+
 def normalize_mesh_tenants(arg: Any) -> Optional[List[TenantSpec]]:
-    """A resident mesh's ``tenants=`` argument: it needs the mesh
-    runners."""
-    raise NotImplementedError(
-        "normalize_mesh_tenants serves the resident mesh runners, which "
-        "are ROADMAP A11")
+    """Normalize a resident mesh's ``tenants=`` argument: None -> the
+    ``HCLIB_TPU_MESH_TENANTS`` env spelling (or disabled); everything
+    else exactly as :func:`normalize_tenants` (int lane count, spec
+    sequence, False to force off)."""
+    if arg is None:
+        return mesh_tenants_from_env()
+    return normalize_tenants(arg)
 
 
 def normalize_tenants(arg: Any) -> Optional[List[TenantSpec]]:

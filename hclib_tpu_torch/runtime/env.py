@@ -63,6 +63,11 @@ REGISTRY = {
         "wrapper-script preemption request (no-signal spelling)"),
     "HCLIB_TPU_TENANTS": (
         "int", "0 (off)", "enable N equal tenant lanes on streaming runs"),
+    "HCLIB_TPU_MESH_TENANTS": (
+        "int", "0 (off)",
+        "enable N equal tenant lanes on resident inject meshes (shares the "
+        "per-lane WEIGHTS/RATE/BURST/INFLIGHT/DEADLINE_S knobs; malformed "
+        "text raises)"),
     "HCLIB_TPU_TENANT_WEIGHTS": (
         "list", "unset",
         "per-lane WRR weights, e.g. 4,2,1 (implies lane count)"),

@@ -20,7 +20,8 @@ the card's name and power limit, and a summary line of medians per tree.
 Beside the scheduler, the resident kernel's steal-only configuration
 (ICIStealMegakernel on FOREST_STEAL_BENCH at 8 CTAs and on 2,048 x
 fib(12) at 128 CTAs, ``resident8`` and ``resident128``: each launch's
-CUDA-event time), with the ptxas figures of every mesh kernel instance.
+CUDA-event time), with the ptxas figures of every stream and mesh kernel
+instance.
 
     python3 scripts/ab_sched.py --tree parent=chipcheck/parent --tree change=.
 
@@ -138,8 +139,8 @@ def worker(root: str, reps: int, only) -> dict:
 def ptxas(root: str) -> dict:
     """Each ``mk_kernel`` instance's registers, stack frame and spills
     from ptxas -v, by its kMode ("+obs": the observed instance), and each
-    instance of the mesh kernels (the grid launch, the ring, the resident
-    kernel) by its name and template flags."""
+    instance of the stream kernel and the mesh kernels (the grid launch,
+    the ring, the resident kernel) by its name and template flags."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
@@ -156,8 +157,8 @@ def ptxas(root: str) -> dict:
         if m:
             key = m.group(1) + ("+obs" if m.group(2) == "1" else "")
         else:
-            m = re.search(r"\d((?:mk_grid|ici_ring|resident_steal|resident)"
-                          r"_kernel)I((?:L[bi]\d+E)+)", line)
+            m = re.search(r"\d((?:mk_grid|ici_ring|resident_steal|resident|"
+                          r"stream)_kernel)I((?:L[bi]\d+E)+)", line)
             if not m:
                 continue
             key = m.group(1) + "<" + ",".join(

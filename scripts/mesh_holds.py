@@ -52,6 +52,17 @@ CUDA-event time on the card, the plain version's wall time on the CPU;
   devices, steal=False: a LOCKER a device, a fetch-add with its reply,
   a compare-swap with its reply. These return the proxies, their peak
   and the built-in messages each device applied.
+- the resident kernel's injecting instances (``resident_inject``):
+  ``inject_steal_8``, the forest with 16 FIB(4) rows on every device's
+  ring (steal-only); ``inject_pgas_4`` and ``inject_pgas_steal_8``, the
+  PGAS exchange with 4 BUMPs of slot 3 on every ring (without steal, and
+  with 32 BUMPs stolen beside it); ``compose_4``, ``five_way_1`` and
+  ``volume_1``, JAX's three resident compositions that inject
+  (``stress.compose_inject``, ``five_way``, ``volume``: the migrating
+  configuration with channels); ``tenants_4``, mesh tenancy
+  (``stress.tenant_mesh`` on 4 devices: four lanes at 4:2:1:1, the last
+  one's rows expired on the ring). These also return the heap and, on
+  the tenant mesh, the tctl echo.
 
 ``USER_CASES`` hold the user library's scheduler (``mk_user_kernel``) on
 one device (``run_user_case``), each on ``USER_TABLE`` (the built-in fib
@@ -126,7 +137,18 @@ CASES = {
     "homed_8_b8": ("homed", 8, 8, False, dict(n=9, cap=160, window=8,
                                              quantum=16)),
     "atomics_4": ("atomics", 4, 0, False, {}),
+    "inject_steal_8": ("inject", 8, 0, False, {}),
+    "inject_pgas_4": ("inject_pgas", 4, 0, False, dict(steal=False)),
+    "inject_pgas_steal_8": ("inject_pgas", 8, 0, False, dict(steal=True)),
+    "compose_4": ("compose", 4, 0, False, {}),
+    "five_way_1": ("five_way", 1, 0, False, {}),
+    "volume_1": ("volume", 1, 0, False, {}),
+    "tenants_4": ("tenants", 4, 0, False, {}),
 }
+INJECT_KINDS = ("inject", "inject_pgas", "compose", "five_way", "volume",
+                "tenants")
+# tenants_4's lanes: (tenant, weight, admissions on 4 devices).
+TENANTS_4 = (("gold", 4, 96), ("std", 2, 64), ("bg", 1, 32), ("late", 1, 16))
 
 
 def kernel_of(name: str) -> str:
@@ -134,6 +156,8 @@ def kernel_of(name: str) -> str:
     name): the ICI runner takes the resident kernel on power-of-two
     meshes and the ring on the others."""
     kind, ndev = CASES[name][:2]
+    if kind in INJECT_KINDS:
+        return "resident_inject"
     if kind == "ici":
         kind = "resident" if ndev & (ndev - 1) == 0 else "ring"
     return {"sharded": "mesh_round", "ring": "ici_ring",
@@ -227,28 +251,88 @@ def _homed_case(kind, ndev, bw, kw, device):
     return iv, data, info
 
 
+def _inject_case(kind, ndev, kw, device):
+    """An injecting case; raises unless its totals are exact."""
+    if kind == "inject":
+        iv, info = stress.inject_forest(ndev, ROOTS, N, 16, 4, CAP,
+                                        device=device)
+        return iv, {}, info
+    if kind == "tenants":
+        iv, info = stress.tenant_mesh(ndev, TENANTS_4, capacity=16,
+                                      device=device)
+        return iv, {}, info
+    if kind != "inject_pgas":
+        return {"compose": stress.compose_inject, "five_way": stress.five_way,
+                "volume": stress.volume}[kind](device=device)
+    bumps = 32 if kw["steal"] else 0
+    mk = stress.pgas_megakernel(device=device)
+    bs, waits, heap = stress.pgas_builders(ndev, False, bumps)
+    rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[stress.PBUMP], homed=False,
+                        channels={"c0": ("heap", 1)}, window=4, inject=True,
+                        ring_capacity=8, **kw)
+    rows = [[(stress.PBUMP, [3, 1 + d + j]) for j in range(4)]
+            for d in range(ndev)]
+    iv, data, info = rk.run(bs, data={"heap": heap}, waits=waits,
+                            inject_rows=rows, quantum=4)
+    stress.check_pgas(iv, data["heap"].cpu().numpy(), info, ndev, False,
+                      bumps)
+    want = sum(1 + d + j for d in range(ndev) for j in range(4))
+    if int(np.asarray(iv)[:, 3].sum()) != want:
+        raise AssertionError(f"inject_pgas: slot 3 {iv[:, 3].tolist()}")
+    return iv, data, info
+
+
+# chip_smoke.py's phase 29 (``inject``): JAX's three compositions that
+# inject, the forest with 256 injected rows a device and the four tenant
+# lanes on 128 CTAs.
+PHASE29 = ("compose_4", "five_way_1", "volume_1", "inject_128",
+           "tenants_128")
+
+
+def run_arm(name: str, device: str) -> dict:
+    """Phase-29 arm ``name`` on ``device``, exact or raising; returns what
+    it is compared on (``run_case``'s fields)."""
+    if name in CASES:
+        return run_case(name, device)
+    if name == "inject_128":
+        iv, info = stress.inject_forest(**stress.INJECT_128, device=device)
+    else:
+        iv, info = stress.tenant_mesh(device=device)
+    return _resident_result(iv, {}, info)
+
+
+def _resident_result(iv, data, info) -> dict:
+    """What a resident-kernel case is compared on."""
+    ex = info["exchange"]
+    return {
+        "iv": np.asarray(iv),
+        "counts": np.asarray(info["per_device_counts"]),
+        "rounds": info["rounds"],
+        "tiers": info.get("tiers"),
+        "fault_stats": info["fault_stats"],
+        "aborted": info["aborted"],
+        "rows": ex["rows"], "stat_words": ex["stat_words"],
+        "ams": ex["ams"], "puts": ex["puts"],
+        "proxies": info.get("proxies"),
+        "proxies_peak": info.get("proxies_peak"),
+        "builtin_ams": info.get("builtin_ams"),
+        "data": {k: v.cpu().numpy() for k, v in data.items()},
+        "tenant_ctl": info.get("tenant_ctl"),
+        "tenants": info.get("tenants"),
+        "executed": info["executed"],
+        "kernel_ms": ex["kernel_ms"],
+        "exchange_ms": None,
+    }
+
+
 def run_case(name: str, device: str) -> dict:
     """One case on ``device``; returns what it is compared on."""
     kind, ndev, bw, dealt, kw = CASES[name]
+    if kind in INJECT_KINDS:
+        return _resident_result(*_inject_case(kind, ndev, kw, device))
     if kind in ("homed", "atomics"):
-        iv, data, info = _homed_case(kind, ndev, bw, kw, device)
-        ex = info["exchange"]
-        return {
-            "iv": np.asarray(iv),
-            "counts": np.asarray(info["per_device_counts"]),
-            "rounds": info["rounds"],
-            "tiers": info.get("tiers"),
-            "fault_stats": info["fault_stats"],
-            "aborted": info["aborted"],
-            "rows": ex["rows"], "stat_words": ex["stat_words"],
-            "ams": ex["ams"], "puts": ex["puts"],
-            "proxies": info["proxies"],
-            "proxies_peak": info["proxies_peak"],
-            "builtin_ams": info["builtin_ams"],
-            "executed": info["executed"],
-            "kernel_ms": ex["kernel_ms"],
-            "exchange_ms": None,
-        }
+        return _resident_result(*_homed_case(kind, ndev, bw, kw, device))
     if kind.startswith(("user", "pgas")):
         iv, data, info = _user_case(kind, ndev, dealt, kw, device)
         ex = info.get("exchange", {})
@@ -422,7 +506,17 @@ def user_sources():
     ``chip_smoke.py`` build: USER_TABLE's, the dry run's tables, the PGAS
     exchange's, the lock workload's, and the migrating configuration's
     of the homed fib (scalar and width 8), unified_load's table (scalar
-    and width 8) and the dry run's phase 0."""
+    and width 8) and the dry run's phase 0; and the injecting libraries:
+    the fib forest's (steal-only), the PGAS exchange's, the bump
+    table's (tenants) and those of JAX's three compositions that inject
+    (migrating)."""
+    from hclib_tpu_torch.device.megakernel import Megakernel
+    from hclib_tpu_torch.device.workloads import make_fib_megakernel
+
+    def table(rows, **kw):
+        return Megakernel(list(rows), capacity=16, num_values=64,
+                          succ_capacity=8, device="cpu", **kw)
+
     return [user_megakernel(16, "cpu").user_source(),
             stress.bump_megakernel("cpu").user_source(),
             stress.pgas_megakernel(device="cpu").user_source(),
@@ -434,7 +528,15 @@ def user_sources():
                 True, home=True),
             stress.unified_megakernel(64, 8, "cpu").user_source(
                 True, home=True),
-            stress.dryrun0_megakernel("cpu").user_source(True, home=True)]
+            stress.dryrun0_megakernel("cpu").user_source(True, home=True),
+            make_fib_megakernel(16, device="cpu").user_source(
+                False, inject=True),
+            stress.pgas_megakernel(device="cpu").user_source(
+                True, inject=True),
+            stress.bump_megakernel("cpu").user_source(False, inject=True),
+            table(stress.COMPOSE_TABLE).user_source(True, True, True),
+            table(stress.FIVE_WAY_TABLE).user_source(True, True, True),
+            table(stress.VOLUME_TABLE).user_source(True, True, True)]
 
 
 USER_CASES = ("chain_free", "mixed", "ufib")

@@ -732,7 +732,9 @@ MESH_CASES = ("sharded_nosteal_8", "sharded_steal_8", "sharded_steal_8_b8",
               "resident_8_hops", "resident_8_abort", "resident_8_b8",
               "user_sharded_8", "user_resident_8", "pgas_2", "pgas_4",
               "pgas_8", "pgas_steal_8", "homed_2", "homed_8", "homed_3d",
-              "homed_8_b8", "atomics_4")
+              "homed_8_b8", "atomics_4", "inject_steal_8", "inject_pgas_4",
+              "inject_pgas_steal_8", "compose_4", "five_way_1", "volume_1",
+              "tenants_4")
 
 
 def _mesh_holds():
@@ -927,3 +929,44 @@ def test_builtin_only_homed_library_holds(card):
     assert fn(0, 0, 1, 0, ctypes.byref(out)) != 0  # no mk_user_kernel
     h.compare(h.run_case("homed_3d", "cuda"), h.run_case("homed_3d", "cpu"),
               "homed_3d")
+
+
+PHASE29 = ("compose_4", "five_way_1", "volume_1", "inject_128", "tenants_128")
+
+
+@pytest.mark.parametrize("arm", PHASE29)
+def test_inject_phase_arm_equals_plain(card, arm):
+    """chip_smoke.py's phase 29 arms (the resident kernel's injecting
+    instances): JAX's three compositions that inject, the forest with 256
+    injected FIB rows on every ring of 128 CTAs and the four tenant lanes
+    on 128 CTAs, each exact (JAX's assertions) and equal to its plain run
+    word for word: value slots, counts, rounds, fault stats, the heap,
+    and the tctl echo and the table's stats on the tenant mesh."""
+    h = _mesh_holds()
+    assert set(PHASE29) == set(h.PHASE29)
+    h.compare(h.run_arm(arm, "cuda"), h.run_arm(arm, "cpu"), arm)
+
+
+def test_inject_library_holds_only_injecting_instances(card):
+    """A table's injecting library (HCLIB_USER_INJECT) holds the resident
+    kernel's injecting instance of its variant alone, and a launch
+    without the ring (or a plain library's launch with one) is refused
+    before the kernel runs."""
+    h = _mesh_holds()
+    mk = h.homed_megakernel(64, 0, "cuda")
+    src = mk.user_source(False, inject=True)
+    assert "#define HCLIB_USER_INJECT 1" in src
+    lib = mk.user_library(False, inject=True)
+    out = ctypes.c_int(0)
+    fn = lib.hclib_user_coresident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    assert fn(2, 0, 1, 0, ctypes.byref(out)) == 0 and out.value >= 8
+    assert fn(0, 0, 1, 0, ctypes.byref(out)) != 0  # no mk_user_kernel
+    assert fn(1, 0, 1, 0, ctypes.byref(out)) != 0  # no ring kernel
+    launch = lib.hclib_user_launch
+    launch.restype = ctypes.c_int
+    launch.argtypes = [ctypes.POINTER(tmk.MeshHost)] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    host = tmk.MeshHost()
+    host.ndev = 2
+    assert launch(ctypes.byref(host), 2, 0, 1, 0, None) != 0

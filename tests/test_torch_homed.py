@@ -14,7 +14,6 @@ count among them) and the rounds; the port's proxies end at 0. JAX's
 other homed tests run on the port alone, held to JAX's assertions.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -44,13 +43,9 @@ MIGRATE = {FIB: (), SUM: (0, 1)}
 def _reference_without_hclint():
     """The JAX megakernels are built without their build-time verifier
     (hclint, a host analysis that cannot change the compiled program)."""
-    old = os.environ.get("HCLIB_TPU_VERIFY")
-    os.environ["HCLIB_TPU_VERIFY"] = "0"
-    yield
-    if old is None:
-        os.environ.pop("HCLIB_TPU_VERIFY", None)
-    else:
-        os.environ["HCLIB_TPU_VERIFY"] = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HCLIB_TPU_VERIFY", "0")
+        yield
 
 
 def _exec_count(n):

@@ -154,6 +154,25 @@ ENTRY_POINTS = {
             ndev=2, n=4, fadds=2, capacity=64),
     "dryrun0": lambda: __import__(
         "hclib_tpu_torch.device.stress", fromlist=["x"]).dryrun0(),
+    "compose_inject": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).compose_inject(),
+    "five_way": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).five_way(),
+    "volume": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).volume(),
+    "inject_forest": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).inject_forest(
+            ndev=2, roots=2, n=3, per_dev=2, n_inj=2, capacity=64),
+    "tenant_mesh": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).tenant_mesh(
+            ndev=2, lanes=(("a", 1, 2), ("late", 1, 1))),
+    "ResidentKernel_inject": lambda: __import__(
+        "hclib_tpu_torch.device.resident", fromlist=["x"]).ResidentKernel(
+            __import__("hclib_tpu_torch.device.workloads",
+                       fromlist=["x"]).make_fib_megakernel(64),
+            __import__("hclib_tpu_torch.parallel.mesh",
+                       fromlist=["x"]).CtaMesh((2,), ("q",)),
+            inject=True, tenants=2),
 }
 
 

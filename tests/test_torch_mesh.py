@@ -16,7 +16,6 @@ one-device self-exchange, a 4x2 mesh, the batch-routed ring, and the
 refusals of what this slice does not run yet.
 """
 
-import os
 
 import numpy as np
 import pytest
@@ -46,13 +45,9 @@ FIB = 0
 def _reference_without_hclint():
     """The JAX megakernels are built without their build-time verifier
     (hclint, a host analysis that cannot change the compiled program)."""
-    old = os.environ.get("HCLIB_TPU_VERIFY")
-    os.environ["HCLIB_TPU_VERIFY"] = "0"
-    yield
-    if old is None:
-        os.environ.pop("HCLIB_TPU_VERIFY", None)
-    else:
-        os.environ["HCLIB_TPU_VERIFY"] = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HCLIB_TPU_VERIFY", "0")
+        yield
 
 
 def forest(B, ndev, sizes, devices=None):
@@ -297,37 +292,47 @@ class _Plan:
 
 
 REFUSED_INIT = {
-    # Homed migration, value args and channels run (tests/
-    # test_torch_homed.py, test_torch_pgas.py); beside a fault plan, mesh
-    # tenancy or injection they still refuse, as does the PGAS
-    # configuration with injection.
+    # Homed migration, value args, channels, the injection ring and mesh
+    # tenancy run (tests/test_torch_homed.py, test_torch_pgas.py,
+    # test_torch_inject_mesh.py); each key keeps naming its feature, now
+    # beside the fault plan that still refuses (ROADMAP A11b).
     "homed_faults": dict(migratable_fns=[FIB], fault_plan=_Plan()),
     "value_args_tenants": dict(migratable_fns={FIB: (0,)}, homed=False,
-                               tenants=2),
+                               inject=True, tenants=2, fault_plan=_Plan()),
     "channels_homed_inject": dict(channels={"c": ("x", 1)},
-                                  migratable_fns=[FIB], inject=True),
-    "inject": dict(inject=True),
-    "tenants": dict(tenants=2),
+                                  migratable_fns=[FIB], inject=True,
+                                  fault_plan=_Plan()),
+    "inject": dict(inject=True, fault_plan=_Plan()),
+    "tenants": dict(inject=True, tenants=2, fault_plan=_Plan()),
     "fault_plan": dict(fault_plan=_Plan()),
-    "pgas_inject": dict(steal=False, channels={"c": ("x", 1)}, inject=True),
+    "pgas_inject": dict(steal=False, channels={"c": ("x", 1)}, inject=True,
+                        fault_plan=_Plan()),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_INIT))
 def test_resident_refuses_what_is_not_ported(name):
+    kw = REFUSED_INIT[name]
     with pytest.raises(NotImplementedError, match="A11"):
-        ResidentKernel(_fib_mk(), cpu_mesh(2), **REFUSED_INIT[name])
+        ResidentKernel(_fib_mk(), cpu_mesh(2), **kw)
+    # The same configuration without the fault plan builds.
+    if name != "fault_plan" and "channels" not in kw:
+        kw = {k: v for k, v in kw.items() if k != "fault_plan"}
+        rk = ResidentKernel(_fib_mk(), cpu_mesh(2), **kw)
+        assert rk.inject == bool(kw.get("inject"))
 
 
 REFUSED_RUN = {
-    # waits= and a body's remote atomics run (tests/test_torch_pgas.py,
-    # test_torch_homed.py); quiescing the PGAS configuration still
-    # refuses (ROADMAP A11b).
+    # waits=, a body's remote atomics, inject_rows= and tenant_table= run
+    # (tests/test_torch_pgas.py, test_torch_homed.py,
+    # test_torch_inject_mesh.py); quiescing or resuming them still
+    # refuses (ROADMAP A11b): each key keeps naming its feature, now
+    # beside the quiesce or resume that refuses.
     "pgas_quiesce": None,
-    "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []]),
+    "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []], quiesce=True),
     "quiesce": dict(quiesce=True),
     "resume_state": dict(resume_state={"tasks": None}),
-    "tenant_table": dict(tenant_table=object()),
+    "tenant_table": dict(tenant_table=True, resume_state={"tasks": None}),
 }
 
 
@@ -346,10 +351,22 @@ def test_resident_run_refuses_what_is_not_ported(name):
             rk.run(bs, data={"x": np.zeros((2, 2, 4), np.int32)},
                    quiesce=True)
         return
+    kw = dict(REFUSED_RUN[name])
+    tenants = None
+    if kw.get("tenant_table"):
+        from hclib_tpu_torch.device.tenants import MeshTenantTable, TenantSpec
+
+        tenants = [TenantSpec("a"), TenantSpec("b")]
     rk = ResidentKernel(_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
-                        homed=False)
+                        homed=False, inject=True, tenants=tenants)
+    if tenants:
+        kw["tenant_table"] = MeshTenantTable(tenants, 2, rk.region_rows)
     with pytest.raises(NotImplementedError, match="A11"):
-        rk.run(forest(TBuilder, 2, [3]), **REFUSED_RUN[name])
+        rk.run(forest(TBuilder, 2, [3]), **kw)
+    # Without the quiesce or the resume the same run completes.
+    kw = {k: v for k, v in kw.items() if k not in ("quiesce", "resume_state")}
+    iv, _, info = rk.run(forest(TBuilder, 2, [3]), **kw)
+    assert info["pending"] == 0
 
 
 @pytest.mark.parametrize("option", ["trace", "checkpoint"])

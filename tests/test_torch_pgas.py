@@ -15,7 +15,6 @@ the multi-chip dry run's phases 2-4 (__graft_entry__.py) and the
 refusals of what is not ported yet.
 """
 
-import os
 
 import jax
 import numpy as np
@@ -43,13 +42,9 @@ PUT, CONSUME, BUMP, SERVE, NOP, EXTRA = range(6)
 def _reference_without_hclint():
     """The JAX megakernels are built without their build-time verifier
     (hclint, a host analysis that cannot change the compiled program)."""
-    old = os.environ.get("HCLIB_TPU_VERIFY")
-    os.environ["HCLIB_TPU_VERIFY"] = "0"
-    yield
-    if old is None:
-        os.environ.pop("HCLIB_TPU_VERIFY", None)
-    else:
-        os.environ["HCLIB_TPU_VERIFY"] = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HCLIB_TPU_VERIFY", "0")
+        yield
 
 
 # The kernel table of tests/test_pgas_kernel.py, as plain bodies (the

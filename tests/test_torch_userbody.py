@@ -14,7 +14,6 @@ library source, and the refusals.
 import os
 import re
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -34,13 +33,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_without_hclint():
-    old = os.environ.get("HCLIB_TPU_VERIFY")
-    os.environ["HCLIB_TPU_VERIFY"] = "0"
-    yield
-    if old is None:
-        os.environ.pop("HCLIB_TPU_VERIFY", None)
-    else:
-        os.environ["HCLIB_TPU_VERIFY"] = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HCLIB_TPU_VERIFY", "0")
+        yield
 
 
 # tests/test_device.py's bodies, as JAX (pl.when) and plain bodies, and
