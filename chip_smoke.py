@@ -257,6 +257,27 @@ header, qstat and the whole output state equal to the plain core's.
              Each arm warmed up (its library's first launch), then timed
              by CUDA events; then (outside the launch counts) each arm's
              plain run, word for word with the tctl echo.
+30. faults - the resident kernel's fault plans (resident_kernel<..,
+             kFault>, counter resident_fault; scripts/mesh_holds.py
+             PHASE30): JAX's fault tests (tests/test_device_faults.py)
+             at their shapes - 40 BUMPs on device 0 of 2 CTAs under
+             homed migration with a credit dropped at (1, 0, 1), one
+             duplicated there and delays at 50 %, and the
+             credit_timeout=0 plan, which must raise its StallError
+             naming hop 0 and granter device 1 (any other outcome
+             fails); 6 BUMPs on each of 8 CTAs with device 3 dead at
+             round 2 - then the widest mesh a plan allows (31 devices:
+             16 CTAs): UTS depth 20 (498,965 nodes from its root on
+             device 0) under homed migration, device 0 dead at round 2
+             holding queued rows, credits dropped, doubled and delayed
+             at 1, 1 and 10 per mille (stress.UTS_FAULT): exact, rows
+             re-homed, device 0 quarantined, every dropped credit
+             regenerated; and FOREST_STEAL_BENCH's forest steal-only
+             through ICIStealMegakernel with device 0 dead from round 0
+             (its whole queue re-homed; stress.FOREST_FAULT). Each arm
+             warmed up, then timed by CUDA events; then (outside the
+             launch counts) each arm's plain run, word for word with
+             every device's fault stats.
 
 The ``user`` lines, before the main path, hold the user-body
 scheduler on one device to the plain core (``scripts/mesh_holds.py``
@@ -281,7 +302,11 @@ proxies and built-in messages included; and the injecting instances on
 the forest with injected FIB rows (8 devices), the PGAS exchange with
 injected BUMPs (4 devices, and 8 with steal), JAX's three compositions
 that inject, and four tenant lanes on 4 devices with a 16-row table,
-the tctl echo included.
+the tctl echo included; and each instance with the fault layer (the
+forest steal-only with a dead device and credit faults, scalar and at
+width 8; the dry run's BUMPs steal-only and the PGAS exchange with
+steal under credit faults; the two fixtures of
+tests/test_torch_faults.py; the credit_timeout=0 plan's StallError).
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -293,7 +318,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-29 are the main path: launch counts are zeroed just before each
+Phases 3-30 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -3341,6 +3366,101 @@ def main() -> int:
     emit({"phase": "inject", "arms": inj_arms, "plain_ms": inj_plain,
           "library": "none: no PyTorch call runs a task scheduler or its "
                      "injection ring",
+          "launches": launches})
+
+    # 30. fault plans (the resident kernel's instances with the fault
+    # layer, resident_fault): scripts/mesh_holds.py's PHASE30 arms - JAX's
+    # fault tests at their shapes (the dropped, duplicated and delayed
+    # credit plans and the credit_timeout=0 plan on 2 CTAs, the dead chip
+    # on 8), UTS depth 20 on 16 CTAs with a dead device and credit
+    # faults, and the forest steal-only on 16 CTAs with its whole queue
+    # re-homed. Each arm runs twice on the card (the first launch of its
+    # library is the warm-up), exact by JAX's assertions (the wedge: its
+    # StallError, raised within max_rounds, never a spin deadline); then,
+    # outside the counts, its plain run word for word, fault stats and
+    # the StallError's message included.
+    _build.reset_launches()
+    flt_arms, flt_out = {}, {}
+    for name in mesh_holds.PHASE30:
+        mesh_holds.run_fault_arm(name, "cuda")  # warm-up
+        t0 = time.perf_counter()
+        got = mesh_holds.run_fault_arm(name, "cuda")
+        dt = time.perf_counter() - t0
+        flt_out[name] = got
+        fs = got["fault_stats"]
+        arm = {"seconds": dt, "kernel_ms": got["kernel_ms"],
+               "tasks": got["executed"], "pending": got["pending"],
+               "rounds": got["rounds"],
+               "rows_exported": sum(got["rows"]),
+               "stat_words": sum(got["stat_words"]), "ams": sum(got["ams"]),
+               "faults": {k: sum(f[k] for f in fs) for k in (
+                   "credits_dropped", "credits_regenerated",
+                   "credits_duplicated", "xfers_delayed", "rehomed_rows")},
+               "quarantined": sorted({q for f in fs
+                                      for q in f["quarantined"]}),
+               "detected_round": max(f["dead_detected_round"] for f in fs)}
+        if "stall" in got:
+            arm["stall"] = got["stall"]
+        # The bound (bytes): row 7's 136 B a task, 64 B an active message
+        # or a descriptor row moved, 4 B a stat word sent (the routed
+        # heartbeats, ndev words a hop, among them).
+        arm["bound_ms"] = bound(0.0, 136.0 * arm["tasks"] + 64.0 * (
+            arm["ams"] + arm["rows_exported"])
+            + 4.0 * arm["stat_words"])[0]
+        flt_arms[name] = arm
+        emit({"phase": "faults", "arm": name, **arm})
+    f = {n: a["faults"] for n, a in flt_arms.items()}
+    check(f["drop_2"]["credits_dropped"] == 1
+          and f["drop_2"]["credits_regenerated"] == 1
+          and f["dup_2"]["credits_duplicated"] == 1
+          and f["delay_2"]["xfers_delayed"] > 0
+          and flt_arms["wedge_2"]["pending"] > 0
+          and f["dead_8"]["rehomed_rows"] > 0
+          and flt_arms["dead_8"]["quarantined"] == [3],
+          f"faults: JAX's shapes {f}")
+    for name in ("uts_16", "forest_16"):
+        a = flt_arms[name]
+        check(a["faults"]["rehomed_rows"] > 0 and a["quarantined"] == [0]
+              and a["faults"]["credits_dropped"] > 0
+              and a["faults"]["credits_regenerated"]
+              == a["faults"]["credits_dropped"],
+              f"faults {name}: {a}")
+    check(flt_arms["uts_16"]["tasks"] == 498965,
+          f"uts_16: {flt_arms['uts_16']['tasks']} nodes")
+    # What the fault layer costs: the same UTS run with no plan (the
+    # migrating instance without kFault), warmed up, by CUDA events.
+    tst.uts_fault(plan={})
+    iv, info = tst.uts_fault(plan={})
+    check(int(iv[:, 0].sum()) == 498965, "uts_16 without a plan: nodes")
+    emit({"phase": "faults", "arm": "uts_16_noplan",
+          "kernel_ms": info["exchange"]["kernel_ms"],
+          "rounds": info["rounds"],
+          "stat_words": sum(info["exchange"]["stat_words"]),
+          "rows_exported": sum(info["exchange"]["rows"])})
+    launches = path_done("faults")
+    # Outside the counts: every arm's plain run, word for word.
+    flt_plain, flt_err = {}, {}
+    for name in mesh_holds.PHASE30:
+        want = mesh_holds.run_fault_arm(name, "cpu")
+        flt_err[name] = mesh_holds.compare(flt_out[name], want, name)
+        check(flt_out[name].get("stall") == want.get("stall"),
+              f"faults {name}: the StallError differs from the plain one")
+        flt_plain[name] = want["kernel_ms"]
+    emit({"phase": "faults", "plain_equal": sorted(flt_err),
+          "max_abs_err": flt_err, "plain_ms": flt_plain})
+    a = flt_arms["uts_16"]
+    kernels["resident_fault"] = {
+        "name": "resident_fault", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/resident.py:2222",
+        "max_abs_err": max(list(flt_err.values())
+                           + [mesh_hold_err["resident_fault"]]),
+        "ms": a["kernel_ms"], "plain_ms": flt_plain["uts_16"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+    emit({"phase": "faults", "arms": flt_arms, "plain_ms": flt_plain,
+          "library": "none: no PyTorch call runs a task scheduler or its "
+                     "fault-tolerant steal exchange",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

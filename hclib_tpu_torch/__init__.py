@@ -17,3 +17,7 @@ the canonical UTS engines ``device.uts_fused.uts_fused`` (CUDA) and
 tier ``device.forasync_tier.run_forasync_device`` and
 ``device.workloads.device_arrayadd``.
 """
+
+from .runtime.resilience import DeviceFaultPlan, StallError
+
+__all__ = ["DeviceFaultPlan", "StallError"]

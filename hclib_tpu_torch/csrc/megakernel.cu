@@ -744,10 +744,22 @@ void* mesh_kernel_of(int kind, int mode) {
                  : reinterpret_cast<void*>(
                        ici_ring_kernel<false, BuiltinBodies>);
     default:
-      return mode ? reinterpret_cast<void*>(
-                        resident_kernel<true, true, false, BuiltinBodies>)
-                  : reinterpret_cast<void*>(
-                        resident_kernel<false, true, false, BuiltinBodies>);
+      switch (mode) {
+        case 0:
+          return reinterpret_cast<void*>(
+              resident_kernel<false, true, false, BuiltinBodies>);
+        case 1:
+          return reinterpret_cast<void*>(
+              resident_kernel<true, true, false, BuiltinBodies>);
+        case 2:  // the fault layer (kFault)
+          return reinterpret_cast<void*>(
+              resident_kernel<false, true, false, BuiltinBodies, false,
+                              false, true>);
+        default:
+          return reinterpret_cast<void*>(
+              resident_kernel<true, true, false, BuiltinBodies, false,
+                              false, true>);
+      }
   }
 }
 
@@ -1018,21 +1030,28 @@ int hclib_stream_launch(int32_t* tasks, const int32_t* succ, int32_t* ready,
 }
 
 // The most CTAs of a steal kernel (kind 1 ring, 2 resident steal-only;
-// mode 0 lean, 1 lanes) the card holds at once, at one CTA an SM at most.
+// mode 0 lean, 1 lanes, and for the resident kernel 2 and 3 the same with
+// the fault layer) the card holds at once, at one CTA an SM at most.
 // Returns a CUDA error, the count in *out.
 int hclib_mesh_coresident(int kind, int mode, int* out) {
+  if (kind < 0 || kind > 2 || mode < 0 || mode > (kind == 2 ? 3 : 1))
+    return cudaErrorInvalidValue;
   return coresident(mesh_kernel_of(kind, mode), out);
 }
 
 // kind 0: mk_grid_kernel (an ordinary launch of ndev blocks of `threads`);
 // 1: ici_ring_kernel, 2: the resident kernel's steal-only configuration
 // (cooperative launches of ndev one-thread CTAs, refused past
-// hclib_mesh_coresident). mode: 0 lean, 1 lanes. Returns
+// hclib_mesh_coresident). mode: 0 lean, 1 lanes; the resident kernel's 2
+// and 3 with the fault layer, which wants h->fplan and h->fws. Returns
 // cudaGetLastError() (0 = launched).
 int hclib_mesh_launch(const MeshHost* h, int kind, int mode, int threads,
                       int smem, void* stream) {
-  if (kind < 0 || kind > 2 || mode < 0 || mode > 1 || h->ndev < 1 ||
-      (kind > 0 && !steal_args_ok(h)) || (kind > 0 && h->nchan != 0))
+  const bool fault = mode > 1;
+  if (kind < 0 || kind > 2 || mode < 0 || mode > (kind == 2 ? 3 : 1) ||
+      h->ndev < 1 || (kind > 0 && !steal_args_ok(h)) ||
+      (kind > 0 && h->nchan != 0) || (h->fplan != 0) != fault ||
+      (fault && !fault_args_ok(h, false)))
     return cudaErrorInvalidValue;
   MeshArgs m = mesh_args(h);
   const auto st = static_cast<cudaStream_t>(stream);

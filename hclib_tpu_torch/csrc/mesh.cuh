@@ -26,7 +26,11 @@
 //                       also with the injection ring (kInject: poll
 //                       :1404, the tenant lanes' tpoll :1458, the ring
 //                       backlog in the fold's SF_INJ and the exit,
-//                       :1938-1988)
+//                       :1938-1988); and each steal configuration with
+//                       the fault layer (kFault: the DeviceFaultPlan
+//                       predicates :738-799, the faulty row exchange
+//                       :1681-1834, heartbeat detection and quarantine
+//                       :1836-1870, the dead device's round :1895-1937)
 // csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
 // mk_kernel's body a block) and instantiates these with the built-in
 // thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
@@ -73,6 +77,20 @@
 // head waiting in the FIFO outbox (OVF_OUTBOX when it is full), so a slot
 // is never rewritten before its target drained it (pgas_kernel.py's
 // argument: the fold of round r + 1 orders after every drain of round r).
+//
+// Faults. Under kFault every fault decision is a pure function of (seed,
+// site, round, hop, granter) (fault_mix), so both ends of a pair, and
+// every bystander, take it alike. The credit counters stay monotonic: a
+// dropped credit is not published, a duplicated one is published twice,
+// and a writer waits until its credits reach the waits it has done plus
+// one, which is JAX's semaphore_wait(1) on signals in less waits done. A
+// credit owed (dropped) skips one wait instead (regeneration), after the
+// pair has skipped its row exchange on that hop for credit_timeout rounds;
+// the arrival counter is waited on against the exchanges the pair has
+// done. So no writer ever waits for a credit that was dropped, and a run
+// with credit_timeout 0 raises the wedge flag, skips every row exchange
+// and exits at the next fold. The dead device keeps its exchange: fold,
+// exports of its backlog, credits and arrivals; only its scheduler stops.
 //
 // Every wait is bounded: past its deadline (the global timer, in
 // nanoseconds: the SM clock that clock64 counts slows under a power cap)
@@ -122,11 +140,12 @@ constexpr int P_STAT = 32, STAT_WORDS = 8, P_INBOX = 64;
 // Resident stat words (resident.py SF_*): the sums of [0, SX_AM), then
 // the XOR all-to-all section (the PGAS configurations), then the sender's
 // ready backlog. SF_INJ sums the injection rings' backlog (0 without
-// kInject). With no active messages, channels or faults, the all-to-all
-// section is all zeros and the steal-only kernel does not send it (S_BL
-// is 7 there).
+// kInject), SF_WEDGE the wedge flags (kFault). With no active messages or
+// channels, the all-to-all section is all zeros and the steal-only kernel
+// does not send it (S_BL is 7 there). Under kFault the ndev routed
+// heartbeats follow the backlog.
 constexpr int SF_PEND = 0, SF_RECV = 1, SF_OUTB = 2, SF_SENT = 3,
-              SF_INJ = 4, SF_ABORT = 5, SX_AM = 7, S_BL = 7;
+              SF_INJ = 4, SF_ABORT = 5, SF_WEDGE = 6, SX_AM = 7, S_BL = 7;
 // The error row: the stop word, the claim, then what timed out (or the
 // protocol fault).
 constexpr int ER_STOP = 0, ER_CLAIM = 1, ER_DEV = 2, ER_ROUND = 3,
@@ -136,8 +155,30 @@ enum {
   W_PUT_ARRIVAL, W_AM_ARRIVAL, F_BAD_CHANNEL, F_BAD_ROWS, F_BAD_TARGET
 };
 // resident.py FS_*: the fault/abort stats row a device writes at exit.
-constexpr int FS_DEAD_ROUND = 4, FS_ABORT_ROUND = 7, FS_QUIESCE_ROUND = 10,
-              FS_TEN_EXPIRED = 11, FS_WORDS = 16;
+constexpr int FS_DROPPED = 0, FS_REGEN = 1, FS_DUPED = 2, FS_DELAYED = 3,
+              FS_DEAD_ROUND = 4, FS_QMASK = 5, FS_REHOMED = 6,
+              FS_ABORT_ROUND = 7, FS_STARVED = 8, FS_HB = 9,
+              FS_QUIESCE_ROUND = 10, FS_TEN_EXPIRED = 11, FS_WORDS = 16;
+// The fault layer (kFault; device/resident.py FP_* and FW_*).
+namespace flt {
+// The plan's words, one copy for the mesh: the seed, the per-mille rates,
+// the dead device (-1: none) and its round, both timeouts, the exact
+// lists' lengths, whether a drop wedges the mesh (credit_timeout 0), then
+// MAX_AT (round, hop, granter) entries a site, drops then duplicates.
+constexpr int SEED = 0, DROP = 1, DUP = 2, DELAY = 3, DEAD_DEV = 4,
+              DEAD_ROUND = 5, CREDIT_TIMEOUT = 6, HB_TIMEOUT = 7, NDROP = 8,
+              NDUP = 9, WEDGES = 10, AT = 16, MAX_AT = 16;
+// A device's fault workspace (resident.py's pair_down, owed, hb_seen,
+// hb_round, deadmask, pstate's PS_HB and PS_WEDGE): its FS_* words; per
+// hop bit the last round of the pair's down window, the credits owed,
+// the credit waits done and the row exchanges done; per peer the
+// heartbeat last seen, the round it last moved and the quarantine flag;
+// the routed heartbeats (slot p: me ^ p's after the fold); my heartbeat;
+// the wedge flag.
+constexpr int PAIR_DOWN = 16, OWED = 32, WAITS = 48, XDONE = 64,
+              HB_SEEN = 80, HB_ROUND = 112, DEAD = 144, HB_ACC = 176,
+              HB = 208, WEDGE = 209, WS_WORDS = 216;
+}  // namespace flt
 // The injection ring's layout (descriptor.py RING_ROW, TEN_*; tenants.py
 // TC_*): a row's words past the descriptor, and a lane's tctl row.
 namespace inj {
@@ -209,6 +250,10 @@ struct MeshArgs {
   const int32_t* ictl;
   int32_t* tctl;
   int ring_rows, ntenants, region;
+  // The instances with the fault layer: the plan (flt::) and each
+  // device's fault workspace (flt::WS_WORDS words a device).
+  const int32_t* fplan;
+  int32_t* fws;
 };
 
 // Device d's slice of the stacked state (in place: tasks_in == tasks).
@@ -906,6 +951,60 @@ struct Ring {
   }
 };
 
+// The fault plan's predicates (resident.py :738-799), pure in (seed, site,
+// round r, hop k, granter g), and one device's fault workspace `f`.
+struct Faults {
+  const int32_t* p;
+  int32_t* f;
+
+  __device__ bool hit(int site, int millis, int n, const int32_t* at, int r,
+                      int k, int g) const {
+    bool h = millis > 0 && fault_mix(p[flt::SEED], site, r, k, g) < millis;
+    for (int i = 0; i < n; ++i)
+      h |= at[3 * i] == r && at[3 * i + 1] == k && at[3 * i + 2] == g;
+    return h;
+  }
+  __device__ bool drop(int r, int k, int g) const {
+    return hit(0, p[flt::DROP], p[flt::NDROP], p + flt::AT, r, k, g);
+  }
+  __device__ bool dup(int r, int k, int g) const {
+    return hit(1, p[flt::DUP], p[flt::NDUP], p + flt::AT + 3 * flt::MAX_AT,
+               r, k, g);
+  }
+  __device__ bool delay(int r, int k, int g) const {
+    return hit(2, p[flt::DELAY], 0, p, r, k, g);
+  }
+  // Is device d the plan's dead chip at round r?
+  __device__ bool dead(int d, int r) const {
+    return p[flt::DEAD_DEV] == d && r >= p[flt::DEAD_ROUND];
+  }
+  // With regeneration off, does any credit of round r drop (every device
+  // evaluates every pair, so all raise the wedge flag together)?
+  __device__ bool wedges(int r, int nh, int ndev) const {
+    if (!p[flt::WEDGES]) return false;
+    for (int k = 0; k < nh; ++k)
+      for (int g = 0; g < ndev; ++g)
+        if (drop(r, k, g)) return true;
+    return false;
+  }
+
+  // Heartbeat detection (resident.py :1836-1870): quarantine a peer whose
+  // routed heartbeat has not moved for heartbeat_timeout rounds.
+  __device__ void detect(int me, int ndev, int r) const {
+    for (int q = 0; q < ndev; ++q) {
+      const int src = me ^ q, hb = f[flt::HB_ACC + q];
+      if (hb != f[flt::HB_SEEN + src]) f[flt::HB_ROUND + src] = r;
+      f[flt::HB_SEEN + src] = hb;
+      if (src != me && f[flt::DEAD + src] == 0 &&
+          r - f[flt::HB_ROUND + src] >= p[flt::HB_TIMEOUT]) {
+        f[flt::DEAD + src] = 1;
+        f[FS_QMASK] |= 1 << src;
+        if (f[FS_DEAD_ROUND] < 0) f[FS_DEAD_ROUND] = r;
+      }
+    }
+  }
+};
+
 // The scheduler of the resident kernel's homed configuration (JAX's
 // _make_core with tracks_home and complete_hook): spawn and
 // take_continuation keep the home links (when `track`), and a completing
@@ -1092,10 +1191,15 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
 // and completion messages (resident.py with migratable kinds and homed,
 // or value args). kInject: after sched(quantum), the ring's poll (Ring);
 // its backlog rides the fold's SF_INJ and the mesh exits only at 0.
+// kFault (with kSteal, without kInject): the fault layer (Faults) - the
+// dead device's fuel 0 and frozen heartbeat, the heartbeats routed after
+// the backlog, the faulty row exchange, detection after the fold, the
+// wedge flag in SF_WEDGE and the exit; the FS_* words at exit.
 template <bool kLanes, bool kSteal, bool kPgas, class B, bool kHome = false,
-          bool kInject = false>
+          bool kInject = false, bool kFault = false>
 __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   static_assert(!kHome || (kSteal && kPgas), "the migrating configuration");
+  static_assert(!kFault || (kSteal && !kInject), "the fault layer");
   __shared__ int32_t s_counts[8];
   __shared__ Round R;
   __shared__ int32_t s_cand[kSteal ? MAX_SCAN : 1];
@@ -1114,8 +1218,10 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   const B bodies(m, a, pp);
   const int starve_below = min(m.quantum, W);
   const int sbl = kPgas ? m.stat_words - 1 : S_BL;
-  const int p_inbox = kPgas ? m.p_inbox : P_INBOX;
+  const int p_inbox = kPgas || kFault ? m.p_inbox : P_INBOX;
   int xs[XS_WORDS] = {0, 0, 0, 0};
+  Faults F{};
+  if constexpr (kFault) F = Faults{m.fplan, m.fws + me * flt::WS_WORDS};
   Ring<kPgas> I{m, P, me, 0, 0};
   if constexpr (kInject) I.consumed = ld_relaxed(m.ictl + 8 * me + 2);
   S.stage(a);
@@ -1124,7 +1230,17 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   while (!done && r < m.max_rounds) {
     const int local_abort = ld_relaxed(m.abort + 8 * me) != 0;
     if constexpr (kPgas) P.r = r;
+    bool am_dead = false;
+    if constexpr (kFault) {
+      // The dead device's scheduler runs nothing; its wire stays up.
+      am_dead = F.dead(me, r);
+      a.fuel = am_dead ? 0 : m.quantum;
+    }
     mesh_sched<kLanes>(S, a, R, O, bodies);
+    if constexpr (kFault) {
+      if (!am_dead) F.f[flt::HB] += 1;
+      for (int q = 0; q < m.ndev; ++q) F.f[flt::HB_ACC + q] = F.f[flt::HB];
+    }
     if constexpr (kPgas) {
       if (X.stopped()) break;  // a body's protocol fault
     }
@@ -1134,6 +1250,7 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     int acc[SX_AM] = {s_counts[C_PENDING], 0, 0, 0, inj_backlog, local_abort,
                       0};
     if constexpr (kPgas) P.stat_init(acc);
+    if constexpr (kFault) acc[SF_WEDGE] = F.f[flt::WEDGE];
     for (int h = 0; h < m.nhops && ok; ++h) {
       const int k = m.hops[h], partner = me ^ (1 << k);
       int32_t* mine = X.port(me, k);
@@ -1144,15 +1261,99 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
       if constexpr (kPgas) P.stat_send(theirs + P_STAT);
       theirs[P_STAT + sbl] = s_counts[C_TAIL] - s_counts[C_HEAD];
       xs[XS_STAT_WORDS] += kPgas ? m.stat_words : STAT_WORDS;
+      if constexpr (kFault) {
+        for (int q = 0; q < m.ndev; ++q)
+          theirs[P_STAT + sbl + 1 + q] = F.f[flt::HB_ACC + q];
+        xs[XS_STAT_WORDS] += m.ndev;
+      }
       publish(theirs + P_SARR);
       ok = X.wait(mine + P_SARR, r + 1, r, k, W_STAT_ARRIVAL);
       if (!ok) break;
       for (int i = 0; i < SX_AM; ++i)
         acc[i] = wrap_add(acc[i], __ldcg(mine + P_STAT + i));
       if constexpr (kPgas) P.stat_merge(mine + P_STAT, k);
+      if constexpr (kFault) {
+        // Slot q takes the partner's where bit k of q is set.
+        for (int q = 0; q < m.ndev; ++q)
+          if ((q >> k) & 1)
+            F.f[flt::HB_ACC + q] = __ldcg(mine + P_STAT + sbl + 1 + q);
+      }
       const int peer_b = __ldcg(mine + P_STAT + sbl);
       publish(theirs + P_SCRED);
-      if constexpr (kSteal) {
+      if constexpr (kFault) {
+        // The faulty row exchange (resident.py :1681-1834). Granters are
+        // absolute device ids: my partner grants my channel's credits,
+        // I grant its.
+        int32_t* f = F.f;
+        const int32_t* plan = F.p;
+        const int myb = s_counts[C_TAIL] - s_counts[C_HEAD];
+        int quota = peer_b < starve_below
+                        ? min(max(floor_div(myb - peer_b + 1, 2), 0), W)
+                        : 0;
+        const bool drop_mine = F.drop(r, k, partner);
+        const bool drop_theirs = F.drop(r, k, me);
+        const bool delay_me = F.delay(r, k, me);
+        if (delay_me) quota = 0;
+        if (plan[flt::DEAD_DEV] >= 0) {
+          // Quarantine: no rows to a dead partner; the dead device
+          // re-homes its backlog whatever the demand.
+          if (f[flt::DEAD + partner] != 0) quota = 0;
+          if (am_dead) quota = min(max(myb, 0), W);
+        }
+        // A starvation window (or the wedge) downs the pair's row
+        // exchange on this hop, on both sides.
+        if (r > f[flt::PAIR_DOWN + k] && f[flt::WEDGE] == 0) {
+          f[FS_DELAYED] += delay_me;
+          if (r > 0) {
+            if (f[flt::OWED + k] > 0) {  // regeneration: skip one wait
+              f[flt::OWED + k] -= 1;
+              f[FS_REGEN] += 1;
+            } else {
+              ok = X.wait(mine + P_RCRED, f[flt::WAITS + k] + 1, r, k,
+                          W_ROW_CREDIT);
+              if (!ok) break;
+              f[flt::WAITS + k] += 1;
+            }
+          }
+          int32_t* box = theirs + p_inbox;
+          int nsend = 0;
+          if constexpr (kHome)
+            nsend = quota > 0 ? X.export_home(S, a, quota, box,
+                                              P.mine(PG_PSTATE))
+                              : 0;
+          else
+            nsend = quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
+          box[W * DESC] = nsend;
+          xs[XS_ROWS] += nsend;
+          if (am_dead) f[FS_REHOMED] += nsend;
+          publish(theirs + P_RARR);
+          ok = X.wait(mine + P_RARR, f[flt::XDONE + k] + 1, r, k,
+                      W_ROW_ARRIVAL);
+          if (!ok) break;
+          f[flt::XDONE + k] += 1;
+          if constexpr (kHome)
+            P.import_fixed(S, mine + p_inbox);
+          else
+            X.import_rows(S, mine + p_inbox);
+          // The credit I owe my partner: dropped, or doubled.
+          if (drop_theirs) {
+            f[FS_DROPPED] += 1;
+          } else {
+            publish(theirs + P_RCRED);
+            if (F.dup(r, k, me)) {
+              publish(theirs + P_RCRED);
+              f[FS_DUPED] += 1;
+            }
+          }
+          if (drop_mine) {
+            f[flt::OWED + k] += 1;
+            if (plan[flt::CREDIT_TIMEOUT] == 0 && f[FS_STARVED] == 0)
+              f[FS_STARVED] = ((k << 8) | partner) + 1;
+          }
+          if (plan[flt::CREDIT_TIMEOUT] > 0 && (drop_mine || drop_theirs))
+            f[flt::PAIR_DOWN + k] = r + plan[flt::CREDIT_TIMEOUT];
+        }
+      } else if constexpr (kSteal) {
         const int myb = s_counts[C_TAIL] - s_counts[C_HEAD];
         const int quota =
             peer_b < starve_below
@@ -1181,6 +1382,9 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
       }
     }
     if (!ok) break;
+    if constexpr (kFault) {
+      if (F.p[flt::DEAD_DEV] >= 0) F.detect(me, m.ndev, r);
+    }
     const bool aborted = acc[SF_ABORT] > 0;
     if (aborted && abort_round < 0) abort_round = r;
     const bool ring_idle = !kInject || acc[SF_INJ] == 0;
@@ -1191,6 +1395,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
              aborted;
       if (!P.drain_receives(S)) break;
       P.scan_waits(S);
+    }
+    if constexpr (kFault) {
+      // A wedged mesh exits at this fold; a drop anywhere this round,
+      // with regeneration off, wedges it for the next.
+      done = done || acc[SF_WEDGE] > 0;
+      if (F.wedges(r, m.nhops, m.ndev)) F.f[flt::WEDGE] = 1;
     }
     ++r;
   }
@@ -1211,6 +1421,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
             : i == FS_ABORT_ROUND                       ? abort_round
                                                         : 0;
   if constexpr (kInject) fs[FS_TEN_EXPIRED] = I.expired;
+  if constexpr (kFault) {
+    // FS_DROPPED .. FS_REHOMED and FS_STARVED; FS_ABORT_ROUND is above.
+    for (int i = FS_DROPPED; i <= FS_STARVED; ++i)
+      if (i != FS_ABORT_ROUND) fs[i] = F.f[i];
+    fs[FS_HB] = F.f[flt::HB];
+  }
 }
 
 }  // namespace
@@ -1237,6 +1453,7 @@ struct MeshHost {
       chan_nrows[MAX_CHANS], chan_row_bytes[MAX_CHANS];
   long long pg_off[PG_SECTIONS];
   long long iring, ictl, tctl, ring_rows, ntenants, region;
+  long long fplan, fws;
 };
 
 }  // extern "C"
@@ -1323,6 +1540,8 @@ MeshArgs mesh_args(const MeshHost* h) {
   m.ring_rows = static_cast<int>(h->ring_rows);
   m.ntenants = static_cast<int>(h->ntenants);
   m.region = static_cast<int>(h->region);
+  m.fplan = reinterpret_cast<const int32_t*>(h->fplan);
+  m.fws = reinterpret_cast<int32_t*>(h->fws);
   return m;
 }
 
@@ -1331,6 +1550,14 @@ bool steal_args_ok(const MeshHost* h) {
   return h->nhops <= MAX_HOPS && h->scan <= MAX_SCAN && h->scan >= 0 &&
          h->window >= 1 && h->ws && h->err && h->xstats && h->fstats &&
          h->nchan >= 0 && h->nchan <= MAX_CHANS;
+}
+
+// The checks of a launch with the fault layer (h->fplan set): its
+// workspace, at most 31 devices (the quarantine mask is one word), and a
+// stat slab that holds the routed heartbeats after the backlog.
+bool fault_args_ok(const MeshHost* h, bool pgas) {
+  return h->fws && h->ndev <= 31 &&
+         h->p_inbox >= P_STAT + (pgas ? h->stat_words : STAT_WORDS) + h->ndev;
 }
 
 // How many CTAs of `kernel` (one thread each) the card holds at once, at

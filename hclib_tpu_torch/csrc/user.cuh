@@ -36,6 +36,10 @@
 //   HCLIB_USER_INJECT 1: instead of those, resident_kernel's injecting
 //                     instances of the same configurations (kInject: the
 //                     injection ring and mesh tenancy).
+//   HCLIB_USER_FAULT  1: instead of those, resident_kernel's instances
+//                     with the fault layer (kFault: a DeviceFaultPlan) of
+//                     the variant's steal configurations: steal-only (0),
+//                     steal with channels (1), migrating (2).
 // A table whose bodies name ctx.pgas runs only under PGAS 1 and 2; a
 // table builds a variant only when it is run there. A table of built-in
 // bodies alone (fib and sum, say) builds a library with no user body for
@@ -61,6 +65,11 @@
 #ifndef HCLIB_USER_INJECT
 #define HCLIB_USER_INJECT 0
 #endif
+#ifndef HCLIB_USER_FAULT
+#define HCLIB_USER_FAULT 0
+#endif
+static_assert(!(HCLIB_USER_INJECT && HCLIB_USER_FAULT),
+              "a fault plan on an injecting mesh is not ported");
 
 namespace {
 
@@ -238,7 +247,12 @@ __global__ void __launch_bounds__(1) mk_user_kernel(MeshArgs m) {
 // The instance of (kind, lanes, steal, pgas) this library holds, or null.
 void* user_kernel_of(int kind, int lanes, int steal, int pgas) {
   if (lanes != int(kUserLanes) || pgas != HCLIB_USER_PGAS) return nullptr;
-#if HCLIB_USER_INJECT && HCLIB_USER_PGAS == 2
+#if HCLIB_USER_FAULT
+  if (kind == 2 && steal)
+    return reinterpret_cast<void*>(
+        resident_kernel<kUserLanes, true, HCLIB_USER_PGAS != 0, UserBodies,
+                        HCLIB_USER_PGAS == 2, false, true>);
+#elif HCLIB_USER_INJECT && HCLIB_USER_PGAS == 2
   if (kind == 2 && steal)
     return reinterpret_cast<void*>(
         resident_kernel<kUserLanes, true, true, UserBodies, true, true>);
@@ -296,8 +310,10 @@ int hclib_user_coresident(int kind, int lanes, int steal, int pgas,
 // 1: ici_ring_kernel; 2: resident_kernel with steal and / or pgas (pgas
 // 2: the migrating configuration) (cooperative launches of ndev one-thread
 // CTAs); an injecting library's resident_kernel wants the ring (h->ictl,
-// and h->tctl with tenant lanes), any other library none. An instance
-// this library's variant does not hold is invalid. Returns
+// and h->tctl with tenant lanes), any other library none; a library with
+// the fault layer wants the plan and its workspace (h->fplan, h->fws),
+// any other none. An instance this library's variant does not hold is
+// invalid. Returns
 // cudaGetLastError() (0 = launched).
 int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
                       int pgas, void* stream) {
@@ -308,13 +324,15 @@ int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
                 h->stat_words < S_BL + 1 ||
                 h->p_inbox < P_STAT + h->stat_words)) ||
       (h->ictl != 0) != (HCLIB_USER_INJECT != 0) ||
+      (h->fplan != 0) != (HCLIB_USER_FAULT != 0) ||
+      (h->fplan && !fault_args_ok(h, pgas != 0)) ||
       (h->ictl && (!h->iring || h->ntenants < 0 ||
                    (h->ntenants > 0 &&
                     (!h->tctl || h->ntenants * h->region > h->ring_rows)))))
     return cudaErrorInvalidValue;
   MeshArgs m = mesh_args(h);
   const auto st = static_cast<cudaStream_t>(stream);
-#if !HCLIB_USER_PGAS && !HCLIB_USER_INJECT
+#if !HCLIB_USER_PGAS && !HCLIB_USER_INJECT && !HCLIB_USER_FAULT
   if (kind == 0) {
     mk_user_kernel<kUserLanes><<<m.ndev, 1, 0, st>>>(m);
     return cudaGetLastError();

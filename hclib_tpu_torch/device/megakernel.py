@@ -1412,7 +1412,8 @@ class Megakernel:
                 "device='cpu'")
 
     def user_source(self, pgas: Optional[bool] = None,
-                    home: bool = False, inject: bool = False) -> str:
+                    home: bool = False, inject: bool = False,
+                    fault: bool = False) -> str:
         """The CUDA source of this table's user-body library
         (csrc/user.cuh, then each user body's statements as
         ``user_body_<k>(Ctx& ctx)`` and the switch over them; none for a
@@ -1422,13 +1423,16 @@ class Megakernel:
         body names ``ctx.pgas``. ``home``: the resident kernel's
         migrating configuration (``HCLIB_USER_PGAS 2``). ``inject``: the
         resident kernel's injecting instances of that variant
-        (``HCLIB_USER_INJECT 1``) instead."""
+        (``HCLIB_USER_INJECT 1``) instead; ``fault``: its instances with
+        the fault layer (``HCLIB_USER_FAULT 1``) instead."""
         if pgas is None:
             pgas = self.uses_pgas_text()
         lines = [f"#define HCLIB_USER_LANES {int(bool(self.batch_specs))}",
                  f"#define HCLIB_USER_PGAS {_user_variant(pgas, home)}"]
         if inject:
             lines.append("#define HCLIB_USER_INJECT 1")
+        if fault:
+            lines.append("#define HCLIB_USER_FAULT 1")
         lines += ['#include "user.cuh"', "", "namespace {", ""]
         for k, (name, _, cuda) in enumerate(self.user_bodies):
             lines += [f"// {name}",
@@ -1443,14 +1447,16 @@ class Megakernel:
         return "\n".join(lines)
 
     def user_library(self, pgas: bool = False, home: bool = False,
-                     inject: bool = False):
+                     inject: bool = False, fault: bool = False):
         """This table's user-body library of variant ``pgas`` (or
-        ``home``; ``inject``: its injecting instances), built on first
-        use (``_build.user_library``)."""
-        key = (_user_variant(pgas, home), bool(inject))
+        ``home``; ``inject``: its injecting instances, ``fault``: its
+        instances with the fault layer), built on first use
+        (``_build.user_library``)."""
+        key = (_user_variant(pgas, home), bool(inject), bool(fault))
         if key not in self._user_libs:
             self._user_libs[key] = _build.user_library(
-                self.user_source(bool(pgas), home, bool(inject)))
+                self.user_source(bool(pgas), home, bool(inject),
+                                 bool(fault)))
         return self._user_libs[key]
 
     def uses_pgas_text(self) -> bool:
@@ -1995,12 +2001,14 @@ class Megakernel:
     def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
                     threads: int, smem: int, dev, pgas: bool = False,
                     steal: bool = True, home: bool = False,
-                    inject: bool = False) -> None:
+                    inject: bool = False, fault: bool = False) -> None:
         """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
         ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
         configuration, with ``steal`` or without; ``home``: its migrating
         configuration; ``inject``: the resident kernel's injecting
-        instance of that configuration) over ``host``'s mesh; raises if
+        instance of that configuration; ``fault``: its instance with the
+        fault layer, ``resident_kernel<.., kFault>``) over ``host``'s
+        mesh; raises if
         the launch fails, or if a steal kernel's mesh has more devices
         than the card holds CTAs at once (``mesh_coresident``). A table
         with user bodies, and any table under the PGAS or migrating
@@ -2008,7 +2016,8 @@ class Megakernel:
         kernels."""
         k = MESH_KINDS.index(kind)
         if k:
-            limit = self.coresident(kind, mode, pgas, steal, home, inject)
+            limit = self.coresident(kind, mode, pgas, steal, home, inject,
+                                    fault)
             if host.ndev > limit:
                 raise RuntimeError(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
@@ -2022,7 +2031,7 @@ class Megakernel:
                     "a user body names ctx.pgas, which exists only under "
                     "the resident kernel's PGAS configuration "
                     "(ResidentKernel(channels=...) or PGASMegakernel)")
-            lib = self.user_library(pgas, home, inject)
+            lib = self.user_library(pgas, home, inject, fault)
             fn = lib.hclib_user_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
@@ -2035,8 +2044,11 @@ class Megakernel:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
-            err = fn(ctypes.byref(host), k, mode, threads, smem, stream)
-        counter = ("resident_inject" if inject else "resident_homed" if home
+            err = fn(ctypes.byref(host), k, mode + 2 * bool(fault), threads,
+                     smem, stream)
+        counter = ("resident_fault" if fault
+                   else "resident_inject" if inject
+                   else "resident_homed" if home
                    else "resident_pgas" if pgas
                    else "mk_user" if self.user_bodies and k == 0 else kind)
         _build.check(lib, err, counter)
@@ -2044,14 +2056,15 @@ class Megakernel:
 
     def coresident(self, kind: str, mode: int, pgas: bool = False,
                    steal: bool = True, home: bool = False,
-                   inject: bool = False) -> int:
+                   inject: bool = False, fault: bool = False) -> int:
         """The most CTAs of steal kernel ``kind`` (instance ``mode``; the
         resident kernel's PGAS configuration with ``pgas``, its migrating
-        one with ``home``, their injecting instances with ``inject``)
-        this card holds at once, from this table's library."""
+        one with ``home``, their injecting instances with ``inject``,
+        their instances with the fault layer with ``fault``) this card
+        holds at once, from this table's library."""
         if not (self.user_bodies or pgas or inject):
-            return mesh_coresident(kind, mode)
-        lib = self.user_library(pgas, home, inject)
+            return mesh_coresident(kind, mode + 2 * bool(fault))
+        lib = self.user_library(pgas, home, inject, fault)
         fn = lib.hclib_user_coresident
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -2258,6 +2271,9 @@ _PGAS_FIELDS = ("vfree", "s_vfree", "pg", "s_pg", "nchan", "amw", "outq",
 # ring's rows a device, the tenant lanes and a lane region's rows.
 _INJECT_FIELDS = ("iring", "ictl", "tctl", "ring_rows", "ntenants",
                   "region")
+# The instances with the fault layer: the plan's words and each device's
+# fault workspace.
+_FAULT_FIELDS = ("fplan", "fws")
 
 
 class MeshHost(ctypes.Structure):
@@ -2265,7 +2281,8 @@ class MeshHost(ctypes.Structure):
     tensor with its per-device stride (in words; data buffers in bytes),
     the table's sizes, the steal protocol's words, and (user-body
     libraries) the value-block stacks and the PGAS configuration's
-    workspace and channels; the injecting instances' ring). Every field
+    workspace and channels; the injecting instances' ring; the fault
+    layer's plan and workspace). Every field
     is 64 bits (pointers too), so both sides lay it out alike."""
 
     _fields_ = (
@@ -2279,6 +2296,7 @@ class MeshHost(ctypes.Structure):
            ("chan_buf", "chan_rows", "chan_nrows", "chan_row_bytes")]
         + [("pg_off", ctypes.c_int64 * PG_SECTIONS)]
         + [(n, ctypes.c_int64) for n in _INJECT_FIELDS]
+        + [(n, ctypes.c_int64) for n in _FAULT_FIELDS]
     )
 
 
@@ -2347,7 +2365,8 @@ def mesh_slice(mst: Dict[str, object], d: int) -> Dict[str, object]:
 
 
 def mesh_coresident(kind: str, mode: int) -> int:
-    """The most CTAs of steal kernel ``kind`` (instance ``mode``) this
+    """The most CTAs of steal kernel ``kind`` (instance ``mode``: 0 lean,
+    1 lanes; the resident kernel's with the fault layer 2 and 3) this
     card holds at once, one an SM at most (csrc/mesh.cuh
     ``hclib_mesh_coresident``: the occupancy API's count, capped at the SM
     count; 0 without cooperative launch)."""

@@ -71,6 +71,25 @@ a lane, paused lanes swept) over a ``(T, 8)`` tctl block a device that
 The ring backlog is the fold's ``SF_INJ`` sum, and the mesh exits only
 once it is 0. On the card: ``resident_inject``.
 
+Each steal configuration also runs a fault plan
+(``fault_plan=DeviceFaultPlan(...)``: ``csrc/mesh.cuh``
+``resident_kernel<.., kFault>``; the predicates :738-799, the faulty row
+exchange :1681-1834, heartbeat detection :1836-1870, the dead device's
+round :1895-1937): dropped, duplicated and delayed steal credits, pure
+functions of (seed, site, round, hop, granter) that every device
+evaluates alike. A dropped credit downs the pair's row exchange on that
+hop for ``credit_timeout`` rounds, after which the starved writer skips
+one credit wait (regeneration, ``FS_REGEN``); with ``credit_timeout=0``
+any drop raises the wedge flag (``SF_WEDGE``), every pair skips its row
+exchanges and the mesh exits at the next fold, and ``run`` raises a
+``StallError`` naming the starved hop and granter. A dead device runs no
+task from ``dead_round`` on and its heartbeat stops, while its exchange
+stays up and exports up to ``window`` queued rows a hop whatever the
+demand (``FS_REHOMED``); the heartbeats ride the stat vector's XOR
+all-to-all (ndev words a hop), and a survivor that sees one frozen for
+``heartbeat_timeout`` rounds quarantines that device (``FS_QMASK``,
+``FS_DEAD_ROUND``): no rows go to it. On the card: ``resident_fault``.
+
 The mesh exits in lockstep. A mesh device is one co-resident CTA
 (``parallel.mesh.CtaMesh``); the plain version (``_plain_resident``: the
 same rounds over the plain cores device by device) is what the CPU tests
@@ -80,10 +99,10 @@ configurations run from the table's user-body library
 user body). ``info`` reports, under them, each device's live proxies
 and their peak and the built-in messages it applied by kind.
 
-Not ported yet, each raising naming ROADMAP A11b: fault injection
-(``fault_plan``), quiesce and resume (``quiesce``, ``resume_state``;
-an injecting or tenant run included) and a traced or checkpoint-built
-Megakernel.
+Not ported yet, each raising naming ROADMAP A11b: a fault plan on an
+injecting mesh (A11b.5), quiesce and resume (``quiesce``,
+``resume_state``; an injecting or tenant run included) and a traced or
+checkpoint-built Megakernel.
 """
 
 from __future__ import annotations
@@ -134,6 +153,7 @@ from .megakernel import (
     _PlainCore,
     _i32,
     decode_overflow,
+    fault_mix,
     mesh_slice,
 )
 from .sharded import abort_words, mesh_info, mesh_state
@@ -150,7 +170,7 @@ from .tenants import (
 )
 
 __all__ = ["ResidentKernel", "decode_fault_stats", "pack_inject_rows",
-           "FS_WORDS",
+           "FS_WORDS", "fault_plan_words", "FP_MAX_AT",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
            "export_rows", "import_rows", "run_mesh_kernel",
            "exchange_info", "pgas_layout", "stat_words", "lock_block_slots",
@@ -195,10 +215,23 @@ FS_TEN_EXPIRED = 11
 FS_WORDS = 16
 
 # The stat vector (resident.py SF_* / SX_*): the sums the fold keeps, then
-# (PGAS configurations) the XOR all-to-all section, then the backlog.
-SF_PEND, SF_RECV, SF_OUTB, SF_SENT, SF_INJ, SF_ABORT, SX_AM = (
-    0, 1, 2, 3, 4, 5, 7)
+# (PGAS configurations) the XOR all-to-all section, then the backlog; under
+# a fault plan the ndev routed heartbeats follow.
+SF_PEND, SF_RECV, SF_OUTB, SF_SENT, SF_INJ, SF_ABORT, SF_WEDGE, SX_AM = (
+    0, 1, 2, 3, 4, 5, 6, 7)
 STAT_WORDS = 8  # steal-only: the stat words a hop sends (sums, backlog)
+# A fault plan's words on the card (csrc/mesh.cuh flt::): the seed, the
+# per-mille rates, the dead device (-1: none) and its round, both
+# timeouts, the exact lists' lengths, whether a drop wedges the mesh,
+# then FP_MAX_AT (round, hop, granter) entries a site, drops then dups.
+(FP_SEED, FP_DROP, FP_DUP, FP_DELAY, FP_DEAD_DEV, FP_DEAD_ROUND, FP_CT,
+ FP_HBT, FP_NDROP, FP_NDUP, FP_WEDGES) = range(11)
+FP_AT, FP_MAX_AT = 16, 16
+FP_WORDS = FP_AT + 6 * FP_MAX_AT
+# A device's fault workspace on the card (csrc/mesh.cuh flt::): its FS_*
+# words first, then per hop bit the last round of the pair's down window
+# (-1 at the start), and the rest, zeroed.
+FW_PAIR_DOWN, FW_WORDS = 16, 216
 # The exchange's volume a device (csrc/mesh.cuh XS_*): rows it exported,
 # stat words it sent, and the active messages and puts it sent.
 XS_ROWS, XS_STAT_WORDS, XS_AMS, XS_PUTS, XS_WORDS = 0, 1, 2, 3, 4
@@ -248,13 +281,77 @@ def decode_fault_stats(row) -> Dict[str, Any]:
     }
 
 
+def fault_plan_words(plan) -> np.ndarray:
+    """A ``DeviceFaultPlan``'s words as ``resident_kernel<.., kFault>``
+    reads them (``FP_*``); at most ``FP_MAX_AT`` exact entries a site."""
+    for name in ("drop_credit_at", "dup_credit_at"):
+        if len(getattr(plan, name)) > FP_MAX_AT:
+            raise ValueError(
+                f"{name}: the card's kernel holds at most {FP_MAX_AT} "
+                f"exact entries a site, got {len(getattr(plan, name))}")
+    w = np.zeros(FP_WORDS, np.int64)
+    # fault_mix reads the seed modulo 2^31 (its multiple is masked).
+    w[FP_SEED] = plan.seed % (1 << 31)
+    w[FP_DROP], w[FP_DUP], w[FP_DELAY] = (plan.drop_millis, plan.dup_millis,
+                                          plan.delay_millis)
+    w[FP_DEAD_DEV] = -1 if plan.dead_device is None else plan.dead_device
+    w[FP_DEAD_ROUND] = plan.dead_round
+    w[FP_CT], w[FP_HBT] = plan.credit_timeout, plan.heartbeat_timeout
+    w[FP_NDROP], w[FP_NDUP] = len(plan.drop_credit_at), len(
+        plan.dup_credit_at)
+    w[FP_WEDGES] = int(plan.drops_credits() and plan.credit_timeout == 0)
+    for base, at in ((FP_AT, plan.drop_credit_at),
+                     (FP_AT + 3 * FP_MAX_AT, plan.dup_credit_at)):
+        for i, e in enumerate(at):
+            w[base + 3 * i:base + 3 * i + 3] = e
+    return _i32(w).astype(np.int32)
+
+
+class _Faults:
+    """resident.py's compiled-in fault predicates (:738-799): pure in
+    (seed, site, round r, hop k, granter g), so every device of the mesh
+    computes the same answer for any (k, g)."""
+
+    def __init__(self, plan, ndev: int, nh: int):
+        self.plan, self.ndev, self.nh = plan, ndev, nh
+
+    def _hit(self, site, millis, exact, r, k, g) -> bool:
+        if millis > 0 and fault_mix(self.plan.seed, site, r, k, g) < millis:
+            return True
+        return any(kk == k and rr == r and gg == g for rr, kk, gg in exact)
+
+    def drop(self, r: int, k: int, g: int) -> bool:
+        return self._hit(0, self.plan.drop_millis, self.plan.drop_credit_at,
+                         r, k, g)
+
+    def dup(self, r: int, k: int, g: int) -> bool:
+        return self._hit(1, self.plan.dup_millis, self.plan.dup_credit_at,
+                         r, k, g)
+
+    def delay(self, r: int, k: int, g: int) -> bool:
+        return self._hit(2, self.plan.delay_millis, (), r, k, g)
+
+    def dead(self, d: int, r: int) -> bool:
+        """Is device ``d`` the plan's dead chip at round ``r``?"""
+        return d == self.plan.dead_device and r >= self.plan.dead_round
+
+    def wedges(self, r: int) -> bool:
+        """With regeneration off, does any credit of round ``r`` drop?"""
+        p = self.plan
+        if not (p.drops_credits() and p.credit_timeout == 0):
+            return False
+        return any(self.drop(r, k, g) for k in range(self.nh)
+                   for g in range(self.ndev))
+
+
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP A11b (the unified resident "
-        "kernel's fault plans, quiesce and resume, traced or "
-        "checkpoint-built tables); the port runs the steal, PGAS and "
-        "homed-migration configurations with remote atomics and locks, "
-        "the injection ring and mesh tenancy")
+        f"{what} is not ported yet: ROADMAP A11b (A11b.5: fault plans on "
+        "an injecting or tenant mesh; A11b.6: quiesce and resume, traced "
+        "or checkpoint-built tables on the mesh); the port runs the steal, "
+        "PGAS and homed-migration configurations with remote atomics and "
+        "locks, the injection ring and mesh tenancy, and fault plans on "
+        "the steal configurations")
 
 
 def pack_inject_rows(rows: Sequence, R: int, dev: int = 0):
@@ -474,7 +571,8 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                     hops: Sequence[int], nports: int,
                     timeout_s: float, pgas: Optional[dict] = None,
                     steal: bool = True,
-                    inject: Optional[dict] = None) -> Dict[str, Any]:
+                    inject: Optional[dict] = None,
+                    fault: Optional[np.ndarray] = None) -> Dict[str, Any]:
     """Launch steal kernel ``kind`` (``"ici_ring"`` or
     ``"resident_steal"``; with ``pgas``, the resident kernel's PGAS
     configuration, ``steal`` or not) over stacked state ``st`` on the
@@ -485,7 +583,10 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     (``pstate``), whether the migrating configuration runs (``home``)
     and the value limit. ``inject`` (the resident kernel's injecting
     instance) holds each device's ring, ictl and tctl rows
-    (``ResidentKernel._ring``). Returns the fault-stats rows
+    (``ResidentKernel._ring``). ``fault`` (the instance with the fault
+    layer): the plan's words (``fault_plan_words``); each device's fault
+    workspace is made here, and the stat vector gains the ndev routed
+    heartbeats after the backlog. Returns the fault-stats rows
     (``fstats``), the exchange volume rows (``xstats``), the pstate rows
     at exit (PGAS configurations), the tctl echo (a tenant mesh) and the
     launch's CUDA-event time (``kernel_ms``)."""
@@ -498,10 +599,11 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     mode, threads, smem = mk.mesh_config(steal_kernel=True)
     h, keep = mk.mesh_host(st, quantum, True)
     p_inbox = P_INBOX
+    hb = 0 if fault is None else ndev  # the routed heartbeats
     if pgas is not None:
         nchan = pgas["nchan"]
         S = stat_words(ndev, nchan)
-        p_inbox = P_STAT + -(-S // 8) * 8
+        p_inbox = P_STAT + -(-(S + hb) // 8) * 8
         off, words = pgas_layout(ndev, nchan, pgas["amw"], pgas["outq"],
                                  pgas["maxw"])
         pg = np.zeros((ndev, words), np.int32)
@@ -524,6 +626,17 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
         # resident kernel's migration result slots sit above it); no
         # mesh kernel stages values, so this is num_values's only use.
         h.num_values = int(pgas["value_limit"])
+    elif fault is not None:
+        h.stat_words = STAT_WORDS
+        p_inbox = h.p_inbox = P_STAT + -(-(STAT_WORDS + hb) // 8) * 8
+    if fault is not None:
+        fws = np.zeros((ndev, FW_WORDS), np.int32)
+        fws[:, FS_DEAD_ROUND] = fws[:, FS_ABORT_ROUND] = -1
+        fws[:, FS_QUIESCE_ROUND] = -1
+        fws[:, FW_PAIR_DOWN:FW_PAIR_DOWN + MAX_HOPS] = -1
+        keep["fplan"] = torch.from_numpy(fault).to(dev)
+        keep["fws"] = torch.from_numpy(fws).to(dev)
+        h.fplan, h.fws = keep["fplan"].data_ptr(), keep["fws"].data_ptr()
     ws, err, port_words = mesh_workspace(
         ndev, nports, window if steal else 0, dev, p_inbox)
     wl_t = torch.zeros(32, dtype=torch.int32, device=dev)
@@ -556,7 +669,7 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     t0.record()
     mk.mesh_launch(kind, h, mode, threads, smem, dev, pgas=pgas is not None,
                    steal=steal, home=bool(pgas and pgas["home"]),
-                   inject=inject is not None)
+                   inject=inject is not None, fault=fault is not None)
     t1.record()
     t1.synchronize()
     e = err.cpu().tolist()
@@ -903,7 +1016,8 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     lockstep over the plain cores (the PGAS state of each on its core's
     ``pgas`` under a PGAS configuration; the migrating configuration's
     export, install_fixed and completion hook; with ``inj``, each
-    device's ring poll after its sched). Returns the FS and XS rows, the
+    device's ring poll after its sched; under a fault plan, the faulty
+    row exchange and heartbeat detection). Returns the FS and XS rows, the
     pstate rows (PGAS configurations), the tctl echo (a tenant mesh) and
     the wall time (``kernel_ms``)."""
     t0 = time.perf_counter()
@@ -921,6 +1035,22 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
             if rk.homed_mig:
                 c.complete_hook = _completion_hook(c, c.pgas)
     nsw = stat_words(ndev, rk.nchan) if rk.pgas else STAT_WORDS
+    plan = rk.plan
+    if plan is not None:
+        # The fault layer's state a device (resident.py :686-694): per hop
+        # bit the last round of the pair's down window and the credits
+        # owed; per peer the heartbeat last seen, the round it last moved
+        # and the quarantine flag; its heartbeat and the wedge flag.
+        F = _Faults(plan, ndev, rk.nh)
+        nsw += ndev  # the routed heartbeats
+        ct = plan.credit_timeout
+        pair_down = [[-1] * MAX_HOPS for _ in range(ndev)]
+        owed = [[0] * MAX_HOPS for _ in range(ndev)]
+        hb_seen = [[0] * ndev for _ in range(ndev)]
+        hb_round = [[0] * ndev for _ in range(ndev)]
+        deadmask = [[0] * ndev for _ in range(ndev)]
+        hb = [0] * ndev
+        wedge = 0  # raised on every device at once
     fs = np.zeros((ndev, FS_WORDS), np.int32)
     fs[:, FS_DEAD_ROUND] = -1
     fs[:, FS_ABORT_ROUND] = -1
@@ -939,15 +1069,21 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     r, done = 0, False
     while not done and r < max_rounds:
         local_abort = [int(abort_arr[d, 0] != 0) for d in range(ndev)]
-        for c in cores:
-            c.sched(quantum)
+        # A dead device's scheduler runs no task and its heartbeat stops;
+        # its exchange stays up.
+        dead = [plan is not None and F.dead(d, r) for d in range(ndev)]
+        for d, c in enumerate(cores):
+            c.sched(0 if dead[d] else quantum)
+            if plan is not None and not dead[d]:
+                hb[d] += 1
         inj_backlog = sum(ring.poll(r) for ring in rings)
         for pg in pgs:
             pg.drain_outbox()
         # The fold's sums (every device ends with the same ones), and
         # what each source announced to each target this round.
         tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0,
-               inj_backlog, sum(local_abort), 0]
+               inj_backlog, sum(local_abort),
+               ndev * wedge if plan is not None else 0]
         if pgs:
             tot[SF_RECV] = sum(pg.ps[PS_RECV] for pg in pgs)
             tot[SF_OUTB] = sum(len(pg.outq) for pg in pgs)
@@ -966,6 +1102,23 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                 peer_b, myb = snd[d ^ (1 << k)], backlog(c)
                 quota = (min(max((myb - peer_b + 1) // 2, 0), window)
                          if peer_b < starve_below else 0)
+                if plan is not None:
+                    # A down pair (a starvation window, or the wedge)
+                    # skips the hop's row exchange on both sides.
+                    if r <= pair_down[d][k] or wedge:
+                        boxes.append(None)
+                        continue
+                    delay = F.delay(r, k, d)
+                    fs[d, FS_DELAYED] += delay
+                    if delay:
+                        quota = 0
+                    if plan.dead_device is not None:
+                        # Quarantine: no rows to a dead partner; the dead
+                        # device re-homes its backlog whatever the demand.
+                        if deadmask[d][d ^ (1 << k)]:
+                            quota = 0
+                        if dead[d]:
+                            quota = min(max(myb, 0), window)
                 if quota <= 0:
                     boxes.append([])
                 elif rk.migrating:
@@ -973,25 +1126,70 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                 else:
                     boxes.append(export_rows(c, quota, scan, wl, True,
                                              xs[d]))
+                if dead[d]:
+                    fs[d, FS_REHOMED] += len(boxes[d])
             for d, c in enumerate(cores):
+                if boxes[d] is None:
+                    continue
+                if plan is not None:
+                    # The credit wait; one is skipped a credit owed
+                    # (regeneration).
+                    if r > 0 and owed[d][k] > 0:
+                        owed[d][k] -= 1
+                        fs[d, FS_REGEN] += 1
                 if rk.migrating:
                     for row in boxes[d ^ (1 << k)]:
                         install_fixed(c, row, rk)
                 else:
                     import_rows(c, boxes[d ^ (1 << k)])
+                if plan is not None:
+                    # The credit I owe my partner (dropped, doubled), and
+                    # the partner's decision on the one it owes me.
+                    p = d ^ (1 << k)
+                    drop_mine, drop_theirs = F.drop(r, k, p), F.drop(r, k, d)
+                    if drop_theirs:
+                        fs[d, FS_DROPPED] += 1
+                    elif F.dup(r, k, d):
+                        fs[d, FS_DUPED] += 1
+                    if drop_mine:
+                        owed[d][k] += 1
+                        if ct == 0 and fs[d, FS_STARVED] == 0:
+                            fs[d, FS_STARVED] = ((k << 8) | p) + 1
+                    if ct > 0 and (drop_mine or drop_theirs):
+                        pair_down[d][k] = r + ct
+        if plan is not None and plan.dead_device is not None:
+            # Heartbeat detection: quarantine a peer whose heartbeat has
+            # not moved for heartbeat_timeout rounds.
+            for d in range(ndev):
+                for src in range(ndev):
+                    if hb[src] != hb_seen[d][src]:
+                        hb_round[d][src] = r
+                    hb_seen[d][src] = hb[src]
+                    if (src != d and not deadmask[d][src]
+                            and r - hb_round[d][src] >= plan.heartbeat_timeout):
+                        deadmask[d][src] = 1
+                        fs[d, FS_QMASK] |= 1 << src
+                        if fs[d, FS_DEAD_ROUND] < 0:
+                            fs[d, FS_DEAD_ROUND] = r
         aborted = tot[SF_ABORT] > 0
         for d in range(ndev):
             if aborted and fs[d, FS_ABORT_ROUND] < 0:
                 fs[d, FS_ABORT_ROUND] = r
         done = (tot[SF_PEND] == 0 and tot[SF_INJ] == 0) or aborted
+        if plan is not None:
+            done = done or tot[SF_WEDGE] > 0
+            wedge = wedge or int(F.wedges(r))
         if pgs:
             done = (tot[SF_PEND] == 0 and tot[SF_OUTB] == 0
                     and tot[SF_INJ] == 0
-                    and tot[SF_SENT] == tot[SF_RECV]) or aborted
+                    and tot[SF_SENT] == tot[SF_RECV]) or aborted or (
+                        tot[SF_WEDGE] > 0)
             for v, pg in enumerate(pgs):
                 pg.drain_receives(am_exp[v], put_exp[v])
                 pg.scan_waits()
         r += 1
+    if plan is not None:
+        fs[:, FS_HB] = hb
     for d, c in enumerate(cores):
         c.counts[C_ROUNDS] = r
         c.write_back()
@@ -1107,9 +1305,28 @@ class ResidentKernel:
                     "value-arg rehydration needs uses_row_values=True "
                     "(arriving rows rehydrate into their own row block)"
                 )
+        # Compiled-in fault injection (None: no fault layer).
+        self.plan = (fault_plan if fault_plan is not None
+                     and fault_plan.enabled() else None)
+        if self.plan is not None:
+            if inject or tenants is not None:
+                raise _later("fault_plan= on an injecting or tenant mesh "
+                             "(ROADMAP A11b.5)")
+            if not self.steal:
+                raise ValueError(
+                    "DeviceFaultPlan faults target the steal exchange "
+                    "(credits, dead-chip re-homing): needs steal=True")
+            if self.ndev > 31:
+                raise ValueError(
+                    f"DeviceFaultPlan supports at most 31 devices (the "
+                    f"quarantine bitmask is one int32 stats word), got "
+                    f"{self.ndev}")
+            if self.plan.dead_device is not None and not (
+                    0 <= self.plan.dead_device < self.ndev):
+                raise ValueError(
+                    f"dead_device {self.plan.dead_device} out of range for "
+                    f"a {self.ndev}-device mesh")
         # What the port does not run yet.
-        if fault_plan is not None and fault_plan.enabled():
-            raise _later("fault_plan= (device fault injection)")
         if mk.trace is not None or mk.checkpoint:
             raise _later("a traced or checkpoint-built Megakernel on the "
                          "mesh (the resident flight recorder and quiesce)")
@@ -1379,7 +1596,9 @@ class ResidentKernel:
                 "resident_steal", mk, st, wl, abort_arr, quantum,
                 max_rounds, self.window, self.scan, hop_bits,
                 max(len(hop_bits), 1), self.timeout_s, pgas=pgas,
-                steal=self.steal, inject=ring)
+                steal=self.steal, inject=ring,
+                fault=(None if self.plan is None
+                       else fault_plan_words(self.plan)))
         fs = out["fstats"]
         info = mesh_info(st)
         info["rounds"] = int(info["per_device_counts"][0][C_ROUNDS])
@@ -1416,13 +1635,31 @@ class ResidentKernel:
                 f"exhausted (per-device masks {masks}); raise capacity, "
                 "the outbox or the wait table, or shrink the steal window"
             )
+        starved = [(d, f["starved_channel"]) for d, f in enumerate(fsd)
+                   if f["starved_channel"] is not None]
+        if starved and info["pending"] != 0:
+            d, ch = starved[0]
+            raise StallError(
+                f"ici steal credit starved: device {d}'s hop-{ch['hop']} "
+                f"channel lost a flow-control credit from granter device "
+                f"{ch['granter']} with regeneration disabled "
+                f"(credit_timeout=0); mesh exited in lockstep with "
+                f"{info['pending']} pending",
+                stats=info,
+            )
         if info["pending"] != 0 and not (
             bool(abort_arr[:, 0].any()) or info["aborted"]
         ):
+            suspects = sorted({p for f in fsd for p in f["quarantined"]})
+            suspect = (
+                f" suspect chip: device {suspects[0]} (quarantined by "
+                f"heartbeat timeout; its unmigratable work cannot re-home)."
+                if suspects else "")
             raise StallError(
                 f"resident kernel stalled: {info['pending']} pending after "
                 f"{info['executed']} executed ({info['rounds']} rounds) - "
-                "a wait whose puts never arrive, or max_rounds too small.",
+                "a wait whose puts never arrive, or max_rounds too small."
+                + suspect,
                 stats=info,
             )
         return st["ivalues"].cpu().numpy(), st["data"], info

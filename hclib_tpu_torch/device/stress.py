@@ -39,6 +39,16 @@ its left neighbour the active message that starts that neighbour's SEND:
 an active message BUMP to every device and ``PGAS_ROWS`` puts of its
 source rows into its ring neighbour's landing rows, whose consumer waits
 on (channel 0, ``PGAS_ROWS``) and reads the landed rows' words.
+
+And the fault plans' loads: JAX's fault tests' BUMP table and builders
+(``fault_megakernel``, ``fault_resident``, ``skewed_builders``,
+``spread_builders``, ``check_bump``; ``tests/test_device_faults.py``),
+the two fixtures ``tests/test_torch_faults.py`` holds to JAX
+(``FAULT_CREDITS``, ``FAULT_DEAD``, ``fault_run``), and the full-width
+loads of ``chip_smoke.py``'s phase 30: UTS depth 20 on 16 devices with
+a dead device and credit faults (``uts_fault``, ``UTS_FAULT``) and the
+forest steal-only with its whole queue re-homed (``forest_fault``,
+``FOREST_FAULT``).
 """
 
 from __future__ import annotations
@@ -56,7 +66,11 @@ __all__ = ["forest_steal", "unified_load",
            "check_unified", "dryrun0_megakernel", "dryrun0",
            "lock_megakernel", "lock_builders", "check_locks",
            "compose_inject", "five_way", "volume", "inject_forest",
-           "tenant_mesh", "INJECT_128", "TENANTS_128", "heap_data"]
+           "tenant_mesh", "INJECT_128", "TENANTS_128", "heap_data",
+           "fault_megakernel", "fault_resident", "skewed_builders",
+           "spread_builders", "check_bump", "fault_run", "uts_fault",
+           "FAULT_CREDITS", "FAULT_DEAD", "UTS_FAULT", "UTS_FAULT_NODES",
+           "FOREST_FAULT", "forest_fault"]
 
 # The benchmark-of-record forest-steal configuration (bench.py
 # --multichip's headline), scalar and batched arms alike.
@@ -1065,4 +1079,161 @@ def tenant_mesh(ndev: int = 128, lanes=TENANTS_128, ring_capacity: int = 128,
         raise AssertionError(
             f"tenants on {ndev}: total {int(iv[:, 0].sum())} (want {total}),"
             f" expired on the card {exp}, unbalanced {bad}, stats {ten}")
+    return iv, info
+
+
+# ---- fault plans: JAX's device-fault tests' table and loads
+# (tests/test_device_faults.py), and UTS under a dead device at full width
+
+# The two fixtures of tests/test_torch_faults.py, each the fewest rounds
+# that show its faults: 13 BUMPs on device 0 of 2 with a credit dropped
+# at (1, 0, 1), one duplicated at (0, 0, 1) and delays (5 rounds, the
+# drop regenerated at round 4); 6 BUMPs on device 1 of 4, which dies at
+# round 1 (3 rounds, a row re-homed, quarantined at round 2).
+FAULT_CREDITS = dict(ndev=2, ntasks=13, dev=0, capacity=128, plan=dict(
+    seed=3, drop_credit_at=[(1, 0, 1)], dup_credit_at=[(0, 0, 1)],
+    delay_xfer_rate=0.25, credit_timeout=2))
+FAULT_DEAD = dict(ndev=4, ntasks=6, dev=1, capacity=64, plan=dict(
+    seed=7, dead_device=1, dead_round=1, heartbeat_timeout=2))
+# Row 1's UTS tree (max_depth 20, seed 19, q 440, m 4: 498,965 nodes from
+# its one root on device 0) on the widest power-of-two mesh a plan allows
+# (31 devices at most, so 16 CTAs; uts_fault): device 0 dies at round 2
+# holding queued rows, and every round's credits may drop, double or
+# delay (the plan).
+UTS_FAULT_NODES = 498965
+UTS_FAULT = dict(seed=29, drop_credit_rate=0.001, dup_credit_rate=0.001,
+                 delay_xfer_rate=0.01, dead_device=0, dead_round=2,
+                 credit_timeout=2, heartbeat_timeout=2)
+
+
+def fault_megakernel(capacity: int = 128, device="cuda"):
+    """JAX's fault tests' table (``_bump_mk``): one user body, BUMP (F_FN
+    0), adding arg 0 into value slot 0; 1,024 value slots."""
+    from .megakernel import Megakernel
+
+    return Megakernel([("bump", _bump0, BUMP0_CUDA)], capacity=capacity,
+                      num_values=1024, succ_capacity=8, device=device)
+
+
+def fault_resident(ndev: int, plan=None, capacity: int = 192,
+                   window: int = 4, device="cuda"):
+    """JAX's ``_mesh_rk``: BUMP migratable under homed migration (the
+    migrating configuration), window 4, ``plan`` a DeviceFaultPlan."""
+    from ..parallel.mesh import CtaMesh
+    from .resident import ResidentKernel
+
+    return ResidentKernel(fault_megakernel(capacity, device),
+                          CtaMesh((ndev,), ("q",), device=device),
+                          migratable_fns=[0], window=window, fault_plan=plan)
+
+
+def skewed_builders(ndev: int, ntasks: int, dev: int = 0):
+    """``ntasks`` BUMPs of 1..ntasks on device ``dev`` (JAX's
+    ``_skewed``)."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for i in range(ntasks):
+        bs[dev].add(0, args=[i + 1])
+    return bs
+
+
+def spread_builders(ndev: int, per: int):
+    """``per`` BUMPs on every device, numbered 1.. in device order (JAX's
+    dead-chip test); returns (builders, their sum)."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    v = 0
+    for b in bs:
+        for _ in range(per):
+            v += 1
+            b.add(0, args=[v])
+    return bs, v * (v + 1) // 2
+
+
+def check_bump(iv, info, ntasks: int, total: int) -> None:
+    """JAX's totals: drained, every task once, every effect landed once."""
+    got = int(np.asarray(iv)[:, 0].sum())
+    if info["pending"] != 0 or info["executed"] != ntasks or got != total:
+        raise AssertionError(
+            f"bump under faults: pending {info['pending']}, executed "
+            f"{info['executed']} (want {ntasks}), total {got} (want {total})")
+
+
+def fault_run(name: str, device="cuda"):
+    """The fixture ``name`` (``"credits"``: FAULT_CREDITS, ``"dead"``:
+    FAULT_DEAD) on ``device``, exact; returns (ivalues, info)."""
+    from ..runtime.resilience import DeviceFaultPlan
+
+    cfg = FAULT_CREDITS if name == "credits" else FAULT_DEAD
+    rk = fault_resident(cfg["ndev"], DeviceFaultPlan(**cfg["plan"]),
+                        cfg["capacity"], device=device)
+    n = cfg["ntasks"]
+    iv, _, info = rk.run(skewed_builders(cfg["ndev"], n, cfg["dev"]),
+                         quantum=2, max_rounds=4096)
+    check_bump(iv, info, n, n * (n + 1) // 2)
+    return iv, info
+
+
+def uts_fault(ndev: int = 16, max_depth: int = 20, quantum: int = 64,
+              window: int = 8, plan=None, device="cuda"):
+    """Row 1's UTS tree from its root on device 0 under ``plan`` (a dict
+    of DeviceFaultPlan arguments; UTS_FAULT by default), UTS_NODE
+    migratable under homed migration: its rows are link-free (slot 0, the
+    node count, is a host slot), so each moves whole and may move again,
+    and a dead device's queue re-homes. (Steal-only, ``homed=False``,
+    only builder-made rows migrate, in JAX as here: a spawned row keeps
+    F_HOME 0, so the tree would stay on device 0.) Returns (ivalues,
+    info)."""
+    from ..parallel.mesh import CtaMesh
+    from ..runtime.resilience import DeviceFaultPlan
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import Megakernel
+    from .resident import ResidentKernel
+    from .workloads import UTS_NODE
+
+    plan = DeviceFaultPlan(**(UTS_FAULT if plan is None else plan))
+    cap = 1024
+    # make_uts_megakernel's table, with one migration result slot a row.
+    mk = Megakernel(kernels=["uts_node"], capacity=cap, num_values=16 + cap,
+                    succ_capacity=8,
+                    params={"seed": 19, "q_millis": 440, "m_children": 4,
+                            "max_depth": max_depth}, device=device)
+    rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[UTS_NODE], window=window,
+                        fault_plan=plan)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(UTS_NODE, args=[1, 0])
+    for b in bs:
+        b.reserve_values(1)
+    iv, _, info = rk.run(bs, quantum=quantum)
+    return iv, info
+
+
+# FOREST_STEAL_BENCH's forest steal-only through ICIStealMegakernel on 16
+# CTAs (forest_fault): device 0, which holds every root, dies at round 0
+# and re-homes its whole queue (builder-made roots migrate steal-only),
+# under the same credit faults as UTS_FAULT (the plan).
+FOREST_FAULT = dict(UTS_FAULT, dead_round=0)
+
+
+def forest_fault(ndev: int = 16, roots: int = 160, n: int = 12,
+                 capacity: int = 4096, quantum: int = 64, plan=None,
+                 device="cuda"):
+    """The forest steal-only (``ICIStealMegakernel``, FIB migratable,
+    window 8) under ``plan`` (FOREST_FAULT by default), exact; returns
+    (ivalues, info)."""
+    from ..parallel.mesh import CtaMesh
+    from ..runtime.resilience import DeviceFaultPlan
+    from .ici_steal import ICIStealMegakernel
+    from .workloads import FIB
+
+    plan = DeviceFaultPlan(**(FOREST_FAULT if plan is None else plan))
+    sk = ICIStealMegakernel(forest_megakernel(roots, capacity, 0, device),
+                            CtaMesh((ndev,), ("q",), device=device),
+                            migratable_fns=[FIB], fault_plan=plan)
+    iv, _, info = sk.run(forest_builders(ndev, roots, n), quantum=quantum)
+    info["rounds"] = info["steal_rounds"]
+    check_forest(iv, info, roots, n)
     return iv, info

@@ -61,6 +61,10 @@ REGISTRY = {
     "HCLIB_TPU_PREEMPT": (
         "bool", "off",
         "wrapper-script preemption request (no-signal spelling)"),
+    "HCLIB_TPU_CREDIT_TIMEOUT": (
+        "int", "2", "steal-credit starvation window, exchange rounds"),
+    "HCLIB_TPU_HEARTBEAT_TIMEOUT": (
+        "int", "2", "dead-chip heartbeat window, exchange rounds"),
     "HCLIB_TPU_TENANTS": (
         "int", "0 (off)", "enable N equal tenant lanes on streaming runs"),
     "HCLIB_TPU_MESH_TENANTS": (

@@ -14,9 +14,11 @@ the streaming front door use, with its semantics and names.
   ``checkpoint_on_preempt``).
 - ``RetryPolicy``: deterministic retry with backoff (a tenant lane's
   validator retries).
+- ``DeviceFaultPlan`` (:497): the seeded fault plan the resident
+  kernel compiles into its steal exchange (device/resident.py).
 
-The host runtime's fault injection (``FaultPlan``, ``DeviceFaultPlan``)
-is not part of the port.
+The host runtime's fault injection (``FaultPlan``) is not part of the
+port.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ __all__ = [
     "TenantExpired",
     "StallError",
     "RetryPolicy",
+    "DeviceFaultPlan",
     "register_abort_hook",
     "unregister_abort_hook",
     "bind_abort_to_scope",
@@ -458,3 +461,99 @@ class RetryPolicy:
             d *= 1.0 + self.jitter * (2.0 * u - 1.0)
         return max(0.0, d)
 
+
+
+# ------------------------------------------------------------- device chaos
+
+def _env_int(name: str, default: int) -> int:
+    from .env import env_int
+
+    return env_int(name, default, malformed=default)
+
+
+class DeviceFaultPlan:
+    """Seeded deterministic fault injection for the resident kernel's
+    steal exchange (``device/resident.py`` and ``ICIStealMegakernel`` on
+    a power-of-two mesh, which delegates to it), as in JAX.
+
+    The plan is compiled into the kernel: every fault decision is a pure
+    function of ``(seed, site, round, hop, device)`` (``fault_mix``),
+    which every device of the lockstep mesh evaluates alike, so
+    injection, detection and recovery agree on the schedule and the
+    fault trace (``fault_stats`` in the run's info) is reproducible from
+    the seed. A ``None`` plan, or one that injects nothing, compiles none
+    of it.
+
+    Faults (sites):
+
+    - dropped steal credit (``drop_credit_rate`` / ``drop_credit_at=[(round,
+      hop, granter_dev), ...]``): the granter skips the credit it owes
+      its hop partner after consuming the partner's rows. The pair then
+      skips that hop's row exchange for ``credit_timeout`` rounds, after
+      which the starved writer regenerates the credit. With
+      ``credit_timeout=0`` there is no regeneration: the mesh exits in
+      lockstep and the run raises ``StallError`` naming the channel.
+    - duplicated steal credit (``dup_credit_rate`` / ``dup_credit_at``):
+      the granter signals twice; the surplus is absorbed.
+    - delayed transfer (``delay_xfer_rate``): the sender's export quota
+      for that (round, hop) is zero.
+    - dead chip (``dead_device``, ``dead_round``): from ``dead_round`` on
+      the device runs no task and its heartbeat stops, while its exchange
+      stays up. Survivors quarantine it once its heartbeat has not moved
+      for ``heartbeat_timeout`` rounds, and it re-homes its queued rows
+      to its hop partners. Work that cannot re-home raises
+      ``StallError`` naming the suspect chip.
+
+    ``credit_timeout`` / ``heartbeat_timeout`` default from
+    ``HCLIB_TPU_CREDIT_TIMEOUT`` / ``HCLIB_TPU_HEARTBEAT_TIMEOUT`` (rounds
+    of the exchange, default 2). Rates are quantised to per-mille.
+    """
+
+    def __init__(
+        self,
+        seed: int = 0,
+        drop_credit_rate: float = 0.0,
+        drop_credit_at: Sequence[Tuple[int, int, int]] = (),
+        dup_credit_rate: float = 0.0,
+        dup_credit_at: Sequence[Tuple[int, int, int]] = (),
+        delay_xfer_rate: float = 0.0,
+        dead_device: Optional[int] = None,
+        dead_round: int = 0,
+        credit_timeout: Optional[int] = None,
+        heartbeat_timeout: Optional[int] = None,
+    ) -> None:
+        for name, r in (
+            ("drop_credit_rate", drop_credit_rate),
+            ("dup_credit_rate", dup_credit_rate),
+            ("delay_xfer_rate", delay_xfer_rate),
+        ):
+            if not (0.0 <= r <= 1.0):
+                raise ValueError(f"{name} must be in [0, 1], got {r}")
+        self.seed = int(seed)
+        self.drop_millis = int(round(drop_credit_rate * 1000))
+        self.dup_millis = int(round(dup_credit_rate * 1000))
+        self.delay_millis = int(round(delay_xfer_rate * 1000))
+        self.drop_credit_at = tuple(
+            (int(r), int(k), int(g)) for (r, k, g) in drop_credit_at)
+        self.dup_credit_at = tuple(
+            (int(r), int(k), int(g)) for (r, k, g) in dup_credit_at)
+        self.dead_device = None if dead_device is None else int(dead_device)
+        self.dead_round = int(dead_round)
+        self.credit_timeout = (
+            _env_int("HCLIB_TPU_CREDIT_TIMEOUT", 2)
+            if credit_timeout is None else int(credit_timeout))
+        if self.credit_timeout < 0:
+            raise ValueError("credit_timeout must be >= 0 (0 = no regen)")
+        self.heartbeat_timeout = max(1, (
+            _env_int("HCLIB_TPU_HEARTBEAT_TIMEOUT", 2)
+            if heartbeat_timeout is None else int(heartbeat_timeout)))
+
+    def drops_credits(self) -> bool:
+        return bool(self.drop_millis or self.drop_credit_at)
+
+    def dups_credits(self) -> bool:
+        return bool(self.dup_millis or self.dup_credit_at)
+
+    def enabled(self) -> bool:
+        return (self.drops_credits() or self.dups_credits()
+                or self.delay_millis > 0 or self.dead_device is not None)

@@ -158,11 +158,16 @@ def ptxas(root: str) -> dict:
             key = m.group(1) + ("+obs" if m.group(2) == "1" else "")
         else:
             m = re.search(r"\d((?:mk_grid|ici_ring|resident_steal|resident|"
-                          r"stream)_kernel)I((?:L[bi]\d+E)+)", line)
+                          r"stream)_kernel)I(.*?)Ev", line)
             if not m:
                 continue
-            key = m.group(1) + "<" + ",".join(
-                re.findall(r"L[bi](\d+)E", m.group(2))) + ">"
+            # Every flag of the template, the body table's class skipped;
+            # trailing false flags past the third dropped, so an instance
+            # keeps its key when a later flag (default false) is added.
+            flags = re.findall(r"L[bi](\d+)E", m.group(2))
+            while len(flags) > 3 and flags[-1] == "0":
+                flags.pop()
+            key = m.group(1) + "<" + ",".join(flags) + ">"
         text = " ".join(lines[i:i + 4])
         out[key] = {k: int(v) for v, k in re.findall(
             r"(\d+) (bytes stack frame|bytes spill stores|registers)",

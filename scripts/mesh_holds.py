@@ -63,6 +63,18 @@ CUDA-event time on the card, the plain version's wall time on the CPU;
   (``stress.tenant_mesh`` on 4 devices: four lanes at 4:2:1:1, the last
   one's rows expired on the ring). These also return the heap and, on
   the tenant mesh, the tctl echo.
+- the fault layer (``resident_fault``, a ``DeviceFaultPlan``), one case
+  an instance: ``fault_steal_8`` and ``fault_steal_8_b8``, the forest
+  steal-only (``ICIStealMegakernel``, scalar and width 8) with device 0
+  dead from round 0, so it re-homes every root, and credits dropped,
+  doubled and delayed (``FOREST_DEAD``); ``fault_user_steal_4``, the dry
+  run's BUMPs steal-only, and ``fault_pgas_steal_8``, the PGAS exchange
+  with 32 BUMPs stolen, both under ``CREDIT_FAULTS``;
+  ``fault_credits_2`` and ``fault_dead_4``, ``tests/test_torch_faults.py``'s
+  two fixtures (the migrating configuration); ``fault_wedge_2``, JAX's
+  credit_timeout=0 plan, whose StallError's stats and message are
+  compared. ``PHASE30`` / ``run_fault_arm`` are chip_smoke.py's phase 30:
+  JAX's fault tests at their shapes and the two 16-CTA loads.
 
 ``USER_CASES`` hold the user library's scheduler (``mk_user_kernel``) on
 one device (``run_user_case``), each on ``USER_TABLE`` (the built-in fib
@@ -144,7 +156,28 @@ CASES = {
     "five_way_1": ("five_way", 1, 0, False, {}),
     "volume_1": ("volume", 1, 0, False, {}),
     "tenants_4": ("tenants", 4, 0, False, {}),
+    # The fault layer (resident_kernel<.., kFault>), one case an instance:
+    # the forest steal-only with device 0, which holds every root, dead
+    # from round 0 and credits dropped, doubled and delayed (megakernel.cu,
+    # scalar and with FIB at width 8); the dry run's BUMPs steal-only
+    # (user library, variant 0) and the PGAS exchange with steal (variant
+    # 1), both under credit faults; the two fixtures of
+    # tests/test_torch_faults.py (the migrating configuration, variant 2);
+    # JAX's credit_timeout=0 plan, which raises.
+    "fault_steal_8": ("fault", 8, 0, False, dict(load="forest")),
+    "fault_steal_8_b8": ("fault", 8, 8, False, dict(load="forest")),
+    "fault_user_steal_4": ("fault", 4, 0, False, dict(load="user")),
+    "fault_pgas_steal_8": ("fault", 8, 0, True, dict(load="pgas")),
+    "fault_credits_2": ("fault", 2, 0, False, dict(load="credits")),
+    "fault_dead_4": ("fault", 4, 0, False, dict(load="dead")),
+    "fault_wedge_2": ("fault", 2, 0, False, dict(load="wedge")),
 }
+# The credit faults of the fault cases (and, with FOREST's dead device,
+# of the forest ones).
+CREDIT_FAULTS = dict(seed=5, drop_credit_rate=0.02, dup_credit_rate=0.02,
+                     delay_xfer_rate=0.1, credit_timeout=2)
+FOREST_DEAD = dict(CREDIT_FAULTS, dead_device=0, dead_round=0,
+                   heartbeat_timeout=2)
 INJECT_KINDS = ("inject", "inject_pgas", "compose", "five_way", "volume",
                 "tenants")
 # tenants_4's lanes: (tenant, weight, admissions on 4 devices).
@@ -158,6 +191,8 @@ def kernel_of(name: str) -> str:
     kind, ndev = CASES[name][:2]
     if kind in INJECT_KINDS:
         return "resident_inject"
+    if kind == "fault":
+        return "resident_fault"
     if kind == "ici":
         kind = "resident" if ndev & (ndev - 1) == 0 else "ring"
     return {"sharded": "mesh_round", "ring": "ici_ring",
@@ -283,6 +318,107 @@ def _inject_case(kind, ndev, kw, device):
     return iv, data, info
 
 
+def _fault_case(ndev, bw, dealt, kw, device):
+    """A case of the fault layer; raises unless its totals are exact (the
+    wedge: unless it raises naming the starved channel). Returns what it
+    is compared on."""
+    from hclib_tpu_torch.runtime.resilience import DeviceFaultPlan
+
+    load = kw["load"]
+    mesh = CtaMesh((ndev,), ("q",), device=device)
+    if load in ("credits", "dead"):
+        iv, info = stress.fault_run(load, device)
+        return _resident_result(iv, {}, info)
+    if load == "wedge":
+        return run_fault_arm("wedge_2", device)
+    if load == "forest":
+        mk = stress.forest_megakernel(ROOTS, CAP, bw, device)
+        sk = ICIStealMegakernel(mk, mesh, migratable_fns=[FIB], window=8,
+                                fault_plan=DeviceFaultPlan(**FOREST_DEAD))
+        iv, data, info = sk.run(builders(ndev, False), quantum=64)
+        info["rounds"] = info.pop("steal_rounds")
+        stress.check_forest(iv, info, ROOTS, N)
+        return _resident_result(iv, data, info)
+    plan = DeviceFaultPlan(**CREDIT_FAULTS)
+    if load == "user":
+        sk = ICIStealMegakernel(stress.bump_megakernel(device), mesh,
+                                migratable_fns=[0], window=4,
+                                fault_plan=plan)
+        iv, data, info = sk.run(stress.dryrun_builders(2, ndev), quantum=2)
+        info["rounds"] = info.pop("steal_rounds")
+        n = 8 * ndev
+        stress.check_bump(iv, info, n, n * (n + 1) // 2)
+        return _resident_result(iv, data, info)
+    bs, waits, heap = stress.pgas_builders(ndev, dealt, 32)
+    rk = ResidentKernel(stress.pgas_megakernel(device=device), mesh,
+                        migratable_fns=[stress.PBUMP], homed=False,
+                        channels={"c0": ("heap", 1)}, window=4,
+                        am_window=8, fault_plan=plan)
+    iv, data, info = rk.run(bs, data={"heap": heap}, waits=waits,
+                            quantum=4)
+    stress.check_pgas(iv, data["heap"].cpu().numpy(), info, ndev, dealt, 32)
+    return _resident_result(iv, data, info)
+
+
+# chip_smoke.py's phase 30 (``faults``): JAX's fault tests at their
+# shapes (tests/test_device_faults.py: 40 BUMPs on device 0 of 2 under a
+# dropped, a duplicated and a delayed credit plan and the credit_timeout=0
+# plan; 6 BUMPs a device on 8 with device 3 dead at round 2), then the
+# full width: UTS_FAULT (16 CTAs) and FOREST_FAULT (16 CTAs, steal-only).
+PHASE30 = ("drop_2", "dup_2", "delay_2", "wedge_2", "dead_8", "uts_16",
+           "forest_16")
+JAX_FAULT_PLANS = {
+    "drop_2": dict(seed=3, drop_credit_at=[(1, 0, 1)], credit_timeout=2),
+    "dup_2": dict(seed=5, dup_credit_at=[(1, 0, 1)], credit_timeout=2),
+    "delay_2": dict(seed=11, delay_xfer_rate=0.5, credit_timeout=2),
+    "wedge_2": dict(seed=3, drop_credit_at=[(1, 0, 1)], credit_timeout=0),
+    "dead_8": dict(seed=7, dead_device=3, dead_round=2, heartbeat_timeout=2),
+}
+# The message JAX's test matches the wedge's StallError against.
+WEDGE_MATCH = r"hop-0 .*granter device 1"
+
+
+def run_fault_arm(name: str, device: str) -> dict:
+    """Phase-30 arm ``name`` on ``device``, exact by JAX's assertions (the
+    wedge: raising JAX's StallError, whose stats it returns, with the
+    message under ``stall``); returns what it is compared on."""
+    import re
+
+    from hclib_tpu_torch.runtime.resilience import DeviceFaultPlan, StallError
+
+    if name == "uts_16":
+        iv, info = stress.uts_fault(device=device)
+        if int(np.asarray(iv)[:, 0].sum()) != stress.UTS_FAULT_NODES or (
+                info["executed"] != stress.UTS_FAULT_NODES):
+            raise AssertionError(f"uts_16: {int(iv[:, 0].sum())} nodes")
+        return _resident_result(iv, {}, info)
+    if name == "forest_16":
+        iv, info = stress.forest_fault(device=device)
+        return _resident_result(iv, {}, info)
+    plan = DeviceFaultPlan(**JAX_FAULT_PLANS[name])
+    if name == "dead_8":
+        rk = stress.fault_resident(8, plan, 256, device=device)
+        bs, total = stress.spread_builders(8, 6)
+        iv, _, info = rk.run(bs, quantum=2, max_rounds=4096)
+        stress.check_bump(iv, info, 48, total)
+        return _resident_result(iv, {}, info)
+    rk = stress.fault_resident(2, plan, 128, device=device)
+    bs = stress.skewed_builders(2, 40)
+    if name != "wedge_2":
+        iv, _, info = rk.run(bs, quantum=2, max_rounds=4096)
+        stress.check_bump(iv, info, 40, 820)
+        return _resident_result(iv, {}, info)
+    try:
+        rk.run(bs, quantum=2, max_rounds=4096)
+    except StallError as e:
+        if not re.search(WEDGE_MATCH, str(e)):
+            raise
+        out = _resident_result(np.zeros((2, 1), np.int32), {}, e.stats)
+        out["stall"] = str(e)
+        return out
+    raise AssertionError("wedge_2: credit_timeout=0 did not raise")
+
+
 # chip_smoke.py's phase 29 (``inject``): JAX's three compositions that
 # inject, the forest with 256 injected rows a device and the four tenant
 # lanes on 128 CTAs.
@@ -321,6 +457,7 @@ def _resident_result(iv, data, info) -> dict:
         "tenant_ctl": info.get("tenant_ctl"),
         "tenants": info.get("tenants"),
         "executed": info["executed"],
+        "pending": info["pending"],
         "kernel_ms": ex["kernel_ms"],
         "exchange_ms": None,
     }
@@ -329,6 +466,8 @@ def _resident_result(iv, data, info) -> dict:
 def run_case(name: str, device: str) -> dict:
     """One case on ``device``; returns what it is compared on."""
     kind, ndev, bw, dealt, kw = CASES[name]
+    if kind == "fault":
+        return _fault_case(ndev, bw, dealt, kw, device)
     if kind in INJECT_KINDS:
         return _resident_result(*_inject_case(kind, ndev, kw, device))
     if kind in ("homed", "atomics"):
@@ -509,7 +648,9 @@ def user_sources():
     and width 8) and the dry run's phase 0; and the injecting libraries:
     the fib forest's (steal-only), the PGAS exchange's, the bump
     table's (tenants) and those of JAX's three compositions that inject
-    (migrating)."""
+    (migrating); and those with the fault layer: the bump table's
+    steal-only and migrating, the PGAS exchange's with steal, and a table
+    of built-in bodies alone migrating (UTS_FAULT's)."""
     from hclib_tpu_torch.device.megakernel import Megakernel
     from hclib_tpu_torch.device.workloads import make_fib_megakernel
 
@@ -536,7 +677,15 @@ def user_sources():
             stress.bump_megakernel("cpu").user_source(False, inject=True),
             table(stress.COMPOSE_TABLE).user_source(True, True, True),
             table(stress.FIVE_WAY_TABLE).user_source(True, True, True),
-            table(stress.VOLUME_TABLE).user_source(True, True, True)]
+            table(stress.VOLUME_TABLE).user_source(True, True, True),
+            stress.fault_megakernel(64, "cpu").user_source(False,
+                                                           fault=True),
+            stress.fault_megakernel(64, "cpu").user_source(True, True,
+                                                           fault=True),
+            stress.pgas_megakernel(device="cpu").user_source(True,
+                                                             fault=True),
+            make_fib_megakernel(16, device="cpu").user_source(True, True,
+                                                              fault=True)]
 
 
 USER_CASES = ("chain_free", "mixed", "ufib")

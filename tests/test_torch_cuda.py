@@ -734,7 +734,9 @@ MESH_CASES = ("sharded_nosteal_8", "sharded_steal_8", "sharded_steal_8_b8",
               "pgas_8", "pgas_steal_8", "homed_2", "homed_8", "homed_3d",
               "homed_8_b8", "atomics_4", "inject_steal_8", "inject_pgas_4",
               "inject_pgas_steal_8", "compose_4", "five_way_1", "volume_1",
-              "tenants_4")
+              "tenants_4", "fault_steal_8", "fault_steal_8_b8",
+              "fault_user_steal_4", "fault_pgas_steal_8", "fault_credits_2",
+              "fault_dead_4", "fault_wedge_2")
 
 
 def _mesh_holds():
@@ -970,3 +972,65 @@ def test_inject_library_holds_only_injecting_instances(card):
     host = tmk.MeshHost()
     host.ndev = 2
     assert launch(ctypes.byref(host), 2, 0, 1, 0, None) != 0
+
+
+PHASE30 = ("drop_2", "dup_2", "delay_2", "wedge_2", "dead_8", "uts_16",
+           "forest_16")
+
+
+@pytest.mark.parametrize("arm", PHASE30)
+def test_fault_phase_arm_equals_plain(card, arm):
+    """chip_smoke.py's phase 30 arms (resident_kernel<.., kFault>): JAX's
+    fault tests at their shapes (the dropped, duplicated and delayed
+    credit and the credit_timeout=0 plans on 2 CTAs, the dead chip on 8),
+    UTS depth 20 on 16 CTAs with a dead device and credit faults, and the
+    forest steal-only on 16 CTAs with its whole queue re-homed: each
+    exact (JAX's assertions; the wedge raising its StallError) and equal
+    to its plain run word for word, fault stats included."""
+    h = _mesh_holds()
+    assert set(PHASE30) == set(h.PHASE30)
+    got, want = h.run_fault_arm(arm, "cuda"), h.run_fault_arm(arm, "cpu")
+    h.compare(got, want, arm)
+    if arm == "wedge_2":
+        assert got["stall"] == want["stall"]
+
+
+def test_fault_libraries_hold_only_fault_instances(card):
+    """A table's library with the fault layer (HCLIB_USER_FAULT) holds the
+    resident kernel's fault instance of its variant alone; a launch
+    without the plan (or a plain library's with one) is refused before
+    the kernel runs, and so is the built-in library's fault mode without
+    a plan."""
+    from hclib_tpu_torch import _build
+    from hclib_tpu_torch.device import stress
+
+    mk = stress.fault_megakernel(64, "cuda")
+    assert "#define HCLIB_USER_FAULT 1" in mk.user_source(True, True,
+                                                          fault=True)
+    out = ctypes.c_int(0)
+    for variant, pgas, home in ((0, False, False), (1, True, False),
+                                (2, True, True)):
+        lib = mk.user_library(pgas, home, fault=True)
+        fn = lib.hclib_user_coresident
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        assert fn(2, 0, 1, variant, ctypes.byref(out)) == 0
+        assert out.value >= 16
+        assert fn(2, 0, 0, variant, ctypes.byref(out)) != 0  # steal=False
+        assert fn(0, 0, 1, variant, ctypes.byref(out)) != 0
+        launch = lib.hclib_user_launch
+        launch.restype = ctypes.c_int
+        launch.argtypes = [ctypes.POINTER(tmk.MeshHost)] + [
+            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        host = tmk.MeshHost()
+        host.ndev = 2
+        assert launch(ctypes.byref(host), 2, 0, 1, variant, None) != 0
+    assert tmk.mesh_coresident("resident_steal", 2) >= 16
+    lib = _build.library("megakernel")
+    fn = lib.hclib_mesh_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(tmk.MeshHost)] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    host = tmk.MeshHost()
+    host.ndev = 2
+    assert fn(ctypes.byref(host), 2, 2, 1, 0, None) != 0  # no plan
+    assert fn(ctypes.byref(host), 1, 2, 1, 0, None) != 0  # ring: no mode 2

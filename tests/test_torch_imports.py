@@ -173,6 +173,14 @@ ENTRY_POINTS = {
             __import__("hclib_tpu_torch.parallel.mesh",
                        fromlist=["x"]).CtaMesh((2,), ("q",)),
             inject=True, tenants=2),
+    "uts_fault": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).uts_fault(
+            ndev=2, max_depth=4),
+    "forest_fault": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).forest_fault(
+            ndev=2, roots=2, n=3, capacity=64),
+    "fault_run": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).fault_run("dead"),
 }
 
 

@@ -37,6 +37,7 @@ from hclib_tpu_torch.device.sharded import ShardedMegakernel as TSharded
 from hclib_tpu_torch.device.sharded import abort_words
 from hclib_tpu_torch.models.fib import fib_seq, task_count
 from hclib_tpu_torch.parallel.mesh import CtaMesh, cpu_mesh
+from hclib_tpu_torch.runtime.resilience import DeviceFaultPlan
 
 FIB = 0
 
@@ -286,37 +287,61 @@ def test_forest_steal_quick_exact():
 # --------------------------------------------------------------- refusals
 
 
-class _Plan:
-    def enabled(self):
-        return True
-
-
+# A plan that drops, doubles and delays credits; "fault_plan" adds a dead
+# device 1 (which holds no work).
+_PLAN = DeviceFaultPlan(seed=5, drop_credit_rate=0.2, dup_credit_rate=0.2,
+                        delay_xfer_rate=0.2, credit_timeout=2)
 REFUSED_INIT = {
     # Homed migration, value args, channels, the injection ring and mesh
     # tenancy run (tests/test_torch_homed.py, test_torch_pgas.py,
-    # test_torch_inject_mesh.py); each key keeps naming its feature, now
-    # beside the fault plan that still refuses (ROADMAP A11b).
-    "homed_faults": dict(migratable_fns=[FIB], fault_plan=_Plan()),
+    # test_torch_inject_mesh.py), and so do fault plans on the steal
+    # configurations (tests/test_torch_faults.py): "fault_plan" and
+    # "homed_faults" build and run under a plan. Each other key keeps
+    # naming its feature, beside the fault plan that still refuses there
+    # (ROADMAP A11b.5).
+    "homed_faults": dict(migratable_fns=[FIB], fault_plan=_PLAN),
     "value_args_tenants": dict(migratable_fns={FIB: (0,)}, homed=False,
-                               inject=True, tenants=2, fault_plan=_Plan()),
+                               inject=True, tenants=2, fault_plan=_PLAN),
     "channels_homed_inject": dict(channels={"c": ("x", 1)},
                                   migratable_fns=[FIB], inject=True,
-                                  fault_plan=_Plan()),
-    "inject": dict(inject=True, fault_plan=_Plan()),
-    "tenants": dict(inject=True, tenants=2, fault_plan=_Plan()),
-    "fault_plan": dict(fault_plan=_Plan()),
+                                  fault_plan=_PLAN),
+    "inject": dict(inject=True, fault_plan=_PLAN),
+    "tenants": dict(inject=True, tenants=2, fault_plan=_PLAN),
+    "fault_plan": dict(fault_plan=DeviceFaultPlan(
+        seed=5, drop_credit_rate=0.2, dead_device=1, dead_round=0,
+        credit_timeout=2)),
     "pgas_inject": dict(steal=False, channels={"c": ("x", 1)}, inject=True,
-                        fault_plan=_Plan()),
+                        fault_plan=_PLAN),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_INIT))
 def test_resident_refuses_what_is_not_ported(name):
     kw = REFUSED_INIT[name]
-    with pytest.raises(NotImplementedError, match="A11"):
+    if name in ("fault_plan", "homed_faults"):
+        # Ported: the plan builds and a forest runs exact under it (homed
+        # migration: one result slot a row above the value region).
+        mk = tw.make_fib_megakernel(
+            capacity=256, num_values=tw.VBLOCK * 256 + 64 + 256,
+            device="cpu")
+        rk = ResidentKernel(mk, cpu_mesh(2), **kw)
+        assert rk.plan is kw["fault_plan"]
+        sizes = [8] * 4
+        iv, _, info = rk.run(forest(TBuilder, 2, sizes), quantum=8)
+        tasks, total = expected(sizes)
+        assert info["executed"] == tasks and info["pending"] == 0
+        assert int(iv[:, :4].sum()) == total
+        fs = info["fault_stats"]
+        assert sum(f["credits_dropped"] for f in fs) > 0
+        if name == "fault_plan":
+            assert fs[0]["quarantined"] == [1] and fs[1]["heartbeat"] == 0
+        else:
+            assert info["per_device_counts"][1, 5] > 0
+        return
+    with pytest.raises(NotImplementedError, match="A11b.5"):
         ResidentKernel(_fib_mk(), cpu_mesh(2), **kw)
     # The same configuration without the fault plan builds.
-    if name != "fault_plan" and "channels" not in kw:
+    if "channels" not in kw:
         kw = {k: v for k, v in kw.items() if k != "fault_plan"}
         rk = ResidentKernel(_fib_mk(), cpu_mesh(2), **kw)
         assert rk.inject == bool(kw.get("inject"))
@@ -410,7 +435,7 @@ def test_mesh_shape_and_argument_errors():
     with pytest.raises(ValueError, match="outside the kernel table"):
         TSharded(_fib_mk(), cpu_mesh(2), migratable_fns=[5])
     with pytest.raises(ValueError, match="non-pof2 ring"):
-        TIci(_fib_mk(), cpu_mesh(3), fault_plan=_Plan())
+        TIci(_fib_mk(), cpu_mesh(3), fault_plan=_PLAN)
     with pytest.raises(ValueError, match="1 to 3"):
         CtaMesh((2, 2, 2, 2), ("a", "b", "c", "d"), device="cpu")
 
