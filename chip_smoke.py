@@ -278,6 +278,30 @@ header, qstat and the whole output state equal to the plain core's.
              warmed up, then timed by CUDA events; then (outside the
              launch counts) each arm's plain run, word for word with
              every device's fault stats.
+31. mesh_ckpt - the resident kernel's quiesce, resume and flight
+             recorder (resident_kernel<.., kObs>, counter resident_obs;
+             ici_ring_kernel<.., kObs>, counter ici_ring_obs;
+             scripts/mesh_holds.py ckpt_phase): UTS depth 20 (498,965
+             nodes from one root) on 128 CTAs under homed migration
+             (stress.uts_ckpt) without the quiesce word, checkpoint-built
+             and traced (8,192 records a device, no wrap: every device's
+             round records equal the rounds, the fire records sum to the
+             tasks, the TR_XFER rows to the rows exported); quiesced at
+             half its rounds, through snapshot_resident, save, load and
+             restore_resident on 128 CTAs (seconds each), then
+             reshard(64) and resumed on 64 CTAs, every path exact; the
+             injected forest (32,768 ring rows on 128 CTAs) cut at round
+             0 (every row residue) and at half its rounds, consumed plus
+             residue equal to published on every device and the resume
+             exact; FOREST_STEAL_BENCH's forest traced on the ring at 6
+             CTAs. Each arm warmed up, timed by CUDA events; then
+             (outside the counts) every run of the phase but the
+             unobserved and uncut ones against its plain run word for
+             word (state, wait table, ring residue, ictl and every
+             device's decoded records): the tree's cut at 128, traced
+             and not, its restore on 128 and its reshard onto 64 (from
+             the card's bundle), both of the forest's cuts and their
+             resumes, and the traced ring.
 
 The ``user`` lines, before the main path, hold the user-body
 scheduler on one device to the plain core (``scripts/mesh_holds.py``
@@ -306,7 +330,13 @@ the tctl echo included; and each instance with the fault layer (the
 forest steal-only with a dead device and credit faults, scalar and at
 width 8; the dry run's BUMPs steal-only and the PGAS exchange with
 steal under credit faults; the two fixtures of
-tests/test_torch_faults.py; the credit_timeout=0 plan's StallError).
+tests/test_torch_faults.py; the credit_timeout=0 plan's StallError); and
+each observed instance (``OBS_CASES``: the flight recorder and the
+quiesce word of the built-in steal-only instances, with lanes and with
+the fault layer, of the ring, and of the user libraries' PGAS,
+migrating, injecting, tenant and fault variants) on the CPU tests'
+fixtures' shapes and at 8 CTAs, each quiesce's exported state and the
+resumed run included.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -318,7 +348,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-30 are the main path: launch counts are zeroed just before each
+Phases 3-31 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -1420,6 +1450,21 @@ def main() -> int:
               "rounds": got["rounds"], "rows_exported": got["rows"],
               "card_kernel_ms": got["kernel_ms"],
               "card_exchange_ms": got["exchange_ms"],
+              "plain_host_ms": want["kernel_ms"]})
+    for name in mesh_holds.OBS_CASES:
+        got = mesh_holds.run_obs_case(name, "cuda")
+        want = mesh_holds.run_obs_case(name, "cpu")
+        err = mesh_holds.compare(got, want, name)
+        kn = ("ici_ring_obs" if mesh_holds.OBS_CASES[name][0] == "ring"
+              else "resident_obs")
+        mesh_hold_err[kn] = max(mesh_hold_err.get(kn, 0.0), err)
+        emit({"phase": "mesh", "case": name, "equal": True,
+              "max_abs_err": err, "executed": got["executed"],
+              "rounds": got["rounds"], "quiesced": got.get("quiesced"),
+              "records": [got[k] for k in sorted(got)
+                          if k.startswith("trace/") and
+                          k.endswith("/written")],
+              "card_kernel_ms": got["kernel_ms"],
               "plain_host_ms": want["kernel_ms"]})
     del got, want
 
@@ -3461,6 +3506,67 @@ def main() -> int:
     emit({"phase": "faults", "arms": flt_arms, "plain_ms": flt_plain,
           "library": "none: no PyTorch call runs a task scheduler or its "
                      "fault-tolerant steal exchange",
+          "launches": launches})
+
+    # 31. the resident kernel's quiesce, resume and flight recorder (its
+    # observed instances, resident_obs and ici_ring_obs):
+    # scripts/mesh_holds.py's ckpt_phase - UTS depth 20 on 128 CTAs under
+    # homed migration without the quiesce word, checkpoint-built, traced,
+    # quiesced at half its rounds and bundled, saved, loaded, restored on
+    # 128 and resharded onto 64; the injected forest cut at round 0 and at
+    # half its rounds; the forest traced on the ring at 6. Then, outside
+    # the counts, each observed run against its plain run word for word.
+    _build.reset_launches()
+    ck_dir = tempfile.mkdtemp(prefix="mesh-ckpt-")
+    try:
+        ck = mesh_holds.ckpt_phase("cuda", ck_dir)
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_arms = ck["arms"]
+    check(ck_arms["uts_noobs"]["tasks"] == 498965,
+          f"mesh_ckpt: {ck_arms['uts_noobs']['tasks']} UTS nodes")
+    for name, a in ck_arms.items():
+        # The bound (bytes): row 7's 136 B a task, 16 B a record, 64 B a
+        # row exported, and the exported state written once and read once.
+        a["bound_ms"] = bound(0.0, 136.0 * a.get("tasks", a.get(
+            "executed", 0)) + 16.0 * a.get("records", 0) + 64.0 * a.get(
+            "rows_exported", 0) + 2.0 * a.get("state_bytes", 0))[0]
+        emit({"phase": "mesh_ckpt", "arm": name, **a})
+    launches = path_done("mesh_ckpt")
+    t0 = time.perf_counter()
+    plain = mesh_holds.ckpt_plain_holds(ck)
+    ck_err = {name: mesh_holds.compare(ck["holds"][name], want, name)
+              for name, want in plain["holds"].items()}
+    del ck
+    emit({"phase": "mesh_ckpt", "plain_equal": sorted(ck_err),
+          "max_abs_err": ck_err, "plain_ms": plain["plain_ms"],
+          "plain_wall_s": time.perf_counter() - t0})
+    a = ck_arms["uts_traced"]
+    kernels["resident_obs"] = {
+        "name": "resident_obs", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/resident.py:2222",
+        "max_abs_err": max(max(v for k, v in ck_err.items()
+                               if k != "ring_6_traced"),
+                           mesh_hold_err["resident_obs"]),
+        "ms": a["kernel_ms"],
+        "plain_ms": plain["plain_ms"]["uts_traced_quiesce"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+    a = ck_arms["ring_6_traced"]
+    kernels["ici_ring_obs"] = {
+        "name": "ici_ring_obs", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/ici_steal.py:765",
+        "max_abs_err": max(ck_err["ring_6_traced"],
+                           mesh_hold_err["ici_ring_obs"]),
+        "ms": a["kernel_ms"], "plain_ms": plain["plain_ms"]["ring_6_traced"],
+        "bound_ms": a["bound_ms"], "bound_by": "bytes", "library_ms": None,
+    }
+    emit({"phase": "mesh_ckpt", "arms": ck_arms,
+          "plain_ms": plain["plain_ms"],
+          "library": "none: no PyTorch call runs a task scheduler, its "
+                     "quiesce or its flight recorder",
           "launches": launches})
 
     # Launches of the main path ----------------------------------------

@@ -32,7 +32,10 @@ its migrating configuration (homed copies with their completions, value
 args), ``"resident_inject"`` its injecting instances (the injection ring
 and mesh tenancy, any configuration), ``"resident_fault"`` its instances
 with the fault layer (a ``DeviceFaultPlan``: dropped, duplicated and
-delayed steal credits, a dead device; any steal configuration);
+delayed steal credits, a dead device; any steal configuration),
+``"resident_obs"`` and ``"ici_ring_obs"`` the observed instances of the
+resident kernel and the ring (the flight recorder, and the resident
+kernel's quiesce word; any configuration, faults and injection included);
 ``"mk_user"`` the launches of a
 user-body library's scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a
 user table on one device, or a grid launch of the sharded runner). A
@@ -77,7 +80,8 @@ LAUNCHES: Dict[str, int] = {
     "dg_expand": 0, "dg_splice": 0, "dg_splice_batch": 0, "dg_query": 0,
     "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
     "resident_steal": 0, "resident_pgas": 0, "resident_homed": 0,
-    "resident_inject": 0, "resident_fault": 0, "mk_user": 0,
+    "resident_inject": 0, "resident_fault": 0, "resident_obs": 0,
+    "ici_ring_obs": 0, "mk_user": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -733,33 +733,55 @@ __global__ void __launch_bounds__(BT) mk_grid_kernel(MeshArgs mesh) {
 #include "mk_body.cuh"
 }
 
+// The steal kernels' instance bits: 1 lanes, 2 the fault layer (the
+// resident kernel), 4 observed (the recorder and the quiesce word).
+template <int kMode>
+void* resident_of() {
+  return reinterpret_cast<void*>(
+      resident_kernel<(kMode & 1) != 0, true, false, BuiltinBodies, false,
+                      false, (kMode & 2) != 0, (kMode & 4) != 0>);
+}
+
 void* mesh_kernel_of(int kind, int mode) {
   switch (kind) {
     case 0:
       return mode ? reinterpret_cast<void*>(mk_grid_kernel<1>)
                   : reinterpret_cast<void*>(mk_grid_kernel<0>);
     case 1:
-      return mode
-                 ? reinterpret_cast<void*>(ici_ring_kernel<true, BuiltinBodies>)
-                 : reinterpret_cast<void*>(
-                       ici_ring_kernel<false, BuiltinBodies>);
-    default:
       switch (mode) {
         case 0:
           return reinterpret_cast<void*>(
-              resident_kernel<false, true, false, BuiltinBodies>);
+              ici_ring_kernel<false, BuiltinBodies>);
         case 1:
+          return reinterpret_cast<void*>(ici_ring_kernel<true, BuiltinBodies>);
+        case 4:
           return reinterpret_cast<void*>(
-              resident_kernel<true, true, false, BuiltinBodies>);
-        case 2:  // the fault layer (kFault)
-          return reinterpret_cast<void*>(
-              resident_kernel<false, true, false, BuiltinBodies, false,
-                              false, true>);
+              ici_ring_kernel<false, BuiltinBodies, true>);
         default:
           return reinterpret_cast<void*>(
-              resident_kernel<true, true, false, BuiltinBodies, false,
-                              false, true>);
+              ici_ring_kernel<true, BuiltinBodies, true>);
       }
+    default: {
+      static void* const resident[8] = {
+          resident_of<0>(), resident_of<1>(), resident_of<2>(),
+          resident_of<3>(), resident_of<4>(), resident_of<5>(),
+          resident_of<6>(), resident_of<7>()};
+      return resident[mode];
+    }
+  }
+}
+
+// A mesh instance `mode` of kernel `kind` this library holds.
+bool mesh_mode_ok(int kind, int mode) {
+  switch (kind) {
+    case 0:
+      return mode == 0 || mode == 1;
+    case 1:
+      return mode == 0 || mode == 1 || mode == 4 || mode == 5;
+    case 2:
+      return mode >= 0 && mode <= 7;
+    default:
+      return false;
   }
 }
 
@@ -1034,24 +1056,27 @@ int hclib_stream_launch(int32_t* tasks, const int32_t* succ, int32_t* ready,
 // the fault layer) the card holds at once, at one CTA an SM at most.
 // Returns a CUDA error, the count in *out.
 int hclib_mesh_coresident(int kind, int mode, int* out) {
-  if (kind < 0 || kind > 2 || mode < 0 || mode > (kind == 2 ? 3 : 1))
-    return cudaErrorInvalidValue;
+  if (!mesh_mode_ok(kind, mode)) return cudaErrorInvalidValue;
   return coresident(mesh_kernel_of(kind, mode), out);
 }
 
 // kind 0: mk_grid_kernel (an ordinary launch of ndev blocks of `threads`);
 // 1: ici_ring_kernel, 2: the resident kernel's steal-only configuration
 // (cooperative launches of ndev one-thread CTAs, refused past
-// hclib_mesh_coresident). mode: 0 lean, 1 lanes; the resident kernel's 2
-// and 3 with the fault layer, which wants h->fplan and h->fws. Returns
+// hclib_mesh_coresident). mode: bit 0 lanes; bit 1 the resident kernel's
+// fault layer, which wants h->fplan and h->fws; bit 2 the observed
+// instance of the ring or the resident kernel (h->ring and h->tr_cap, and
+// h->ckpt for the resident kernel's quiesce word). Returns
 // cudaGetLastError() (0 = launched).
 int hclib_mesh_launch(const MeshHost* h, int kind, int mode, int threads,
                       int smem, void* stream) {
-  const bool fault = mode > 1;
-  if (kind < 0 || kind > 2 || mode < 0 || mode > (kind == 2 ? 3 : 1) ||
-      h->ndev < 1 || (kind > 0 && !steal_args_ok(h)) ||
-      (kind > 0 && h->nchan != 0) || (h->fplan != 0) != fault ||
-      (fault && !fault_args_ok(h, false)))
+  const bool fault = (mode & 2) != 0, obs = (mode & 4) != 0;
+  if (!mesh_mode_ok(kind, mode) || h->ndev < 1 ||
+      (kind > 0 && !steal_args_ok(h)) || (kind > 0 && h->nchan != 0) ||
+      (h->fplan != 0) != fault || (fault && !fault_args_ok(h, false)) ||
+      !obs_args_ok(h, obs) || (kind == 1 && h->ckpt) ||
+      (obs && h->ckpt && h->p_inbox < P_STAT + STAT_WORDS + 1 +
+                                          (fault ? h->ndev : 0)))
     return cudaErrorInvalidValue;
   MeshArgs m = mesh_args(h);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -30,7 +30,13 @@
 //                       the fault layer (kFault: the DeviceFaultPlan
 //                       predicates :738-799, the faulty row exchange
 //                       :1681-1834, heartbeat detection and quarantine
-//                       :1836-1870, the dead device's round :1895-1937)
+//                       :1836-1870, the dead device's round :1895-1937);
+//                       and each of them observed (kObs: the quiesce word
+//                       of checkpoint builds, the hold and the settled
+//                       exit :1909-2018, the exit export :2035-2071, and
+//                       the per-device flight recorder, the records of
+//                       :1447-2042); ici_ring_kernel observed records its
+//                       rounds, TR_XFER :393 and TR_ABORT :432
 // csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
 // mk_kernel's body a block) and instantiates these with the built-in
 // thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
@@ -110,6 +116,22 @@
 // each device's (T, 8) tctl rows are scanned and updated in place by its
 // thread 0 (the host reads them back as the echo).
 //
+// Observed instances (kObs; a launch with neither a recorder nor a
+// quiesce word runs the instances without it, whose code is what it was
+// before). The recorder is mk_kernel's Obs over the device's slice of one
+// ring buffer, its cursors in thread 0's registers, the header written at
+// exit; the exchange's records are emitted in JAX's order on each device
+// (a regenerated credit's record after the round's TR_XFER although the
+// skipped wait came first). A checkpoint build re-reads words 1-2 of the
+// device's abort row (flag, threshold round) with the abort word; from
+// the threshold round on, the scheduler gets fuel 0 and the ring polls
+// consume nothing, while every hop's handshakes, exports, drains and
+// wait scans go on; the quiesce sum rides the stat slab after the backlog
+// (and the heartbeats), so the mesh learns the cut in the same fold, and
+// exits once it is quiesced with every outbox empty and sent equal to
+// received. The wait table stays in the workspace (the host rebases its
+// needs); the consumed cursor goes to the device's ictl word 2.
+//
 // What bounds it: as mk_kernel, a chain of dependent loads and stores by
 // one thread a CTA, now on ndev SMs at once; an exchange hop adds the
 // round trip of two flag handshakes through L2, and a put its row bytes.
@@ -182,7 +204,7 @@ constexpr int PAIR_DOWN = 16, OWED = 32, WAITS = 48, XDONE = 64,
 // The injection ring's layout (descriptor.py RING_ROW, TEN_*; tenants.py
 // TC_*): a row's words past the descriptor, and a lane's tctl row.
 namespace inj {
-constexpr int ROW = 256, TEN_EXPIRED = 17;
+constexpr int ROW = 256, TEN_ID = 16, TEN_EXPIRED = 17;
 constexpr int TC_TAIL = 0, TC_CONSUMED = 1, TC_WEIGHT = 2, TC_PAUSE = 3,
               TC_EXPIRED = 4, TC_INSTALLED = 5, TC_DROPPED = 6;
 }  // namespace inj
@@ -247,13 +269,18 @@ struct MeshArgs {
   // inj::ROW words), its ictl row (tail, closed, consumed) and, with
   // ntenants lanes of `region` rows, its (ntenants, 8) tctl rows.
   const int32_t* iring;
-  const int32_t* ictl;
+  int32_t* ictl;
   int32_t* tctl;
   int ring_rows, ntenants, region;
   // The instances with the fault layer: the plan (flt::) and each
   // device's fault workspace (flt::WS_WORDS words a device).
   const int32_t* fplan;
   int32_t* fws;
+  // The observed instances: each device's recorder ring (TR_HDR + 4 tr_cap
+  // words a device; null when untraced) and whether the quiesce word is
+  // compiled in (a checkpoint build).
+  int32_t* ring;
+  int tr_cap, ckpt;
 };
 
 // Device d's slice of the stacked state (in place: tasks_in == tasks).
@@ -911,18 +938,37 @@ struct Ring {
     return true;
   }
 
-  template <class SS>
-  __device__ int poll(SS& S, int r) {
+  // The poll. An observed instance (kObs) consumes nothing in a quiescing
+  // round (the unread rows are the exported residue; a paused lane is not
+  // swept), and records TR_TENANT for a row dropped expired (a lane with
+  // work, on a tenant mesh) and TR_INJECT for rows installed; the
+  // unobserved instances compile none of it.
+  template <bool kObs, class SS>
+  __device__ int poll(SS& S, int r, bool quiescing, Obs& O) {
+    const bool q = kObs && quiescing;
     const int T = m.ntenants;
     if (T == 0) {
       const int tail = ld_relaxed(m.ictl + 8 * me);  // re-read every round
-      for (int c = consumed; c < tail; ++c) expired += take(S, c) ? 0 : 1;
-      consumed = max(consumed, tail);
+      const int c0 = consumed, upto = q ? c0 : tail;
+      for (int c = c0; c < upto; ++c) {
+        if (!take(S, c)) {
+          ++expired;
+          if constexpr (kObs)
+            O.emit(TR_TENANT, O.r,
+                   m.iring[(static_cast<size_t>(me) * m.ring_rows + c) *
+                               inj::ROW + inj::TEN_ID] << 16,
+                   1);
+        }
+      }
+      consumed = max(c0, upto);
+      if constexpr (kObs)
+        if (consumed > c0) O.emit(TR_INJECT, O.r, consumed - c0, 0);
       return tail - consumed;
     }
     // The weighted round-robin over the lanes from lane r mod T: a lane
     // takes min(weight, avail, headroom()) rows, paused lanes are swept.
     int32_t* tc0 = m.tctl + static_cast<size_t>(me) * T * 8;
+    int newly = 0;
     for (int k = 0; k < T; ++k) {
       const int lane = (r + k) % T;
       int32_t* tc = tc0 + lane * 8;
@@ -930,7 +976,7 @@ struct Ring {
       const bool paused = tc[inj::TC_PAUSE] != 0;
       const int avail = tail - cons;
       const int n =
-          paused ? 0 : min(min(tc[inj::TC_WEIGHT], avail), S.headroom());
+          paused || q ? 0 : min(min(tc[inj::TC_WEIGHT], avail), S.headroom());
       int c = cons, inst = 0, exp = 0;
       for (; c < cons + n; ++c) {
         if (take(S, lane * m.region + c))
@@ -938,12 +984,20 @@ struct Ring {
         else
           ++exp;
       }
-      tc[inj::TC_CONSUMED] = paused ? tail : c;
-      if (paused) tc[inj::TC_DROPPED] += avail;
+      const bool sweep = paused && !q;
+      tc[inj::TC_CONSUMED] = sweep ? tail : c;
+      if (sweep) tc[inj::TC_DROPPED] += avail;
       tc[inj::TC_INSTALLED] += inst;
       tc[inj::TC_EXPIRED] += exp;
       expired += exp;
+      if constexpr (kObs) {
+        if (inst > 0 || exp > 0)
+          O.emit(TR_TENANT, O.r, (lane << 16) | inst, exp);
+        newly += inst;
+      }
     }
+    if constexpr (kObs)
+      if (newly > 0) O.emit(TR_INJECT, O.r, newly, 0);
     int backlog = 0;
     for (int l = 0; l < T; ++l)
       backlog += tc0[l * 8 + inj::TC_TAIL] - tc0[l * 8 + inj::TC_CONSUMED];
@@ -990,7 +1044,9 @@ struct Faults {
 
   // Heartbeat detection (resident.py :1836-1870): quarantine a peer whose
   // routed heartbeat has not moved for heartbeat_timeout rounds.
-  __device__ void detect(int me, int ndev, int r) const {
+  // An observed instance records each quarantine (TR_FAULT).
+  template <bool kObs = false>
+  __device__ void detect(int me, int ndev, int r, Obs& O) const {
     for (int q = 0; q < ndev; ++q) {
       const int src = me ^ q, hb = f[flt::HB_ACC + q];
       if (hb != f[flt::HB_SEEN + src]) f[flt::HB_ROUND + src] = r;
@@ -1000,6 +1056,7 @@ struct Faults {
         f[flt::DEAD + src] = 1;
         f[FS_QMASK] |= 1 << src;
         if (f[FS_DEAD_ROUND] < 0) f[FS_DEAD_ROUND] = r;
+        if constexpr (kObs) O.emit(TR_FAULT, O.r, FLT_DEAD_QUARANTINE, src);
       }
     }
   }
@@ -1080,13 +1137,18 @@ struct BuiltinBodies {
 
 // One sched(quantum) of a steal kernel's CTA, on thread 0: mk_kernel's
 // rounds (schedule(), which pops the ring alone for a table with no lanes)
-// with the body table B, spilling the lanes at exit.
-template <bool kLanes, class B, class SS>
+// with the body table B, spilling the lanes at exit. Observed (kObs), the
+// core's records: TR_ROUND_BEGIN, each round's fire records, the spills
+// and TR_ROUND_END, the round cursor ticking as in mk_kernel.
+template <bool kLanes, bool kObs = false, class B, class SS>
 __device__ void mesh_sched(SS& S, const Args& a, Round& R, Obs& O,
                            const B& bodies) {
   const int e0 = S.counts[C_EXECUTED];
+  if constexpr (kObs)
+    O.emit(TR_ROUND_BEGIN, O.tick(), S.counts[C_TAIL] - S.counts[C_HEAD],
+           S.counts[C_PENDING]);
   for (;;) {
-    schedule<false>(S, a, e0, R, O);
+    schedule<kObs>(S, a, e0, R, O);
     if (R.act == ACT_EXIT) break;
     if (R.act == ACT_SCALAR) {
       bodies.scalar(S, a, R.body, R.idx);
@@ -1096,7 +1158,27 @@ __device__ void mesh_sched(SS& S, const Args& a, Round& R, Obs& O,
       finish_batch<false>(S, a, R, nullptr);
     }
   }
-  if constexpr (kLanes) spill<false>(S, a, O);
+  if constexpr (kLanes) spill<kObs>(S, a, O);
+  if constexpr (kObs)
+    O.emit(TR_ROUND_END, O.tick(), S.counts[C_EXECUTED] - e0,
+           S.counts[C_PENDING]);
+}
+
+// An observed CTA's recorder over its slice of the ring buffer (no ring:
+// every emit is skipped) with no quiesce poll of the core's own; its
+// header at exit.
+__device__ __forceinline__ Obs mesh_obs(const MeshArgs& m, int me) {
+  Obs O{};
+  O.ring = m.ring ? m.ring + static_cast<size_t>(me) * (TR_HDR + 4 * m.tr_cap)
+                  : nullptr;
+  O.cap = m.tr_cap;
+  O.stride = 1;
+  O.left = 1;
+  return O;
+}
+__device__ __forceinline__ void mesh_obs_exit(const Obs& O) {
+  if (O.ring)
+    for (int i = 0; i < TR_HDR; ++i) O.ring[i] = i == 0 ? O.n : i == 1 ? O.r : 0;
 }
 
 // ici_steal.py _kernel: sched(quantum); the abort word; the ring
@@ -1104,7 +1186,8 @@ __device__ void mesh_sched(SS& S, const Args& a, Round& R, Obs& O,
 // neighbour, each credited by it; unless done, one exchange at distance
 // d = 2^(r mod nh) mod ndev (onto this CTA's own inbox on a one-device
 // ring), its credit to the device that targets this inbox next round.
-template <bool kLanes, class B>
+// kObs: the recorder (the core's records, TR_ABORT, TR_XFER).
+template <bool kLanes, class B, bool kObs = false>
 __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   __shared__ int32_t s_counts[8];
   __shared__ Round R;
@@ -1115,6 +1198,7 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   a.stage_all_values = 1;
   Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   Obs O{};
+  if constexpr (kObs) O = mesh_obs(m, me);
   const Mesh X{m, me, 1, s_cand};
   const B bodies(m, a, nullptr);
   const int nh = ndev > 1 ? 32 - __clz(ndev - 1) : 1;
@@ -1125,7 +1209,7 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   int r = 0;
   bool done = false, ok = true;
   while (!done && r < m.max_rounds) {
-    mesh_sched<kLanes>(S, a, R, O, bodies);
+    mesh_sched<kLanes, kObs>(S, a, R, O, bodies);
     int cur_p = s_counts[C_PENDING], cur_b = s_counts[C_TAIL] - s_counts[C_HEAD];
     int cur_a = ld_relaxed(m.abort + 8 * me) != 0;
     int tot_p = cur_p, tot_b = cur_b, tot_a = cur_a;
@@ -1151,6 +1235,8 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
     }
     if (!ok) break;
     done = tot_p == 0 || tot_a > 0;
+    if constexpr (kObs)
+      if (tot_a > 0) O.emit(TR_ABORT, O.r, r, 0);
     if (!done) {
       const int d = (1 << (r % nh)) % ndev;
       const int target = (me + d) % ndev;
@@ -1162,6 +1248,8 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
       const int nsend = X.export_rows<false>(S, a, quota, box);
       box[W * DESC] = nsend;
       xs[XS_ROWS] += nsend;
+      if constexpr (kObs)
+        if (nsend > 0) O.emit(TR_XFER, O.r, target, nsend);
       publish(X.port(target, 0) + P_RARR);
       ok = X.wait(mine + P_RARR, r + 1, r, 0, W_ROW_ARRIVAL);
       if (!ok) break;
@@ -1174,6 +1262,7 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
   s_counts[C_VBASE] = r;  // C_ROUNDS
   for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
   for (int i = 0; i < XS_WORDS; ++i) m.xstats[me * XS_WORDS + i] = xs[i];
+  if constexpr (kObs) mesh_obs_exit(O);
 }
 
 // resident.py _kernel (homed=False): the abort word; sched(quantum);
@@ -1194,9 +1283,11 @@ __global__ void __launch_bounds__(1) ici_ring_kernel(MeshArgs m) {
 // kFault (with kSteal, without kInject): the fault layer (Faults) - the
 // dead device's fuel 0 and frozen heartbeat, the heartbeats routed after
 // the backlog, the faulty row exchange, detection after the fold, the
-// wedge flag in SF_WEDGE and the exit; the FS_* words at exit.
+// wedge flag in SF_WEDGE and the exit; the FS_* words at exit. kObs: the
+// recorder and (a checkpoint build) the quiesce word, its hold and its
+// settled exit, FS_QUIESCE_ROUND and the exit export.
 template <bool kLanes, bool kSteal, bool kPgas, class B, bool kHome = false,
-          bool kInject = false, bool kFault = false>
+          bool kInject = false, bool kFault = false, bool kObs = false>
 __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   static_assert(!kHome || (kSteal && kPgas), "the migrating configuration");
   static_assert(!kFault || (kSteal && !kInject), "the fault layer");
@@ -1209,6 +1300,7 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   a.stage_all_values = 1;
   Sched S0{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
   Obs O{};
+  if constexpr (kObs) O = mesh_obs(m, me);
   const Mesh X{m, me, max(m.nhops, 1), s_cand};
   Pgas P{m, X, me, 0};
   auto&& S = SchedOf<kHome>::of(
@@ -1218,17 +1310,31 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
   const B bodies(m, a, pp);
   const int starve_below = min(m.quantum, W);
   const int sbl = kPgas ? m.stat_words - 1 : S_BL;
-  const int p_inbox = kPgas || kFault ? m.p_inbox : P_INBOX;
+  const int p_inbox = kPgas || kFault || kObs ? m.p_inbox : P_INBOX;
+  // kObs: the quiesce sum's slab word (after the backlog and the
+  // heartbeats) and the words a hop sends beside the stat vector.
+  const int s_q = sbl + 1 + (kFault ? m.ndev : 0);
+  const int ckpt = kObs ? m.ckpt : 0;
   int xs[XS_WORDS] = {0, 0, 0, 0};
   Faults F{};
   if constexpr (kFault) F = Faults{m.fplan, m.fws + me * flt::WS_WORDS};
   Ring<kPgas> I{m, P, me, 0, 0};
   if constexpr (kInject) I.consumed = ld_relaxed(m.ictl + 8 * me + 2);
   S.stage(a);
-  int r = 0, abort_round = -1;
-  bool done = false, ok = true;
+  int r = 0, abort_round = -1, quiesce_round = -1;
+  bool done = false, ok = true, held = false;
   while (!done && r < m.max_rounds) {
     const int local_abort = ld_relaxed(m.abort + 8 * me) != 0;
+    // A checkpoint build's quiesce word (abort row words 1-2: flag,
+    // threshold round), read with the abort word: every device compares
+    // the same round, so the cut is lockstep.
+    bool local_q = false;
+    if constexpr (kObs) {
+      if (ckpt)
+        local_q = ld_relaxed(m.abort + 8 * me + 1) != 0 &&
+                  r >= ld_relaxed(m.abort + 8 * me + 2);
+    }
+    const bool quiescing = local_q || held;
     if constexpr (kPgas) P.r = r;
     bool am_dead = false;
     if constexpr (kFault) {
@@ -1236,7 +1342,14 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
       am_dead = F.dead(me, r);
       a.fuel = am_dead ? 0 : m.quantum;
     }
-    mesh_sched<kLanes>(S, a, R, O, bodies);
+    if constexpr (kObs) {
+      // The hold: fuel 0 (lanes still spill at the sched exit), the
+      // exchange going on.
+      a.fuel = am_dead || quiescing ? 0 : m.quantum;
+      mesh_sched<kLanes, true>(S, a, R, O, bodies);
+    } else {
+      mesh_sched<kLanes>(S, a, R, O, bodies);
+    }
     if constexpr (kFault) {
       if (!am_dead) F.f[flt::HB] += 1;
       for (int q = 0; q < m.ndev; ++q) F.f[flt::HB_ACC + q] = F.f[flt::HB];
@@ -1245,12 +1358,14 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
       if (X.stopped()) break;  // a body's protocol fault
     }
     int inj_backlog = 0;
-    if constexpr (kInject) inj_backlog = I.poll(S, r);
+    if constexpr (kInject)
+      inj_backlog = I.template poll<kObs>(S, r, quiescing, O);
     if constexpr (kPgas) P.drain_outbox();
     int acc[SX_AM] = {s_counts[C_PENDING], 0, 0, 0, inj_backlog, local_abort,
                       0};
     if constexpr (kPgas) P.stat_init(acc);
     if constexpr (kFault) acc[SF_WEDGE] = F.f[flt::WEDGE];
+    int acc_q = local_q;  // the folded quiesce sum (kObs)
     for (int h = 0; h < m.nhops && ok; ++h) {
       const int k = m.hops[h], partner = me ^ (1 << k);
       int32_t* mine = X.port(me, k);
@@ -1266,6 +1381,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
           theirs[P_STAT + sbl + 1 + q] = F.f[flt::HB_ACC + q];
         xs[XS_STAT_WORDS] += m.ndev;
       }
+      if constexpr (kObs) {
+        if (ckpt) {
+          theirs[P_STAT + s_q] = acc_q;
+          xs[XS_STAT_WORDS] += 1;
+        }
+      }
       publish(theirs + P_SARR);
       ok = X.wait(mine + P_SARR, r + 1, r, k, W_STAT_ARRIVAL);
       if (!ok) break;
@@ -1277,6 +1398,9 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
         for (int q = 0; q < m.ndev; ++q)
           if ((q >> k) & 1)
             F.f[flt::HB_ACC + q] = __ldcg(mine + P_STAT + sbl + 1 + q);
+      }
+      if constexpr (kObs) {
+        if (ckpt) acc_q += __ldcg(mine + P_STAT + s_q);
       }
       const int peer_b = __ldcg(mine + P_STAT + sbl);
       publish(theirs + P_SCRED);
@@ -1304,10 +1428,14 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
         // exchange on this hop, on both sides.
         if (r > f[flt::PAIR_DOWN + k] && f[flt::WEDGE] == 0) {
           f[FS_DELAYED] += delay_me;
+          if constexpr (kObs)
+            if (delay_me) O.emit(TR_FAULT, O.r, FLT_DELAY, k);
+          bool regen = false;
           if (r > 0) {
             if (f[flt::OWED + k] > 0) {  // regeneration: skip one wait
               f[flt::OWED + k] -= 1;
               f[FS_REGEN] += 1;
+              regen = true;
             } else {
               ok = X.wait(mine + P_RCRED, f[flt::WAITS + k] + 1, r, k,
                           W_ROW_CREDIT);
@@ -1326,6 +1454,12 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
           box[W * DESC] = nsend;
           xs[XS_ROWS] += nsend;
           if (am_dead) f[FS_REHOMED] += nsend;
+          if constexpr (kObs) {
+            // JAX's order: the transfer, then the skipped wait.
+            if (nsend > 0) O.emit(TR_XFER, O.r, partner, nsend);
+            if (regen)
+              O.emit(TR_CREDIT, O.r, (k << 8) | partner, CR_REGENERATED);
+          }
           publish(theirs + P_RARR);
           ok = X.wait(mine + P_RARR, f[flt::XDONE + k] + 1, r, k,
                       W_ROW_ARRIVAL);
@@ -1338,11 +1472,15 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
           // The credit I owe my partner: dropped, or doubled.
           if (drop_theirs) {
             f[FS_DROPPED] += 1;
+            if constexpr (kObs)
+              O.emit(TR_CREDIT, O.r, (k << 8) | partner, CR_DROPPED);
           } else {
             publish(theirs + P_RCRED);
             if (F.dup(r, k, me)) {
               publish(theirs + P_RCRED);
               f[FS_DUPED] += 1;
+              if constexpr (kObs)
+                O.emit(TR_CREDIT, O.r, (k << 8) | partner, CR_DUPED);
             }
           }
           if (drop_mine) {
@@ -1371,6 +1509,8 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
           nsend = quota > 0 ? X.export_rows<true>(S, a, quota, box) : 0;
         box[W * DESC] = nsend;
         xs[XS_ROWS] += nsend;
+        if constexpr (kObs)
+          if (nsend > 0) O.emit(TR_XFER, O.r, partner, nsend);
         publish(theirs + P_RARR);
         ok = X.wait(mine + P_RARR, r + 1, r, k, W_ROW_ARRIVAL);
         if (!ok) break;
@@ -1383,16 +1523,33 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     }
     if (!ok) break;
     if constexpr (kFault) {
-      if (F.p[flt::DEAD_DEV] >= 0) F.detect(me, m.ndev, r);
+      if (F.p[flt::DEAD_DEV] >= 0) F.detect<kObs>(me, m.ndev, r, O);
     }
     const bool aborted = acc[SF_ABORT] > 0;
-    if (aborted && abort_round < 0) abort_round = r;
+    if (aborted && abort_round < 0) {
+      abort_round = r;
+      if constexpr (kObs) O.emit(TR_ABORT, O.r, r, 0);
+    }
     const bool ring_idle = !kInject || acc[SF_INJ] == 0;
     done = (acc[SF_PEND] == 0 && ring_idle) || aborted;
     if constexpr (kPgas) {
       done = (acc[SF_PEND] == 0 && acc[SF_OUTB] == 0 && ring_idle &&
               acc[SF_SENT] == acc[SF_RECV]) ||
              aborted;
+    }
+    if constexpr (kObs) {
+      // The folded quiesce: recorded once, sticky, and the clean-cut exit
+      // once nothing is on the wire (the ring residue stays).
+      const bool folded = acc_q > 0;
+      if (folded && quiesce_round < 0) {
+        quiesce_round = r;
+        O.emit(TR_QUIESCE, O.r, r, 0);
+      }
+      held = held || folded;
+      done = done ||
+             (folded && acc[SF_OUTB] == 0 && acc[SF_SENT] == acc[SF_RECV]);
+    }
+    if constexpr (kPgas) {
       if (!P.drain_receives(S)) break;
       P.scan_waits(S);
     }
@@ -1405,6 +1562,15 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     ++r;
   }
   s_counts[C_VBASE] = r;  // C_ROUNDS
+  if constexpr (kObs) {
+    // The state-export record of a quiesced launch, the recorder's header
+    // and the consumed cursor.
+    if (held)
+      O.emit(TR_CKPT, O.r, s_counts[C_PENDING],
+             s_counts[C_TAIL] - s_counts[C_HEAD]);
+    mesh_obs_exit(O);
+    if constexpr (kInject) m.ictl[8 * me + 2] = I.consumed;
+  }
   for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
   if constexpr (kPgas) {
     const int32_t* sent = P.mine(PG_AM_SENT);
@@ -1420,6 +1586,7 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
     fs[i] = i == FS_DEAD_ROUND || i == FS_QUIESCE_ROUND ? -1
             : i == FS_ABORT_ROUND                       ? abort_round
                                                         : 0;
+  if constexpr (kObs) fs[FS_QUIESCE_ROUND] = quiesce_round;
   if constexpr (kInject) fs[FS_TEN_EXPIRED] = I.expired;
   if constexpr (kFault) {
     // FS_DROPPED .. FS_REHOMED and FS_STARVED; FS_ABORT_ROUND is above.
@@ -1454,6 +1621,7 @@ struct MeshHost {
   long long pg_off[PG_SECTIONS];
   long long iring, ictl, tctl, ring_rows, ntenants, region;
   long long fplan, fws;
+  long long ring, tr_cap, ckpt;
 };
 
 }  // extern "C"
@@ -1535,13 +1703,16 @@ MeshArgs mesh_args(const MeshHost* h) {
   for (int i = 0; i < PG_SECTIONS; ++i)
     m.pg_off[i] = static_cast<int>(h->pg_off[i]);
   m.iring = reinterpret_cast<const int32_t*>(h->iring);
-  m.ictl = reinterpret_cast<const int32_t*>(h->ictl);
+  m.ictl = reinterpret_cast<int32_t*>(h->ictl);
   m.tctl = reinterpret_cast<int32_t*>(h->tctl);
   m.ring_rows = static_cast<int>(h->ring_rows);
   m.ntenants = static_cast<int>(h->ntenants);
   m.region = static_cast<int>(h->region);
   m.fplan = reinterpret_cast<const int32_t*>(h->fplan);
   m.fws = reinterpret_cast<int32_t*>(h->fws);
+  m.ring = reinterpret_cast<int32_t*>(h->ring);
+  m.tr_cap = static_cast<int>(h->tr_cap);
+  m.ckpt = static_cast<int>(h->ckpt);
   return m;
 }
 
@@ -1550,6 +1721,14 @@ bool steal_args_ok(const MeshHost* h) {
   return h->nhops <= MAX_HOPS && h->scan <= MAX_SCAN && h->scan >= 0 &&
          h->window >= 1 && h->ws && h->err && h->xstats && h->fstats &&
          h->nchan >= 0 && h->nchan <= MAX_CHANS;
+}
+
+// The checks of an observed launch (`obs`): a recorder ring with a capacity
+// or none; and an unobserved launch passes neither a ring nor a quiesce
+// word.
+bool obs_args_ok(const MeshHost* h, bool obs) {
+  if (!obs) return !h->ring && !h->ckpt;
+  return (h->ring == 0) == (h->tr_cap == 0) && h->tr_cap >= 0;
 }
 
 // The checks of a launch with the fault layer (h->fplan set): its

@@ -62,16 +62,19 @@ constexpr int LS_HEAD = 0, LS_TAIL = 1, LS_PF_BASE = 2, LS_PF_N = 3,
               LS_PF_BUF = 4, LS_AGE = 5, LS_WORDS = 8;
 // The flight recorder (tracebuf.py): HDR header words (the write cursor,
 // the round cursor, six zeros), then 4-word [tag, t, a, b] records; the
-// record tags this scheduler and the stream (stream.cuh) emit. The
-// quiesce words (megakernel.py QC_*, QS_*): qctl in, qstat out.
+// record tags this scheduler, the stream (stream.cuh) and the mesh
+// kernels (mesh.cuh) emit, and the codes of the credit and fault records.
+// The quiesce words (megakernel.py QC_*, QS_*): qctl in, qstat out.
 constexpr int TR_HDR = 8;
 enum {
   TR_ROUND_BEGIN = 1, TR_ROUND_END = 2, TR_FIRE_SCALAR = 3,
   TR_FIRE_BATCH = 4, TR_PREFETCH_ISSUE = 5, TR_PREFETCH_DRAIN = 6,
-  TR_SPILL = 7, TR_ABORT = 10, TR_INJECT = 12, TR_QUIESCE = 13,
-  TR_CKPT = 14, TR_TENANT = 16, TR_FIRE_AGE = 17, TR_FIRE_BUCKET = 18,
-  TR_EGRESS = 19, TR_LATENCY = 20
+  TR_SPILL = 7, TR_CREDIT = 8, TR_XFER = 9, TR_ABORT = 10, TR_FAULT = 11,
+  TR_INJECT = 12, TR_QUIESCE = 13, TR_CKPT = 14, TR_TENANT = 16,
+  TR_FIRE_AGE = 17, TR_FIRE_BUCKET = 18, TR_EGRESS = 19, TR_LATENCY = 20
 };
+enum { CR_DROPPED = 1, CR_DUPED = 2, CR_REGENERATED = 3 };
+enum { FLT_DEAD_QUARANTINE = 1, FLT_DELAY = 3 };
 constexpr int QC_FLAG = 0, QC_AFTER = 1;
 constexpr int QS_QUIESCED = 0, QS_AT = 1, QS_POLLS = 2;
 constexpr int MAX_WIDTH = 8;      // slot rows of a batch round

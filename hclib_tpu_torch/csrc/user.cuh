@@ -40,6 +40,11 @@
 //                     with the fault layer (kFault: a DeviceFaultPlan) of
 //                     the variant's steal configurations: steal-only (0),
 //                     steal with channels (1), migrating (2).
+//   HCLIB_USER_OBS    1: the observed instances (kObs: the flight recorder
+//                     and the quiesce word) of the variant's ring and
+//                     resident kernels (injecting, or with the fault
+//                     layer, with those macros) in place of the
+//                     unobserved ones; no mk_user_kernel.
 // A table whose bodies name ctx.pgas runs only under PGAS 1 and 2; a
 // table builds a variant only when it is run there. A table of built-in
 // bodies alone (fib and sum, say) builds a library with no user body for
@@ -67,6 +72,9 @@
 #endif
 #ifndef HCLIB_USER_FAULT
 #define HCLIB_USER_FAULT 0
+#endif
+#ifndef HCLIB_USER_OBS
+#define HCLIB_USER_OBS 0
 #endif
 static_assert(!(HCLIB_USER_INJECT && HCLIB_USER_FAULT),
               "a fault plan on an injecting mesh is not ported");
@@ -225,6 +233,7 @@ struct UserBodies : BuiltinBodies {
 };
 
 constexpr bool kUserLanes = HCLIB_USER_LANES;
+constexpr bool kUserObs = HCLIB_USER_OBS;
 
 // The scheduler of a user table: block b runs mesh device b's slice to
 // completion or fuel (Megakernel.launch on one device, and the sharded
@@ -244,47 +253,43 @@ __global__ void __launch_bounds__(1) mk_user_kernel(MeshArgs m) {
   for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
 }
 
+// The resident kernel instance of this library's variant.
+template <bool kSteal, bool kPgas, bool kHome, bool kInject, bool kFault>
+void* user_resident() {
+  return reinterpret_cast<void*>(
+      resident_kernel<kUserLanes, kSteal, kPgas, UserBodies, kHome, kInject,
+                      kFault, kUserObs>);
+}
+
 // The instance of (kind, lanes, steal, pgas) this library holds, or null.
 void* user_kernel_of(int kind, int lanes, int steal, int pgas) {
   if (lanes != int(kUserLanes) || pgas != HCLIB_USER_PGAS) return nullptr;
+  constexpr bool kP = HCLIB_USER_PGAS != 0, kH = HCLIB_USER_PGAS == 2;
 #if HCLIB_USER_FAULT
-  if (kind == 2 && steal)
-    return reinterpret_cast<void*>(
-        resident_kernel<kUserLanes, true, HCLIB_USER_PGAS != 0, UserBodies,
-                        HCLIB_USER_PGAS == 2, false, true>);
+  if (kind == 2 && steal) return user_resident<true, kP, kH, false, true>();
 #elif HCLIB_USER_INJECT && HCLIB_USER_PGAS == 2
-  if (kind == 2 && steal)
-    return reinterpret_cast<void*>(
-        resident_kernel<kUserLanes, true, true, UserBodies, true, true>);
+  if (kind == 2 && steal) return user_resident<true, true, true, true, false>();
 #elif HCLIB_USER_INJECT && HCLIB_USER_PGAS
   if (kind == 2)
-    return steal ? reinterpret_cast<void*>(
-                       resident_kernel<kUserLanes, true, true, UserBodies,
-                                       false, true>)
-                 : reinterpret_cast<void*>(
-                       resident_kernel<kUserLanes, false, true, UserBodies,
-                                       false, true>);
+    return steal ? user_resident<true, true, false, true, false>()
+                 : user_resident<false, true, false, true, false>();
 #elif HCLIB_USER_INJECT
   if (kind == 2 && steal)
-    return reinterpret_cast<void*>(
-        resident_kernel<kUserLanes, true, false, UserBodies, false, true>);
+    return user_resident<true, false, false, true, false>();
 #elif HCLIB_USER_PGAS == 2
-  if (kind == 2 && steal)
-    return reinterpret_cast<void*>(
-        resident_kernel<kUserLanes, true, true, UserBodies, true>);
+  if (kind == 2 && steal) return user_resident<true, true, true, false, false>();
 #elif HCLIB_USER_PGAS
   if (kind == 2)
-    return steal ? reinterpret_cast<void*>(
-                       resident_kernel<kUserLanes, true, true, UserBodies>)
-                 : reinterpret_cast<void*>(
-                       resident_kernel<kUserLanes, false, true, UserBodies>);
+    return steal ? user_resident<true, true, false, false, false>()
+                 : user_resident<false, true, false, false, false>();
 #else
-  if (kind == 0) return reinterpret_cast<void*>(mk_user_kernel<kUserLanes>);
+  if (kind == 0 && !kUserObs)
+    return reinterpret_cast<void*>(mk_user_kernel<kUserLanes>);
   if (kind == 1)
-    return reinterpret_cast<void*>(ici_ring_kernel<kUserLanes, UserBodies>);
-  if (kind == 2 && steal)
     return reinterpret_cast<void*>(
-        resident_kernel<kUserLanes, true, false, UserBodies>);
+        ici_ring_kernel<kUserLanes, UserBodies, kUserObs>);
+  if (kind == 2 && steal)
+    return user_resident<true, false, false, false, false>();
 #endif
   return nullptr;
 }
@@ -326,13 +331,17 @@ int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
       (h->ictl != 0) != (HCLIB_USER_INJECT != 0) ||
       (h->fplan != 0) != (HCLIB_USER_FAULT != 0) ||
       (h->fplan && !fault_args_ok(h, pgas != 0)) ||
+      !obs_args_ok(h, kUserObs) || (kind == 1 && h->ckpt) ||
+      (h->ckpt && h->p_inbox < P_STAT + (pgas ? h->stat_words : STAT_WORDS) +
+                                   1 + (h->fplan ? h->ndev : 0)) ||
       (h->ictl && (!h->iring || h->ntenants < 0 ||
                    (h->ntenants > 0 &&
                     (!h->tctl || h->ntenants * h->region > h->ring_rows)))))
     return cudaErrorInvalidValue;
   MeshArgs m = mesh_args(h);
   const auto st = static_cast<cudaStream_t>(stream);
-#if !HCLIB_USER_PGAS && !HCLIB_USER_INJECT && !HCLIB_USER_FAULT
+#if !HCLIB_USER_PGAS && !HCLIB_USER_INJECT && !HCLIB_USER_FAULT && \
+    !HCLIB_USER_OBS
   if (kind == 0) {
     mk_user_kernel<kUserLanes><<<m.ndev, 1, 0, st>>>(m);
     return cudaGetLastError();

@@ -18,9 +18,13 @@ delegation existed).
 
 The plain version (``_plain_ring``: the same rounds over the plain cores
 device by device) is what the CPU tests hold against JAX's interpret-mode
-kernel and the card against. The hypercube kernel ``_kernel_hc`` (:460)
-is not ported: no run reaches it (pof2 meshes delegate), and it stays
-listed in ROADMAP B; the ring's flight recorder waits for A11b.
+kernel and the card against. A traced table records on every device (the
+core's rounds, TR_XFER :393 and TR_ABORT :432; ``info['trace']``, the
+observed instance ``ici_ring_kernel<.., kObs>``, counter
+``ici_ring_obs``); the ring reads no quiesce word, as JAX's never reads
+``mk.checkpoint``, so a checkpoint-built table runs as an unbuilt one.
+The hypercube kernel ``_kernel_hc`` (:460) is not ported: no run reaches
+it (pof2 meshes delegate), and it stays listed in ROADMAP B.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from .resident import (
     run_mesh_kernel,
 )
 from .sharded import abort_words, mesh_info, mesh_state
+from .tracebuf import HDR, TR_ABORT, TR_WORDS, TR_XFER, Tracer, trace_info
 
 __all__ = ["ICIStealMegakernel"]
 
@@ -59,12 +64,17 @@ __all__ = ["ICIStealMegakernel"]
 def _plain_ring(mk: Megakernel, st, wl, abort_arr, quantum: int,
                 max_rounds: int, window: int, scan: int) -> Dict[str, Any]:
     """The plain version of ici_ring_kernel over stacked state ``st``;
-    returns the XS rows and the wall time (``kernel_ms``)."""
+    returns the XS rows, the recorder rows of a traced table (``rings``)
+    and the wall time (``kernel_ms``)."""
     t0 = time.perf_counter()
     ndev = st["tasks"].shape[0]
     xs = np.zeros((ndev, XS_WORDS), np.int32)
     cores = [_PlainCore(mk, mesh_slice(st, d)) for d in range(ndev)]
-    for c in cores:
+    cap_tr = mk.trace.capacity if mk.trace is not None else 0
+    rings = [[0] * (HDR + TR_WORDS * cap_tr) for _ in range(ndev)]
+    for d, c in enumerate(cores):
+        if cap_tr:
+            c.tr = Tracer(rings[d], cap_tr)
         c.stage(True)
     nh = max(1, (ndev - 1).bit_length())
     r, done = 0, False
@@ -77,6 +87,9 @@ def _plain_ring(mk: Megakernel, st, wl, abort_arr, quantum: int,
         tot_a = sum(int(abort_arr[d, 0] != 0) for d in range(ndev))
         xs[:, XS_STAT_WORDS] += 3 * (ndev - 1)
         done = tot_p == 0 or tot_a > 0
+        if tot_a > 0:
+            for c in cores:
+                c.tr.emit(TR_ABORT, c.tr.now(), r)
         if not done:
             dist = (1 << (r % nh)) % ndev
             boxes = []
@@ -84,13 +97,19 @@ def _plain_ring(mk: Megakernel, st, wl, abort_arr, quantum: int,
                 backlog = c.counts[C_TAIL] - c.counts[C_HEAD]
                 quota = min(max(backlog - tot_b // ndev, 0), window)
                 boxes.append(export_rows(c, quota, scan, wl, False, xs[d]))
+                if boxes[d]:
+                    c.tr.emit(TR_XFER, c.tr.now(), (d + dist) % ndev,
+                              len(boxes[d]))
             for d, c in enumerate(cores):
                 import_rows(c, boxes[(d - dist) % ndev])
         r += 1
     for c in cores:
         c.counts[C_ROUNDS] = r
         c.write_back()
-    return {"xstats": xs, "kernel_ms": (time.perf_counter() - t0) * 1e3}
+    out = {"xstats": xs, "kernel_ms": (time.perf_counter() - t0) * 1e3}
+    if cap_tr:
+        out["rings"] = np.array(rings, np.int32)
+    return out
 
 
 class ICIStealMegakernel:
@@ -138,10 +157,6 @@ class ICIStealMegakernel:
                 "resident kernel's credited hypercube exchange); the "
                 "non-pof2 ring supports only the abort word"
             )
-        if mk.trace is not None or mk.checkpoint:
-            raise NotImplementedError(
-                "a traced or checkpoint-built Megakernel on the ICI ring is "
-                "not ported yet: ROADMAP A11b (the mesh flight recorder)")
 
     def run(
         self,
@@ -183,15 +198,24 @@ class ICIStealMegakernel:
         mk, ndev = self.mk, self.ndev
         abort_arr = abort_words(abort, ndev)
         st = mesh_state(mk, ndev, self.mesh.device, builders, data, ivalues)
+        t0_ns = time.monotonic_ns()
         if st["tasks"].device.type == "cpu":
             out = _plain_ring(mk, st, self.migratable_fns, abort_arr,
                               quantum, max_rounds, self.window, self.scan)
         else:
-            out = run_mesh_kernel("ici_ring", mk, st, self.migratable_fns,
-                                  abort_arr, quantum, max_rounds,
-                                  self.window, self.scan, (), 1,
-                                  self.timeout_s)
+            # The ring reads no quiesce word (JAX's never reads
+            # mk.checkpoint): only a traced table runs its observed
+            # instance.
+            out = run_mesh_kernel(
+                "ici_ring", mk, st, self.migratable_fns, abort_arr, quantum,
+                max_rounds, self.window, self.scan, (), 1, self.timeout_s,
+                obs=(None if mk.trace is None else
+                     {"cap": mk.trace.capacity, "ckpt": False}))
+        t1_ns = time.monotonic_ns()
         info = mesh_info(st)
+        if mk.trace is not None:
+            info["trace"] = trace_info(list(out["rings"]), t0_ns, t1_ns,
+                                       mk.trace.capacity)
         info["exchange"] = exchange_info(out)
         info["steal_rounds"] = int(info["per_device_counts"][0][C_ROUNDS])
         if mk.batch_specs:

@@ -1400,20 +1400,19 @@ class Megakernel:
                        - set(USER_LIB_BUILTINS))
         if (other or self.vector_specs or slabs is not None
                 or self.lane_max_age or self.priority_buckets
-                or self.trace is not None or self.checkpoint
                 or any(s.prefetch for _, s, _ in self.batch_specs)):
             raise NotImplementedError(
                 "a card-bound table with user bodies holds user bodies and "
                 f"the built-in bodies {USER_LIB_BUILTINS} (scalar or "
                 "batch-routed), with no vector, tile, SW or graph body, "
-                "lane policy, prefetch, recorder or quiesce poll"
+                "lane policy or prefetch"
                 + (f" (this one holds {other})" if other else "")
                 + ": those user-body uses are ROADMAP A4; run it with "
                 "device='cpu'")
 
     def user_source(self, pgas: Optional[bool] = None,
                     home: bool = False, inject: bool = False,
-                    fault: bool = False) -> str:
+                    fault: bool = False, obs: bool = False) -> str:
         """The CUDA source of this table's user-body library
         (csrc/user.cuh, then each user body's statements as
         ``user_body_<k>(Ctx& ctx)`` and the switch over them; none for a
@@ -1424,7 +1423,9 @@ class Megakernel:
         migrating configuration (``HCLIB_USER_PGAS 2``). ``inject``: the
         resident kernel's injecting instances of that variant
         (``HCLIB_USER_INJECT 1``) instead; ``fault``: its instances with
-        the fault layer (``HCLIB_USER_FAULT 1``) instead."""
+        the fault layer (``HCLIB_USER_FAULT 1``) instead; ``obs``: the
+        observed instances, with the recorder and the quiesce word
+        (``HCLIB_USER_OBS 1``), instead of the unobserved ones."""
         if pgas is None:
             pgas = self.uses_pgas_text()
         lines = [f"#define HCLIB_USER_LANES {int(bool(self.batch_specs))}",
@@ -1433,6 +1434,8 @@ class Megakernel:
             lines.append("#define HCLIB_USER_INJECT 1")
         if fault:
             lines.append("#define HCLIB_USER_FAULT 1")
+        if obs:
+            lines.append("#define HCLIB_USER_OBS 1")
         lines += ['#include "user.cuh"', "", "namespace {", ""]
         for k, (name, _, cuda) in enumerate(self.user_bodies):
             lines += [f"// {name}",
@@ -1447,16 +1450,18 @@ class Megakernel:
         return "\n".join(lines)
 
     def user_library(self, pgas: bool = False, home: bool = False,
-                     inject: bool = False, fault: bool = False):
+                     inject: bool = False, fault: bool = False,
+                     obs: bool = False):
         """This table's user-body library of variant ``pgas`` (or
         ``home``; ``inject``: its injecting instances, ``fault``: its
-        instances with the fault layer), built on first use
-        (``_build.user_library``)."""
-        key = (_user_variant(pgas, home), bool(inject), bool(fault))
+        instances with the fault layer, ``obs``: its observed instances),
+        built on first use (``_build.user_library``)."""
+        key = (_user_variant(pgas, home), bool(inject), bool(fault),
+               bool(obs))
         if key not in self._user_libs:
             self._user_libs[key] = _build.user_library(
                 self.user_source(bool(pgas), home, bool(inject),
-                                 bool(fault)))
+                                 bool(fault), bool(obs)))
         return self._user_libs[key]
 
     def uses_pgas_text(self) -> bool:
@@ -1771,6 +1776,14 @@ class Megakernel:
         if reps != 1:
             raise ValueError("a table with user bodies runs one rep a "
                              "launch on the card (reps=1)")
+        if self.trace is not None or self.checkpoint:
+            # The resident kernel and the ring record and quiesce a user
+            # table on the card; its one-device scheduler does not.
+            raise NotImplementedError(
+                "a traced or checkpoint-built table with user bodies runs "
+                "on the card under ResidentKernel or ICIStealMegakernel; "
+                "its one-device scheduler (mk_user_kernel) has no recorder "
+                "or quiesce poll: ROADMAP A4; run it with device='cpu'")
         mst = {k: st[k].unsqueeze(0) for k in ("tasks", "succ", "ready",
                                                 "counts", "ivalues",
                                                 "tstats") if k in st}
@@ -2001,14 +2014,16 @@ class Megakernel:
     def mesh_launch(self, kind: str, host: "MeshHost", mode: int,
                     threads: int, smem: int, dev, pgas: bool = False,
                     steal: bool = True, home: bool = False,
-                    inject: bool = False, fault: bool = False) -> None:
+                    inject: bool = False, fault: bool = False,
+                    obs: bool = False) -> None:
         """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
         ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
         configuration, with ``steal`` or without; ``home``: its migrating
         configuration; ``inject``: the resident kernel's injecting
         instance of that configuration; ``fault``: its instance with the
-        fault layer, ``resident_kernel<.., kFault>``) over ``host``'s
-        mesh; raises if
+        fault layer, ``resident_kernel<.., kFault>``; ``obs``: the observed
+        instance of the ring or the resident kernel, ``kObs``, with the
+        recorder and the quiesce word) over ``host``'s mesh; raises if
         the launch fails, or if a steal kernel's mesh has more devices
         than the card holds CTAs at once (``mesh_coresident``). A table
         with user bodies, and any table under the PGAS or migrating
@@ -2017,7 +2032,7 @@ class Megakernel:
         k = MESH_KINDS.index(kind)
         if k:
             limit = self.coresident(kind, mode, pgas, steal, home, inject,
-                                    fault)
+                                    fault, obs)
             if host.ndev > limit:
                 raise RuntimeError(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
@@ -2031,7 +2046,7 @@ class Megakernel:
                     "a user body names ctx.pgas, which exists only under "
                     "the resident kernel's PGAS configuration "
                     "(ResidentKernel(channels=...) or PGASMegakernel)")
-            lib = self.user_library(pgas, home, inject, fault)
+            lib = self.user_library(pgas, home, inject, fault, obs)
             fn = lib.hclib_user_launch
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
@@ -2044,9 +2059,12 @@ class Megakernel:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(MeshHost)] + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
-            err = fn(ctypes.byref(host), k, mode + 2 * bool(fault), threads,
-                     smem, stream)
-        counter = ("resident_fault" if fault
+            err = fn(ctypes.byref(host), k,
+                     mode + 2 * bool(fault) + 4 * bool(obs), threads, smem,
+                     stream)
+        counter = ("resident_obs" if obs and k == 2
+                   else "ici_ring_obs" if obs
+                   else "resident_fault" if fault
                    else "resident_inject" if inject
                    else "resident_homed" if home
                    else "resident_pgas" if pgas
@@ -2056,15 +2074,17 @@ class Megakernel:
 
     def coresident(self, kind: str, mode: int, pgas: bool = False,
                    steal: bool = True, home: bool = False,
-                   inject: bool = False, fault: bool = False) -> int:
+                   inject: bool = False, fault: bool = False,
+                   obs: bool = False) -> int:
         """The most CTAs of steal kernel ``kind`` (instance ``mode``; the
         resident kernel's PGAS configuration with ``pgas``, its migrating
         one with ``home``, their injecting instances with ``inject``,
         their instances with the fault layer with ``fault``) this card
         holds at once, from this table's library."""
         if not (self.user_bodies or pgas or inject):
-            return mesh_coresident(kind, mode + 2 * bool(fault))
-        lib = self.user_library(pgas, home, inject, fault)
+            return mesh_coresident(kind,
+                                   mode + 2 * bool(fault) + 4 * bool(obs))
+        lib = self.user_library(pgas, home, inject, fault, obs)
         fn = lib.hclib_user_coresident
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
@@ -2274,6 +2294,9 @@ _INJECT_FIELDS = ("iring", "ictl", "tctl", "ring_rows", "ntenants",
 # The instances with the fault layer: the plan's words and each device's
 # fault workspace.
 _FAULT_FIELDS = ("fplan", "fws")
+# The observed instances: the recorder rings, their capacity, and whether
+# the resident kernel's quiesce word is compiled in.
+_OBS_FIELDS = ("ring", "tr_cap", "ckpt")
 
 
 class MeshHost(ctypes.Structure):
@@ -2297,6 +2320,7 @@ class MeshHost(ctypes.Structure):
         + [("pg_off", ctypes.c_int64 * PG_SECTIONS)]
         + [(n, ctypes.c_int64) for n in _INJECT_FIELDS]
         + [(n, ctypes.c_int64) for n in _FAULT_FIELDS]
+        + [(n, ctypes.c_int64) for n in _OBS_FIELDS]
     )
 
 
@@ -2365,8 +2389,8 @@ def mesh_slice(mst: Dict[str, object], d: int) -> Dict[str, object]:
 
 
 def mesh_coresident(kind: str, mode: int) -> int:
-    """The most CTAs of steal kernel ``kind`` (instance ``mode``: 0 lean,
-    1 lanes; the resident kernel's with the fault layer 2 and 3) this
+    """The most CTAs of steal kernel ``kind`` (instance ``mode``: bit 0
+    lanes, bit 1 the resident kernel's fault layer, bit 2 observed) this
     card holds at once, one an SM at most (csrc/mesh.cuh
     ``hclib_mesh_coresident``: the occupancy API's count, capped at the SM
     count; 0 without cooperative launch)."""

@@ -99,10 +99,26 @@ configurations run from the table's user-body library
 user body). ``info`` reports, under them, each device's live proxies
 and their peak and the built-in messages it applied by kind.
 
-Not ported yet, each raising naming ROADMAP A11b: a fault plan on an
-injecting mesh (A11b.5), quiesce and resume (``quiesce``,
-``resume_state``; an injecting or tenant run included) and a traced or
-checkpoint-built Megakernel.
+Each of them also quiesces, resumes and records (a table built with
+``checkpoint=True`` and / or ``trace=N``: ``csrc/mesh.cuh``
+``resident_kernel<.., kObs>``; the hold :1909-1935, the settled exit
+:1986-2018, the exit export :2035-2071, the recorder's records
+:1447-2042). ``run(quiesce=)`` rides words 1-2 of each device's abort row
+(flag, threshold round): from that round on every scheduler gets fuel 0
+and the ring polls consume nothing while the exchange drains the wire;
+the quiesce sum is folded like the abort word, and the mesh exits once it
+is quiesced with every outbox empty and sent equal to received.
+``info['state']`` then holds tasks, succ, ready, counts, ivalues, data
+and the wait table (needs rebased to need - chan_tot, zeros past the
+count), plus the ring residue and ictl of an injecting mesh or the tenant
+table's export; ``run(resume_state=)`` restages it (no bump_waits pass).
+A traced table gives every device a ring (``info['trace']``): the core's
+round records and TR_XFER, TR_CREDIT, TR_FAULT, TR_INJECT, TR_TENANT,
+TR_ABORT, TR_QUIESCE and TR_CKPT in JAX's order. On the card:
+``resident_obs``.
+
+Not ported yet, raising naming ROADMAP A11b.5: a fault plan on an
+injecting or tenant mesh.
 """
 
 from __future__ import annotations
@@ -168,11 +184,30 @@ from .tenants import (
     build_row,
     normalize_mesh_tenants,
 )
+from .tracebuf import (
+    CR_DROPPED,
+    CR_DUPED,
+    CR_REGENERATED,
+    FLT_DEAD_QUARANTINE,
+    FLT_DELAY,
+    HDR,
+    TR_ABORT,
+    TR_CKPT,
+    TR_CREDIT,
+    TR_FAULT,
+    TR_INJECT,
+    TR_QUIESCE,
+    TR_TENANT,
+    TR_WORDS,
+    TR_XFER,
+    Tracer,
+    trace_info,
+)
 
 __all__ = ["ResidentKernel", "decode_fault_stats", "pack_inject_rows",
            "FS_WORDS", "fault_plan_words", "FP_MAX_AT",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
-           "export_rows", "import_rows", "run_mesh_kernel",
+           "export_rows", "import_rows", "run_mesh_kernel", "export_waits",
            "exchange_info", "pgas_layout", "stat_words", "lock_block_slots",
            "RC_COMPLETE", "RC_FADD", "RC_FADD_R", "RC_CSWAP", "RC_REPLY",
            "RC_LOCK", "RC_UNLOCK", "RC_GRANT", "RC_NAMES"]
@@ -347,11 +382,11 @@ class _Faults:
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: ROADMAP A11b (A11b.5: fault plans on "
-        "an injecting or tenant mesh; A11b.6: quiesce and resume, traced "
-        "or checkpoint-built tables on the mesh); the port runs the steal, "
-        "PGAS and homed-migration configurations with remote atomics and "
-        "locks, the injection ring and mesh tenancy, and fault plans on "
-        "the steal configurations")
+        "an injecting or tenant mesh); the port runs the steal, PGAS and "
+        "homed-migration configurations with remote atomics and locks, "
+        "the injection ring and mesh tenancy, fault plans on the steal "
+        "configurations, and the quiesce, resume and flight recorder of "
+        "every one of them")
 
 
 def pack_inject_rows(rows: Sequence, R: int, dev: int = 0):
@@ -572,7 +607,8 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                     timeout_s: float, pgas: Optional[dict] = None,
                     steal: bool = True,
                     inject: Optional[dict] = None,
-                    fault: Optional[np.ndarray] = None) -> Dict[str, Any]:
+                    fault: Optional[np.ndarray] = None,
+                    obs: Optional[dict] = None) -> Dict[str, Any]:
     """Launch steal kernel ``kind`` (``"ici_ring"`` or
     ``"resident_steal"``; with ``pgas``, the resident kernel's PGAS
     configuration, ``steal`` or not) over stacked state ``st`` on the
@@ -586,10 +622,17 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     (``ResidentKernel._ring``). ``fault`` (the instance with the fault
     layer): the plan's words (``fault_plan_words``); each device's fault
     workspace is made here, and the stat vector gains the ndev routed
-    heartbeats after the backlog. Returns the fault-stats rows
-    (``fstats``), the exchange volume rows (``xstats``), the pstate rows
-    at exit (PGAS configurations), the tctl echo (a tenant mesh) and the
-    launch's CUDA-event time (``kernel_ms``)."""
+    heartbeats after the backlog. ``obs`` (the observed instance,
+    ``resident_kernel<.., kObs>`` or ``ici_ring_kernel<.., kObs>``): the
+    recorder's capacity a device (``cap``, 0 for none) and whether the
+    quiesce word is compiled in (``ckpt``: a checkpoint build, whose stat
+    vector gains the quiesce sum after the backlog and the heartbeats).
+    Returns the fault-stats rows (``fstats``), the exchange volume rows
+    (``xstats``), the pstate rows at exit (PGAS configurations), the tctl
+    echo (a tenant mesh), under ``obs`` the recorder rows (``rings``), the
+    exported wait table (``waits``, ``ckpt``) and the ictl echo
+    (``ictl``, injecting), and the launch's CUDA-event time
+    (``kernel_ms``)."""
     ndev = st["tasks"].shape[0]
     dev = st["tasks"].device
     if not 0 <= scan <= MESH_MAX_SCAN:
@@ -600,10 +643,11 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
     h, keep = mk.mesh_host(st, quantum, True)
     p_inbox = P_INBOX
     hb = 0 if fault is None else ndev  # the routed heartbeats
+    ckpt = int(bool(obs and obs["ckpt"]))  # the quiesce sum
     if pgas is not None:
         nchan = pgas["nchan"]
         S = stat_words(ndev, nchan)
-        p_inbox = P_STAT + -(-(S + hb) // 8) * 8
+        p_inbox = P_STAT + -(-(S + hb + ckpt) // 8) * 8
         off, words = pgas_layout(ndev, nchan, pgas["amw"], pgas["outq"],
                                  pgas["maxw"])
         pg = np.zeros((ndev, words), np.int32)
@@ -626,9 +670,10 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
         # resident kernel's migration result slots sit above it); no
         # mesh kernel stages values, so this is num_values's only use.
         h.num_values = int(pgas["value_limit"])
-    elif fault is not None:
+    elif fault is not None or ckpt:
         h.stat_words = STAT_WORDS
-        p_inbox = h.p_inbox = P_STAT + -(-(STAT_WORDS + hb) // 8) * 8
+        p_inbox = P_STAT + -(-(STAT_WORDS + hb + ckpt) // 8) * 8
+    h.p_inbox = p_inbox
     if fault is not None:
         fws = np.zeros((ndev, FW_WORDS), np.int32)
         fws[:, FS_DEAD_ROUND] = fws[:, FS_ABORT_ROUND] = -1
@@ -664,12 +709,19 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                 setattr(h, name, keep[name].data_ptr())
         h.ring_rows = inject["ring"].shape[1]
         h.ntenants, h.region = inject["T"], inject["region"]
+    if obs:
+        if obs["cap"]:
+            keep["rings"] = torch.zeros(ndev, HDR + TR_WORDS * obs["cap"],
+                                        dtype=torch.int32, device=dev)
+            h.ring, h.tr_cap = keep["rings"].data_ptr(), obs["cap"]
+        h.ckpt = ckpt
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     mk.mesh_launch(kind, h, mode, threads, smem, dev, pgas=pgas is not None,
                    steal=steal, home=bool(pgas and pgas["home"]),
-                   inject=inject is not None, fault=fault is not None)
+                   inject=inject is not None, fault=fault is not None,
+                   obs=bool(obs))
     t1.record()
     t1.synchronize()
     e = err.cpu().tolist()
@@ -689,6 +741,23 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
         out["pstate"] = keep["pg"][:, off[1]:off[1] + PS_WORDS].cpu().numpy()
     if "tctl" in keep:
         out["tctl"] = keep["tctl"].cpu().numpy()
+    if obs:
+        if "rings" in keep:
+            out["rings"] = keep["rings"].cpu().numpy()
+        if inject is not None:
+            out["ictl"] = keep["ictl"].cpu().numpy()
+        if ckpt:
+            # The wait table the run leaves (its needs rebased, as
+            # resident.py exports it), from each device's workspace.
+            tables = []
+            if pgas is not None:
+                pg_o = keep["pg"].cpu().numpy()
+                for d in range(ndev):
+                    n = int(pg_o[d, off[1] + PS_NWAIT])
+                    w = pg_o[d, off[10]:off[10] + 3 * n].reshape(n, 3)
+                    tables.append((w.tolist(), pg_o[d, off[7]:off[8]]))
+            out["waits"] = export_waits(tables, ndev, pgas["maxw"]
+                                        if pgas is not None else obs["maxw"])
     return out
 
 
@@ -951,7 +1020,10 @@ class _PlainRing:
     """One device's injection ring and its poll (resident.py poll :1404
     and tpoll :1458): the rows of ``ring`` (``(R, RING_ROW)``), the
     consumed cursor, and on a tenant mesh the device's ``(T, 8)`` tctl
-    rows, mutated in place into the echo."""
+    rows, mutated in place into the echo. A quiescing round consumes
+    nothing (the unread rows are the exported residue); the recorder
+    gets a TR_TENANT record a row dropped expired (a lane with work, on a
+    tenant mesh) and a TR_INJECT record a poll that installed rows."""
 
     def __init__(self, rk: "ResidentKernel", core: _PlainCore, fs, inj,
                  d: int):
@@ -975,24 +1047,32 @@ class _PlainRing:
         self.install(row[:DESC_WORDS].tolist())
         return True
 
-    def poll(self, r: int) -> int:
+    def poll(self, r: int, quiescing: bool) -> int:
         """This round's poll; returns the ring backlog it leaves (the
         fold's SF_INJ word)."""
+        tr = self.core.tr
         if self.tctl is None:
             tail = int(self.ictl[0])  # re-read every round
-            for c in range(self.consumed, tail):
+            c0 = self.consumed
+            for c in range(c0, c0 if quiescing else tail):
                 if not self._take(c):
                     self.fs[FS_TEN_EXPIRED] += 1
-            self.consumed = max(self.consumed, tail)
+                    tr.emit(TR_TENANT, tr.now(),
+                            int(self.ring[c, TEN_ID]) << 16, 1)
+            if not quiescing:
+                self.consumed = max(c0, tail)
+            if self.consumed > c0:
+                tr.emit(TR_INJECT, tr.now(), self.consumed - c0)
             return tail - self.consumed
         tc, T, region = self.tctl, self.T, self.region
+        newly = 0
         for k in range(T):
             lane = (r + k) % T
             tail, cons = int(tc[lane, TC_TAIL]), int(tc[lane, TC_CONSUMED])
             paused = tc[lane, TC_PAUSE] != 0
             avail = tail - cons
-            take = 0 if paused else min(int(tc[lane, TC_WEIGHT]), avail,
-                                        self.core.headroom())
+            take = 0 if paused or quiescing else min(
+                int(tc[lane, TC_WEIGHT]), avail, self.core.headroom())
             c, inst, exp = cons, 0, 0
             while c < cons + take:
                 if self._take(lane * region + c):
@@ -1000,12 +1080,18 @@ class _PlainRing:
                 else:
                     exp += 1
                 c += 1
-            tc[lane, TC_CONSUMED] = tail if paused else c
-            if paused:
+            sweep = paused and not quiescing
+            tc[lane, TC_CONSUMED] = tail if sweep else c
+            if sweep:
                 tc[lane, TC_DROPPED] += avail
             tc[lane, TC_INSTALLED] += inst
             tc[lane, TC_EXPIRED] += exp
             self.fs[FS_TEN_EXPIRED] += exp
+            if inst or exp:
+                tr.emit(TR_TENANT, tr.now(), (lane << 16) | inst, exp)
+            newly += inst
+        if newly:
+            tr.emit(TR_INJECT, tr.now(), newly)
         return int((tc[:, TC_TAIL] - tc[:, TC_CONSUMED]).sum())
 
 
@@ -1017,14 +1103,22 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     ``pgas`` under a PGAS configuration; the migrating configuration's
     export, install_fixed and completion hook; with ``inj``, each
     device's ring poll after its sched; under a fault plan, the faulty
-    row exchange and heartbeat detection). Returns the FS and XS rows, the
-    pstate rows (PGAS configurations), the tctl echo (a tenant mesh) and
+    row exchange and heartbeat detection; in a checkpoint build, the
+    quiesce word of ``abort_arr`` words 1-2; with a traced table, each
+    device's flight recorder). Returns the FS and XS rows, the pstate
+    rows (PGAS configurations), the tctl echo (a tenant mesh), the
+    recorder rows (``rings``), the exported wait table (``waits``, a
+    checkpoint build), the ictl echo (``ictl``, an injecting mesh) and
     the wall time (``kernel_ms``)."""
     t0 = time.perf_counter()
     mk, window, scan = rk.mk, rk.window, rk.scan
     ndev = st["tasks"].shape[0]
     cores = [_PlainCore(mk, mesh_slice(st, d)) for d in range(ndev)]
-    for c in cores:
+    cap_tr = mk.trace.capacity if mk.trace is not None else 0
+    rings_tr = [[0] * (HDR + TR_WORDS * cap_tr) for _ in range(ndev)]
+    for d, c in enumerate(cores):
+        if cap_tr:
+            c.tr = Tracer(rings_tr[d], cap_tr)  # the core's and the mesh's
         c.stage(True)
         c.value_limit = rk.rbase
     pgs: List[_PlainPgas] = []
@@ -1035,6 +1129,8 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
             if rk.homed_mig:
                 c.complete_hook = _completion_hook(c, c.pgas)
     nsw = stat_words(ndev, rk.nchan) if rk.pgas else STAT_WORDS
+    ckpt = rk.checkpoint
+    nsw += int(ckpt)  # the quiesce sum (SF_QUIESCE)
     plan = rk.plan
     if plan is not None:
         # The fault layer's state a device (resident.py :686-694): per hop
@@ -1062,6 +1158,9 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     rings = ([] if inj is None
              else [_PlainRing(rk, c, fs[d], inj, d)
                    for d, c in enumerate(cores)])
+    # Each device's sticky quiesce (resident.py PS_QUIESCE): set once the
+    # fold carried the quiesce word; it holds the scheduler from then on.
+    held = [False] * ndev
 
     def backlog(c):
         return c.counts[C_TAIL] - c.counts[C_HEAD]
@@ -1069,14 +1168,20 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
     r, done = 0, False
     while not done and r < max_rounds:
         local_abort = [int(abort_arr[d, 0] != 0) for d in range(ndev)]
+        # The quiesce word (checkpoint builds): every device compares the
+        # same round with its threshold, so the cut is lockstep.
+        local_q = [ckpt and abort_arr[d, 1] != 0 and r >= abort_arr[d, 2]
+                   for d in range(ndev)]
+        quiescing = [local_q[d] or held[d] for d in range(ndev)]
         # A dead device's scheduler runs no task and its heartbeat stops;
-        # its exchange stays up.
+        # its exchange stays up. A quiescing one pops nothing.
         dead = [plan is not None and F.dead(d, r) for d in range(ndev)]
         for d, c in enumerate(cores):
-            c.sched(0 if dead[d] else quantum)
+            c.sched(0 if dead[d] or quiescing[d] else quantum)
             if plan is not None and not dead[d]:
                 hb[d] += 1
-        inj_backlog = sum(ring.poll(r) for ring in rings)
+        inj_backlog = sum(ring.poll(r, quiescing[d])
+                          for d, ring in enumerate(rings))
         for pg in pgs:
             pg.drain_outbox()
         # The fold's sums (every device ends with the same ones), and
@@ -1084,6 +1189,7 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         tot = [sum(c.counts[C_PENDING] for c in cores), 0, 0, 0,
                inj_backlog, sum(local_abort),
                ndev * wedge if plan is not None else 0]
+        tot_q = sum(local_q)
         if pgs:
             tot[SF_RECV] = sum(pg.ps[PS_RECV] for pg in pgs)
             tot[SF_OUTB] = sum(len(pg.outq) for pg in pgs)
@@ -1100,6 +1206,7 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
             boxes = []
             for d, c in enumerate(cores):
                 peer_b, myb = snd[d ^ (1 << k)], backlog(c)
+                tr = c.tr
                 quota = (min(max((myb - peer_b + 1) // 2, 0), window)
                          if peer_b < starve_below else 0)
                 if plan is not None:
@@ -1112,6 +1219,7 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                     fs[d, FS_DELAYED] += delay
                     if delay:
                         quota = 0
+                        tr.emit(TR_FAULT, tr.now(), FLT_DELAY, k)
                     if plan.dead_device is not None:
                         # Quarantine: no rows to a dead partner; the dead
                         # device re-homes its backlog whatever the demand.
@@ -1126,31 +1234,38 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                 else:
                     boxes.append(export_rows(c, quota, scan, wl, True,
                                              xs[d]))
+                if boxes[d]:
+                    tr.emit(TR_XFER, tr.now(), d ^ (1 << k), len(boxes[d]))
                 if dead[d]:
                     fs[d, FS_REHOMED] += len(boxes[d])
             for d, c in enumerate(cores):
                 if boxes[d] is None:
                     continue
+                p, tr = d ^ (1 << k), c.tr
                 if plan is not None:
                     # The credit wait; one is skipped a credit owed
                     # (regeneration).
                     if r > 0 and owed[d][k] > 0:
                         owed[d][k] -= 1
                         fs[d, FS_REGEN] += 1
+                        tr.emit(TR_CREDIT, tr.now(), (k << 8) | p,
+                                CR_REGENERATED)
                 if rk.migrating:
-                    for row in boxes[d ^ (1 << k)]:
+                    for row in boxes[p]:
                         install_fixed(c, row, rk)
                 else:
-                    import_rows(c, boxes[d ^ (1 << k)])
+                    import_rows(c, boxes[p])
                 if plan is not None:
                     # The credit I owe my partner (dropped, doubled), and
                     # the partner's decision on the one it owes me.
-                    p = d ^ (1 << k)
                     drop_mine, drop_theirs = F.drop(r, k, p), F.drop(r, k, d)
                     if drop_theirs:
                         fs[d, FS_DROPPED] += 1
+                        tr.emit(TR_CREDIT, tr.now(), (k << 8) | p,
+                                CR_DROPPED)
                     elif F.dup(r, k, d):
                         fs[d, FS_DUPED] += 1
+                        tr.emit(TR_CREDIT, tr.now(), (k << 8) | p, CR_DUPED)
                     if drop_mine:
                         owed[d][k] += 1
                         if ct == 0 and fs[d, FS_STARVED] == 0:
@@ -1159,9 +1274,12 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                         pair_down[d][k] = r + ct
         if plan is not None and plan.dead_device is not None:
             # Heartbeat detection: quarantine a peer whose heartbeat has
-            # not moved for heartbeat_timeout rounds.
+            # not moved for heartbeat_timeout rounds (peers in me ^ p
+            # order, as the routed words sit).
             for d in range(ndev):
-                for src in range(ndev):
+                tr = cores[d].tr
+                for q in range(ndev):
+                    src = d ^ q
                     if hb[src] != hb_seen[d][src]:
                         hb_round[d][src] = r
                     hb_seen[d][src] = hb[src]
@@ -1171,10 +1289,23 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
                         fs[d, FS_QMASK] |= 1 << src
                         if fs[d, FS_DEAD_ROUND] < 0:
                             fs[d, FS_DEAD_ROUND] = r
+                        tr.emit(TR_FAULT, tr.now(), FLT_DEAD_QUARANTINE,
+                                src)
         aborted = tot[SF_ABORT] > 0
-        for d in range(ndev):
+        folded_q = tot_q > 0
+        for d, c in enumerate(cores):
+            tr = c.tr
             if aborted and fs[d, FS_ABORT_ROUND] < 0:
                 fs[d, FS_ABORT_ROUND] = r
+                tr.emit(TR_ABORT, tr.now(), r)
+            if folded_q and fs[d, FS_QUIESCE_ROUND] < 0:
+                fs[d, FS_QUIESCE_ROUND] = r
+                tr.emit(TR_QUIESCE, tr.now(), r)
+            held[d] = held[d] or folded_q
+        # The clean cut: quiesced and nothing on the wire (the ring
+        # residue stays, so SF_INJ does not gate it).
+        settled = folded_q and tot[SF_OUTB] == 0 and (
+            tot[SF_SENT] == tot[SF_RECV])
         done = (tot[SF_PEND] == 0 and tot[SF_INJ] == 0) or aborted
         if plan is not None:
             done = done or tot[SF_WEDGE] > 0
@@ -1187,11 +1318,15 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
             for v, pg in enumerate(pgs):
                 pg.drain_receives(am_exp[v], put_exp[v])
                 pg.scan_waits()
+        done = done or settled
         r += 1
     if plan is not None:
         fs[:, FS_HB] = hb
     for d, c in enumerate(cores):
         c.counts[C_ROUNDS] = r
+        if held[d]:
+            # The state-export record of a quiesced launch.
+            c.tr.emit(TR_CKPT, c.tr.now(), c.counts[C_PENDING], backlog(c))
         c.write_back()
         if pgs:
             xs[d, XS_AMS] = sum(pgs[d].am_sent)
@@ -1202,6 +1337,30 @@ def _plain_resident(rk: "ResidentKernel", st, wl, abort_arr, quantum: int,
         out["pstate"] = np.array([pg.ps for pg in pgs], np.int32)
     if inj is not None and inj["tctl"] is not None:
         out["tctl"] = inj["tctl"]
+    if cap_tr:
+        out["rings"] = np.array(rings_tr, np.int32)
+    if ckpt:
+        out["waits"] = export_waits(
+            [(pg.waits, pg.chan_tot) for pg in pgs], ndev, rk.max_waits)
+    if inj is not None:
+        ictl = np.zeros((ndev, 8), np.int32)
+        ictl[:, :2] = inj["ictl"][:, :2]
+        ictl[:, 2] = [ring.consumed for ring in rings]
+        out["ictl"] = ictl
+    return out
+
+
+def export_waits(tables, ndev: int, max_waits: int) -> np.ndarray:
+    """resident.py's exit export of the wait table (:2049-2063): each
+    device's ``(max_waits + 1, 3)`` block, row 0 the count and rows 1..
+    the live waits (channel, need rebased to need - chan_tot, row),
+    zeros past the count. ``tables``: each device's (waits, chan_tot),
+    none without a PGAS configuration (no wait can be parked there)."""
+    out = np.zeros((ndev, max_waits + 1, 3), np.int32)
+    for d, (wl, tot) in enumerate(tables):
+        out[d, 0, 0] = len(wl)
+        for i, (ch, need, row) in enumerate(wl):
+            out[d, 1 + i] = (ch, need - tot[ch], row)
     return out
 
 
@@ -1326,10 +1485,10 @@ class ResidentKernel:
                 raise ValueError(
                     f"dead_device {self.plan.dead_device} out of range for "
                     f"a {self.ndev}-device mesh")
-        # What the port does not run yet.
-        if mk.trace is not None or mk.checkpoint:
-            raise _later("a traced or checkpoint-built Megakernel on the "
-                         "mesh (the resident flight recorder and quiesce)")
+        # A checkpoint build compiles the quiesce word into the round
+        # loop (its stat vector gains the SF_QUIESCE sum) and exports the
+        # wait table; a traced table gives every device a recorder.
+        self.checkpoint = bool(mk.checkpoint)
         self.channels: List[Tuple[str, int]] = []
         self.chan_id: Dict[str, int] = {}
         for cname, (bname, rows) in (channels or {}).items():
@@ -1429,9 +1588,6 @@ class ResidentKernel:
         checked as JAX checks them."""
         waits = [list(w) for w in (waits or [])]
         waits += [[] for _ in range(self.ndev - len(waits))]
-        if any(waits) and not self.pgas:
-            raise ValueError("waits= needs the PGAS configuration "
-                             "(channels=, or steal=False)")
         for d, wlist in enumerate(waits):
             if len(wlist) > self.max_waits:
                 raise ValueError(f"device {d}: too many waits")
@@ -1441,15 +1597,36 @@ class ResidentKernel:
                 if not 0 <= row < builders[d].num_tasks:
                     raise ValueError(
                         f"device {d}: wait names task {row} out of range")
+        if any(waits) and not self.pgas:
+            raise ValueError("waits= needs the PGAS configuration "
+                             "(channels=, or steal=False)")
         return [[(int(c), int(n), int(t)) for c, n, t in w] for w in waits]
 
-    def _ring(self, inject_rows, tenant_table) -> Optional[dict]:
-        """The host half of the injection ring (resident.py :2430-2541
-        without the resume branches): each device's ``(R, RING_ROW)``
-        ring and its ictl row (tail, closed, consumed), marked closed (a
-        run drains what it was given); on a tenant mesh the table's
-        ``pump`` fills the lane regions and builds the stacked ``(ndev,
-        T, 8)`` tctl block. None without ``inject``."""
+    def _resume_waits(self, state) -> List[List[Tuple[int, int, int]]]:
+        """A quiesced state's exported wait table (needs already rebased
+        by the exit export; the parked rows keep their dependency bump)
+        as the per-device wait lists the run restages."""
+        if "waits" not in state:
+            return [[] for _ in range(self.ndev)]
+        w = np.asarray(state["waits"], np.int32).reshape(
+            -1, self.max_waits + 1, 3)
+        if w.shape[0] != self.ndev:
+            raise ValueError(
+                f"resume_state wait table covers {w.shape[0]} devices, "
+                f"this mesh has {self.ndev}")
+        return [[tuple(int(x) for x in w[d, 1 + i])
+                 for i in range(int(w[d, 0, 0]))] for d in range(self.ndev)]
+
+    def _ring(self, inject_rows, tenant_table, resume_state=None
+              ) -> Optional[dict]:
+        """The host half of the injection ring (resident.py :2430-2541):
+        each device's ``(R, RING_ROW)`` ring and its ictl row (tail,
+        closed, consumed), marked closed (a run drains what it was
+        given); on a tenant mesh the table's ``pump`` fills the lane
+        regions and builds the stacked ``(ndev, T, 8)`` tctl block. A
+        resume re-publishes the state's ring residue from slot 0 (or, on
+        a tenant mesh, hands the residue to the table's ``resume_from``).
+        None without ``inject``."""
         ndev = self.ndev
         if tenant_table is not None and not self.T:
             raise ValueError(
@@ -1464,6 +1641,7 @@ class ResidentKernel:
         iring = np.zeros((ndev, R, RING_ROW), np.int32)
         ictl = np.zeros((ndev, 8), np.int32)
         tctl = None
+        rs = resume_state
         if self.T:
             if inject_rows:
                 raise ValueError(
@@ -1480,9 +1658,48 @@ class ResidentKernel:
                     f"devices x {tenant_table.region_rows} region rows; "
                     f"this mesh wants {self.T} x {ndev} x "
                     f"{self.region_rows}")
+            if rs is not None and "tctl" in rs:
+                if tenant_table is None:
+                    raise ValueError(
+                        "resume state carries per-tenant lane blocks "
+                        "(tctl/tstats): pass a fresh tenant_table= so "
+                        "residue re-deals into its lanes instead of being "
+                        "dropped")
+                tenant_table.resume_from(rs)
+            elif rs is not None:
+                rc = rs.get("ictl")
+                if (rs.get("ring_rows") is not None and rc is not None
+                        and int(np.asarray(rc)[:, 0].sum()) > 0):
+                    raise ValueError(
+                        "resume state carries untagged inject-ring residue "
+                        "but no per-tenant lane blocks: it was exported "
+                        "from a tenancy-off mesh and cannot resume on a "
+                        "tenant-enabled one")
             ictl[:, 1] = 1
             tctl = (tenant_table.pump(iring) if tenant_table is not None
                     else np.zeros((ndev, self.T, 8), np.int32))
+        elif rs is not None:
+            if "tctl" in rs:
+                raise ValueError(
+                    "resume state carries per-tenant lane blocks "
+                    "(tctl/tstats): it was exported from a tenant-enabled "
+                    "mesh and cannot resume on a tenancy-off one")
+            rr, rc = rs.get("ring_rows"), rs.get("ictl")
+            if rr is not None and rc is not None:
+                rr, rc = np.asarray(rr, np.int32), np.asarray(rc, np.int32)
+                if rr.shape[0] != ndev:
+                    raise ValueError(
+                        f"resume_state inject ring covers {rr.shape[0]} "
+                        f"devices, this mesh has {ndev}")
+                for d in range(ndev):
+                    n = int(rc[d, 0])
+                    if n > R:
+                        raise ValueError(
+                            f"device {d}: {n} residue ring rows exceed "
+                            f"ring_capacity {R}")
+                    iring[d, :n] = rr[d, :n]
+                    ictl[d, 0] = n
+                    ictl[d, 1] = 1
         else:
             for d, rows in enumerate(inject_rows or []):
                 iring[d], n = pack_inject_rows(rows, R, dev=d)
@@ -1511,7 +1728,8 @@ class ResidentKernel:
         numpy, data dict of stacked tensors, info) with ``rounds``,
         ``fault_stats`` (per device, ``decode_fault_stats``), ``aborted``,
         ``per_device_counts``, ``exchange`` and, batch-routed, per-device
-        ``tiers``. ``waits[d]`` (the PGAS configurations): host-declared
+        ``tiers``; a traced table adds ``trace`` (one decoded ring a
+        device). ``waits[d]`` (the PGAS configurations): host-declared
         wait-sets (chan_id, need, task_index) of device d - the named task
         gains one extra dependency, satisfied once ``need`` puts landed on
         the channel. ``abort`` (truthy, or per-device flags) is folded into
@@ -1522,20 +1740,50 @@ class ResidentKernel:
         ``MeshTenantTable`` whose admissions this run publishes (its
         ``pump``) and whose lanes absorb the tctl echo after it;
         ``info['tenant_ctl']`` is that echo, ``info['tenants']`` the
-        table's stats."""
-        for name, v in (("quiesce=", quiesce),
-                        ("resume_state=", resume_state)):
-            if v is not None and v is not False:
-                raise _later(name)
-        if builders is None:
-            raise ValueError("run() wants builders=")
+        table's stats.
+
+        Checkpoint builds (``Megakernel(checkpoint=True)``): ``quiesce``
+        (truthy: the next round; an int k: round >= k) stops every
+        device's scheduler while the exchange drains the wire, and the
+        mesh exits in lockstep once the outboxes are empty and sent
+        equals received, with ``info['quiesced']`` and ``info['state']``
+        (tasks, succ, ready, counts, ivalues, data, the wait table with
+        its needs rebased; an injecting mesh's ring residue and ictl, or a
+        tenant mesh's ``tenant_table.export_state``). ``resume_state``
+        relaunches from such a state instead of ``builders``."""
         mk, ndev = self.mk, self.ndev
+        if (builders is None) == (resume_state is None):
+            raise ValueError(
+                "run() wants exactly one of builders= or resume_state=")
+        if quiesce is False:  # falsy boolean plumbing = off
+            quiesce = None
+        if quiesce is not None and not self.checkpoint:
+            raise ValueError(
+                "quiesce= needs Megakernel(checkpoint=True): the quiesce "
+                "word is compiled into the round loop only then")
+        if resume_state is not None:
+            if waits or inject_rows:
+                raise ValueError(
+                    "resume_state= cannot be combined with waits/"
+                    "inject_rows: the snapshot already carries every "
+                    "pending row (incl. its wait table and inject-ring "
+                    "residue)")
+            if data is not None or ivalues is not None:
+                raise ValueError("resume_state= carries its own data/ivalues")
+            data = dict(resume_state.get("data") or {})
+            waits = self._resume_waits(resume_state)
+        else:
+            waits = self._waits(waits, builders)
         hop_bits = self._hop_bits(hop_order)
         if len(hop_bits) > MAX_HOPS:
             raise ValueError(f"at most {MAX_HOPS} hop bits")
+        ring = self._ring(inject_rows, tenant_table, resume_state)
         abort_arr = abort_words(abort, ndev)
-        waits = self._waits(waits, builders)
-        ring = self._ring(inject_rows, tenant_table)
+        if quiesce is not None:
+            # The quiesce word rides words 1 (flag) and 2 (round
+            # threshold) of each device's abort row.
+            abort_arr[:, 1] = 1
+            abort_arr[:, 2] = 0 if quiesce is True else int(quiesce)
 
         def bump_waits(tasks, succ, ring, counts):
             # Symmetric-heap layout: host value slots occupy the SAME range
@@ -1568,12 +1816,17 @@ class ResidentKernel:
                 ring[d][:len(keep)] = keep
                 counts[d][C_TAIL] = len(keep)
 
+        # A resume restages the state as it is: no bump_waits pass (the
+        # parked rows keep their bump).
         st = mesh_state(mk, ndev, self.mesh.device, builders, data, ivalues,
-                        mutate=bump_waits)
+                        mutate=bump_waits if resume_state is None else None,
+                        state=resume_state)
         # The whitelist: kind -> 1, with the kind's value-arg mask above
         # bit 0 (the migrating configuration dereferences those args).
         wl = ({f: 1 | (self.vmask[f] << 1) for f in self.migratable}
               if self.steal else {})
+        traced = mk.trace is not None
+        t0_ns = time.monotonic_ns()
         if st["tasks"].device.type == "cpu":
             out = _plain_resident(self, st, wl, abort_arr, quantum,
                                   max_rounds, hop_bits, waits, ring)
@@ -1592,19 +1845,27 @@ class ResidentKernel:
                         "pstate": [self.pstate_words(len(w)) for w in waits],
                         "home": self.migrating,
                         "value_limit": self.rbase}
+            obs = None
+            if traced or self.checkpoint:
+                obs = {"cap": mk.trace.capacity if traced else 0,
+                       "ckpt": self.checkpoint, "maxw": self.max_waits}
             out = run_mesh_kernel(
                 "resident_steal", mk, st, wl, abort_arr, quantum,
                 max_rounds, self.window, self.scan, hop_bits,
                 max(len(hop_bits), 1), self.timeout_s, pgas=pgas,
                 steal=self.steal, inject=ring,
                 fault=(None if self.plan is None
-                       else fault_plan_words(self.plan)))
+                       else fault_plan_words(self.plan)), obs=obs)
+        t1_ns = time.monotonic_ns()
         fs = out["fstats"]
         info = mesh_info(st)
         info["rounds"] = int(info["per_device_counts"][0][C_ROUNDS])
         info["exchange"] = exchange_info(out)
         fsd = [decode_fault_stats(fs[d]) for d in range(ndev)]
         info["fault_stats"] = fsd
+        if traced:
+            info["trace"] = trace_info(list(out["rings"]), t0_ns, t1_ns,
+                                       mk.trace.capacity)
         if "pstate" in out:
             ps = np.asarray(out["pstate"])
             info["proxies"] = ps[:, PS_PROXIES].tolist()
@@ -1625,6 +1886,13 @@ class ResidentKernel:
             trows = st["tstats"].cpu().numpy()
             info["tiers"] = [mk.decode_tier_stats(trows[d])
                              for d in range(ndev)]
+        if self.checkpoint:
+            info["quiesced"] = any(f["quiesce_round"] >= 0 for f in fsd)
+            if self.inject:
+                info["inject_ctl"] = np.asarray(out["ictl"])
+            if info["quiesced"]:
+                info["state"] = self._export(st, info, out, ring,
+                                             tenant_table)
         if info["overflow"]:
             masks = [int(c[C_OVERFLOW]) for c in info["per_device_counts"]]
             agg = 0
@@ -1649,6 +1917,7 @@ class ResidentKernel:
             )
         if info["pending"] != 0 and not (
             bool(abort_arr[:, 0].any()) or info["aborted"]
+            or info.get("quiesced")
         ):
             suspects = sorted({p for f in fsd for p in f["quarantined"]})
             suspect = (
@@ -1663,3 +1932,36 @@ class ResidentKernel:
                 stats=info,
             )
         return st["ivalues"].cpu().numpy(), st["data"], info
+
+    def _export(self, st, info, out, ring, tenant_table) -> Dict[str, Any]:
+        """The stacked snapshot of a quiesced run (resident.py
+        :2661-2700): what ``run(resume_state=)`` relaunches from and
+        ``runtime.checkpoint.snapshot_resident`` bundles."""
+        state = {
+            "tasks": st["tasks"].cpu().numpy(),
+            "succ": st["succ"].cpu().numpy(),
+            "ready": st["ready"].cpu().numpy(),
+            "counts": np.asarray(info["per_device_counts"]).copy(),
+            "ivalues": st["ivalues"].cpu().numpy(),
+            "data": {k: v.cpu().numpy() for k, v in st["data"].items()},
+            "waits": np.asarray(out["waits"]),
+        }
+        if self.inject and self.T:
+            # A tenant mesh: the front door exports the per-lane residue
+            # and the aggregate tctl / tstats blocks (nothing was
+            # published without a table).
+            if tenant_table is not None:
+                state.update(tenant_table.export_state(ring["ring"]))
+        elif self.inject:
+            ic = np.asarray(out["ictl"])
+            rr = np.zeros((self.ndev, self.ring_capacity, RING_ROW),
+                          np.int32)
+            nictl = np.zeros((self.ndev, 8), np.int32)
+            for d in range(self.ndev):
+                res = ring["ring"][d, int(ic[d, 2]):int(ic[d, 0])]
+                rr[d, :len(res)] = res
+                nictl[d, 0] = len(res)
+                nictl[d, 1] = ic[d, 1]
+            state["ring_rows"] = rr
+            state["ictl"] = nictl
+        return state

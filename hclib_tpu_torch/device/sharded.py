@@ -113,21 +113,32 @@ def partition_builders(
 
 def mesh_state(mk: Megakernel, ndev: int, device,
                builders: Sequence[TaskGraphBuilder],
-               data: Optional[Dict[str, Any]], ivalues, mutate=None
+               data: Optional[Dict[str, Any]], ivalues, mutate=None,
+               state: Optional[Dict[str, Any]] = None
                ) -> Dict[str, object]:
     """The host half of JAX's ``execute_partitions``: partition the
     builders, widen each device's value alloc over its presets, let
     ``mutate(tasks, succ, ring, counts)`` adjust the stacked arrays,
     check the row blocks and the data keys, and stack everything on
     ``device`` (tensors with a leading mesh axis; data buffers per
-    device, stacked)."""
-    tasks, succ, ring, counts = partition_builders(mk, ndev, builders)
-    if ivalues is None:
-        ivalues = np.zeros((ndev, mk.num_values), np.int32)
+    device, stacked). ``state`` (a quiesced run's ``info['state']``)
+    replaces the partitioning and the widening: its stacked tasks, succ,
+    ready, counts and ivalues are staged as they are."""
+    if state is not None:
+        tasks, succ, ring, counts, ivalues = (
+            np.array(state[k], np.int32)
+            for k in ("tasks", "succ", "ready", "counts", "ivalues"))
+        if tasks.shape[0] != ndev:
+            raise ValueError(f"resume_state covers {tasks.shape[0]} "
+                             f"devices, this mesh has {ndev}")
     else:
-        ivalues = np.asarray(ivalues, np.int32)
-        for d in range(ndev):
-            mk.widen_value_alloc(counts[d], ivalues[d])
+        tasks, succ, ring, counts = partition_builders(mk, ndev, builders)
+        if ivalues is None:
+            ivalues = np.zeros((ndev, mk.num_values), np.int32)
+        else:
+            ivalues = np.asarray(ivalues, np.int32)
+            for d in range(ndev):
+                mk.widen_value_alloc(counts[d], ivalues[d])
     if mutate is not None:
         mutate(tasks, succ, ring, counts)
     for c in counts:

@@ -70,7 +70,10 @@ __all__ = ["forest_steal", "unified_load",
            "fault_megakernel", "fault_resident", "skewed_builders",
            "spread_builders", "check_bump", "fault_run", "uts_fault",
            "FAULT_CREDITS", "FAULT_DEAD", "UTS_FAULT", "UTS_FAULT_NODES",
-           "FOREST_FAULT", "forest_fault"]
+           "FOREST_FAULT", "forest_fault", "ckpt_uts_resident",
+           "ckpt_uts_builders", "ckpt_waits_resident", "ckpt_waits_load",
+           "ckpt_bump_megakernel", "ckpt_inject_load", "uts_ckpt",
+           "CKPT_UTS_NODES", "WAITS_TABLE"]
 
 # The benchmark-of-record forest-steal configuration (bench.py
 # --multichip's headline), scalar and batched arms alike.
@@ -94,15 +97,16 @@ def forest_builders(ndev: int, roots: int, n: int):
 
 
 def forest_megakernel(roots: int, capacity: int, batch_width: int = 0,
-                      device="cuda"):
+                      device="cuda", **kw):
     """The fib table of a forest of ``roots`` roots: every row's value
-    block plus the root slots (at least 64)."""
+    block plus the root slots (at least 64); ``kw``: ``trace`` or
+    ``checkpoint``."""
     from .megakernel import VBLOCK
     from .workloads import make_fib_megakernel
 
     return make_fib_megakernel(
         capacity=capacity, num_values=VBLOCK * capacity + max(64, roots),
-        batch_width=batch_width or None, device=device)
+        batch_width=batch_width or None, device=device, **kw)
 
 
 def check_forest(iv, info, roots: int, n: int) -> int:
@@ -971,13 +975,17 @@ INJECT_128 = dict(ndev=128, roots=160, n=12, per_dev=256, n_inj=4,
 
 def inject_forest(ndev: int = 128, roots: int = 160, n: int = 12,
                   per_dev: int = 256, n_inj: int = 4, capacity: int = 4096,
-                  quantum: int = 64, window: int = 8, device="cuda"):
+                  quantum: int = 64, window: int = 8, device="cuda",
+                  quiesce=None):
     """The forest of ``roots`` FIB(n) roots on device 0 through the
     resident kernel steal-only (homed=False), and ``per_dev`` FIB(n_inj)
     rows on every device's injection ring, row j of device d writing host
     slot roots + d * per_dev + j (a migrated row writes it on the
-    thief). The forest and the injected totals exact. Returns (ivalues,
-    info)."""
+    thief). With ``quiesce`` (a checkpoint build) the run is quiesced
+    there, every device's consumed cursor plus its ring residue must
+    equal the rows published, and the exported state is resumed (its
+    info under the resumed run's ``quiesce_run``). The forest and the
+    injected totals exact. Returns (ivalues, info)."""
     from ..models.fib import fib_seq, task_count
     from ..parallel.mesh import CtaMesh
     from .descriptor import TaskGraphBuilder
@@ -988,7 +996,7 @@ def inject_forest(ndev: int = 128, roots: int = 160, n: int = 12,
     nv = roots + ndev * per_dev
     mk = make_fib_megakernel(capacity,
                              num_values=VBLOCK * capacity + max(64, nv),
-                             device=device)
+                             checkpoint=quiesce is not None, device=device)
     rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
                         migratable_fns=[FIB], homed=False, window=window,
                         inject=True, ring_capacity=per_dev)
@@ -999,7 +1007,19 @@ def inject_forest(ndev: int = 128, roots: int = 160, n: int = 12,
         b.reserve_values(nv)
     rows = [[(FIB, [n_inj], roots + d * per_dev + j) for j in range(per_dev)]
             for d in range(ndev)]
-    iv, _, info = rk.run(bs, inject_rows=rows, quantum=quantum)
+    if quiesce is None:
+        iv, _, info = rk.run(bs, inject_rows=rows, quantum=quantum)
+    else:
+        _, _, info_q = rk.run(bs, inject_rows=rows, quantum=quantum,
+                              quiesce=quiesce)
+        ic, res = info_q["inject_ctl"], info_q["state"]["ictl"][:, 0]
+        if not info_q["quiesced"] or (ic[:, 2] + res != ic[:, 0]).any():
+            raise AssertionError(
+                f"inject forest quiesced at {quiesce}: consumed "
+                f"{ic[:, 2].tolist()} + residue {res.tolist()} != "
+                f"published {ic[:, 0].tolist()}")
+        iv, _, info = rk.run(resume_state=info_q["state"], quantum=quantum)
+        info["quiesce_run"] = info_q
     iv = np.asarray(iv)
 
     def per(k):
@@ -1237,3 +1257,164 @@ def forest_fault(ndev: int = 16, roots: int = 160, n: int = 12,
     info["rounds"] = info["steal_rounds"]
     check_forest(iv, info, roots, n)
     return iv, info
+
+
+# The quiesce, resume and flight-recorder loads (ROADMAP A11b.6): the
+# shapes of JAX's mesh checkpoint tests (tests/test_checkpoint.py :480
+# ``_mesh_uts_rk``, :712 the pending-waits round trip, :798 the injection
+# residue; tests/test_tenants.py :1051 the tenant quiesce), and phase 31's
+# full-width tree (``uts_ckpt``).
+CKPT_UTS_NODES = 498965  # UTS depth 20 (seed 19, q 440, m 4), one root
+
+
+def ckpt_uts_resident(ndev: int, max_depth: int = 6, capacity: int = 256,
+                      trace=None, batch_width=None, checkpoint=True,
+                      device="cuda"):
+    """JAX's ``_mesh_uts_rk``: the UTS table (``checkpoint=True``, depth
+    ``max_depth``) under the resident kernel steal-only, UTS_NODE
+    migratable with homed=False, window 4."""
+    from ..parallel.mesh import CtaMesh
+    from .resident import ResidentKernel
+    from .workloads import UTS_NODE, make_uts_megakernel
+
+    mk = make_uts_megakernel(max_depth=max_depth, capacity=capacity,
+                             checkpoint=checkpoint, trace=trace,
+                             batch_width=batch_width, device=device)
+    return ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                          migratable_fns=[UTS_NODE], window=4, homed=False)
+
+
+def ckpt_uts_builders(ndev: int):
+    """JAX's ``_mesh_uts_builders``: one UTS root a device, seed d + 1."""
+    from .descriptor import TaskGraphBuilder
+    from .workloads import UTS_NODE
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    for d, b in enumerate(bs):
+        b.add(UTS_NODE, args=[d + 1, 0])
+    return bs
+
+
+def _wbump(ctx):
+    ctx.set_value(0, ctx.value(0) + ctx.arg(0))
+
+
+def _wput(ctx):
+    ctx.pgas.put(ctx.arg(0), 0, ctx.arg(1), ctx.arg(2))
+
+
+def _wconsume(ctx):
+    ctx.set_value(ctx.arg(0), ctx.pgas.count(0))
+
+
+WAITS_ROWS, WAITS_COLS = 8, 128
+WAITS_TABLE = (
+    ("bump", _wbump, "ctx.set_value(0, ctx.value(0) + ctx.arg(0));"),
+    ("put", _wput, "ctx.pgas.put(ctx.arg(0), 0, ctx.arg(1), ctx.arg(2));"),
+    ("consume", _wconsume, "ctx.set_value(ctx.arg(0), ctx.pgas.count(0));"),
+)
+
+
+def ckpt_waits_resident(trace=None, device="cuda", ndev: int = 2):
+    """The pending-waits round trip's mesh (tests/test_checkpoint.py
+    :712): BUMP, PUT (put my heap row 0 into device arg0's row arg1 ...)
+    and CONSUME (slot arg0 = channel 0's count) on ``ndev`` devices (2
+    there), channel c0 one heap row, window 4, ``checkpoint=True``."""
+    import torch
+
+    from ..parallel.mesh import CtaMesh
+    from .megakernel import Megakernel
+    from .resident import ResidentKernel
+
+    mk = Megakernel(list(WAITS_TABLE),
+                    data_specs={"heap": ((WAITS_ROWS, WAITS_COLS),
+                                         torch.int32)},
+                    capacity=128, num_values=64, succ_capacity=64,
+                    checkpoint=True, trace=trace, device=device)
+    return ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                          channels={"c0": ("heap", 1)}, window=4)
+
+
+def ckpt_waits_load(chain: int = 20, ndev: int = 2):
+    """Its load, on each pair of devices (2k, 2k + 1) of ``ndev`` (one
+    pair there): a chain of ``chain + 1`` BUMPs on device 2k hides the
+    PUT [2k + 1, 3, 2] behind it, device 2k + 1's CONSUME waits on (c0,
+    1); returns (builders, waits, heap)."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    waits = [[] for _ in range(ndev)]
+    for d in range(0, ndev, 2):
+        prev = bs[d].add(0, args=[1])
+        for i in range(chain):
+            prev = bs[d].add(0, args=[i + 2], deps=[prev])
+        bs[d].add(1, args=[d + 1, 3, 2], deps=[prev])
+        waits[d + 1].append((0, 1, bs[d + 1].add(2, args=[1])))
+    heap = np.zeros((ndev, WAITS_ROWS, WAITS_COLS), np.int32)
+    for d in range(ndev):
+        for r in range(WAITS_ROWS):
+            heap[d, r, :] = 1000 * d + r
+    return bs, waits, heap
+
+
+def ckpt_bump_megakernel(capacity: int = 256, num_values: int = 1024,
+                         trace=None, device="cuda"):
+    """The BUMP table of JAX's injection-residue and tenant quiesce tests
+    (``checkpoint=True``; capacity 256 and 1,024 value slots there, 128
+    and 4 in the tenant test)."""
+    from .megakernel import Megakernel
+
+    return Megakernel([("bump", _bump0, BUMP0_CUDA)], capacity=capacity,
+                      num_values=num_values, succ_capacity=8,
+                      checkpoint=True, trace=trace, device=device)
+
+
+def ckpt_inject_load(ndev: int = 4):
+    """The injection-residue test's load: 2 BUMPs a device and 6 BUMP
+    rows on every ring, numbered 1.. in that order; returns (builders,
+    inject_rows, their sum, the count)."""
+    from .descriptor import TaskGraphBuilder
+
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    v = 0
+    for b in bs:
+        for _ in range(2):
+            v += 1
+            b.add(0, args=[v])
+    rows = []
+    for _ in range(ndev):
+        rows.append([(0, [v + j + 1]) for j in range(6)])
+        v += 6
+    return bs, rows, v * (v + 1) // 2, v
+
+
+def uts_ckpt(ndev: int = 128, max_depth: int = 20, trace=None,
+             checkpoint: bool = True, device="cuda"):
+    """Phase 31's mesh: row 1's UTS tree (seed 19, q 440, m 4) from one
+    root on device 0, UTS_NODE migratable under homed migration (as
+    ``uts_fault`` builds it, with ``checkpoint=True`` and ``trace``):
+    the scheduler keeps home links, so a spawned row carries no home and
+    moves again, and a quiesced state re-homes onto another mesh size.
+    (Under homed=False a spawned row keeps the stale F_HOME of its slot,
+    so the tree would stay on device 0 and reshard would refuse every
+    spawned row as home-linked, in JAX as here.) Returns (the mesh, its
+    builders)."""
+    from ..parallel.mesh import CtaMesh
+    from .descriptor import TaskGraphBuilder
+    from .megakernel import Megakernel
+    from .resident import ResidentKernel
+    from .workloads import UTS_NODE
+
+    cap = 1024
+    mk = Megakernel(kernels=["uts_node"], capacity=cap, num_values=16 + cap,
+                    succ_capacity=8,
+                    params={"seed": 19, "q_millis": 440, "m_children": 4,
+                            "max_depth": max_depth},
+                    checkpoint=checkpoint, trace=trace, device=device)
+    rk = ResidentKernel(mk, CtaMesh((ndev,), ("q",), device=device),
+                        migratable_fns=[UTS_NODE], window=8)
+    bs = [TaskGraphBuilder() for _ in range(ndev)]
+    bs[0].add(UTS_NODE, args=[1, 0])
+    for b in bs:
+        b.reserve_values(1)
+    return rk, bs

@@ -1,9 +1,9 @@
-"""Checkpoint/restore of the single-device megakernel: versioned bundles of
-its quiesced scheduler state and a crash-safe store of them.
+"""Checkpoint/restore of the megakernel, its stream and its resident
+mesh: versioned bundles of quiesced scheduler state and a crash-safe
+store of them.
 
-Port of the single-device part of ``hclib_tpu/runtime/checkpoint.py``,
-with its on-disk format unchanged, so a bundle written by either package
-loads in the other:
+Port of ``hclib_tpu/runtime/checkpoint.py``, with its on-disk format
+unchanged, so a bundle written by either package loads in the other:
 
 - **Quiesce** (``Megakernel(checkpoint=True)``, device/megakernel.py):
   the scheduler polls the quiesce word every ``quiesce_stride`` rounds
@@ -32,12 +32,16 @@ loads in the other:
   token table and the telemetry blocks; ``checkpoint_on_preempt`` binds
   a running stream's quiesce to process preemption.
 
+- **Resident meshes** (``snapshot_resident`` / ``restore_resident``):
+  a quiesced ``ResidentKernel.run`` (device/resident.py) bundles with its
+  wait table, ring residue and tenant blocks; ``restore_resident``
+  checks the kernel table and the tenant roster and re-homes the queues
+  through ``CheckpointBundle.reshard`` when the mesh size differs (only
+  ready link-free rows move; wait-parked rows move with their waits).
+
 Left out, each raising ``NotImplementedError`` naming its ROADMAP item:
-``CheckpointBundle.reshard`` and ``snapshot_resident`` /
-``restore_resident`` (A11c: the port's mesh runners,
-device/{sharded,ici_steal,resident}.py, run to completion or abort but
-do not quiesce yet) and ``metrics=`` (no metrics registry in the port
-yet, A13).
+a dynamic-graph bundle's reshard (``reshard_dyngraph``, A11c) and
+``metrics=`` (no metrics registry in the port yet, A13).
 """
 
 from __future__ import annotations
@@ -50,11 +54,22 @@ import os
 import shutil
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..device import tracebuf as tb
+from ..device.descriptor import (
+    DESC_WORDS,
+    F_CSR_N,
+    F_DEP,
+    F_FN,
+    F_HOME,
+    F_OUT,
+    F_SUCC0,
+    F_SUCC1,
+    NO_TASK,
+)
 from . import env as _env
 from . import resilience
 
@@ -378,10 +393,296 @@ class CheckpointBundle:
         return b
 
     def reshard(self, ndev_new: int) -> "CheckpointBundle":
-        """Re-home a resident-mesh bundle onto another device count."""
-        raise _later("CheckpointBundle.reshard (re-homing a quiesced "
-                     "mesh; the port's ResidentKernel runs steal-only and "
-                     "does not quiesce yet)", "A11c")
+        """Re-home a resident-mesh bundle's per-device queues onto
+        ``ndev_new`` devices (JAX ``CheckpointBundle.reshard``, :451):
+        only ready link-free rows move (whole, conserving the pending
+        total), dealt round-robin; per-device accumulator value slots and
+        executed counters fold by sum mod ``ndev_new``. Refused with a
+        diagnostic when a live row carries successor links, a home link
+        or a dynamic out slot, or when the kernel has per-device data
+        buffers. Exported wait tables re-home: a wait-parked row (one
+        dependency bump a parked wait) moves as one unit with its waits,
+        allocated past the ready ring, its entries rewritten to the new
+        (device, row); refused when a wait's satisfier sits in unexported
+        host residue (``meta['host_residue']``). Injection-ring residue
+        deals round-robin; the tenant blocks pass through."""
+        from ..device.megakernel import (
+            C_ALLOC, C_EXECUTED, C_HEAD, C_PENDING, C_TAIL, C_VALLOC,
+        )
+
+        if self.kind != "resident":
+            raise CheckpointError(
+                f"reshard applies to resident-mesh bundles, not {self.kind}"
+            )
+        try:
+            ndev_new = int(ndev_new)
+        except (TypeError, ValueError):
+            raise CheckpointError(
+                f"reshard wants an integer device count, got {ndev_new!r}"
+            )
+        tasks = self.arrays["tasks"]
+        counts = self.arrays["counts"]
+        ivalues = self.arrays["ivalues"]
+        ndev, cap, _ = tasks.shape
+        if ndev_new < 1 or (ndev_new & (ndev_new - 1)):
+            raise CheckpointError(
+                f"reshard wants a power-of-two device count >= 1, got "
+                f"{ndev_new} (the resident mesh's hypercube hop schedule "
+                "is pof2-only; an evacuation drops to the next pof2 "
+                "below the survivor count)"
+            )
+        if self.meta.get("dyngraph"):
+            # A dynamic-graph bundle re-homes through its own merge.
+            from ..device.dyngraph import reshard_dyngraph
+
+            return reshard_dyngraph(self, ndev_new)
+        if any(k.startswith("data/") for k in self.arrays):
+            raise CheckpointError(
+                "reshard cannot re-home per-device data buffers: restore "
+                "onto the original mesh size, or drain and re-partition "
+                "at the application level"
+            )
+        waits = self.arrays.get("waits")
+        # parked[(d, row)] -> [(chan, need), ...]; needs stay rebased.
+        parked: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
+        if waits is not None:
+            warr = np.asarray(waits)
+            chan_names = list(self.meta.get("channels") or [])
+
+            def _chan(ch: int) -> str:
+                return (repr(chan_names[ch])
+                        if 0 <= ch < len(chan_names) else f"id {ch}")
+
+            residue = {
+                str(k): int(v)
+                for k, v in dict(self.meta.get("host_residue") or {}).items()
+                if int(v) > 0
+            }
+            stranded: Dict[int, List[Tuple[int, int, int]]] = {}
+            for d in range(warr.shape[0]):
+                for i in range(int(warr[d, 0, 0])):
+                    ch, need, row = (int(x) for x in warr[d, 1 + i])
+                    name = (chan_names[ch]
+                            if 0 <= ch < len(chan_names) else None)
+                    if need > 0 and name is not None and name in residue:
+                        stranded.setdefault(ch, []).append((d, row, need))
+                    parked.setdefault((d, row), []).append((ch, need))
+            if stranded:
+                # One error names every stranded channel and the fix.
+                per_chan = [
+                    f"channel {_chan(ch)}: {len(ws)} wait(s) needing "
+                    f"{sum(n for _d, _r, n in ws)} more arrival(s) vs "
+                    f"{residue[chan_names[ch]]} unexported host put(s)"
+                    for ch, ws in sorted(stranded.items())
+                ]
+                d0, r0, n0 = stranded[min(stranded)][0]
+                raise CheckpointError(
+                    f"reshard: "
+                    f"{sum(len(ws) for ws in stranded.values())} pending "
+                    f"wait(s) on {len(stranded)} channel(s) have their "
+                    f"satisfier in unexported host residue "
+                    f"({'; '.join(per_chan)}); e.g. device {d0} row {r0} "
+                    f"still needs {n0} arrival(s) - the outstanding puts "
+                    "target the original (device, row) coordinates, so "
+                    "resume on the original mesh size and re-issue (or "
+                    "drain) the residue before resizing"
+                )
+        V = ivalues.shape[1]
+        va = int(counts[:, C_VALLOC].max())
+        # Every violation at once, folded per kernel kind (with the
+        # build-time kind classes when the bundle carries them).
+        kind_names = list(self.meta.get("kernel_names") or [])
+        kind_classes = dict(self.meta.get("kind_classes") or {})
+        violations: List[Tuple[int, int, int, str]] = []
+        live_rows: List[np.ndarray] = []
+        parked_rows: List[Tuple[int, int, np.ndarray]] = []
+        for d in range(ndev):
+            for i in range(int(counts[d][C_ALLOC])):
+                row = tasks[d, i]
+                if int(row[F_DEP]) == -1:
+                    continue  # tombstone (completed or exported)
+                bad = None
+                nwaits = len(parked.get((d, i), ()))
+                dep = int(row[F_DEP])
+                if dep != nwaits:
+                    # A parked row carries exactly one bump a parked wait.
+                    bad = (
+                        f"a dependency counter {dep} != its "
+                        f"{nwaits} parked wait(s)"
+                        if nwaits else "a nonzero dependency counter"
+                    )
+                elif (int(row[F_SUCC0]) != NO_TASK
+                      or int(row[F_SUCC1]) != NO_TASK
+                      or int(row[F_CSR_N]) != 0):
+                    bad = "successor links"
+                elif int(row[F_HOME]) >= 0:
+                    bad = "a migration home-link"
+                elif int(row[F_OUT]) >= va:
+                    bad = f"a dynamic out slot ({int(row[F_OUT])} >= {va})"
+                if bad is not None:
+                    violations.append((d, i, int(row[F_FN]), bad))
+                    continue
+                if nwaits:
+                    parked_rows.append((d, i, row.copy()))
+                else:
+                    live_rows.append(row.copy())
+        if violations:
+            by_kind: Dict[int, int] = {}
+            for _d, _i, fn, _bad in violations:
+                by_kind[fn] = by_kind.get(fn, 0) + 1
+            kinds = []
+            for fn, n in sorted(by_kind.items()):
+                name = (kind_names[fn]
+                        if 0 <= fn < len(kind_names) else f"id {fn}")
+                cls = kind_classes.get(str(name))
+                kinds.append(f"{name!r}" + (f" [{cls}]" if cls else "")
+                             + f": {n} row(s)")
+            d0, i0, _fn0, bad0 = violations[0]
+            raise CheckpointError(
+                f"reshard: {len(violations)} live row(s) across "
+                f"{ndev} device(s) are not link-free "
+                f"({'; '.join(kinds)}); e.g. device {d0} row {i0} "
+                f"carries {bad0}; only ready link-free rows re-home "
+                "across mesh sizes (quiesce drains dependent subgraphs "
+                "first, or restore onto the original mesh size)"
+            )
+        pend_total = int(counts[:, C_PENDING].sum())
+        if pend_total != len(live_rows) + len(parked_rows):
+            raise CheckpointError(
+                f"reshard conservation check failed: {pend_total} pending "
+                f"!= {len(live_rows)} live + {len(parked_rows)} "
+                "wait-parked rows - the bundle is not a clean quiesce "
+                "snapshot"
+            )
+        parts: List[List[np.ndarray]] = [[] for _ in range(ndev_new)]
+        for i, row in enumerate(live_rows):
+            parts[i % ndev_new].append(row)
+        # Parked rows re-home as units, ordered by their first wait's
+        # channel and then their old coordinates, dealt round-robin.
+        park_parts: List[List[Tuple[int, int, np.ndarray]]] = [
+            [] for _ in range(ndev_new)]
+        park_order = sorted(
+            parked_rows,
+            key=lambda e: (min(ch for ch, _n in parked[(e[0], e[1])]),
+                           e[0], e[1]),
+        )
+        for k, entry in enumerate(park_order):
+            park_parts[k % ndev_new].append(entry)
+        for j, p in enumerate(parts):
+            if len(p) + len(park_parts[j]) > cap:
+                total = len(live_rows) + len(parked_rows)
+                raise CheckpointError(
+                    f"reshard {ndev} -> {ndev_new}: device {j} would "
+                    f"hold {len(p) + len(park_parts[j])} rows > capacity "
+                    f"{cap} ({total} live+parked rows total); scale in "
+                    f"less aggressively (>= {-(-total // cap)} "
+                    "devices) or rebuild with a larger capacity"
+                )
+        tasks_new = np.zeros((ndev_new, cap, DESC_WORDS), np.int32)
+        ready_new = np.full((ndev_new, cap), NO_TASK, np.int32)
+        counts_new = np.zeros((ndev_new, 8), np.int32)
+        ivalues_new = np.zeros((ndev_new, V), np.int32)
+        waits_new = None
+        if waits is not None:
+            warr = np.asarray(waits)
+            max_w = warr.shape[1] - 1
+            waits_new = np.zeros((ndev_new,) + warr.shape[1:], np.int32)
+        for j, p in enumerate(parts):
+            for i, row in enumerate(p):
+                tasks_new[j, i] = row
+                ready_new[j, i] = i
+            n = len(p)
+            # Parked rows land after the ready rows: allocated and pending
+            # but not in the ready ring, their bumps kept.
+            for k, (od, orow, row) in enumerate(park_parts[j]):
+                slot = n + k
+                tasks_new[j, slot] = row
+                if waits_new is not None:
+                    for ch, need in parked[(od, orow)]:
+                        w = int(waits_new[j, 0, 0])
+                        if w >= max_w:
+                            raise CheckpointError(
+                                f"reshard {ndev} -> {ndev_new}: device "
+                                f"{j} would park > {max_w} wait(s); "
+                                "scale in less aggressively or raise "
+                                "max_waits"
+                            )
+                        waits_new[j, 1 + w] = (ch, need, slot)
+                        waits_new[j, 0, 0] = w + 1
+            total_j = n + len(park_parts[j])
+            counts_new[j][C_HEAD] = 0
+            counts_new[j][C_TAIL] = n  # the ready ring: live rows only
+            counts_new[j][C_ALLOC] = total_j
+            counts_new[j][C_PENDING] = total_j
+            counts_new[j][C_VALLOC] = va
+        # The old devices' host regions and executed counters fold mod M.
+        for d in range(ndev):
+            j = d % ndev_new
+            ivalues_new[j][:va] += ivalues[d][:va]
+            counts_new[j][C_EXECUTED] += int(counts[d][C_EXECUTED])
+        scap = self.arrays["succ"].shape[1]
+        succ_new = np.full((ndev_new, scap), NO_TASK, np.int32)
+        arrays = {
+            "tasks": tasks_new, "succ": succ_new, "ready": ready_new,
+            "counts": counts_new, "ivalues": ivalues_new,
+        }
+        if waits_new is not None:
+            warr = np.asarray(waits)
+            # The wait count and each channel's need sum are conserved.
+            if int(waits_new[:, 0, 0].sum()) != int(warr[:, 0, 0].sum()):
+                raise CheckpointError(
+                    "reshard wait conservation check failed: "
+                    f"{int(waits_new[:, 0, 0].sum())} re-homed wait(s) "
+                    f"!= {int(warr[:, 0, 0].sum())} exported"
+                )
+            need_old: Dict[int, int] = {}
+            need_new: Dict[int, int] = {}
+            for arr, acc in ((warr, need_old), (waits_new, need_new)):
+                for d in range(arr.shape[0]):
+                    for i in range(int(arr[d, 0, 0])):
+                        ch, need, _row = (int(x) for x in arr[d, 1 + i])
+                        acc[ch] = acc.get(ch, 0) + need
+            if need_old != need_new:
+                raise CheckpointError(
+                    "reshard wait conservation check failed: per-channel "
+                    f"need sums diverged ({need_old} -> {need_new})"
+                )
+            arrays["waits"] = waits_new
+        if "ring_rows" in self.arrays:
+            # Injected rows are link-free: the residue deals round-robin.
+            rr = np.asarray(self.arrays["ring_rows"])
+            ic = np.asarray(self.arrays["ictl"])
+            R = rr.shape[1]
+            residue = [rr[d, i] for d in range(rr.shape[0])
+                       for i in range(int(ic[d, 0]))]
+            rr_new = np.zeros((ndev_new, R) + rr.shape[2:], np.int32)
+            ic_new = np.zeros((ndev_new, 8), np.int32)
+            ic_new[:, 1] = ic[:, 1].max() if ic.size else 0  # close flag
+            for i, row in enumerate(residue):
+                j = i % ndev_new
+                slot = ic_new[j, 0]
+                if slot >= R:
+                    raise CheckpointError(
+                        f"reshard {ndev} -> {ndev_new}: device {j} would "
+                        f"hold > {R} inject-ring residue rows "
+                        f"({len(residue)} total); scale in less "
+                        "aggressively or raise ring_capacity"
+                    )
+                rr_new[j, slot] = row
+                ic_new[j, 0] = slot + 1
+            if int(ic_new[:, 0].sum()) != len(residue):
+                raise CheckpointError("reshard ring conservation check failed")
+            arrays["ring_rows"] = rr_new
+            arrays["ictl"] = ic_new
+        # The tenant blocks (aggregate (T, 8) tctl / tstats) hold no
+        # device count: they pass through.
+        for k in ("tctl", "tstats"):
+            if k in self.arrays:
+                arrays[k] = np.asarray(self.arrays[k]).copy()
+        meta = dict(self.meta)
+        meta["ndev"] = ndev_new
+        meta["resharded_from"] = int(ndev)
+        return CheckpointBundle("resident", meta, arrays)
 
     def diff(self, other: "CheckpointBundle") -> Dict[str, Any]:
         """Structural comparison of two bundles: ``{'equal': bool,
@@ -658,11 +959,54 @@ def snapshot_stream(sm, info: Dict[str, Any],
     )
 
 
-def snapshot_resident(rk, info, meta=None):
-    """Bundle a quiesced resident-mesh run."""
-    raise _later("snapshot_resident (a quiesced mesh; the port's "
-                 "ResidentKernel runs steal-only and does not quiesce "
-                 "yet)", "A11c")
+# The migratability classes of the built-in bodies (JAX hclib_tpu/analysis
+# classify.py, read off their bodies): fib spawns successor-linked children
+# (home-linked); sum and the UTS node spawn none with links (link-free).
+_BODY_CLASSES = {"fib": "home-linked", "fib_batch": "home-linked",
+                 "sum": "link-free", "uts_node": "link-free",
+                 "uts_node_batch": "link-free"}
+
+
+def _kind_classes(mk) -> Dict[str, str]:
+    """The build-time migratability class of each kernel kind that the
+    bundle manifest carries for ``reshard``'s diagnostics (JAX
+    ``_kind_classes``, :187): the built-in bodies' classes; a kind whose
+    class the port cannot tell (a user body: JAX reads it off a recording
+    pass over the body, which the port has not, ROADMAP A13) is
+    ``unknown``."""
+    return {name: _BODY_CLASSES.get(mk.fn_bodies[i], "unknown")
+            for i, name in enumerate(mk.kernel_names)}
+
+
+def snapshot_resident(rk, info: Dict[str, Any],
+                      meta: Optional[Dict[str, Any]] = None
+                      ) -> CheckpointBundle:
+    """Bundle a quiesced ``ResidentKernel.run`` info dict."""
+    state = _require_quiesced(info, "snapshot_resident")
+    m = _kernel_meta(rk.mk)
+    m["kind_classes"] = _kind_classes(rk.mk)
+    m["ndev"] = int(rk.ndev)
+    m["dims"] = [int(d) for d in rk.dims]
+    m["quiesce_round"] = max(
+        f["quiesce_round"] for f in info["fault_stats"]
+    )
+    m.update(meta or {})
+    # After the user meta: the roster (restore_resident's guard) and the
+    # channel names (reshard's wait diagnostics) are the mesh's own.
+    if getattr(rk, "chan_id", None):
+        m["channels"] = [
+            name for name, _cid in
+            sorted(rk.chan_id.items(), key=lambda kv: kv[1])
+        ]
+    if getattr(rk, "tenant_specs", None):
+        m["tenants"] = [s.id for s in rk.tenant_specs]
+    else:
+        m.pop("tenants", None)
+    bf16 = {f"data/{k}" for k, spec in m["data_specs"].items()
+            if spec["dtype"] == "bfloat16"}
+    return CheckpointBundle(
+        "resident", m, CheckpointBundle._flatten_state(state, m, bf16)
+    )
 
 
 # ---------------------------------------------------------------- restore
@@ -710,11 +1054,34 @@ def restore_stream(bundle_or_path, sm, **run_stream_kw):
     return sm.run_stream(resume_state=b.state(), **run_stream_kw)
 
 
-def restore_resident(bundle_or_path, rk, **kw):
-    """Relaunch a resident-mesh bundle."""
-    raise _later("restore_resident (a quiesced mesh; the port's "
-                 "ResidentKernel runs steal-only and does not quiesce "
-                 "yet)", "A11c")
+def restore_resident(bundle_or_path, rk, quantum: int = 64,
+                     max_rounds: int = 1 << 14, quiesce=None,
+                     tenant_table=None):
+    """Validate and relaunch a resident-mesh bundle on ``rk``. A mesh-size
+    mismatch re-homes the queues (``reshard``). A tenant-enabled bundle
+    needs a fresh ``tenant_table`` matching the roster; the residue
+    re-deals into its lanes. Returns (ivalues, data, info) of the
+    continued run."""
+    b = _as_bundle(bundle_or_path)
+    if b.kind != "resident":
+        raise CheckpointError(f"restore_resident got a {b.kind!r} bundle")
+    _check_kernel_meta(rk.mk, b.meta, where=_where(b))
+    # The roster must match exactly (ids AND order): lane state is keyed
+    # by index.
+    want = b.meta.get("tenants")
+    have = ([s.id for s in rk.tenant_specs]
+            if getattr(rk, "tenant_specs", None) else None)
+    if (want or None) != (have or None):
+        raise CheckpointError(
+            f"tenant roster mismatch: bundle carries {want!r}, the "
+            f"target mesh has {have!r} (ids and order must match - "
+            "lane state is keyed by index)"
+        )
+    if int(b.meta.get("ndev", rk.ndev)) != rk.ndev:
+        b = b.reshard(rk.ndev)
+    kw = {} if tenant_table is None else {"tenant_table": tenant_table}
+    return rk.run(resume_state=b.state(), quantum=quantum,
+                  max_rounds=max_rounds, quiesce=quiesce, **kw)
 
 
 def checkpoint_on_preempt(stream, after_executed: int = 0):

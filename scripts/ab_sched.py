@@ -20,8 +20,14 @@ the card's name and power limit, and a summary line of medians per tree.
 Beside the scheduler, the resident kernel's steal-only configuration
 (ICIStealMegakernel on FOREST_STEAL_BENCH at 8 CTAs and on 2,048 x
 fib(12) at 128 CTAs, ``resident8`` and ``resident128``: each launch's
-CUDA-event time), with the ptxas figures of every stream and mesh kernel
-instance.
+CUDA-event time), and, where the tree has them, the same runs of its
+observed instance traced (4,096 records a device; ``resident8_trace``,
+``resident128_trace``) and traced and checkpoint-built (``resident8_obs``,
+``resident128_obs``), each with its rounds, rows exported, stat words
+sent and port header (``p_inbox`` words); these cells are launched
+interleaved, one launch of each per rep. Also the ptxas figures of
+every stream and mesh kernel instance, those of the injecting user
+libraries included.
 
     python3 scripts/ab_sched.py --tree parent=chipcheck/parent --tree change=.
 
@@ -34,9 +40,11 @@ import argparse
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 
 
 def worker(root: str, reps: int, only) -> dict:
@@ -90,26 +98,53 @@ def worker(root: str, reps: int, only) -> dict:
     # The steal kernels (the resident kernel steal-only, ICIStealMegakernel
     # on a power-of-two mesh): FOREST_STEAL_BENCH at 8 CTAs and 2,048 x
     # fib(12) at 128 CTAs, each launch's CUDA-event time.
+    from hclib_tpu_torch.device import resident as rs
     from hclib_tpu_torch.device import stress
     from hclib_tpu_torch.device.ici_steal import ICIStealMegakernel
     from hclib_tpu_torch.parallel.mesh import CtaMesh
 
     fb = stress.FOREST_STEAL_BENCH
-    for name, ndev, roots in (("resident8", 8, fb["roots"]),
-                              ("resident128", 128, 2048)):
+    obs = {"trace": 4096, "checkpoint": True}
+    steal = {}
+    for name, ndev, roots, kw in (
+            ("resident8", 8, fb["roots"], {}),
+            ("resident128", 128, 2048, {}),
+            ("resident8_trace", 8, fb["roots"], {"trace": 4096}),
+            ("resident128_trace", 128, 2048, {"trace": 4096}),
+            ("resident8_obs", 8, fb["roots"], obs),
+            ("resident128_obs", 128, 2048, obs)):
         if only and name not in only:
             continue
-        m = ICIStealMegakernel(
-            stress.forest_megakernel(roots, fb["capacity"], 0, "cuda"),
-            CtaMesh((ndev,), ("q",)), migratable_fns=[tw.FIB], window=8)
+        try:
+            mk = stress.forest_megakernel(roots, fb["capacity"], 0, "cuda",
+                                          **kw)
+            m = ICIStealMegakernel(mk, CtaMesh((ndev,), ("q",)),
+                                   migratable_fns=[tw.FIB], window=8)
+        except (NotImplementedError, TypeError):
+            continue  # an arm this tree does not have
         m.run(stress.forest_builders(ndev, roots, fb["n"]), quantum=64)
-        times = []
-        for _ in range(reps):
+        # The port header of this launch (resident.run_mesh_kernel's
+        # rule): P_INBOX words, or in a checkpoint build the stat slab
+        # with the quiesce sum rounded up to 8 words.
+        p_inbox = (rs.P_STAT + -(-(rs.STAT_WORDS + 1) // 8) * 8
+                   if kw.get("checkpoint") else rs.P_INBOX)
+        steal[name] = (m, ndev, roots, p_inbox)
+    # Interleaved: each rep launches every cell once, forwards on even
+    # reps and backwards on odd ones, so no cell always runs first.
+    names = list(steal)
+    for i in range(reps):
+        for name in names if i % 2 == 0 else names[::-1]:
+            m, ndev, roots, p_inbox = steal[name]
             iv, _, info = m.run(stress.forest_builders(ndev, roots, fb["n"]),
                                 quantum=64)
             stress.check_forest(iv, info, roots, fb["n"])
-            times.append(info["exchange"]["kernel_ms"])
-        out[name] = {"ms": times, "executed": info["executed"]}
+            cell = out.setdefault(name, {"ms": []})
+            cell["ms"].append(info["exchange"]["kernel_ms"])
+            cell.update(executed=info["executed"],
+                        rounds=info["steal_rounds"],
+                        rows=sum(info["exchange"]["rows"]),
+                        stat_words=sum(info["exchange"]["stat_words"]),
+                        p_inbox=p_inbox)
     for name, setup, want in staged:
         if only and name not in only:
             continue
@@ -136,19 +171,25 @@ def worker(root: str, reps: int, only) -> dict:
     return out
 
 
-def ptxas(root: str) -> dict:
-    """Each ``mk_kernel`` instance's registers, stack frame and spills
-    from ptxas -v, by its kMode ("+obs": the observed instance), and each
-    instance of the stream kernel and the mesh kernels (the grid launch,
-    the ring, the resident kernel) by its name and template flags."""
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    src = os.path.join(root, "hclib_tpu_torch", "csrc", "megakernel.cu")
-    r = subprocess.run(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-c", "-o", os.devnull, "-Xptxas", "-v", src],
-        capture_output=True, text=True)
-    lines = r.stderr.splitlines()
+def user_sources(root: str) -> dict:
+    """The generated sources, in tree ``root``, of the injecting user
+    libraries (the fib forest's steal-only, the PGAS exchange's, the bump
+    table's that tenancy runs): their resident kernel polls the ring."""
+    sys.path.insert(0, os.path.abspath(root))
+    from hclib_tpu_torch.device import stress
+    from hclib_tpu_torch.device.workloads import make_fib_megakernel
+
+    return {"fib_inject": make_fib_megakernel(16, device="cpu").user_source(
+                False, inject=True),
+            "pgas_inject": stress.pgas_megakernel(device="cpu").user_source(
+                True, inject=True),
+            "bump_inject": stress.bump_megakernel("cpu").user_source(
+                False, inject=True)}
+
+
+def _parse_ptxas(lines, prefix: str = "") -> dict:
+    """Registers, stack frame and spills of each kernel instance that
+    ptxas -v compiled (see ``ptxas``), under ``prefix`` + its key."""
     out = {}
     for i, line in enumerate(lines):
         if "Compiling" not in line:
@@ -162,17 +203,55 @@ def ptxas(root: str) -> dict:
             if not m:
                 continue
             # Every flag of the template, the body table's class skipped;
-            # trailing false flags past the third dropped, so an instance
-            # keeps its key when a later flag (default false) is added.
+            # trailing false flags past the first (the ring) or the third
+            # dropped, so an instance keeps its key when a later flag
+            # (default false) is added.
             flags = re.findall(r"L[bi](\d+)E", m.group(2))
-            while len(flags) > 3 and flags[-1] == "0":
+            keep = 1 if m.group(1) == "ici_ring_kernel" else 3
+            while len(flags) > keep and flags[-1] == "0":
                 flags.pop()
             key = m.group(1) + "<" + ",".join(flags) + ">"
         text = " ".join(lines[i:i + 4])
-        out[key] = {k: int(v) for v, k in re.findall(
+        out[prefix + key] = {k: int(v) for v, k in re.findall(
             r"(\d+) (bytes stack frame|bytes spill stores|registers)",
             text)}
-    return out or {"error": r.stderr[-400:]}
+    return out
+
+
+def ptxas(root: str) -> dict:
+    """Each ``mk_kernel`` instance's registers, stack frame and spills
+    from ptxas -v, by its kMode ("+obs": the observed instance), each
+    instance of the stream kernel and the mesh kernels (the grid launch,
+    the ring, the resident kernel) by its name and template flags, and
+    those of the injecting user libraries (``user_sources``) under
+    ``<library>:``; the sources compiled at once, one nvcc each."""
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    csrc = os.path.join(root, "hclib_tpu_torch", "csrc")
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-c", "-o", os.devnull, "-Xptxas", "-v", "-I", csrc]
+    srcs = {"": os.path.join(csrc, "megakernel.cu")}
+    tmp = tempfile.mkdtemp(prefix="ab-ptxas-")
+    try:
+        gen = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--sources", root], capture_output=True,
+                             text=True)
+        if gen.returncode == 0:
+            for name, text in json.loads(gen.stdout).items():
+                srcs[name + ":"] = os.path.join(tmp, name + ".cu")
+                with open(srcs[name + ":"], "w") as f:
+                    f.write(text)
+        procs = {k: subprocess.Popen([nvcc, *flags, src],
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, src in srcs.items()}
+        out = {}
+        for prefix, p in procs.items():
+            err = p.communicate()[1]
+            out.update(_parse_ptxas(err.splitlines(), prefix) or {
+                prefix + "error": err[-400:]})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -185,9 +264,14 @@ def main() -> int:
                     help="comma-separated subset of fib24, uts20, fib24_b8, "
                     "uts20_b8, fib24_trace, uts20_trace, fib24_ckpt, "
                     "uts20_ckpt, sssp9_w0, sssp9_w8, resident8, "
-                    "resident128 (default: all)")
+                    "resident128, resident8_trace, resident128_trace, "
+                    "resident8_obs, resident128_obs (default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--sources", help=argparse.SUPPRESS)
     ns = ap.parse_args()
+    if ns.sources:
+        print(json.dumps(user_sources(ns.sources)))
+        return 0
     if ns.worker:
         print(json.dumps(worker(ns.worker, ns.reps,
                                 set(filter(None, ns.graphs.split(","))))))

@@ -245,15 +245,15 @@ def _user_case(kind, ndev, burst, kw, device):
     return iv, data, info
 
 
-def homed_megakernel(cap: int, bw: int, device):
+def homed_megakernel(cap: int, bw: int, device, **kw):
     """JAX's homed tests' fib table: every row's value block, 16 host
     slots and one migration result slot a row (a library of built-in
-    bodies alone on the card)."""
+    bodies alone on the card); ``kw``: ``trace`` or ``checkpoint``."""
     from hclib_tpu_torch.device.megakernel import VBLOCK
     from hclib_tpu_torch.device.workloads import make_fib_megakernel
 
     return make_fib_megakernel(cap, num_values=VBLOCK * cap + 16 + cap,
-                               batch_width=bw or None, device=device)
+                               batch_width=bw or None, device=device, **kw)
 
 
 def _homed_case(kind, ndev, bw, kw, device):
@@ -526,14 +526,193 @@ def run_case(name: str, device: str) -> dict:
 TIMES = ("kernel_ms", "exchange_ms")
 
 
+# The observed instances (``resident_obs``, ``ici_ring_obs``: kObs, the
+# flight recorder and the quiesce word), one case or more an instance,
+# on the CPU tests' fixtures' shapes and at 8 CTAs. A case with a quiesce
+# runs it, then resumes the exported state on the same mesh; both runs
+# are compared (every state array, the wait table, the ring residue and
+# ictl, each device's decoded records). name: (load, ndev, trace
+# capacity, quiesce, run kwargs).
+OBS_CASES = {
+    # the built-in steal-only instances (megakernel.cu): JAX's
+    # _mesh_uts_rk at 2 devices (fixture (a)) and 8, a wrapping ring, the
+    # batch tier at width 4, and the forest traced without a checkpoint
+    "obs_uts_2": ("uts", 2, 256, 2, {}),
+    "obs_uts_8": ("uts", 8, 512, 2, {}),
+    "obs_uts_wrap_2": ("uts", 2, 16, 2, {}),
+    "obs_uts_b4_4": ("uts", 4, 512, 2, dict(batch_width=4)),
+    "obs_forest_8": ("forest", 8, 4096, None, {}),
+    # the ring (ici_ring_kernel observed), scalar and at width 8
+    "obs_ring_3": ("ring", 3, 4096, None, {}),
+    "obs_ring_3_b8": ("ring", 3, 4096, None, dict(batch_width=8)),
+    # the built-in steal-only instances with the fault layer: the forest
+    # with device 0 dead and credit faults, checkpoint-built (its stat
+    # vector carries the quiesce sum after the heartbeats)
+    "obs_fault_steal_8": ("fault_forest", 8, 4096, None, {}),
+    "obs_fault_steal_8_b8": ("fault_forest", 8, 4096, None,
+                             dict(batch_width=8)),
+    # the user libraries: PGAS with a parked wait (variant 1, fixture
+    # (b)), the migrating homed fib (variant 2), injection (fixture (c))
+    # and tenancy, and the migrating instance with the fault layer
+    # (stress.FAULT_CREDITS)
+    "obs_waits_2": ("waits", 2, 128, 2, {}),
+    "obs_homed_2": ("homed", 2, 1024, 3, {}),
+    "obs_inject_4": ("inject", 4, 256, True, {}),
+    "obs_inject_q2_4": ("inject", 4, 256, 2, {}),
+    "obs_tenants_4": ("tenants", 4, 256, 1, {}),
+    "obs_fault_credits_2": ("fault_credits", 2, 256, None, {}),
+    # the same variants at 8 CTAs (four parked waits at the cut), and the
+    # fault variant checkpoint-built and quiesced (its quiesce sum after
+    # the routed heartbeats)
+    "obs_waits_8": ("waits", 8, 128, 2, {}),
+    "obs_inject_8": ("inject", 8, 256, 2, {}),
+    "obs_tenants_8": ("tenants", 8, 256, 1, {}),
+    "obs_fault_credits_8": ("fault_credits", 8, 256, None, {}),
+    "obs_fault_credits_ckpt_8": ("fault_credits", 8, 256, 2,
+                                 dict(checkpoint=True)),
+}
+
+
+def _ring_result(iv, info) -> dict:
+    """What a ring run is compared on (the observed ring's fields)."""
+    return _obs_fields({"iv": np.asarray(iv),
+                        "counts": np.asarray(info["per_device_counts"]),
+                        "rounds": info["rounds"], "tiers": info.get("tiers"),
+                        "rows": info["exchange"]["rows"],
+                        "stat_words": info["exchange"]["stat_words"],
+                        "executed": info["executed"],
+                        "pending": info["pending"],
+                        "kernel_ms": info["exchange"]["kernel_ms"]}, info)
+
+
+def _obs_fields(out: dict, info, pre: str = "") -> dict:
+    """An observed run's own outputs, flattened for ``compare``: the
+    quiesce, the exported state, the ictl echo and each device's decoded
+    records."""
+    out[pre + "quiesced"] = info.get("quiesced")
+    for k, v in (info.get("state") or {}).items():
+        if k == "data":
+            for n, a in v.items():
+                out[f"{pre}state/data/{n}"] = np.asarray(a)
+        else:
+            out[f"{pre}state/{k}"] = np.asarray(v)
+    if "inject_ctl" in info:
+        out[pre + "inject_ctl"] = np.asarray(info["inject_ctl"])
+    for d, ring in enumerate((info.get("trace") or {}).get("rings", ())):
+        out[f"{pre}trace/{d}/written"] = ring["written"]
+        out[f"{pre}trace/{d}/records"] = np.asarray(ring["records"])
+    return out
+
+
+def _obs_mesh(load, ndev, cap, kw, device):
+    """The mesh (and its first run's arguments) of an observed case."""
+    from hclib_tpu_torch.device.megakernel import Megakernel
+    from hclib_tpu_torch.device.tenants import MeshTenantTable
+    from hclib_tpu_torch.runtime.resilience import DeviceFaultPlan
+
+    mesh = CtaMesh((ndev,), ("q",), device=device)
+    bw = kw.get("batch_width", 0)
+    if load == "uts":
+        rk = stress.ckpt_uts_resident(ndev, trace=cap, batch_width=bw or None,
+                                      device=device)
+        return rk, dict(builders=stress.ckpt_uts_builders(ndev), quantum=8,
+                        max_rounds=4096)
+    if load in ("forest", "ring", "fault_forest"):
+        mk = stress.forest_megakernel(ROOTS, CAP, bw, device, trace=cap,
+                                      checkpoint=load == "fault_forest")
+        plan = (DeviceFaultPlan(**FOREST_DEAD) if load == "fault_forest"
+                else None)
+        return (ICIStealMegakernel(mk, mesh, migratable_fns=[FIB], window=8,
+                                   fault_plan=plan),
+                dict(builders=builders(ndev, False), quantum=64))
+    if load == "waits":
+        rk = stress.ckpt_waits_resident(trace=cap, device=device, ndev=ndev)
+        bs, waits, heap = stress.ckpt_waits_load(ndev=ndev)
+        return rk, dict(builders=bs, waits=waits, data={"heap": heap},
+                        quantum=2, max_rounds=4096)
+    if load == "homed":
+        mk = homed_megakernel(96, 0, device, trace=cap, checkpoint=True)
+        rk = ResidentKernel(mk, mesh, migratable_fns={FIB: (), FIB + 1: (0, 1)},
+                            window=16, am_window=8)
+        bs = [TaskGraphBuilder() for _ in range(ndev)]
+        bs[0].add(FIB, args=[8], out=0)
+        return rk, dict(builders=bs, quantum=4)
+    if load == "inject":
+        rk = ResidentKernel(stress.ckpt_bump_megakernel(trace=cap,
+                                                        device=device),
+                            mesh, migratable_fns=[0], window=4, homed=False,
+                            inject=True)
+        bs, rows, _, _ = stress.ckpt_inject_load(ndev)
+        return rk, dict(builders=bs, inject_rows=rows, quantum=4,
+                        max_rounds=4096)
+    if load == "tenants":
+        rk = ResidentKernel(stress.ckpt_bump_megakernel(128, 4, cap, device),
+                            mesh, migratable_fns=[0], homed=False, window=4,
+                            inject=True, tenants=["gold", "std", "bg"],
+                            ring_capacity=96)
+        table = MeshTenantTable(rk.tenant_specs, ndev, rk.region_rows)
+        for i, (tid, n) in enumerate((("gold", 10), ("std", 6), ("bg", 4))):
+            for _ in range(n):
+                table.submit(tid, 0, args=[i + 1])
+        bs = [TaskGraphBuilder() for _ in range(ndev)]
+        for b in bs:
+            b.add(0, args=[0])
+        return rk, dict(builders=bs, tenant_table=table, quantum=1,
+                        max_rounds=4096)
+    cfg = stress.FAULT_CREDITS
+    mk = Megakernel([("bump", stress._bump0, stress.BUMP0_CUDA)],
+                    capacity=cfg["capacity"], num_values=1024, succ_capacity=8,
+                    trace=cap, checkpoint=kw.get("checkpoint", False),
+                    device=device)
+    rk = ResidentKernel(mk, mesh, migratable_fns=[0], window=4,
+                        fault_plan=DeviceFaultPlan(**cfg["plan"]))
+    return rk, dict(builders=stress.skewed_builders(ndev, cfg["ntasks"]),
+                    quantum=2, max_rounds=4096)
+
+
+def run_obs_case(name: str, device: str) -> dict:
+    """Observed case ``name`` on ``device``: its run (quiesced where the
+    case says, then resumed from the exported state); returns what it is
+    compared on."""
+    from hclib_tpu_torch.device.tenants import MeshTenantTable
+
+    load, ndev, cap, quiesce, kw = OBS_CASES[name]
+    rk, args = _obs_mesh(load, ndev, cap, kw, device)
+    if load == "ring":
+        iv, data, info = rk._run_ring(**args)
+        info["rounds"] = info.pop("steal_rounds")
+        stress.check_forest(iv, info, ROOTS, N)
+        return _ring_result(iv, info)
+    if quiesce is not None:
+        args["quiesce"] = quiesce
+    iv, data, info = rk.run(**args)
+    if isinstance(rk, ICIStealMegakernel):
+        info["rounds"] = info.pop("steal_rounds")
+    out = _obs_fields(_resident_result(iv, data, info), info)
+    if quiesce is None:
+        return out
+    if not info["quiesced"]:
+        raise AssertionError(f"{name}: the mesh did not quiesce")
+    rkw = {k: args[k] for k in ("quantum", "max_rounds") if k in args}
+    if load == "tenants":
+        rkw["tenant_table"] = MeshTenantTable(rk.tenant_specs, ndev,
+                                              rk.region_rows)
+    iv, data, info = rk.run(resume_state=info["state"], **rkw)
+    if info["pending"] != 0:
+        raise AssertionError(f"{name}: the resume left {info['pending']}")
+    res = _obs_fields(_resident_result(iv, data, info), info)
+    out.update({"resume/" + k: v for k, v in res.items()})
+    return out
+
+
 def compare(got: dict, want: dict, what: str = "") -> float:
     """Raise unless every output but the times agrees word for word;
     returns the largest absolute difference of the value slots (0)."""
     for k in want:
-        if k in TIMES:
+        if k.rpartition("/")[2] in TIMES:
             continue
         a, b = got[k], want[k]
-        if isinstance(b, dict) and k == "data":
+        if isinstance(b, dict) and k.rpartition("/")[2] == "data":
             same = all(np.array_equal(a[n], b[n]) for n in b)
         else:
             same = (np.array_equal(a, b) if isinstance(b, np.ndarray)
@@ -650,7 +829,8 @@ def user_sources():
     table's (tenants) and those of JAX's three compositions that inject
     (migrating); and those with the fault layer: the bump table's
     steal-only and migrating, the PGAS exchange's with steal, and a table
-    of built-in bodies alone migrating (UTS_FAULT's)."""
+    of built-in bodies alone migrating (UTS_FAULT's); and the observed
+    ones (``OBS_CASES`` and phase 31)."""
     from hclib_tpu_torch.device.megakernel import Megakernel
     from hclib_tpu_torch.device.workloads import make_fib_megakernel
 
@@ -685,7 +865,22 @@ def user_sources():
             stress.pgas_megakernel(device="cpu").user_source(True,
                                                              fault=True),
             make_fib_megakernel(16, device="cpu").user_source(True, True,
-                                                              fault=True)]
+                                                              fault=True),
+            # the observed instances (HCLIB_USER_OBS): the parked-wait
+            # table (PGAS), a table of built-in bodies alone migrating
+            # (the homed fib, phase 31's UTS) and injecting (phase 31's
+            # forest), the bump table injecting (injection and tenancy)
+            # and migrating with the fault layer
+            stress.ckpt_waits_resident(device="cpu").mk.user_source(
+                True, obs=True),
+            make_fib_megakernel(16, device="cpu").user_source(
+                True, True, obs=True),
+            make_fib_megakernel(16, device="cpu").user_source(
+                False, inject=True, obs=True),
+            stress.bump_megakernel("cpu").user_source(False, inject=True,
+                                                      obs=True),
+            stress.bump_megakernel("cpu").user_source(True, True, fault=True,
+                                                      obs=True)]
 
 
 USER_CASES = ("chain_free", "mixed", "ufib")
@@ -740,3 +935,257 @@ def user_forest(ndev: int, roots: int, n: int, device: str):
         raise AssertionError(f"user forest: executed {info['executed']}, "
                              f"sum {got}")
     return iv, info
+
+
+# chip_smoke.py's phase 31 (``mesh_ckpt``): quiesce, resume and the flight
+# recorder at full width. UTS depth 20 (498,965 nodes from one root) on
+# 128 CTAs under homed migration (stress.uts_ckpt): without the quiesce
+# word (the unobserved instance), checkpoint-built, traced; quiesced at
+# half its rounds, bundled, saved, loaded and restored on 128 CTAs, then
+# resharded onto 64; the traced run quiesced at the same round on the
+# card and on the plain version (word for word); the injected forest
+# (stress.INJECT_128) cut at round 0 (every ring row residue) and at half
+# its rounds; and the forest traced on the ring at 6 CTAs.
+PHASE31_TRACE = 8192  # records a device: UTS depth 20 on 128 CTAs writes ~2,200
+
+
+def _state_bytes(state) -> int:
+    """Bytes of an exported state (every array, data included)."""
+    n = sum(np.asarray(v).nbytes for k, v in state.items() if k != "data")
+    return n + sum(np.asarray(v).nbytes for v in state["data"].values())
+
+
+def _uts_nodes(iv) -> int:
+    return int(np.asarray(iv)[:, 0].sum(dtype=np.int64))
+
+
+def _hold(iv, info) -> dict:
+    """A resident run's outputs, for ``compare``."""
+    return _obs_fields(_resident_result(iv, {}, info), info)
+
+
+def _cut_hold(iv, info) -> dict:
+    """stress.inject_forest's quiesced run (``info['quiesce_run']``, its
+    ivalues from the exported state) and its resume, for ``compare``."""
+    qi = info["quiesce_run"]
+    out = _hold(iv, info)
+    out.update({"quiesce/" + k: v
+                for k, v in _hold(qi["state"]["ivalues"], qi).items()})
+    return out
+
+
+def ckpt_uts_arm(device: str, quiesce=None, trace=None, ndev: int = 128,
+                 depth: int = 20):
+    """One run of phase 31's tree (a fresh mesh); returns (the mesh,
+    ivalues, info)."""
+    rk, bs = stress.uts_ckpt(ndev, depth, trace=trace, device=device)
+    iv, _, info = rk.run(bs, quantum=64, quiesce=quiesce)
+    return rk, iv, info
+
+
+def ckpt_phase(device: str, tmp: str, ndev: int = 128, depth: int = 20,
+               inject=None, ring=(6, 160, 12)) -> dict:
+    """Phase 31's arms on ``device`` (each warmed up; the card's times by
+    CUDA events), exact or raising: the tree at ``depth`` on ``ndev``
+    devices, the injected forest ``inject`` (stress.inject_forest's
+    arguments; INJECT_128 by default) and the ring's forest ``ring`` (its
+    devices, roots and n). Returns {arm: measurements} under ``arms``;
+    under ``holds`` every run ``ckpt_plain_holds`` holds to its plain
+    version (the tree's quiesce, traced and not, its restore on ``ndev``
+    and its reshard onto half, both of the forest's cuts with their
+    resumes, the traced ring), and under ``bundle`` the bundle the
+    restores read."""
+    import os
+    import time
+
+    from hclib_tpu_torch.runtime import checkpoint as ck
+
+    inject = stress.INJECT_128 if inject is None else inject
+    arms: dict = {}
+    holds: dict = {}
+
+    def run_twice(fn):
+        fn()
+        return fn()
+
+    def uts_exact(name, iv, info, executed=None):
+        if _uts_nodes(iv) != N or info["executed"] != (executed or N) or (
+                info["pending"] != 0):
+            raise AssertionError(f"{name}: {_uts_nodes(iv)} nodes, executed "
+                                 f"{info['executed']}, {info['pending']} "
+                                 "pending")
+
+    # (i) the tree without the quiesce word, then checkpoint-built.
+    rk0, bs0 = stress.uts_ckpt(ndev, depth, checkpoint=False, device=device)
+    iv, _, info = run_twice(lambda: rk0.run(bs0, quantum=64))
+    N = _uts_nodes(iv)
+    uts_exact("uts_noobs", iv, info)
+    arms["uts_noobs"] = {"kernel_ms": info["exchange"]["kernel_ms"],
+                         "rounds": info["rounds"], "tasks": info["executed"]}
+    _, iv, info = run_twice(lambda: ckpt_uts_arm(device, ndev=ndev,
+                                                 depth=depth))
+    uts_exact("uts", iv, info)
+    full = info
+    R = info["rounds"]
+    arms["uts"] = {"kernel_ms": info["exchange"]["kernel_ms"], "rounds": R,
+                   "tasks": info["executed"],
+                   "quiesced": info["quiesced"]}
+    # Quiesced at half the rounds; bundled, saved, loaded, restored.
+    q = R // 2
+    rk, iv, info_q = run_twice(lambda: ckpt_uts_arm(device, quiesce=q,
+                                                    ndev=ndev, depth=depth))
+    holds["uts_quiesce"] = _hold(iv, info_q)
+    if not info_q["quiesced"] or info_q["pending"] == 0:
+        raise AssertionError(f"uts quiesced at {q}: {info_q['pending']}")
+    arm = {"quiesce_round": q, "kernel_ms": info_q["exchange"]["kernel_ms"],
+           "rounds": info_q["rounds"], "executed": info_q["executed"],
+           "pending": info_q["pending"],
+           "state_bytes": _state_bytes(info_q["state"])}
+    t = time.perf_counter()
+    bundle = ck.snapshot_resident(rk, info_q)
+    arm["snapshot_s"] = time.perf_counter() - t
+    path = os.path.join(tmp, "uts128")
+    t = time.perf_counter()
+    bundle.save(path)
+    arm["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = ck.CheckpointBundle.load(path)
+    arm["load_s"] = time.perf_counter() - t
+    rk128, _ = stress.uts_ckpt(ndev, depth, device=device)
+    t = time.perf_counter()
+    iv, _, info = ck.restore_resident(loaded, rk128, quantum=64)
+    arm["restore_s"] = time.perf_counter() - t
+    uts_exact(f"uts restored on {ndev}", iv, info, full["executed"])
+    holds["uts_restore"] = _hold(iv, info)
+    arm["resume_kernel_ms"] = info["exchange"]["kernel_ms"]
+    arm["resume_rounds"] = info["rounds"]
+    arms["uts_quiesce"] = arm
+    # Resharded onto half the CTAs.
+    t = time.perf_counter()
+    half = loaded.reshard(ndev // 2)
+    reshard_s = time.perf_counter() - t
+    rk64, _ = stress.uts_ckpt(ndev // 2, depth, device=device)
+    iv, _, info = ck.restore_resident(half, rk64, quantum=64)
+    uts_exact(f"uts resharded onto {ndev // 2}", iv, info, full["executed"])
+    holds["uts_reshard"] = _hold(iv, info)
+    arms["uts_reshard"] = {"ndev": ndev // 2, "reshard_s": reshard_s,
+                           "kernel_ms": info["exchange"]["kernel_ms"],
+                           "rounds": info["rounds"]}
+    # (ii) traced, at a capacity that does not wrap.
+    _, iv, info = run_twice(lambda: ckpt_uts_arm(
+        device, trace=PHASE31_TRACE, ndev=ndev, depth=depth))
+    uts_exact("uts traced", iv, info)
+    rings = info["trace"]["rings"]
+    recs = [np.asarray(r["records"]) for r in rings]
+    n_tag = [{tag: int((r[:, 0] == tag).sum()) if r.size else 0
+              for tag in (1, 2, 3, 9)} for r in recs]
+    if any(r["dropped"] for r in rings) or any(
+            n[1] != info["rounds"] or n[2] != info["rounds"] for n in n_tag):
+        raise AssertionError("uts traced: a ring wrapped, or its round "
+                             "records differ from the rounds")
+    fires = sum(n[3] for n in n_tag)
+    xfer = [int(r[r[:, 0] == 9, 3].sum()) if r.size else 0 for r in recs]
+    if fires != info["executed"] or xfer != info["exchange"]["rows"]:
+        raise AssertionError(f"uts traced: {fires} fire records, xfer rows "
+                             f"{sum(xfer)} vs {sum(info['exchange']['rows'])}")
+    arms["uts_traced"] = {
+        "kernel_ms": info["exchange"]["kernel_ms"], "rounds": info["rounds"],
+        "tasks": info["executed"], "records": int(sum(len(r) for r in recs)),
+        "max_records": int(max(len(r) for r in recs)),
+        "rows_exported": sum(info["exchange"]["rows"]),
+        "recorder_us_a_round": 1e3 * (info["exchange"]["kernel_ms"]
+                                      - arms["uts"]["kernel_ms"]) / R}
+    # The traced run quiesced at the same round: what the plain version
+    # is held to, word for word.
+    _, iv, info = ckpt_uts_arm(device, quiesce=q, trace=PHASE31_TRACE,
+                               ndev=ndev, depth=depth)
+    holds["uts_traced_quiesce"] = _hold(iv, info)
+    arms["uts_traced_quiesce"] = {"kernel_ms": info["exchange"]["kernel_ms"],
+                                  "executed": info["executed"],
+                                  "pending": info["pending"]}
+    # (iii) the injected forest cut at round 0 and at half its rounds.
+    for name, qq in (("inject_q0", True), ("inject_half", None)):
+        if qq is None:
+            qq = arms["inject_q0"]["resume_rounds"] // 2
+        iv, info = run_twice(lambda: stress.inject_forest(
+            **inject, device=device, quiesce=qq))
+        qi = info["quiesce_run"]
+        holds[name] = _cut_hold(iv, info)
+        arms[name] = {
+            "quiesce_round": 0 if qq is True else qq,
+            "kernel_ms": qi["exchange"]["kernel_ms"],
+            "executed_at_cut": qi["executed"], "pending": qi["pending"],
+            "residue": int(qi["state"]["ictl"][:, 0].sum()),
+            "consumed": int(qi["inject_ctl"][:, 2].sum()),
+            "published": int(qi["inject_ctl"][:, 0].sum()),
+            "resume_kernel_ms": info["exchange"]["kernel_ms"],
+            "resume_rounds": info["rounds"], "tasks": info["executed"],
+            "state_bytes": _state_bytes(qi["state"])}
+    # The ring observed: FOREST_STEAL_BENCH's forest traced on 6 CTAs.
+    rn, roots, n = ring
+    mk = stress.forest_megakernel(roots, 4096, 0, device,
+                                  trace=PHASE31_TRACE)
+    ring_k = ICIStealMegakernel(mk, CtaMesh((rn,), ("q",), device=device),
+                                migratable_fns=[FIB], window=8)
+    bs = stress.forest_builders(rn, roots, n)
+    iv, _, info = run_twice(lambda: ring_k.run(bs, quantum=64))
+    info["rounds"] = info.pop("steal_rounds")
+    stress.check_forest(iv, info, roots, n)
+    arms["ring_6_traced"] = {
+        "kernel_ms": info["exchange"]["kernel_ms"], "rounds": info["rounds"],
+        "tasks": info["executed"],
+        "records": int(sum(r["written"] for r in info["trace"]["rings"])),
+        "records_kept": int(sum(len(r["records"])
+                                for r in info["trace"]["rings"])),
+        "rows_exported": sum(info["exchange"]["rows"])}
+    holds["ring_6_traced"] = _ring_result(iv, info)
+    return {"arms": arms, "holds": holds, "bundle": loaded}
+
+
+def ckpt_plain_holds(ck: dict, ndev: int = 128, depth: int = 20,
+                     inject=None, ring=(6, 160, 12)) -> dict:
+    """The plain runs of ``ckpt_phase``'s result ``ck`` (same arguments):
+    the traced tree quiesced at its round (the untraced cut is held to
+    the same run, less its records), restored on ``ndev`` and resharded
+    onto half from the card's bundle, the injected forest cut where the
+    card cut it and resumed, and the traced forest on the ring. Returns
+    them under ``holds`` and their wall times under ``plain_ms``."""
+    import time
+
+    from hclib_tpu_torch.runtime import checkpoint as ck_mod
+
+    inject = stress.INJECT_128 if inject is None else inject
+    arms = ck["arms"]
+    holds, ms = {}, {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        holds[name] = fn()
+        ms[name] = (time.perf_counter() - t) * 1e3
+
+    q = arms["uts_quiesce"]["quiesce_round"]
+    timed("uts_traced_quiesce", lambda: _hold(*ckpt_uts_arm(
+        "cpu", quiesce=q, trace=PHASE31_TRACE, ndev=ndev, depth=depth)[1:]))
+    holds["uts_quiesce"] = {k: v for k, v in
+                            holds["uts_traced_quiesce"].items()
+                            if not k.startswith("trace/")}
+    for name, n in (("uts_restore", ndev), ("uts_reshard", ndev // 2)):
+        rk, _ = stress.uts_ckpt(n, depth, device="cpu")
+        timed(name, lambda rk=rk: _hold(*ck_mod.restore_resident(
+            ck["bundle"], rk, quantum=64)[::2]))
+    for name in ("inject_q0", "inject_half"):
+        qq = arms[name]["quiesce_round"] or True
+        timed(name, lambda qq=qq: _cut_hold(*stress.inject_forest(
+            **inject, device="cpu", quiesce=qq)))
+    rn, roots, n = ring
+    mk = stress.forest_megakernel(roots, 4096, 0, "cpu", trace=PHASE31_TRACE)
+    ring_k = ICIStealMegakernel(mk, CtaMesh((rn,), ("q",), device="cpu"),
+                                migratable_fns=[FIB], window=8)
+
+    def ring_run():
+        iv, _, info = ring_k.run(stress.forest_builders(rn, roots, n),
+                                 quantum=64)
+        info["rounds"] = info.pop("steal_rounds")
+        return _ring_result(iv, info)
+    timed("ring_6_traced", ring_run)
+    return {"holds": holds, "plain_ms": ms}

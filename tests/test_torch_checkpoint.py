@@ -447,20 +447,25 @@ def _nockpt_stream():
     return StreamingMegakernel(tw.make_fib_megakernel(device="cpu"))
 
 
-# The stream paths (snapshot_stream, restore_stream, checkpoint_on_preempt)
-# are ported: their cases hold the refusals they now make (a run with no
-# quiesced state, a bundle of another kind, a stream that cannot quiesce);
-# the ids are the ones these cases had when the paths were left out.
+# The stream and resident-mesh paths (snapshot_stream, restore_stream,
+# checkpoint_on_preempt, reshard, snapshot_resident, restore_resident) are
+# ported: their cases hold the refusals they now make (a run with no
+# quiesced state, a bundle of another kind, a stream that cannot
+# quiesce), with JAX's messages; the ids are the ones these cases had
+# when the paths were left out.
 @pytest.mark.parametrize("call,exc,item", [
-    (lambda b: b.reshard(2), NotImplementedError, "A11"),
+    (lambda b: b.reshard(2), tc.CheckpointError,
+     "reshard applies to resident-mesh bundles, not megakernel"),
     (lambda b: tc.snapshot_stream(None, {}), tc.CheckpointError,
      "no quiesced state"),
     (lambda b: tc.restore_stream(b, None), tc.CheckpointError,
      "restore_stream got a 'megakernel' bundle"),
     (lambda b: tc.checkpoint_on_preempt(_nockpt_stream()), ValueError,
      "checkpoint=True"),
-    (lambda b: tc.snapshot_resident(None, {}), NotImplementedError, "A11"),
-    (lambda b: tc.restore_resident(b, None), NotImplementedError, "A11"),
+    (lambda b: tc.snapshot_resident(None, {}), tc.CheckpointError,
+     "no quiesced state"),
+    (lambda b: tc.restore_resident(b, None), tc.CheckpointError,
+     "restore_resident got a 'megakernel' bundle"),
     (lambda b: b.save("/nonexistent/never", metrics=object()),
      NotImplementedError, "A13"),
     (lambda b: tc.BundleStore("/nonexistent/never", metrics=object()),

@@ -1034,3 +1034,43 @@ def test_fault_libraries_hold_only_fault_instances(card):
     host.ndev = 2
     assert fn(ctypes.byref(host), 2, 2, 1, 0, None) != 0  # no plan
     assert fn(ctypes.byref(host), 1, 2, 1, 0, None) != 0  # ring: no mode 2
+
+
+OBS_CASES = ("obs_uts_2", "obs_uts_8", "obs_uts_wrap_2", "obs_uts_b4_4",
+             "obs_forest_8", "obs_ring_3", "obs_ring_3_b8",
+             "obs_fault_steal_8", "obs_fault_steal_8_b8", "obs_waits_2",
+             "obs_homed_2", "obs_inject_4", "obs_inject_q2_4",
+             "obs_tenants_4", "obs_fault_credits_2", "obs_waits_8",
+             "obs_inject_8", "obs_tenants_8", "obs_fault_credits_8",
+             "obs_fault_credits_ckpt_8")
+
+
+@pytest.mark.parametrize("name", OBS_CASES)
+def test_observed_mesh_equals_plain(card, name):
+    """The observed instances (kObs: resident_kernel's flight recorder
+    and quiesce word in megakernel.cu's steal-only instances, with and
+    without lanes and the fault layer, and in the user libraries' PGAS,
+    migrating, injecting, tenant and fault variants; ici_ring_kernel's
+    recorder) against their plain versions word for word: the state each
+    quiesce exports, the wait table, the ring residue and ictl, every
+    device's decoded records, and the resumed run."""
+    h = _mesh_holds()
+    assert set(OBS_CASES) == set(h.OBS_CASES)
+    h.compare(h.run_obs_case(name, "cuda"), h.run_obs_case(name, "cpu"),
+              name)
+
+
+def test_traced_user_table_refuses_its_one_device_launch(card):
+    """A traced or checkpoint-built user table records and quiesces on
+    the card under the resident kernel and the ring; its one-device
+    scheduler (mk_user_kernel) has no recorder and refuses (A4)."""
+    from hclib_tpu_torch.device import stress
+
+    for kw in (dict(trace=64), dict(checkpoint=True)):
+        mk = tmk.Megakernel([("bump", stress._bump0, stress.BUMP0_CUDA)],
+                            capacity=64, num_values=8, succ_capacity=8,
+                            device="cuda", **kw)
+        b = TaskGraphBuilder()
+        b.add(0, args=[1])
+        with pytest.raises(NotImplementedError, match="A4"):
+            mk.run(b)

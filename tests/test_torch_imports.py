@@ -181,6 +181,18 @@ ENTRY_POINTS = {
             ndev=2, roots=2, n=3, capacity=64),
     "fault_run": lambda: __import__(
         "hclib_tpu_torch.device.stress", fromlist=["x"]).fault_run("dead"),
+    "uts_ckpt": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).uts_ckpt(
+            ndev=2, max_depth=4),
+    "ckpt_uts_resident": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).ckpt_uts_resident(2),
+    "ckpt_waits_resident": lambda: __import__(
+        "hclib_tpu_torch.device.stress",
+        fromlist=["x"]).ckpt_waits_resident(),
+    "inject_forest_quiesced": lambda: __import__(
+        "hclib_tpu_torch.device.stress", fromlist=["x"]).inject_forest(
+            ndev=2, roots=2, n=3, per_dev=2, n_inj=2, capacity=64,
+            quiesce=True),
 }
 
 

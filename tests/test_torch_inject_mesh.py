@@ -366,8 +366,9 @@ def test_resident_tenancy_refusals():
     """The construction and run() checks of JAX's tenancy tests: tenants=
     needs inject=True; a tenant mesh admits rows only through its table,
     of its exact shape; a tenancy-off mesh refuses a table; inject_rows
-    needs inject=True. What this slice leaves out raises naming
-    ROADMAP A11b."""
+    needs inject=True. Quiesce needs a checkpoint build (JAX's message);
+    a checkpoint-built tenant or tenancy-off mesh quiesces and resumes,
+    and resume_state= takes no builders, as in JAX."""
     with pytest.raises(ValueError, match="inject=True"):
         ResidentKernel(_tbump_mk(), cpu_mesh(2), tenants=2)
     rk = ResidentKernel(_tbump_mk(), cpu_mesh(2), inject=True,
@@ -388,10 +389,33 @@ def test_resident_tenancy_refusals():
             bs, inject_rows=[[(BUMP, (1,))]])
     with pytest.raises(ValueError, match="overflow"):
         rk_off.run(bs, inject_rows=[[(BUMP, (1,))] * 300])
-    for kw in (dict(quiesce=True), dict(resume_state={"tasks": None})):
+    for kw, match in ((dict(quiesce=True), "checkpoint=True"),
+                      (dict(resume_state={"tasks": None}), "exactly one")):
         for r in (rk, rk_off):
-            with pytest.raises(NotImplementedError, match="A11b"):
+            with pytest.raises(ValueError, match=match):
                 r.run(bs, **kw)
+    # Checkpoint-built: a cut at round 0 holds every published row as
+    # residue (the tenant mesh's, tagged, in the table's export), and the
+    # resume installs and runs them.
+    mk = Megakernel([("bump", _bump)], capacity=128, num_values=4,
+                    succ_capacity=8, checkpoint=True, device="cpu")
+    rk_t = ResidentKernel(mk, cpu_mesh(2), inject=True, tenants=["x", "y"],
+                          ring_capacity=32)
+    rk_o = ResidentKernel(mk, cpu_mesh(2), inject=True, ring_capacity=32)
+    table = tten.MeshTenantTable(rk_t.tenant_specs, 2, rk_t.region_rows)
+    for i in range(6):
+        table.submit(("x", "y")[i % 2], BUMP, args=[i + 1])
+    for r, kw in ((rk_t, dict(tenant_table=table)),
+                  (rk_o, dict(inject_rows=[[(BUMP, (1,))] * 3,
+                                           [(BUMP, (2,))] * 3]))):
+        _, _, q = r.run([TBuilder() for _ in range(2)], quiesce=True, **kw)
+        assert q["quiesced"] and q["executed"] == 0
+        assert int(q["state"]["ictl"][:, 0].sum()) == 6
+        rkw = ({"tenant_table": tten.MeshTenantTable(
+            rk_t.tenant_specs, 2, rk_t.region_rows)} if r is rk_t else {})
+        iv, _, info = r.run(resume_state=q["state"], **rkw)
+        assert info["pending"] == 0 and info["executed"] == 6
+        assert int(iv[:, 0].sum()) in (21, 9)
 
 
 def test_mesh_tenants_env_enables_the_resident_lanes(monkeypatch):

@@ -348,33 +348,51 @@ def test_resident_refuses_what_is_not_ported(name):
 
 
 REFUSED_RUN = {
-    # waits=, a body's remote atomics, inject_rows= and tenant_table= run
-    # (tests/test_torch_pgas.py, test_torch_homed.py,
-    # test_torch_inject_mesh.py); quiescing or resuming them still
-    # refuses (ROADMAP A11b): each key keeps naming its feature, now
-    # beside the quiesce or resume that refuses.
+    # Each key keeps the name of a run that refused until the mesh's
+    # quiesce and resume were ported (ROADMAP A11b.6): a PGAS body's
+    # atomics, inject_rows=, a plain forest, resume_state= and
+    # tenant_table=. Each now quiesces, exports its state and resumes it.
     "pgas_quiesce": None,
-    "inject_rows": dict(inject_rows=[[(FIB, [3], 0)], []], quiesce=True),
+    "inject_rows": dict(inject_rows=[[(FIB, [3], 1)], []], quiesce=True),
     "quiesce": dict(quiesce=True),
-    "resume_state": dict(resume_state={"tasks": None}),
-    "tenant_table": dict(tenant_table=True, resume_state={"tasks": None}),
+    "resume_state": dict(quiesce=1),
+    "tenant_table": dict(tenant_table=True, quiesce=1),
 }
+
+
+def _ckpt_fib_mk():
+    return tw.make_fib_megakernel(capacity=256, num_values=tw.VBLOCK * 256
+                                  + 64, checkpoint=True, device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_RUN))
 def test_resident_run_refuses_what_is_not_ported(name):
+    """The runs these cases refused before the quiesce was ported: each
+    now quiesces (a checkpoint build; without one quiesce= refuses with
+    JAX's message), exports its state and resumes it to the exact totals
+    of the uninterrupted run."""
     if REFUSED_RUN[name] is None:
-        mk = tmk.Megakernel([("fadd", lambda ctx: ctx.pgas.fadd(1, 2, 3))],
-                            data_specs={"x": ((2, 4), torch.int32)},
-                            capacity=16, num_values=8, succ_capacity=8,
-                            device="cpu")
-        rk = ResidentKernel(mk, cpu_mesh(2), steal=False,
-                            channels={"c": ("x", 1)})
-        bs = [TBuilder() for _ in range(2)]
-        bs[0].add(0)
-        with pytest.raises(NotImplementedError, match="A11b"):
-            rk.run(bs, data={"x": np.zeros((2, 2, 4), np.int32)},
-                   quiesce=True)
+        def fadd(ctx):
+            ctx.pgas.fadd(1, 2, 3)
+
+        data = {"x": np.zeros((2, 2, 4), np.int32)}
+        for ckpt in (False, True):
+            mk = tmk.Megakernel([("fadd", fadd)],
+                                data_specs={"x": ((2, 4), torch.int32)},
+                                capacity=16, num_values=8, succ_capacity=8,
+                                checkpoint=ckpt, device="cpu")
+            rk = ResidentKernel(mk, cpu_mesh(2), steal=False,
+                                channels={"c": ("x", 1)})
+            bs = [TBuilder() for _ in range(2)]
+            bs[0].add(0)
+            if not ckpt:
+                with pytest.raises(ValueError, match="checkpoint=True"):
+                    rk.run(bs, data=data, quiesce=True)
+                continue
+            _, _, q = rk.run(bs, data=data, quiesce=True)
+            assert q["quiesced"] and q["pending"] == 1
+            iv, _, info = rk.run(resume_state=q["state"])
+            assert info["pending"] == 0 and int(iv[1, 2]) == 3
         return
     kw = dict(REFUSED_RUN[name])
     tenants = None
@@ -382,25 +400,45 @@ def test_resident_run_refuses_what_is_not_ported(name):
         from hclib_tpu_torch.device.tenants import MeshTenantTable, TenantSpec
 
         tenants = [TenantSpec("a"), TenantSpec("b")]
-    rk = ResidentKernel(_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
+    rk = ResidentKernel(_ckpt_fib_mk(), cpu_mesh(2), migratable_fns=[FIB],
                         homed=False, inject=True, tenants=tenants)
+    table = (lambda: MeshTenantTable(tenants, 2, rk.region_rows)) \
+        if tenants else None
     if tenants:
-        kw["tenant_table"] = MeshTenantTable(tenants, 2, rk.region_rows)
-    with pytest.raises(NotImplementedError, match="A11"):
-        rk.run(forest(TBuilder, 2, [3]), **kw)
-    # Without the quiesce or the resume the same run completes.
-    kw = {k: v for k, v in kw.items() if k not in ("quiesce", "resume_state")}
-    iv, _, info = rk.run(forest(TBuilder, 2, [3]), **kw)
-    assert info["pending"] == 0
+        kw["tenant_table"] = table()
+    bs = forest(TBuilder, 2, [7])
+    for b in bs:
+        b.reserve_values(2)  # slot 1: the injected root's
+    _, _, q = rk.run(bs, quantum=4, **kw)
+    assert q["quiesced"] and q["pending"] > 0
+    if "inject_rows" in kw:
+        # Cut at round 0: the ring row is residue, with its cursor.
+        assert q["state"]["ictl"][:, 0].tolist() == [1, 0]
+        assert q["inject_ctl"][:, :3].tolist() == [[1, 1, 0], [0, 1, 0]]
+    rkw = {"tenant_table": table()} if tenants else {}
+    iv, _, info = rk.run(resume_state=q["state"], quantum=4, **rkw)
+    sizes = [7, 3] if "inject_rows" in kw else [7]
+    assert info["pending"] == 0 and info["executed"] == expected(sizes)[0]
+    assert int(iv[:, :len(sizes)].sum()) == expected(sizes)[1]
 
 
 @pytest.mark.parametrize("option", ["trace", "checkpoint"])
 def test_mesh_refuses_observed_builds(option):
+    """A traced or checkpoint-built table runs on the resident kernel and
+    the ring (the recorder on both; the ring reads no quiesce word, as
+    JAX's never reads mk.checkpoint); the sharded runner still refuses
+    it, as JAX's does."""
     mk = tw.make_fib_megakernel(256, device="cpu", **{option: True})
-    with pytest.raises(NotImplementedError, match="A11"):
-        ResidentKernel(mk, cpu_mesh(2), migratable_fns=[FIB], homed=False)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TIci(mk, cpu_mesh(3), migratable_fns=[FIB])
+    sizes = [6, 5]
+    for rk in (ResidentKernel(mk, cpu_mesh(2), migratable_fns=[FIB],
+                              homed=False),
+               TIci(mk, cpu_mesh(3), migratable_fns=[FIB])):
+        iv, _, info = rk.run(forest(TBuilder, rk.ndev, sizes), quantum=8)
+        assert info["executed"] == expected(sizes)[0]
+        assert int(iv[:, :2].sum()) == expected(sizes)[1]
+        if option == "trace":
+            assert len(info["trace"]["rings"]) == rk.ndev
+        assert info.get("quiesced", False) is False
     with pytest.raises(ValueError, match=option.replace("trace",
                                                         "trace ring")):
         TSharded(mk, cpu_mesh(2))

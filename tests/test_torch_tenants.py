@@ -313,8 +313,9 @@ def test_egress_and_telemetry_env(monkeypatch):
 
 
 def test_left_out_pieces_name_their_items():
-    # The mesh front door runs (tests/test_torch_inject_mesh.py); a tenant
-    # mesh's quiesce still refuses, naming its ROADMAP item.
+    # The mesh front door runs (tests/test_torch_inject_mesh.py), and so
+    # does a tenant mesh's quiesce, on a checkpoint build (without one it
+    # refuses with JAX's message); the rest names its ROADMAP item.
     from hclib_tpu_torch.device.descriptor import TaskGraphBuilder
     from hclib_tpu_torch.device.resident import ResidentKernel
     from hclib_tpu_torch.device.stress import bump_megakernel
@@ -324,9 +325,18 @@ def test_left_out_pieces_name_their_items():
     rk = ResidentKernel(bump_megakernel("cpu"), cpu_mesh(2), inject=True,
                         tenants=2)
     table = tten.MeshTenantTable(rk.tenant_specs, 2, rk.region_rows)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="checkpoint=True"):
         rk.run([TaskGraphBuilder() for _ in range(2)], quiesce=True,
                tenant_table=table)
+    from hclib_tpu_torch.device.stress import ckpt_bump_megakernel
+
+    rk = ResidentKernel(ckpt_bump_megakernel(device="cpu"), cpu_mesh(2),
+                        inject=True, tenants=2)
+    table = tten.MeshTenantTable(rk.tenant_specs, 2, rk.region_rows)
+    assert table.submit("t1", 0, args=[5])
+    _, _, info = rk.run([TaskGraphBuilder() for _ in range(2)],
+                        quiesce=True, tenant_table=table)
+    assert info["quiesced"] and "tctl" in info["state"]
     t = tten.TenantTable([tten.TenantSpec("a")], 8)
     with pytest.raises(NotImplementedError, match="A13"):
         t.protocol_model()
