@@ -302,6 +302,17 @@ header, qstat and the whole output state equal to the plain core's.
              and not, its restore on 128 and its reshard onto 64 (from
              the card's bundle), both of the forest's cuts and their
              resumes, and the traced ring.
+32. pgas_ring - PGASMegakernel on a mesh whose size is not a power of
+             two (pgas_ring_kernel, counter pgas_ring; JAX's row 6): the
+             PGAS exchange on 132 CTAs, every SM of the card
+             (stress.pgas_builders(132, burst=True), am_window 8, outbox
+             256: 17,562 active messages, 2,112 puts), five runs after a
+             warm-up, by CUDA events; the dry run's phase 4 literally at
+             3 and 6 CTAs; the exchange traced at 6; mesh_holds' fan (FIB
+             roots sent as active messages, FIB at width 8) on 6. Each
+             exact, then (outside the counts) held to its plain run word
+             for word, records included; the card's name and power limit
+             beside every number.
 
 The ``user`` lines, before the main path, hold the user-body
 scheduler on one device to the plain core (``scripts/mesh_holds.py``
@@ -336,7 +347,10 @@ quiesce word of the built-in steal-only instances, with lanes and with
 the fault layer, of the ring, and of the user libraries' PGAS,
 migrating, injecting, tenant and fault variants) on the CPU tests'
 fixtures' shapes and at 8 CTAs, each quiesce's exported state and the
-resumed run included.
+resumed run included; and PGASMegakernel's ring kernel
+(``RING_CASES``: the PGAS exchange at 3 and 6 CTAs, traced and not and
+cut by an abort, the dry run's phase 4 at 3 and 6, the fan at width 8),
+records included.
 
 The ``stream`` lines, before the main path, hold the stream kernel
 (``csrc/stream.cuh``, instances 0, 4 and 5) to the plain stream word for
@@ -348,7 +362,7 @@ configuration and a static SSSP table streamed on bench.py --graph's
 graph; each traced and untraced: every entry's echoed control block,
 the final state, the futures, the info and the decoded trace records.
 
-Phases 3-31 are the main path: launch counts are zeroed just before each
+Phases 3-32 are the main path: launch counts are zeroed just before each
 and read just after it. Then one ``{"kernels": [...]}`` line (each
 kernel's launches summed over the main path, its times and its bound),
 the card's name and power limit from nvidia-smi, and last
@@ -1464,6 +1478,17 @@ def main() -> int:
               "records": [got[k] for k in sorted(got)
                           if k.startswith("trace/") and
                           k.endswith("/written")],
+              "card_kernel_ms": got["kernel_ms"],
+              "plain_host_ms": want["kernel_ms"]})
+    for name in mesh_holds.RING_CASES:
+        got = mesh_holds.run_ring_case(name, "cuda")
+        want = mesh_holds.run_ring_case(name, "cpu")
+        err = mesh_holds.compare(got, want, name)
+        mesh_hold_err["pgas_ring"] = max(mesh_hold_err.get("pgas_ring", 0.0),
+                                         err)
+        emit({"phase": "mesh", "case": name, "equal": True,
+              "max_abs_err": err, "executed": got["executed"],
+              "rounds": got["rounds"], "aborted": got["aborted"],
               "card_kernel_ms": got["kernel_ms"],
               "plain_host_ms": want["kernel_ms"]})
     del got, want
@@ -3568,6 +3593,83 @@ def main() -> int:
           "library": "none: no PyTorch call runs a task scheduler, its "
                      "quiesce or its flight recorder",
           "launches": launches})
+
+    # 32. PGASMegakernel on a mesh whose size is not a power of two (its
+    # ring kernel, pgas_ring_kernel, counter pgas_ring; JAX's row 6): the
+    # PGAS exchange across the whole card, 132 co-resident CTAs
+    # (stress.pgas_builders(132, burst=True), am_window 8, outbox 256:
+    # 17,562 active messages and 2,112 puts), warmed up, five runs timed
+    # by CUDA events; the multi-chip dry run's phase 4 literally at 3 and
+    # 6 CTAs; the exchange traced at 6; mesh_holds' fan at width 8 on 6.
+    # Each exact (mesh_holds.ring_run); then, outside the counts, each
+    # against its plain run word for word (value slots, counts, rounds,
+    # tiers, messages, puts and stat words sent, the heap, the records).
+    _build.reset_launches()
+    card = smi("name,power.limit")
+    ring_runs = {
+        "pgas_132": ("pgas", 132, dict(am_window=8, outbox=256,
+                                       capacity=1024)),
+        "dryrun4_3": ("dryrun4", 3, {}), "dryrun4_6": ("dryrun4", 6, {}),
+        "pgas_6_traced": ("pgas", 6, dict(trace=256)),
+        "fan_6_b8": ("fan", 6, {})}
+    ring_arms, ring_out = {}, {}
+    for name, (load, ndev, kw) in ring_runs.items():
+        mesh_holds.ring_run(load, ndev, "cuda", **kw)  # warm-up
+        times = []
+        for _ in range(5 if name == "pgas_132" else 1):
+            t0 = time.perf_counter()
+            iv, data, info = mesh_holds.ring_run(load, ndev, "cuda", **kw)
+            dt = time.perf_counter() - t0
+            times.append(info["exchange"]["kernel_ms"])
+        ring_out[name] = mesh_holds.ring_result(iv, data, info)
+        ex = info["exchange"]
+        arm = {"ctas": ndev, "tasks": info["executed"],
+               "rounds": info["rounds"], "ams": sum(ex["ams"]),
+               "puts": sum(ex["puts"]), "stat_words": sum(ex["stat_words"]),
+               "kernel_ms": float(np.median(times)), "kernel_ms_all": times,
+               "seconds": dt, "card": card}
+        # The bound (bytes): 136 B a task, 64 B an active message's row,
+        # a put's row (PGAS_COLS x 4 B) read once and written once, and 4
+        # B a stat word: each device's slot written once a round, and
+        # read a round by every device (its five totals, the column of
+        # messages and the put counts addressed to the reader).
+        nchan = 1
+        read = arm["rounds"] * ndev * ndev * (5 + 1 + nchan)
+        kb = bound(0.0, 136.0 * arm["tasks"] + 64.0 * arm["ams"]
+                   + 2.0 * 4 * tst.PGAS_COLS * arm["puts"]
+                   + 4.0 * (arm["stat_words"] + read))
+        arm["bound_ms"], arm["bound_by"] = kb
+        if name == "pgas_132":
+            check(arm["ams"] == 132 * 132 + 132 + 6
+                  and arm["puts"] == 132 * tst.PGAS_ROWS,
+                  f"pgas_132: {arm['ams']} messages, {arm['puts']} puts")
+        ring_arms[name] = arm
+        emit({"phase": "pgas_ring", "arm": name, **arm})
+    launches = path_done("pgas_ring")
+    # Outside the counts: every arm's plain run, word for word.
+    ring_plain, ring_err = {}, {}
+    for name, (load, ndev, kw) in ring_runs.items():
+        want = mesh_holds.ring_result(*mesh_holds.ring_run(load, ndev, "cpu",
+                                                           **kw))
+        ring_err[name] = mesh_holds.compare(ring_out[name], want, name)
+        ring_plain[name] = want["kernel_ms"]
+    emit({"phase": "pgas_ring", "plain_equal": sorted(ring_err),
+          "max_abs_err": ring_err, "plain_ms": ring_plain, "card": card})
+    a = ring_arms["pgas_132"]
+    kernels["pgas_ring"] = {
+        "name": "pgas_ring", "route": "cuda",
+        "source": "hclib_tpu_torch/csrc/mesh.cuh",
+        "replaces": "hclib_tpu/device/pgas_kernel.py:665",
+        "max_abs_err": max(list(ring_err.values())
+                           + [mesh_hold_err["pgas_ring"]]),
+        "ms": a["kernel_ms"], "plain_ms": ring_plain["pgas_132"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": None,
+    }
+    emit({"phase": "pgas_ring", "arms": ring_arms, "plain_ms": ring_plain,
+          "library": "none: no PyTorch call runs a task scheduler or its "
+                     "one-sided messages",
+          "launches": launches, "card": card})
 
     # Launches of the main path ----------------------------------------
     for name, k in kernels.items():

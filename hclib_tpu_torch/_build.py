@@ -36,6 +36,9 @@ delayed steal credits, a dead device; any steal configuration),
 ``"resident_obs"`` and ``"ici_ring_obs"`` the observed instances of the
 resident kernel and the ring (the flight recorder, and the resident
 kernel's quiesce word; any configuration, faults and injection included);
+``"pgas_ring"`` the launches of
+PGASMegakernel's ring kernel (``pgas_ring_kernel``, a mesh whose size is
+not a power of two; in a user library's PGAS variant, observed or not);
 ``"mk_user"`` the launches of a
 user-body library's scheduler (``csrc/user.cuh`` ``mk_user_kernel``: a
 user table on one device, or a grid launch of the sharded runner). A
@@ -81,7 +84,7 @@ LAUNCHES: Dict[str, int] = {
     "tracebuf": 0, "stream": 0, "mesh_round": 0, "ici_ring": 0,
     "resident_steal": 0, "resident_pgas": 0, "resident_homed": 0,
     "resident_inject": 0, "resident_fault": 0, "resident_obs": 0,
-    "ici_ring_obs": 0, "mk_user": 0,
+    "ici_ring_obs": 0, "mk_user": 0, "pgas_ring": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -37,6 +37,13 @@
 //                       the per-device flight recorder, the records of
 //                       :1447-2042); ici_ring_kernel observed records its
 //                       rounds, TR_XFER :393 and TR_ABORT :432
+//   pgas_ring_kernel <- hclib_tpu/device/pgas_kernel.py PGASMegakernel.
+//                       _kernel (:182, pallas_call at :665): a mesh whose
+//                       size is not a power of two; stage_pgas :335,
+//                       drain_outbox :358, the stat allreduce :407 as
+//                       per-round stat slots, drain_receives :470,
+//                       scan_waits :543, the round loop :579-611; observed
+//                       (kObs), its records (TR_XFER :405, TR_ABORT :604)
 // csrc/megakernel.cu adds mk_grid_kernel (sharded.py's per-device entry,
 // mk_kernel's body a block) and instantiates these with the built-in
 // thread-0 bodies; a user-body library (csrc/user.cuh) instantiates them
@@ -174,7 +181,8 @@ constexpr int ER_STOP = 0, ER_CLAIM = 1, ER_DEV = 2, ER_ROUND = 3,
               ER_HOP = 4, ER_WAIT = 5;
 enum {
   W_STAT_CREDIT = 1, W_STAT_ARRIVAL, W_ROW_CREDIT, W_ROW_ARRIVAL,
-  W_PUT_ARRIVAL, W_AM_ARRIVAL, F_BAD_CHANNEL, F_BAD_ROWS, F_BAD_TARGET
+  W_PUT_ARRIVAL, W_AM_ARRIVAL, F_BAD_CHANNEL, F_BAD_ROWS, F_BAD_TARGET,
+  F_RING_OP
 };
 // resident.py FS_*: the fault/abort stats row a device writes at exit.
 constexpr int FS_DROPPED = 0, FS_REGEN = 1, FS_DUPED = 2, FS_DELAYED = 3,
@@ -536,7 +544,8 @@ struct Pgas {
   const MeshArgs& m;
   const Mesh& X;
   int me;
-  int r;  // the current round (for a fault's error row)
+  int r;              // the current round (for a fault's error row)
+  bool ring = false;  // under pgas_ring_kernel: no atomics or locks
 
   __device__ int32_t* at(int dev, int sec) const {
     return m.pg + dev * m.s_pg + m.pg_off[sec];
@@ -611,10 +620,11 @@ struct Pgas {
   // The atomics and locks (op_fadd, op_fadd_get, op_cswap, op_lock,
   // op_unlock): a built-in message to the owner, whose serial scheduler
   // applies it in drain_receives (that order is the atomicity) and
-  // replies to (me, row, rslot) where the op has a reply.
+  // replies to (me, row, rslot) where the op has a reply. The ring kernel
+  // has none of them (JAX's row 6): one stops the mesh.
   __device__ bool to_mesh(int dev) const {
-    if (dev >= 0 && dev < m.ndev) return true;
-    X.fail(r, -1, F_BAD_TARGET);
+    if (!ring && dev >= 0 && dev < m.ndev) return true;
+    X.fail(r, -1, ring ? F_RING_OP : F_BAD_TARGET);
     return false;
   }
   __device__ void fadd(Sched& S, int dev, int slot, int delta) const {
@@ -1594,6 +1604,134 @@ __global__ void __launch_bounds__(1) resident_kernel(MeshArgs m) {
       if (i != FS_ABORT_ROUND) fs[i] = F.f[i];
     fs[FS_HB] = F.f[flt::HB];
   }
+}
+
+// pgas_kernel.py PGASMegakernel._kernel (row 6, a mesh whose size is not
+// a power of two), on one card: a round is sched(quantum); the abort word;
+// drain_outbox (TR_XFER when any message left); the stat exchange; the
+// exit test (the summed pending, outbox backlog and sent minus received
+// all 0, or an abort folded: TR_ABORT); then, unconditionally, the
+// receive drain and scan_waits. The stat exchange: each device writes its
+// slot of this round's parity (RS_*: the five totals, the messages it
+// sent each target, the puts it sent each (target, channel)) in its port,
+// adds one to device 0's arrival counter (release), waits (acquire) until
+// every device of the round did, and reads the five totals of every slot,
+// its own column of messages and its own put counts. A device writes
+// round r + 2's slot only after every device counted round r + 1, which
+// each does after reading round r. The receive drain waits (bounded)
+// until each source's put and message counters reach what it announced,
+// then sets each channel's count to the total announced, and installs the
+// messages source by source, FIFO within a source (JAX's row order).
+// kObs: the recorder (the core's records, TR_XFER, TR_ABORT).
+constexpr int RS_PEND = 0, RS_RECV = 1, RS_OUTB = 2, RS_ABORT = 3,
+              RS_SENT = 4, RS_AM = 5;
+
+template <bool kLanes, class B, bool kObs = false>
+__global__ void __launch_bounds__(1) pgas_ring_kernel(MeshArgs m) {
+  __shared__ int32_t s_counts[8];
+  __shared__ Round R;
+  const int me = blockIdx.x, ndev = m.ndev, nchan = m.nchan;
+  Args a = mesh_slice(m, me);
+  a.fuel = m.quantum;
+  a.stage_all_values = 1;
+  Sched S{a.tasks, a.succ, a.ready, s_counts, a.ivalues, a.freestk, a.cap};
+  Obs O{};
+  if constexpr (kObs) O = mesh_obs(m, me);
+  const Mesh X{m, me, 1, nullptr};
+  Pgas P{m, X, me, 0, true};
+  const B bodies(m, a, &P);
+  const int sw = m.stat_words, slot_words = (sw + 7) / 8 * 8;
+  int32_t* arrivals = X.port(0, 0) + P_SARR;
+  int32_t* ps = P.mine(PG_PSTATE);
+  int32_t* ob = P.mine(PG_OBCTL);
+  int xs[XS_WORDS] = {0, 0, 0, 0};
+  S.stage(a);
+  int r = 0;
+  bool done = false;
+  while (!done && r < m.max_rounds) {
+    P.r = r;
+    mesh_sched<kLanes, kObs>(S, a, R, O, bodies);
+    if (X.stopped()) break;  // a body's protocol fault
+    const int local_abort = ld_relaxed(m.abort + 8 * me) != 0;
+    const int h0 = ob[0];
+    P.drain_outbox();
+    if constexpr (kObs)
+      if (ob[0] > h0) O.emit(TR_XFER, O.r, me, ob[0] - h0);
+    const int par = (r & 1) * slot_words;
+    int32_t* mine = X.port(me, 0) + P_STAT + par;
+    mine[RS_PEND] = s_counts[C_PENDING];
+    mine[RS_RECV] = ps[PS_RECV];
+    mine[RS_OUTB] = ob[1] - ob[0];
+    mine[RS_ABORT] = local_abort;
+    mine[RS_SENT] = ps[PS_SENT];
+    const int32_t* sent = P.mine(PG_AM_SENT);
+    const int32_t* ds = P.mine(PG_DATA_SENT);
+    for (int t = 0; t < ndev; ++t) mine[RS_AM + t] = sent[t];
+    for (int i = 0; i < ndev * nchan; ++i) mine[RS_AM + ndev + i] = ds[i];
+    xs[XS_STAT_WORDS] += sw;
+    publish(arrivals);
+    if (!X.wait(arrivals, ndev * (r + 1), r, 0, W_STAT_ARRIVAL)) break;
+    int tot[RS_AM] = {0, 0, 0, 0, 0};
+    for (int s = 0; s < ndev; ++s) {
+      const int32_t* sl = X.port(s, 0) + P_STAT + par;
+      for (int i = 0; i < RS_AM; ++i) tot[i] = wrap_add(tot[i], __ldcg(sl + i));
+    }
+    const bool aborted = tot[RS_ABORT] > 0;
+    done = (tot[RS_PEND] == 0 && tot[RS_OUTB] == 0 &&
+            tot[RS_SENT] == tot[RS_RECV]) ||
+           aborted;
+    if constexpr (kObs)
+      if (aborted) O.emit(TR_ABORT, O.r, r, 0);
+    // The receive drain: the puts, channel by channel, then the messages.
+    bool ok = true;
+    int32_t* recv = P.mine(PG_CHAN_RECV);
+    int32_t* ctot = P.mine(PG_CHAN_TOT);
+    for (int c = 0; c < nchan && ok; ++c) {
+      int total = 0;
+      for (int s = 0; s < ndev && ok; ++s) {
+        const int e =
+            __ldcg(X.port(s, 0) + P_STAT + par + RS_AM + ndev + me * nchan + c);
+        if (e > recv[s * nchan + c]) {
+          ok = X.wait(P.mine(PG_CHAN_ARR) + s * nchan + c, e, r, s,
+                      W_PUT_ARRIVAL);
+          recv[s * nchan + c] = e;
+        }
+        total += e;
+      }
+      ps[PS_RECV] += total - ctot[c];
+      ctot[c] = total;
+    }
+    if (!ok) break;
+    int32_t* arecv = P.mine(PG_AM_RECV);
+    const int32_t* inbox = P.mine(PG_INBOX);
+    for (int s = 0; s < ndev && ok; ++s) {
+      const int e = __ldcg(X.port(s, 0) + P_STAT + par + RS_AM + me);
+      const int base = arecv[s];
+      if (e <= base) continue;
+      ok = X.wait(P.mine(PG_AM_ARR) + s, e, r, s, W_AM_ARRIVAL);
+      for (int i = 0; ok && i < e - base; ++i) {
+        const int32_t* row = inbox + (s * m.amw + (base + i) % m.amw) * DESC;
+        int32_t d[DESC];
+        for (int w = 0; w < DESC; ++w) d[w] = __ldcg(row + w);
+        S.install_descriptor(d);
+      }
+      arecv[s] = e;
+      ps[PS_RECV] += e - base;
+    }
+    if (!ok) break;
+    P.scan_waits(S);
+    ++r;
+  }
+  s_counts[C_VBASE] = r;  // C_ROUNDS
+  if constexpr (kObs) mesh_obs_exit(O);
+  for (int i = 0; i < 8; ++i) a.counts[i] = s_counts[i];
+  const int32_t* sent = P.mine(PG_AM_SENT);
+  const int32_t* ds = P.mine(PG_DATA_SENT);
+  for (int d = 0; d < ndev; ++d) {
+    xs[XS_AMS] += sent[d];
+    for (int c = 0; c < nchan; ++c) xs[XS_PUTS] += ds[d * nchan + c];
+  }
+  for (int i = 0; i < XS_WORDS; ++i) m.xstats[me * XS_WORDS + i] = xs[i];
 }
 
 }  // namespace

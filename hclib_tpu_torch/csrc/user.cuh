@@ -28,7 +28,10 @@
 //                     1: resident_kernel's PGAS configurations (ctx.pgas:
 //                     put, am, wait_until, count, the atomics fadd,
 //                     fadd_get, cswap and the locks lock, unlock, me,
-//                     ndev, nchan), without steal and with it;
+//                     ndev, nchan), without steal and with it, and
+//                     pgas_ring_kernel (PGASMegakernel on a mesh whose
+//                     size is not a power of two: put, am, wait_until,
+//                     count; an atomic or a lock op stops the mesh);
 //                     2: resident_kernel's migrating configuration
 //                     (homed copies and their completions, value args;
 //                     the PGAS ops too), its bodies spawning through
@@ -282,6 +285,9 @@ void* user_kernel_of(int kind, int lanes, int steal, int pgas) {
   if (kind == 2)
     return steal ? user_resident<true, true, false, false, false>()
                  : user_resident<false, true, false, false, false>();
+  if (kind == 3 && !steal)
+    return reinterpret_cast<void*>(
+        pgas_ring_kernel<kUserLanes, UserBodies, kUserObs>);
 #else
   if (kind == 0 && !kUserObs)
     return reinterpret_cast<void*>(mk_user_kernel<kUserLanes>);
@@ -303,7 +309,8 @@ const char* hclib_error_string(int err) {
 }
 
 // The most CTAs of a steal kernel of this library (kind 1 ring, 2
-// resident; lanes, steal, pgas pick the instance) the card holds at once.
+// resident, 3 the PGAS ring kernel; lanes, steal, pgas pick the instance)
+// the card holds at once.
 int hclib_user_coresident(int kind, int lanes, int steal, int pgas,
                           int* out) {
   void* kernel = user_kernel_of(kind, lanes, steal, pgas);
@@ -313,8 +320,9 @@ int hclib_user_coresident(int kind, int lanes, int steal, int pgas,
 
 // kind 0: mk_user_kernel, an ordinary launch of ndev one-thread blocks;
 // 1: ici_ring_kernel; 2: resident_kernel with steal and / or pgas (pgas
-// 2: the migrating configuration) (cooperative launches of ndev one-thread
-// CTAs); an injecting library's resident_kernel wants the ring (h->ictl,
+// 2: the migrating configuration); 3: pgas_ring_kernel (pgas 1, no steal;
+// its two stat slots a device in the ports) (cooperative launches of ndev
+// one-thread CTAs); an injecting library's resident_kernel wants the ring (h->ictl,
 // and h->tctl with tenant lanes), any other library none; a library with
 // the fault layer wants the plan and its workspace (h->fplan, h->fws),
 // any other none. An instance this library's variant does not hold is
@@ -331,7 +339,9 @@ int hclib_user_launch(const MeshHost* h, int kind, int lanes, int steal,
       (h->ictl != 0) != (HCLIB_USER_INJECT != 0) ||
       (h->fplan != 0) != (HCLIB_USER_FAULT != 0) ||
       (h->fplan && !fault_args_ok(h, pgas != 0)) ||
-      !obs_args_ok(h, kUserObs) || (kind == 1 && h->ckpt) ||
+      !obs_args_ok(h, kUserObs) || ((kind == 1 || kind == 3) && h->ckpt) ||
+      (kind == 3 && (steal || pgas != 1 ||
+                     h->p_inbox < P_STAT + 2 * ((h->stat_words + 7) / 8 * 8))) ||
       (h->ckpt && h->p_inbox < P_STAT + (pgas ? h->stat_words : STAT_WORDS) +
                                    1 + (h->fplan ? h->ndev : 0)) ||
       (h->ictl && (!h->iring || h->ntenants < 0 ||

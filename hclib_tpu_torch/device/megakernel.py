@@ -2016,8 +2016,11 @@ class Megakernel:
                     steal: bool = True, home: bool = False,
                     inject: bool = False, fault: bool = False,
                     obs: bool = False) -> None:
-        """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"`` or
-        ``"resident_steal"``; ``pgas``: the resident kernel's PGAS
+        """Launch ``kind`` (``"mesh_round"``, ``"ici_ring"``,
+        ``"resident_steal"`` or ``"pgas_ring"``, PGASMegakernel's ring
+        kernel, counted as ``pgas_ring`` observed or not and refused with
+        a ValueError past the co-resident limit; ``pgas``: the resident
+        kernel's PGAS
         configuration, with ``steal`` or without; ``home``: its migrating
         configuration; ``inject``: the resident kernel's injecting
         instance of that configuration; ``fault``: its instance with the
@@ -2029,12 +2032,12 @@ class Megakernel:
         with user bodies, and any table under the PGAS or migrating
         configuration or injecting, launches its own library's
         kernels."""
-        k = MESH_KINDS.index(kind)
+        k = USER_MESH_KINDS.index(kind)
         if k:
             limit = self.coresident(kind, mode, pgas, steal, home, inject,
                                     fault, obs)
             if host.ndev > limit:
-                raise RuntimeError(
+                raise (ValueError if kind == "pgas_ring" else RuntimeError)(
                     f"{kind}: a mesh of {host.ndev} devices needs that many "
                     f"co-resident CTAs; this card holds {limit} at once "
                     "(one CTA an SM, cooperative launch): use a mesh of at "
@@ -2062,7 +2065,8 @@ class Megakernel:
             err = fn(ctypes.byref(host), k,
                      mode + 2 * bool(fault) + 4 * bool(obs), threads, smem,
                      stream)
-        counter = ("resident_obs" if obs and k == 2
+        counter = ("pgas_ring" if kind == "pgas_ring"
+                   else "resident_obs" if obs and k == 2
                    else "ici_ring_obs" if obs
                    else "resident_fault" if fault
                    else "resident_inject" if inject
@@ -2090,7 +2094,7 @@ class Megakernel:
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
         out = ctypes.c_int(0)
         _build.check(lib,
-                     fn(MESH_KINDS.index(kind), mode, int(steal),
+                     fn(USER_MESH_KINDS.index(kind), mode, int(steal),
                         _user_variant(pgas, home), ctypes.byref(out)),
                      f"{kind} occupancy")
         return out.value
@@ -2270,6 +2274,9 @@ def sw_smem_bytes(slots: int) -> int:
 
 
 MESH_KINDS = ("mesh_round", "ici_ring", "resident_steal")
+# The kinds a user library launches (csrc/user.cuh): those, and
+# PGASMegakernel's ring kernel.
+USER_MESH_KINDS = MESH_KINDS + ("pgas_ring",)
 MAX_HOPS = 16
 _MESH_FIELDS = (
     "tasks", "succ", "ready", "counts", "ivalues", "freestk", "dispatch",

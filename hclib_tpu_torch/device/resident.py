@@ -208,7 +208,8 @@ __all__ = ["ResidentKernel", "decode_fault_stats", "pack_inject_rows",
            "FS_WORDS", "fault_plan_words", "FP_MAX_AT",
            "SPIN_TIMEOUT_S", "MESH_MAX_SCAN", "mesh_workspace",
            "export_rows", "import_rows", "run_mesh_kernel", "export_waits",
-           "exchange_info", "pgas_layout", "stat_words", "lock_block_slots",
+           "exchange_info", "pgas_layout", "stat_words", "ring_stat_words",
+           "parse_channels", "park_waits", "lock_block_slots",
            "RC_COMPLETE", "RC_FADD", "RC_FADD_R", "RC_CSWAP", "RC_REPLY",
            "RC_LOCK", "RC_UNLOCK", "RC_GRANT", "RC_NAMES"]
 
@@ -290,7 +291,10 @@ _WAITS = {1: "stat credit", 2: "stat arrival", 3: "row credit",
 _FAULTS = {7: "a put on an undeclared channel",
            8: "a put outside its channel's buffer rows",
            9: "an active message, atomic or lock op to a device outside "
-              "the mesh, or ctx.pgas.am of a built-in kind (fn < 0)"}
+              "the mesh, or ctx.pgas.am of a built-in kind (fn < 0)",
+           10: "ctx.pgas.fadd, fadd_get, cswap, lock or unlock under "
+               "PGASMegakernel's ring kernel (a mesh whose size is not a "
+               "power of two: put, am, wait_until and count only)"}
 
 
 def decode_fault_stats(row) -> Dict[str, Any]:
@@ -409,11 +413,59 @@ def pack_inject_rows(rows: Sequence, R: int, dev: int = 0):
     return ring, len(rows)
 
 
+def parse_channels(mk: Megakernel, channels
+                   ) -> Tuple[List[Tuple[str, int]], Dict[str, int]]:
+    """``channels`` (``{name: (data_buffer, rows)}``) checked as JAX
+    checks them, as the (buffer, rows) list and the name -> id map."""
+    out: List[Tuple[str, int]] = []
+    ids: Dict[str, int] = {}
+    for cname, (bname, rows) in (channels or {}).items():
+        if bname not in mk.data_specs:
+            raise ValueError(f"channel {cname!r}: no data buffer {bname!r}")
+        if rows < 1 or rows > mk.data_specs[bname][0][0]:
+            raise ValueError(f"channel {cname!r}: bad row count {rows}")
+        ids[cname] = len(out)
+        out.append((bname, int(rows)))
+    if len(out) > MAX_CHANS:
+        raise ValueError(f"at most {MAX_CHANS} channels, got {len(out)}")
+    return out, ids
+
+
+def park_waits(waits, tasks, ring, counts) -> None:
+    """bump_waits' wait half (resident.py, pgas_kernel.py :790): each
+    task a host wait names owes one extra dependency and leaves its
+    device's ready ring."""
+    for d, wlist in enumerate(waits):
+        for (_, _, row) in wlist:
+            tasks[d, row, F_DEP] += 1
+        bumped = {row for (_, _, row) in wlist}
+        if not bumped:
+            continue
+        old_n = counts[d][C_TAIL]
+        keep = [x for x in ring[d][:old_n] if x not in bumped]
+        ring[d][:len(keep)] = keep
+        counts[d][C_TAIL] = len(keep)
+
+
 def stat_words(ndev: int, nchan: int) -> int:
     """Words of the stat vector a PGAS configuration sends a hop (JAX's
     ``S``): the seven sums, ndev message counts, ndev x nchan put counts
     and the backlog."""
     return SX_AM + ndev + ndev * nchan + 1
+
+
+# The PGAS ring kernel's stat slot (csrc/mesh.cuh RS_*): what one device
+# publishes a round - its pending count, messages received, outbox
+# backlog, abort flag and messages sent, then from word RS_AM the
+# messages it sent each target and the puts it sent each (target,
+# channel).
+RS_AM = 5
+
+
+def ring_stat_words(ndev: int, nchan: int) -> int:
+    """Words of the PGAS ring kernel's stat slot (``RS_*``): the five
+    totals, ndev message counts and ndev x nchan put counts."""
+    return RS_AM + ndev + ndev * nchan
 
 
 # ---- the exchange pieces shared by the plain ring and resident runners
@@ -611,9 +663,10 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
                     obs: Optional[dict] = None) -> Dict[str, Any]:
     """Launch steal kernel ``kind`` (``"ici_ring"`` or
     ``"resident_steal"``; with ``pgas``, the resident kernel's PGAS
-    configuration, ``steal`` or not) over stacked state ``st`` on the
-    card, wait for it, and raise if a spin timed out or a body broke the
-    protocol. ``pgas`` holds the channels (``chans``: buffer index, rows,
+    configuration, ``steal`` or not, or ``"pgas_ring"``, PGASMegakernel's
+    ring kernel, whose stat slots lie in the ports) over stacked state
+    ``st`` on the card, wait for it, and raise if a spin timed out or a
+    body broke the protocol. ``pgas`` holds the channels (``chans``: buffer index, rows,
     the buffer's rows, row bytes), ``nchan``, ``amw``, ``outq``, ``maxw``,
     each device's host waits (``waits``) and starting pstate words
     (``pstate``), whether the migrating configuration runs (``home``)
@@ -648,6 +701,11 @@ def run_mesh_kernel(kind: str, mk: Megakernel, st: Dict[str, object],
         nchan = pgas["nchan"]
         S = stat_words(ndev, nchan)
         p_inbox = P_STAT + -(-(S + hb + ckpt) // 8) * 8
+        if kind == "pgas_ring":
+            # Device d's port holds its stat slot of each round parity;
+            # device 0's arrival sector counts every device's publishes.
+            S = ring_stat_words(ndev, nchan)
+            p_inbox = P_STAT + 2 * (-(-S // 8) * 8)
         off, words = pgas_layout(ndev, nchan, pgas["amw"], pgas["outq"],
                                  pgas["maxw"])
         pg = np.zeros((ndev, words), np.int32)
@@ -1489,20 +1547,7 @@ class ResidentKernel:
         # loop (its stat vector gains the SF_QUIESCE sum) and exports the
         # wait table; a traced table gives every device a recorder.
         self.checkpoint = bool(mk.checkpoint)
-        self.channels: List[Tuple[str, int]] = []
-        self.chan_id: Dict[str, int] = {}
-        for cname, (bname, rows) in (channels or {}).items():
-            if bname not in mk.data_specs:
-                raise ValueError(
-                    f"channel {cname!r}: no data buffer {bname!r}"
-                )
-            if rows < 1 or rows > mk.data_specs[bname][0][0]:
-                raise ValueError(f"channel {cname!r}: bad row count {rows}")
-            self.chan_id[cname] = len(self.channels)
-            self.channels.append((bname, int(rows)))
-        if len(self.channels) > MAX_CHANS:
-            raise ValueError(f"at most {MAX_CHANS} channels, got "
-                             f"{len(self.channels)}")
+        self.channels, self.chan_id = parse_channels(mk, channels)
         self.nchan = max(1, len(self.channels))
         # The injection ring; with tenants=, T lane regions of
         # region_rows rows a device (the ring is exactly their
@@ -1805,16 +1850,7 @@ class ResidentKernel:
                             f"the migration result slots at [{self.rbase}, "
                             f"{mk.num_values}); grow num_values by at least "
                             f"{need - self.rbase}")
-            for d, wlist in enumerate(waits):
-                for (_, _, row) in wlist:
-                    tasks[d, row, F_DEP] += 1
-                bumped = {row for (_, _, row) in wlist}
-                if not bumped:
-                    continue
-                old_n = counts[d][C_TAIL]
-                keep = [x for x in ring[d][:old_n] if x not in bumped]
-                ring[d][:len(keep)] = keep
-                counts[d][C_TAIL] = len(keep)
+            park_waits(waits, tasks, ring, counts)
 
         # A resume restages the state as it is: no bump_waits pass (the
         # parked rows keep their bump).

@@ -615,7 +615,7 @@ PGAS_TABLE = (
 )
 
 
-def pgas_megakernel(capacity: int = 512, device="cuda"):
+def pgas_megakernel(capacity: int = 512, device="cuda", trace=None):
     """The PGAS exchange's table: SEND (an active message BUMP [0, 1 +
     me] to every device, then PGAS_ROWS one-row puts of my rows r ->
     my ring neighbour's row PGAS_ROWS + r on channel 0), BUMP (slot arg0
@@ -626,7 +626,8 @@ def pgas_megakernel(capacity: int = 512, device="cuda"):
     neighbour, the device whose puts land here); a (2 PGAS_ROWS,
     PGAS_COLS) int32 heap a device. On the card PEEK's plain loads leave
     the landing rows' lines in its SM's cache, so CONSUME's sum shows
-    whether the receive drain's acquire makes the landed words visible."""
+    whether the receive drain's acquire makes the landed words visible.
+    ``trace``: a recorder of that many records a device."""
     import torch
 
     from .megakernel import Megakernel
@@ -635,7 +636,7 @@ def pgas_megakernel(capacity: int = 512, device="cuda"):
                       data_specs={"heap": ((2 * PGAS_ROWS, PGAS_COLS),
                                            torch.int32)},
                       capacity=capacity, num_values=8, succ_capacity=8,
-                      device=device)
+                      trace=trace, device=device)
 
 
 def pgas_builders(ndev: int, burst: bool = False, bumps: int = 0):

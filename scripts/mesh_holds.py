@@ -76,6 +76,15 @@ CUDA-event time on the card, the plain version's wall time on the CPU;
   compared. ``PHASE30`` / ``run_fault_arm`` are chip_smoke.py's phase 30:
   JAX's fault tests at their shapes and the two 16-CTA loads.
 
+``RING_CASES`` (``run_ring_case``, ``ring_run``, ``ring_result``) hold
+PGASMegakernel's ring kernel (``pgas_ring_kernel``, a mesh whose size is
+not a power of two) at 3 and 6 devices: the PGAS exchange with its burst,
+traced and not and cut by an abort, the dry run's phase 4, and the fan
+(active messages of FIB roots to every device, FIB routed at width 8);
+they also return the heap, the messages, puts and stat words sent and
+each device's decoded records. ``chip_smoke.py``'s phase 32 runs
+``ring_run`` at full width.
+
 ``USER_CASES`` hold the user library's scheduler (``mk_user_kernel``) on
 one device (``run_user_case``), each on ``USER_TABLE`` (the built-in fib
 and sum, a user BUMP, the alloc/free chain, fib as user bodies: one
@@ -830,7 +839,8 @@ def user_sources():
     (migrating); and those with the fault layer: the bump table's
     steal-only and migrating, the PGAS exchange's with steal, and a table
     of built-in bodies alone migrating (UTS_FAULT's); and the observed
-    ones (``OBS_CASES`` and phase 31)."""
+    ones (``OBS_CASES`` and phase 31); and the ring kernel's traced PGAS
+    exchange and fan (``RING_CASES`` and phase 32)."""
     from hclib_tpu_torch.device.megakernel import Megakernel
     from hclib_tpu_torch.device.workloads import make_fib_megakernel
 
@@ -880,7 +890,11 @@ def user_sources():
             stress.bump_megakernel("cpu").user_source(False, inject=True,
                                                       obs=True),
             stress.bump_megakernel("cpu").user_source(True, True, fault=True,
-                                                      obs=True)]
+                                                      obs=True),
+            # the ring kernel's (RING_CASES): the PGAS exchange traced,
+            # and the fan (built-in fib routed at width 8, PGAS)
+            stress.pgas_megakernel(device="cpu").user_source(True, obs=True),
+            fan_megakernel("cpu").user_source(True)]
 
 
 USER_CASES = ("chain_free", "mixed", "ufib")
@@ -935,6 +949,121 @@ def user_forest(ndev: int, roots: int, n: int, device: str):
         raise AssertionError(f"user forest: executed {info['executed']}, "
                              f"sum {got}")
     return iv, info
+
+
+# PGASMegakernel's ring kernel (``pgas_ring_kernel``, counter
+# ``pgas_ring``: row 6, a mesh whose size is not a power of two) against
+# its plain version. name: (load, ndev, run kwargs). ``pgas``: the PGAS
+# exchange (stress.pgas_builders with the burst; its table traced with
+# ``trace``, cut by ``abort``); ``dryrun4``: the multi-chip dry run's
+# phase 4 literally (stress.dryrun_builders(4, ndev)); ``fan``: every
+# device's FAN sends every device an active message FIB(FAN_N) whose
+# result lands in slot me, FIB routed at width 8 (the messages install
+# between rounds, after the lanes' spill).
+RING_CASES = {
+    "ring_pgas_3": ("pgas", 3, dict(am_window=2)),
+    "ring_pgas_6": ("pgas", 6, {}),
+    "ring_pgas_3_traced": ("pgas", 3, dict(am_window=2, trace=256)),
+    "ring_pgas_6_traced": ("pgas", 6, dict(trace=256)),
+    "ring_abort_6": ("pgas", 6, dict(abort=[0, 0, 1, 0, 0, 0])),
+    "ring_dryrun4_3": ("dryrun4", 3, {}),
+    "ring_dryrun4_6": ("dryrun4", 6, {}),
+    "ring_fan_6_b8": ("fan", 6, {}),
+}
+FAN, FAN_N = 2, 9
+
+
+def _fan(ctx):
+    p = ctx.pgas
+    for d in range(p.ndev):
+        p.am(d, FIB, args=[ctx.arg(0)], out=p.me)
+
+
+FAN_CUDA = f"""
+  for (int d = 0; d < ctx.pgas.ndev; ++d) {{
+    const int a = ctx.arg(0);
+    ctx.pgas.am(d, {FIB}, &a, 1, ctx.pgas.me);
+  }}"""
+
+
+def fan_megakernel(device, capacity: int = 1024):
+    """The fan's table: the built-in fib and sum (FIB routed at width 8,
+    every row's value block) and FAN, plus 64 host slots."""
+    from hclib_tpu_torch.device.megakernel import VBLOCK, Megakernel
+    from hclib_tpu_torch.device.workloads import batch_of
+
+    return Megakernel(["fib", "sum", ("fan", _fan, FAN_CUDA)],
+                      capacity=capacity, num_values=VBLOCK * capacity + 64,
+                      succ_capacity=8, uses_row_values=True,
+                      route=batch_of("fib", 8), device=device)
+
+
+def ring_run(load: str, ndev: int, device: str, trace=None, abort=None,
+             capacity: int = 512, **kw):
+    """One run of the ring kernel's ``load`` on ``ndev`` devices (``kw``:
+    PGASMegakernel's ``am_window`` / ``outbox``), exact or raising
+    (an aborted run: ``info['aborted']``). Returns (ivalues, data,
+    info)."""
+    if ndev & (ndev - 1) == 0:
+        raise ValueError(f"{ndev} devices run the resident kernel")
+    mesh = CtaMesh((ndev,), ("q",), device=device)
+    if load == "fan":
+        from hclib_tpu_torch.models.fib import fib_seq, task_count
+
+        bs = [TaskGraphBuilder() for _ in range(ndev)]
+        for b in bs:
+            b.add(FAN, args=[FAN_N])
+            b.reserve_values(ndev)
+        iv, data, info = PGASMegakernel(fan_megakernel(device), mesh,
+                                        **kw).run(bs, quantum=64)
+        tasks = task_count(FAN_N) + (task_count(FAN_N) - 1) // 2
+        if info["executed"] != ndev * (1 + ndev * tasks) or not (
+                np.asarray(iv)[:, :ndev] == fib_seq(FAN_N)).all():
+            raise AssertionError(f"ring fan: executed {info['executed']}, "
+                                 f"slots {np.asarray(iv)[:, :ndev]}")
+        return iv, data, info
+    if load == "dryrun4":
+        mk = stress.put_consume_megakernel(device)
+        bs, waits, heap = stress.dryrun_builders(4, ndev)
+    else:
+        mk = stress.pgas_megakernel(capacity, device, trace=trace)
+        bs, waits, heap = stress.pgas_builders(ndev, True)
+    pg = PGASMegakernel(mk, mesh, channels={"c0": ("heap", 1)}, **kw)
+    iv, data, info = pg.run(bs, data={"heap": heap}, waits=waits,
+                            abort=abort)
+    if abort is not None:
+        if not info["aborted"]:
+            raise AssertionError(f"ring {load}: the abort did not cut it")
+    elif load == "dryrun4":
+        if info["pending"] != 0 or not (np.asarray(iv)[:, :2] == 1).all():
+            raise AssertionError(f"ring dry run phase 4: {iv[:, :2]}")
+    else:
+        stress.check_pgas(iv, data["heap"].cpu().numpy(), info, ndev, True)
+    return iv, data, info
+
+
+def ring_result(iv, data, info) -> dict:
+    """What a ring-kernel run is compared on: every device's value slots
+    and counts row, the rounds, the tier counters, aborted, the messages,
+    puts and stat words sent, the data buffers and each device's decoded
+    records."""
+    ex = info["exchange"]
+    return _obs_fields({
+        "iv": np.asarray(iv),
+        "counts": np.asarray(info["per_device_counts"]),
+        "rounds": info["rounds"], "tiers": info.get("tiers"),
+        "aborted": info["aborted"], "stat_words": ex["stat_words"],
+        "ams": ex["ams"], "puts": ex["puts"],
+        "data": {k: v.cpu().numpy() for k, v in data.items()},
+        "executed": info["executed"], "pending": info["pending"],
+        "kernel_ms": ex["kernel_ms"]}, info)
+
+
+def run_ring_case(name: str, device: str) -> dict:
+    """Ring case ``name`` on ``device``; returns what it is compared
+    on."""
+    load, ndev, kw = RING_CASES[name]
+    return ring_result(*ring_run(load, ndev, device, **kw))
 
 
 # chip_smoke.py's phase 31 (``mesh_ckpt``): quiesce, resume and the flight

@@ -1074,3 +1074,50 @@ def test_traced_user_table_refuses_its_one_device_launch(card):
         b.add(0, args=[1])
         with pytest.raises(NotImplementedError, match="A4"):
             mk.run(b)
+
+
+RING_CASES = ("ring_pgas_3", "ring_pgas_6", "ring_pgas_3_traced",
+              "ring_pgas_6_traced", "ring_abort_6", "ring_dryrun4_3",
+              "ring_dryrun4_6", "ring_fan_6_b8")
+
+
+@pytest.mark.parametrize("name", RING_CASES)
+def test_pgas_ring_equals_plain(card, name):
+    """PGASMegakernel's ring kernel (csrc/mesh.cuh pgas_ring_kernel, a
+    mesh whose size is not a power of two) at 3 and 6 CTAs, traced and
+    not, against its plain version: every device's value slots and counts
+    row, the rounds, the tier counters, aborted, the messages, puts and
+    stat words sent, the heap and every device's decoded records."""
+    h = _mesh_holds()
+    assert set(RING_CASES) == set(h.RING_CASES)
+    h.compare(h.run_ring_case(name, "cuda"), h.run_ring_case(name, "cpu"),
+              name)
+
+
+def test_pgas_ring_refusals_on_card(card):
+    """The ring kernel's ctx.pgas has no atomics: a CUDA body calling one
+    stops the mesh with its error; a mesh of more CTAs than the card
+    holds at once is refused with a ValueError naming the limit."""
+    from hclib_tpu_torch.device import stress
+    from hclib_tpu_torch.device.pgas_kernel import PGASMegakernel
+    from hclib_tpu_torch.parallel.mesh import cuda_mesh
+
+    mk = tmk.Megakernel(
+        [("f", lambda ctx: ctx.pgas.fadd(1, 0, 1),
+          "ctx.pgas.fadd(1, 0, 1);")],
+        data_specs={"heap": ((4, 128), torch.int32)}, capacity=8,
+        num_values=8, succ_capacity=8)
+    bs = [TaskGraphBuilder() for _ in range(3)]
+    bs[0].add(0)
+    with pytest.raises(RuntimeError, match="ring kernel"):
+        PGASMegakernel(mk, cuda_mesh(3), channels={"c0": ("heap", 1)}).run(
+            bs, data={"heap": np.zeros((3, 4, 128), np.int32)})
+    mk = stress.put_consume_megakernel()
+    limit = mk.coresident("pgas_ring", 0, pgas=True, steal=False)
+    assert 1 <= limit <= torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    ndev = limit + 1 if limit & (limit + 1) else limit + 2
+    bs, waits, heap = stress.dryrun_builders(4, ndev)
+    with pytest.raises(ValueError, match=f"holds {limit} at once"):
+        PGASMegakernel(mk, cuda_mesh(ndev), channels={"c0": ("heap", 1)}
+                       ).run(bs, data={"heap": heap}, waits=waits)

@@ -146,6 +146,13 @@ ENTRY_POINTS = {
                 [("nop", lambda ctx: None, "")], device="cpu"),
             __import__("hclib_tpu_torch.parallel.mesh",
                        fromlist=["x"]).CtaMesh((2,), ("q",))),
+    "PGASMegakernel_ring": lambda: __import__(
+        "hclib_tpu_torch.device.pgas_kernel", fromlist=["x"]).PGASMegakernel(
+            __import__("hclib_tpu_torch.device.stress",
+                       fromlist=["x"]).put_consume_megakernel(),
+            __import__("hclib_tpu_torch.parallel.mesh",
+                       fromlist=["x"]).cuda_mesh(3),
+            channels={"c0": ("heap", 1)}),
     "forest_steal": lambda: __import__(
         "hclib_tpu_torch.device.stress", fromlist=["x"]).forest_steal(
             ndev=2, roots=2, n=3, capacity=64),
